@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers: a build takes seconds, not minutes).  The library is named by a
+hash of the sources and flags, so an edited source is rebuilt; it lives in
+``build/kernels/`` beside the package (``AST_TORCH_BUILD_DIR`` overrides),
+which ``.gitignore`` lists.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (every one returns a cudaError_t as int).
+_SIGNATURES = {
+    # x, w_expand, w_dw, b_expand, b_dw, hidden, sums,
+    # n, h, w, c_in, e, k, pre_act, is_bf16, stream
+    "expand_dw_launch": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, mean, std, m, l, b, nc, ns, c, is_bf16, stream
+    "adaattn_fwd_launch": [_P] * 7 + [_I] * 5 + [_P],
+}
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the port's kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def load_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
+    """Compile (if the sources changed) and load the kernel library.
+
+    ``build_info`` records the build seconds and, with ``ptxas_verbose``,
+    the compiler's per-kernel register and shared-memory report."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if ptxas_verbose else ())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = Path(os.environ.get("AST_TORCH_BUILD_DIR",
+                                  _PKG.parent / "build" / "kernels"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    target = out_dir / f"libast_kernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not target.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    build_info.update(seconds=time.perf_counter() - t0, log=log,
+                      path=str(target))
+    _lib = lib
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a launch function returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

@@ -1,0 +1,87 @@
+"""Streaming AdaAttN statistics kernel: the port of ``_fwd_kernel``.
+
+Replaces ``arbitrarystyletransfer_tpu/ops/pallas/adaattn_kernel.py:57``
+``_fwd_kernel`` (host wrapper ``_adaattn_pallas_fwd``).  The CUDA kernel is
+``csrc/adaattn_fwd.cu``; ``adaattn_fwd_reference`` is its plain PyTorch twin.
+Both compute in float32 whatever the input dtype, with unscaled logits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import LAUNCHES
+from ._build import check, load_library
+
+CHANNELS = 128
+
+
+def adaattn_fwd_reference(q, k, v):
+    """Plain PyTorch twin: (mean, std, m, l), materializing the logits."""
+    s = q.float() @ k.float().transpose(1, 2)  # (B, Nc, Ns)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    vf = v.float()
+    inv_l = (1.0 / l)[..., None]
+    mean = (p @ vf) * inv_l
+    ev2 = (p @ vf.square()) * inv_l
+    std = torch.sqrt(torch.clamp(ev2 - mean.square(), min=0.0))
+    return mean.to(q.dtype), std.to(q.dtype), m, l
+
+
+def adaattn_fwd(q, k, v):
+    """(mean, std, m, l) of the attention-weighted style moments.
+
+    Args:
+      q: (B, Nc, 128); k, v: (B, Ns, 128); all bfloat16 or all float32.
+
+    Returns:
+      mean, std (B, Nc, 128) in the input dtype; m, l (B, Nc) float32, the
+      row max and sum of exp of the logits.
+
+    A CPU tensor takes ``adaattn_fwd_reference``; a CUDA tensor launches the
+    kernel or raises.
+    """
+    if q.device.type == "cpu":
+        return adaattn_fwd_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"adaattn_fwd: unsupported device {q.device}")
+    b, nc, c = q.shape
+    ns = k.shape[1]
+    if c != CHANNELS or k.shape != (b, ns, c) or v.shape != (b, ns, c):
+        raise ValueError(
+            f"adaattn_fwd: need q (B, Nc, {CHANNELS}) and k, v (B, Ns, "
+            f"{CHANNELS}), got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
+    if ns == 0:
+        raise ValueError("adaattn_fwd: empty style axis")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise ValueError("adaattn_fwd: q, k, v must share one dtype, "
+                         "bfloat16 or float32")
+    if not (k.device == v.device == q.device):
+        raise ValueError("adaattn_fwd: q, k, v must be on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mean = torch.empty_like(q)
+    std = torch.empty_like(q)
+    m = torch.empty((b, nc), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, nc), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    rc = lib.adaattn_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mean.data_ptr(),
+        std.data_ptr(), m.data_ptr(), l.data_ptr(), b, nc, ns, c,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(rc, "adaattn_fwd")
+    LAUNCHES["adaattn_fwd"] += 1
+    return mean, std, m, l
+
+
+def adaattn_statistics(q, k, v):
+    """(mean, std) through the kernel; the drop-in for the dense
+    ``models.adaattn.adaattn_statistics``.  Forward only: the backward
+    kernels come with training."""
+    mean, std, _, _ = adaattn_fwd(q, k, v)
+    return mean, std
