@@ -3,10 +3,14 @@
 Parameter tree in, image out (NHWC): one encoder pass over the stacked
 [content; style] batch with BatchNorm running statistics folded in, both
 AdaAttN taps in one attention call over 2B images, one stacked ``ada_out``
-block, the alpha blend, then the decoder with the export clamp.  The
-expand + depthwise stages of the high-resolution blocks run the
-``expand_dw`` kernel and, with ``cfg.use_pallas_adaattn``, the attention
-statistics run the ``adaattn_fwd`` kernel.
+block, the alpha blend, then the decoder with the export clamp.
+
+``encoder_impl``/``decoder_impl`` choose the block routes, as in JAX:
+"fused" sends the high-resolution stride-1 blocks through the ``expand_dw``
+kernel; "flat", "flat-all" and "auto" plan each block onto the
+``flat_block`` and ``flat_s2_block`` kernels, the fused route or the plain
+route (``ops/flatblock.py``).  With ``cfg.use_pallas_adaattn`` the
+attention statistics run the ``adaattn_fwd`` kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
+from .ops.flatblock import FLAT_MODE, LANE, decode_flat, encode_flat
 from .ops.fused_block import (
     MIN_FUSED_SIZE,
     block_apply,
@@ -25,15 +30,12 @@ from .ops.stats import instance_norm
 # Block routes of the JAX engine that this port does not have yet, and the
 # ROADMAP entry that brings each.
 _LATER_IMPLS = {
-    "flat": "ROADMAP queue 2 item 4 (flatblock._flat_kernel)",
-    "flat-all": "ROADMAP queue 2 item 4 (flatblock._flat_kernel)",
-    "auto": "ROADMAP queue 2 items 4-5 (flat and flat-s2 kernels)",
     "mega": "ROADMAP queue 2 item 8 (megablock._mega_kernel_t)",
 }
 
 
 def _check_impl(name: str, value: str) -> None:
-    if value == "fused":
+    if value == "fused" or value in FLAT_MODE:
         return
     if value in _LATER_IMPLS:
         raise NotImplementedError(
@@ -76,21 +78,31 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
                   cfg: ModelConfig = ModelConfig(), dtype=torch.bfloat16,
                   min_fused_size: int = MIN_FUSED_SIZE,
                   decoder_impl: str = "fused", encoder_impl: str = "fused",
-                  exporting: bool = True):
+                  exporting: bool = True, lane: int = LANE):
     """Alpha-interpolated stylization of NHWC [0, 1] batches.
 
     ``state`` is ``{"params": ..., "batch_stats": ...}`` (see weights.py).
-    ``exporting=False`` skips the final clamp (the pre-clamp image)."""
+    ``exporting=False`` skips the final clamp (the pre-clamp image).
+    ``lane`` and ``min_fused_size`` scale the routing rules, so that a test
+    at a small size routes its blocks as the full size does."""
     _check_impl("encoder_impl", encoder_impl)
     _check_impl("decoder_impl", decoder_impl)
     params, stats = state["params"], state["batch_stats"]
     b = content_img.shape[0]
     both = torch.cat([content_img, style_img], dim=0)
-    both_maps = encode_fused(
-        params["enc"], stats["enc"], both, cfg.enc_conv_shapes,
-        cfg.enc_out_layers, expand_ratio=cfg.expand_ratio, dtype=dtype,
-        min_fused_size=min_fused_size,
-    )
+    if encoder_impl in FLAT_MODE:
+        both_maps = encode_flat(
+            params["enc"], stats["enc"], both, cfg.enc_conv_shapes,
+            cfg.enc_out_layers, expand_ratio=cfg.expand_ratio, dtype=dtype,
+            flat_blocks=FLAT_MODE[encoder_impl], lane=lane,
+            min_fused_size=min_fused_size,
+        )
+    else:
+        both_maps = encode_fused(
+            params["enc"], stats["enc"], both, cfg.enc_conv_shapes,
+            cfg.enc_out_layers, expand_ratio=cfg.expand_ratio, dtype=dtype,
+            min_fused_size=min_fused_size,
+        )
     content_maps = [m[:b] for m in both_maps]
     style_maps = [m[b:] for m in both_maps]
 
@@ -106,6 +118,11 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
                         min_fused_size=min_fused_size)
     t, content_map = fused[:b], fused[b:]
     t = alpha * t + (1.0 - alpha) * content_map
+    if decoder_impl in FLAT_MODE:
+        return decode_flat(params["dec"], t, cfg.decoder_conv_shapes,
+                           exporting=exporting, dtype=dtype,
+                           flat_blocks=FLAT_MODE[decoder_impl], lane=lane,
+                           min_fused_size=min_fused_size)
     return decode_fused(params["dec"], t, cfg.decoder_conv_shapes,
                         exporting=exporting, dtype=dtype,
                         min_fused_size=min_fused_size)

@@ -19,12 +19,15 @@ class StylePipeline:
 
     def __init__(self, model_cfg: ModelConfig = ModelConfig(),
                  engine: str = "fused", device="cpu", state=None,
-                 seed: int = 0):
+                 seed: int = 0, decoder_impl: str = "fused",
+                 encoder_impl: str = "fused"):
         """``state`` is a weights.py state (a seeded ``init_params`` one
-        when None).  The fused engine folds BatchNorm running statistics, so
-        a config with ``encoder_eval_stats=False`` is refused, as in the
-        JAX pipeline: a checkpoint trained with batch statistics would be
-        served with different encoder math."""
+        when None).  ``decoder_impl``/``encoder_impl`` choose the engine's
+        block routes ("fused", "flat", "flat-all", "auto"; see
+        ``engine.stylize_fused``).  The fused engine folds BatchNorm running
+        statistics, so a config with ``encoder_eval_stats=False`` is
+        refused, as in the JAX pipeline: a checkpoint trained with batch
+        statistics would be served with different encoder math."""
         if engine != "fused":
             raise NotImplementedError(
                 f"engine={engine!r}: the port serves the fused engine only; "
@@ -39,6 +42,7 @@ class StylePipeline:
                 "a checkpoint trained or validated with eval-stats "
                 "semantics.")
         self.cfg = model_cfg
+        self.decoder_impl, self.encoder_impl = decoder_impl, encoder_impl
         self.device = torch.device(device)
         self.dtype = torch_dtype(model_cfg)
         if state is None:
@@ -58,4 +62,6 @@ class StylePipeline:
         style = torch.as_tensor(style, dtype=torch.float32,
                                 device=self.device)
         return stylize_fused(self.state, content, style, alpha,
-                             cfg=self.cfg, dtype=self.dtype)
+                             cfg=self.cfg, dtype=self.dtype,
+                             decoder_impl=self.decoder_impl,
+                             encoder_impl=self.encoder_impl)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers: a build takes seconds, not minutes).  The library is named by a
-hash of the sources and flags, so an edited source is rebuilt; it lives in
-``build/kernels/`` beside the package (``AST_TORCH_BUILD_DIR`` overrides),
-which ``.gitignore`` lists.  Nothing here runs at import time.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build
+takes seconds, not minutes).  The library is named by a hash of the sources
+and flags, so an edited source is rebuilt; it lives in ``build/kernels/``
+beside the package (``AST_TORCH_BUILD_DIR`` overrides), which ``.gitignore``
+lists.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,10 +21,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +33,12 @@ _SIGNATURES = {
     "expand_dw_launch": [_P] * 7 + [_I] * 8 + [_P],
     # q, k, v, mean, std, m, l, b, nc, ns, c, is_bf16, stream
     "adaattn_fwd_launch": [_P] * 7 + [_I] * 5 + [_P],
+    # x, w_expand, w_dw, b_expand, b_dw, d0t, d0b, d1k, d1b, wpt, pb,
+    # hidden, sums, y, n, h, w, c_in, e, s, c_out, k, pre_act, identity,
+    # is_bf16, stream
+    "flat_block_launch": [_P] * 14 + [_I] * 11 + [_P],
+    # the same without pre_act and identity
+    "flat_s2_launch": [_P] * 14 + [_I] * 9 + [_P],
 }
 
 _lib = None
@@ -47,6 +52,36 @@ def _nvcc() -> str:
         raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
                            "the port's kernels")
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _compile(sources, flags, target: Path) -> str:
+    """One nvcc per source in parallel, then one link; returns the log."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        jobs = []
+        for src in sources:
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = "", []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            log += f"-- {src.name}\n{out}"
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        so = Path(tmp) / target.name
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(so),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(so, target)
+    return log
 
 
 def load_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
@@ -68,17 +103,7 @@ def load_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     target = out_dir / f"libast_kernels_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
-    log = ""
-    if not target.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, target)
+    log = "" if target.exists() else _compile(sources, flags, target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -23,24 +23,34 @@ from ._build import check, load_library
 from ..basic import hardswish, reflect_pad
 
 
-def expand_dw_reference(x, w_expand, w_dw, kernel_size: int,
-                        pre_act: bool = True, b_expand=None, b_dw=None):
-    """Plain PyTorch twin of the kernel (NHWC in, NHWC hidden out)."""
+def expand_reference(x, w_expand, b_expand=None, pre_act: bool = True):
+    """The 1x1 expand (identity for ``w_expand=None``), its bias and
+    hardswish, in f32 over x's dtype-rounded weights."""
+    h = x.float()
     if w_expand is not None:
-        h = x.float() @ w_expand.to(x.dtype).float()
-    else:
-        h = x.float()
+        h = h @ w_expand.to(x.dtype).float()
     if b_expand is not None:
         h = h + b_expand.float()
-    if pre_act:
-        h = hardswish(h)
+    return hardswish(h) if pre_act else h
+
+
+def depthwise_reference(h, w_dw, b_dw, kernel_size: int, stride: int = 1):
+    """``hardswish(dw_kxk(reflect_pad(h)) + b_dw)`` in f32 (NHWC)."""
     pad = (kernel_size - 1) // 2
     hp = reflect_pad(h, pad).permute(0, 3, 1, 2)
     w = w_dw.float().permute(2, 0, 1)[:, None]  # (E, 1, k, k)
-    out = F.conv2d(hp, w, groups=w.shape[0]).permute(0, 2, 3, 1)
+    out = F.conv2d(hp, w, stride=stride, groups=w.shape[0])
+    out = out.permute(0, 2, 3, 1)
     if b_dw is not None:
         out = out + b_dw.float()
-    out = hardswish(out)
+    return hardswish(out)
+
+
+def expand_dw_reference(x, w_expand, w_dw, kernel_size: int,
+                        pre_act: bool = True, b_expand=None, b_dw=None):
+    """Plain PyTorch twin of the kernel (NHWC in, NHWC hidden out)."""
+    out = depthwise_reference(expand_reference(x, w_expand, b_expand, pre_act),
+                              w_dw, b_dw, kernel_size)
     return out.to(x.dtype), out.sum(dim=(1, 2))
 
 
