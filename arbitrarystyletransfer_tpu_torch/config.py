@@ -1,9 +1,9 @@
-"""Architecture tables and ``ModelConfig`` for the PyTorch port.
+"""Architecture tables, ``ModelConfig`` and ``ASTTrainConfig`` for the port.
 
-The tables and the dataclass are a copy of the JAX package's
+The tables and the dataclasses are a copy of the JAX package's
 ``arbitrarystyletransfer_tpu/config.py`` (same names, values and field
 defaults), so that the port and its chip run import nothing of the JAX
-package.  ``tests/test_torch_ops.py`` holds the two copies equal, so the
+package.  ``tests/test_torch_ops.py`` holds the copies equal, so the
 architecture cannot drift.  Layout is NHWC at every public function, as in
 the JAX package.
 """
@@ -64,6 +64,9 @@ VGG_CONTENT_LAYERS: Tuple[str, ...] = (
     "conv_1", "conv_3", "conv_5", "conv_9", "conv_13", "relu_15",
 )
 
+# Multi-resolution training sizes (the AST trainer's resolution buckets).
+IMG_SIZES: Tuple[int, ...] = (96, 128, 160)
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -84,6 +87,44 @@ class ModelConfig:
     compute_dtype: str = "float32"
     # Depthwise lowering of the JAX flax graph; the port has one lowering.
     depthwise_impl: str = "conv"
+
+
+@dataclasses.dataclass(frozen=True)
+class ASTTrainConfig:
+    """Stage-2 AST training flags; the fields of the JAX ``ASTTrainConfig``."""
+
+    train_iter: int = 2_048_000
+    batch_size: int = 8
+    lr: float = 2e-4
+    dis_lr: float = 1e-5
+    dis_lam: float = 1e-3
+    # The adversarial step is not ported (ROADMAP queue 1 item 9).
+    use_dis: bool = False
+    dis_adam_b1: float = 0.5
+    dis_adam_b2: float = 0.99
+    content_lam: float = 1.25
+    org_img_lam: float = 0.5
+    style_lam: float = 0.5
+    tv_lam: float = 0.0006
+    lf_lam: float = 1.0
+    r1_lam: float = 5.0
+    save_dir: str = "models/ast/"
+    ae_model: str = "models/auto_encoder/ae"
+    load: bool = False
+    recon_lam: float = 100.0
+    perp_lam: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-5
+    grad_clip_norm: float = 2.0
+    # Fixed inner weights of the loss assembly.
+    pixel_content_weight: float = 0.1
+    pixel_style_weight: float = 1.0
+    hist_lam: float = 1e-5
+    out_of_range_lam: float = 1e8
+    identity_mse_weight: float = 100.0
+    save_every: int = 32
+    log_every: int = 8
 
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,

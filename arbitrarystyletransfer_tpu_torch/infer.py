@@ -18,13 +18,15 @@ class StylePipeline:
     """Alpha-interpolated stylization of NHWC [0, 1] batches."""
 
     def __init__(self, model_cfg: ModelConfig = ModelConfig(),
-                 engine: str = "fused", device="cpu", state=None,
+                 engine: str = "fused", device="cuda", state=None,
                  seed: int = 0, decoder_impl: str = "fused",
                  encoder_impl: str = "fused"):
         """``state`` is a weights.py state (a seeded ``init_params`` one
-        when None).  ``decoder_impl``/``encoder_impl`` choose the engine's
-        block routes ("fused", "flat", "flat-all", "auto"; see
-        ``engine.stylize_fused``).  The fused engine folds BatchNorm running
+        when None), for instance the params and batch_stats of a trainer
+        checkpoint.  ``device`` defaults to the card and never falls back:
+        a CPU run asks for ``device="cpu"``.  ``decoder_impl`` and
+        ``encoder_impl`` choose the engine's block routes ("fused", "flat",
+        "flat-all", "auto"; see ``engine.stylize_fused``).  The fused engine folds BatchNorm running
         statistics, so a config with ``encoder_eval_stats=False`` is
         refused, as in the JAX pipeline: a checkpoint trained with batch
         statistics would be served with different encoder math."""
@@ -44,6 +46,10 @@ class StylePipeline:
         self.cfg = model_cfg
         self.decoder_impl, self.encoder_impl = decoder_impl, encoder_impl
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("StylePipeline: device cuda, but CUDA is not "
+                               "available (pass device='cpu' to run on the "
+                               "CPU)")
         self.dtype = torch_dtype(model_cfg)
         if state is None:
             state = init_params(model_cfg, torch.Generator().manual_seed(seed))

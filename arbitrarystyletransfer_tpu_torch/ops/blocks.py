@@ -1,16 +1,25 @@
-"""Plain PyTorch block routes: what the JAX package leaves to XLA.
+"""Block modules of the model graph, and the plain block routes.
 
-Twins of ``xla_block_apply``, ``upsample_smooth_apply`` and the stem and
-head convs of ``arbitrarystyletransfer_tpu/ops/pallas/fused_block.py``.  They
-keep the JAX rounding points: a matmul of ``dtype`` operands stands where JAX
-writes ``preferred_element_type=float32``.  At float32 that is the same
-arithmetic; at bfloat16 torch rounds the product to bfloat16 before a
-following f32 bias add, one rounding JAX does not make.
+The ``nn.Module``s (``DepthwiseConv2D``, ``ConvStem``, ``SELayer``,
+``DepthWiseConv``) are the twins of the flax blocks in
+``arbitrarystyletransfer_tpu/ops/blocks.py``: the trainable graph, with the
+JAX tree's child names (``Conv_0``, ``DepthwiseConv2D_0``, ``SELayer_0``,
+``BatchNorm2D_0``, ...) and layouts (HWIO kernels, dense (in, out)), so
+``weights.load_state`` moves a weights.py state into them one to one.
+
+The functions are the engine's plain routes, twins of ``xla_block_apply``,
+``upsample_smooth_apply`` and the stem and head convs of
+``arbitrarystyletransfer_tpu/ops/pallas/fused_block.py``.  They keep the JAX
+rounding points: a matmul of ``dtype`` operands stands where JAX writes
+``preferred_element_type=float32``.  At float32 that is the same arithmetic;
+at bfloat16 torch rounds the product to bfloat16 before a following f32 bias
+add, one rounding JAX does not make.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from .basic import (
     bn_fold,
@@ -20,6 +29,169 @@ from .basic import (
     reflect_pad,
     se_gate_from_mean,
 )
+from .norm import BatchNorm2D
+
+
+def make_divisible(v: float, divisor: int) -> int:
+    """Round a channel count to a multiple of ``divisor`` (at least
+    ``divisor``, and not below 90% of ``v``)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def _compute_dtype(dtype, *tensors):
+    """``dtype``, or the promoted dtype of ``tensors`` when it is None
+    (flax's promotion with ``dtype=None``)."""
+    if dtype is not None:
+        return dtype
+    out = tensors[0].dtype
+    for t in tensors[1:]:
+        out = torch.promote_types(out, t.dtype)
+    return out
+
+
+class Conv(nn.Module):
+    """A VALID NHWC conv with a flax HWIO ``kernel`` (and ``bias``)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1,
+                 use_bias: bool = False, dtype=None):
+        super().__init__()
+        self.stride, self.dtype = stride, dtype
+        self.kernel = nn.Parameter(torch.zeros(k, k, c_in, c_out))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, x, self.kernel)
+        y = conv2d_nhwc(x.to(dt), self.kernel.to(dt), stride=self.stride)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` with a flax (in, out) ``kernel``."""
+
+    def __init__(self, c_in: int, c_out: int, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.zeros(c_in, c_out))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, x, self.kernel)
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+
+
+class DepthwiseConv2D(nn.Module):
+    """Depthwise k x k conv over a pre-padded NHWC input, kernel (k, k, 1,
+    C): one grouped ``F.conv2d``.  The JAX module's ``impl`` ("conv" or
+    "shifts") is an XLA lowering choice; ``ModelConfig.depthwise_impl``
+    accepts it and nothing reads it."""
+
+    def __init__(self, ch: int, kernel_size: int, stride: int = 1,
+                 dtype=None):
+        super().__init__()
+        self.ch, self.stride, self.dtype = ch, stride, dtype
+        self.kernel = nn.Parameter(
+            torch.zeros(kernel_size, kernel_size, 1, ch))
+
+    def forward(self, xp: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, xp)
+        return conv2d_nhwc(xp.to(dt), self.kernel.to(dt), stride=self.stride,
+                           groups=self.ch)
+
+
+class ConvStem(nn.Module):
+    """Reflect-padded 3x3 conv (no bias, no norm), then hardswish."""
+
+    def __init__(self, c_in: int, c_out: int, stride: int = 1, dtype=None):
+        super().__init__()
+        self.Conv_0 = Conv(c_in, c_out, 3, stride=stride, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return hardswish(self.Conv_0(reflect_pad(x, 1)))
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation with a Hardtanh(0, 1) gate; the squeeze mean
+    is taken in f32."""
+
+    def __init__(self, channel: int, reduction: int = 4, dtype=None):
+        super().__init__()
+        hidden = make_divisible(channel // reduction, 8)
+        self.Dense_0 = Dense(channel, hidden, dtype=dtype)
+        self.Dense_1 = Dense(hidden, channel, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.float().mean(dim=(1, 2)).to(x.dtype)
+        y = torch.clamp(self.Dense_1(torch.relu(self.Dense_0(y))), 0.0, 1.0)
+        return x * y[:, None, None, :]
+
+
+class DepthWiseConv(nn.Module):
+    """The inverted-residual block with SE (flax ``DepthWiseConv``).
+
+    expand_ratio == 1: reflect pad -> depthwise -> [BN] -> hardswish -> SE
+    -> 1x1 project -> [BN]; expand_ratio > 1: 1x1 expand -> [BN] ->
+    hardswish -> reflect-padded depthwise (stride s) -> [BN] -> hardswish ->
+    SE -> 1x1 project -> [BN].  Residual iff stride 1, C_in == C_out and
+    ``use_identity``.  ``train`` gates the running updates and
+    ``use_batch_stats`` (default ``train``) picks the BN normalizer; both
+    reach every BatchNorm of the block."""
+
+    def __init__(self, c_in: int, c_out: int, stride: int = 1,
+                 expand_ratio: float = 1, kernel_size: int = 3,
+                 use_norm: bool = False, use_identity: bool = True,
+                 dtype=None):
+        super().__init__()
+        hidden = round(c_in * expand_ratio)
+        self.expand = expand_ratio != 1
+        self.pad = (kernel_size - 1) // 2
+        self.identity = stride == 1 and c_in == c_out and use_identity
+        self.use_norm = use_norm
+        dw = DepthwiseConv2D(hidden, kernel_size, stride, dtype=dtype)
+        se = SELayer(hidden, dtype=dtype)
+        if self.expand:
+            self.Conv_0 = Conv(c_in, hidden, 1, dtype=dtype)
+            self.DepthwiseConv2D_0 = dw
+            self.SELayer_0 = se
+            self.Conv_1 = Conv(hidden, c_out, 1, dtype=dtype)
+            widths = (hidden, hidden, c_out)
+        else:
+            self.DepthwiseConv2D_0 = dw
+            self.SELayer_0 = se
+            self.Conv_0 = Conv(hidden, c_out, 1, dtype=dtype)
+            widths = (hidden, c_out)
+        if use_norm:
+            for i, ch in enumerate(widths):
+                self.add_module(f"BatchNorm2D_{i}", BatchNorm2D(ch))
+
+    def forward(self, x: torch.Tensor, train: bool = True,
+                use_batch_stats: bool | None = None) -> torch.Tensor:
+        ubs = train if use_batch_stats is None else use_batch_stats
+        bn_i = iter(range(3))
+
+        def bn(h):
+            if not self.use_norm:
+                return h
+            return getattr(self, f"BatchNorm2D_{next(bn_i)}")(
+                h, use_batch_stats=ubs, update_stats=train)
+
+        org_x = x
+        if self.expand:
+            x = hardswish(bn(self.Conv_0(x)))
+            x = self.DepthwiseConv2D_0(reflect_pad(x, self.pad))
+            x = hardswish(bn(x))
+            x = bn(self.Conv_1(self.SELayer_0(x)))
+        else:
+            x = self.DepthwiseConv2D_0(reflect_pad(x, self.pad))
+            x = hardswish(bn(x))
+            x = bn(self.Conv_0(self.SELayer_0(x)))
+        if self.identity:
+            x = x + org_x.to(x.dtype)
+        return x
 
 
 def block_weights(params, expand: bool, stats=None):

@@ -8,7 +8,7 @@ its path went through the kernels.
 """
 
 LAUNCHES = {"expand_dw": 0, "adaattn_fwd": 0, "flat_block": 0,
-            "flat_s2_block": 0}
+            "flat_s2_block": 0, "adaattn_dq": 0, "adaattn_dkv": 0}
 
 
 def reset_launches() -> None:

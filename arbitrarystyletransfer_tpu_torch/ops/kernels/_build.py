@@ -39,6 +39,11 @@ _SIGNATURES = {
     "flat_block_launch": [_P] * 14 + [_I] * 11 + [_P],
     # the same without pre_act and identity
     "flat_s2_launch": [_P] * 14 + [_I] * 9 + [_P],
+    # q, k, v, dm1, dm2, m, l, d, dq, b, nc, ns, c, is_bf16, dm_bf16, stream
+    "adaattn_dq_launch": [_P] * 9 + [_I] * 6 + [_P],
+    # q, k, v, dm1, dm2, m, l, d, dk, dv, b, nc, ns, c, is_bf16, dm_bf16,
+    # stream
+    "adaattn_dkv_launch": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _lib = None

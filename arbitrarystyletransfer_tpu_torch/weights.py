@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .ops.blocks import make_divisible
 
 _COLLECTIONS = ("params", "batch_stats")
 
@@ -103,13 +104,6 @@ def _lecun(gen, shape):
     return z / 0.87962566103423978 * math.sqrt(1.0 / fan_in)
 
 
-def make_divisible(v: float, divisor: int) -> int:
-    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
-    if new_v < 0.9 * v:
-        new_v += divisor
-    return new_v
-
-
 def _block(gen, c_in, c_out, expand_ratio, k, use_norm):
     """One DepthWiseConv block's (params, batch_stats) subtrees."""
     hidden = round(c_in * expand_ratio)
@@ -180,3 +174,50 @@ def init_params(cfg: ModelConfig = ModelConfig(), generator=None):
                       "bias": torch.zeros(c_out)}
     params["dec"] = dec
     return {"params": params, "batch_stats": {"enc": enc_s}}
+
+
+# -- the nn.Module bridge ----------------------------------------------------
+# A module built with the JAX tree's child names (models/, ops/blocks.py) has
+# parameter "enc.mob_net_1.Conv_0.kernel" for the state key
+# "params/enc/mob_net_1/Conv_0/kernel", and BatchNorm buffer
+# "enc.mob_net_1.BatchNorm2D_0.mean" for "batch_stats/enc/.../mean".  So JAX
+# variables (numpy) -> ``from_jax_tree`` -> ``load_state`` -> the module is
+# one path, and ``module_state`` gives back a state that the functional
+# engine (and ``save_npz``) takes.
+
+
+def _module_entries(module):
+    """{state key: tensor} of a module's parameters and persistent
+    buffers."""
+    params = {name for name, _ in module.named_parameters()}
+    return {("params/" if name in params else "batch_stats/")
+            + name.replace(".", "/"): t
+            for name, t in module.state_dict(keep_vars=True).items()}
+
+
+def load_state(module, state) -> None:
+    """Copy a weights.py state into ``module``'s parameters and buffers.
+
+    Every parameter and buffer must be in ``state`` with its shape, and
+    ``state`` may hold nothing else."""
+    flat = flatten(state)
+    entries = _module_entries(module)
+    missing = sorted(set(entries) - set(flat))
+    extra = sorted(set(flat) - set(entries))
+    if missing or extra:
+        raise KeyError(f"state does not match the module: missing "
+                       f"{missing[:5]}, unexpected {extra[:5]}")
+    with torch.no_grad():
+        for key, target in entries.items():
+            value = torch.as_tensor(flat[key])
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"{key}: shape {tuple(value.shape)}, module "
+                                 f"has {tuple(target.shape)}")
+            target.copy_(value)
+
+
+def module_state(module):
+    """The module's parameters and buffers as a weights.py state (detached
+    tensors that share the module's storage)."""
+    return unflatten({k: v.detach()
+                      for k, v in _module_entries(module).items()})

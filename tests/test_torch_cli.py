@@ -66,7 +66,7 @@ def test_cli_writes_the_pipeline_image(tmp_path, impl):
 
     cfg = ModelConfig(encoder_eval_stats=True, use_pallas_adaattn=True)
     pipe = StylePipeline(cfg, state=state, encoder_impl=impl,
-                         decoder_impl=impl)
+                         decoder_impl=impl, device="cpu")
     out = pipe.stylize(image_loader(content, 64), image_loader(style, 64),
                        alpha=0.8)
     np.testing.assert_array_equal(written, to_uint8(out))

@@ -162,11 +162,20 @@ def test_pipeline_refuses_batch_stats_config():
         StylePipeline(ModelConfig(encoder_eval_stats=False))
 
 
+def test_pipeline_defaults_to_the_card():
+    """Without a device the pipeline runs on CUDA; a CPU-only host raises
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the refusal needs none")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StylePipeline(CFG)
+
+
 def test_pipeline_from_npz_matches_engine(tmp_path):
     v = ast_variables(seed=4)
     state = weights.from_jax_tree(v["params"], v["batch_stats"])
     weights.save_npz(tmp_path / "w.npz", state)
-    pipe = StylePipeline.from_npz(tmp_path / "w.npz", CFG)
+    pipe = StylePipeline.from_npz(tmp_path / "w.npz", CFG, device="cpu")
     content, style = _images(4, size=32, b=1)
     out = pipe.stylize(content, style, 0.5)
     ref = engine.stylize_fused(
@@ -304,7 +313,7 @@ def test_pipeline_routes_match_engine(monkeypatch, encoder_impl,
     v = ast_variables(seed=9)
     state = weights.from_jax_tree(v["params"], v["batch_stats"])
     pipe = StylePipeline(CFG, state=state, encoder_impl=encoder_impl,
-                         decoder_impl=decoder_impl)
+                         decoder_impl=decoder_impl, device="cpu")
     content, style = _images(9, size=32, b=1)
     out = pipe.stylize(content, style, 0.5)
     assert modes == [pflat.FLAT_MODE[encoder_impl],

@@ -13,6 +13,7 @@ The parameter helpers here (``fill_variables``, ``ast_variables``,
 import dataclasses
 import functools
 import math
+import os
 import subprocess
 import sys
 
@@ -31,6 +32,10 @@ from arbitrarystyletransfer_tpu_torch import config as port_config
 from arbitrarystyletransfer_tpu_torch import weights
 from arbitrarystyletransfer_tpu_torch.ops import basic, blocks, stats
 
+# The suite runs in several worker processes on one CPU: torch's default of
+# one intra-op thread per core in each of them oversubscribes it many times.
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // 4))
+
 # A non-residual block's projection kernels are scaled up by this factor so
 # that random weights keep the signal's spatial variation alive through the
 # whole network (at fan-in scale it shrinks ~7x per such block, and the
@@ -47,11 +52,11 @@ def _t(a):
     return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
 
 
-def fill_variables(shape_tree, rng):
+def fill_variables(shape_tree, rng, proj_gain=PROJ_GAIN):
     """numpy arrays for a flax variable-shape tree: fan-in scaled normal
     kernels, SE excitation biases near 0.5 (gates mostly open), BN scale
     near 1 and running variance in [0.5, 1.5]; non-residual projections get
-    ``PROJ_GAIN`` and the AdaAttN q and k projections ``QK_GAIN``."""
+    ``proj_gain`` and the AdaAttN q and k projections ``QK_GAIN``."""
     def leaf(path, sd):
         names = [p.key for p in path]
         name, shape = names[-1], sd.shape
@@ -81,7 +86,7 @@ def fill_variables(shape_tree, rng):
             c_in = (node["Conv_0"]["kernel"].shape[2] if proj == "Conv_1"
                     else w_proj.shape[2])
             if c_in != w_proj.shape[3]:
-                node[proj]["kernel"] = w_proj * np.float32(PROJ_GAIN)
+                node[proj]["kernel"] = w_proj * np.float32(proj_gain)
             return
         for child in node.values():
             boost(child)
@@ -98,13 +103,13 @@ def _ast_shapes():
                           jax.random.PRNGKey(0), d, d)
 
 
-def ast_variables(seed=0):
+def ast_variables(seed=0, proj_gain=PROJ_GAIN):
     """Filled AST variables {"params", "batch_stats"} (nested numpy dicts),
     from the JAX tree's shapes (``jax.eval_shape``, no flax init)."""
     return fill_variables(
         {"params": _ast_shapes()["params"],
          "batch_stats": _ast_shapes()["batch_stats"]},
-        np.random.default_rng(seed))
+        np.random.default_rng(seed), proj_gain)
 
 
 def block_params(c_in, c_out, k, t, use_norm, seed=0):
@@ -168,6 +173,12 @@ def test_config_copy_matches_jax_config():
     for name in ("ENC_CONV_SHAPES", "DECODER_CONV_SHAPES", "EXPAND_RATIO",
                  "ENC_OUT_LAYERS", "ENC_OUT_CHANNELS", "VGG_CONTENT_LAYERS"):
         assert getattr(port_config, name) == getattr(jax_config, name), name
+
+
+def test_train_config_copy_matches_jax_config():
+    assert (dataclasses.asdict(port_config.ASTTrainConfig())
+            == dataclasses.asdict(jax_config.ASTTrainConfig()))
+    assert port_config.IMG_SIZES == jax_config.IMG_SIZES
 
 
 @pytest.mark.parametrize("name,dtype", [("float32", torch.float32),
