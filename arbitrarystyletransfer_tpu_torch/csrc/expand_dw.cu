@@ -25,8 +25,8 @@ extern "C" int expand_dw_launch(const void* x, const void* we, const void* wd,
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)edw::dispatch<__nv_bfloat16, false>(
+    return (int)edw::dispatch<__nv_bfloat16, edw::kFused>(
         x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, k, pre_act, s);
-  return (int)edw::dispatch<float, false>(x, we, wd, be, bd, hidden, sums, n,
-                                          h, w, cin, e, k, pre_act, s);
+  return (int)edw::dispatch<float, edw::kFused>(
+      x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, k, pre_act, s);
 }

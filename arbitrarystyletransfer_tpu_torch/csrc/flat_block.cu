@@ -17,7 +17,7 @@
 // stay on chip (d10: 8 x 240 x 512^2 x 2 B = 1.0 GB per call against 227 KB
 // of shared memory per CTA), and the gate is a barrier across every CTA of an
 // image, so the TPU's non-resident mode becomes two launches:
-//   * sweep 1, expand_dw.cuh with ROUND: the bf16 hidden is written once and
+//   * sweep 1, expand_dw.cuh with kFlat: the bf16 hidden is written once and
 //     the exact per-image sums are added with atomics;
 //   * sweep 2, gate_project.cuh: every CTA recomputes its image's gate from
 //     the sums, projects a run of pixel tiles on the tensor cores, adds the
@@ -49,14 +49,14 @@ extern "C" int flat_block_launch(const void* x, const void* we,
   cudaError_t err;
   if (is_bf16) {
     using B = __nv_bfloat16;
-    err = edw::dispatch<B, true>(x, we, wd, be, bd, hidden, sums, n, h, w,
-                                 cin, e, k, pre_act, st);
+    err = edw::dispatch<B, edw::kFlat>(x, we, wd, be, bd, hidden, sums, n, h,
+                                       w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<B>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res, y, n,
                         h * w, e, s, cout, st);
   } else {
-    err = edw::dispatch<float, true>(x, we, wd, be, bd, hidden, sums, n, h, w,
-                                     cin, e, k, pre_act, st);
+    err = edw::dispatch<float, edw::kFlat>(x, we, wd, be, bd, hidden, sums, n,
+                                           h, w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<float>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res, y,
                             n, h * w, e, s, cout, st);

@@ -1,5 +1,6 @@
-// Sweep 2 of the flat-route blocks (flat_block.cu, flat_s2.cu): the in-kernel
-// SE gate, the gated 1x1 projection, its bias and the residual.
+// Sweep 2 of the whole-block kernels (flat_block.cu, flat_s2.cu,
+// mega_block.cu): the in-kernel SE gate, the gated 1x1 projection, its bias
+// and the residual.
 //
 //   gate = clip(relu((sums / HW) @ D0 + b0) @ D1 + b1, 0, 1)       (f32)
 //   y    = round((hidden * round(gate)) @ Wp [f32 acc] + pb) (+ x)
@@ -28,6 +29,9 @@
 //     16 pixels x all of C_out.
 //   * otherwise (f32, or other shapes): a CUDA-core path, 32 pixels x 32
 //     channels per step in f32, up to 16 outputs per thread.
+//   * YT (the mega route): y and the residual are (N, H, C_out, W) with W
+//     contiguous, written and read one value at a time; the hidden stays
+//     pixel-major (NHWC).
 #pragma once
 
 #include <algorithm>
@@ -88,7 +92,18 @@ __device__ void se_gate(const float* __restrict__ sums_n,
   __syncthreads();
 }
 
-template <bool RES>
+// Offset of output (pixel p, channel c) within an image: NHWC, or
+// (H, C, W) with YT.
+template <bool YT>
+__device__ __forceinline__ size_t out_at(int p, int c, int cout, int W) {
+  if constexpr (YT) {
+    const int gy = p / W;
+    return ((size_t)gy * cout + c) * W + (p - gy * W);
+  }
+  return (size_t)p * cout + c;
+}
+
+template <bool RES, bool YT>
 __global__ void __launch_bounds__(NTHREADS)
     gate_project_mma(const __nv_bfloat16* __restrict__ hidden,
                      const float* __restrict__ sums,
@@ -99,8 +114,8 @@ __global__ void __launch_bounds__(NTHREADS)
                      const __nv_bfloat16* __restrict__ wpt,
                      const float* __restrict__ pb,
                      const __nv_bfloat16* __restrict__ res,
-                     __nv_bfloat16* __restrict__ y, int HW, int E, int S,
-                     int cout, float inv_hw, int tiles_per_cta) {
+                     __nv_bfloat16* __restrict__ y, int HW, int W, int E,
+                     int S, int cout, float inv_hw, int tiles_per_cta) {
   const int e_al = round_up(E, 4), s_al = round_up(S, 4);
   const int ep = round_up(E, 16), ldw = ep + 8;
   const int nt_count = (cout + 7) / 8;
@@ -179,6 +194,19 @@ __global__ void __launch_bounds__(NTHREADS)
           v0 += pb[col];
           v1 += pb[col + 1];
         }
+        if constexpr (YT) {
+          const size_t o = out_at<true>(p, col, cout, W);
+          const float vs[2] = {v0, v1};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            __nv_bfloat16 out = __float2bfloat16_rn(vs[j]);
+            if (RES)
+              out = __float2bfloat16_rn(__bfloat162float(out) +
+                                        __bfloat162float(rn[o + j * W]));
+            yn[o + j * W] = out;
+          }
+          continue;
+        }
         __nv_bfloat162 out = __floats2bfloat162_rn(v0, v1);
         if (RES) {
           const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
@@ -193,7 +221,7 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T, bool RES>
+template <typename T, bool RES, bool YT>
 __global__ void __launch_bounds__(NTHREADS)
     gate_project_generic(const T* __restrict__ hidden,
                          const float* __restrict__ sums,
@@ -204,7 +232,7 @@ __global__ void __launch_bounds__(NTHREADS)
                          const T* __restrict__ wpt,
                          const float* __restrict__ pb,
                          const T* __restrict__ res, T* __restrict__ y, int HW,
-                         int E, int S, int cout, float inv_hw,
+                         int W, int E, int S, int cout, float inv_hw,
                          int tiles_per_cta) {
   const int e_al = round_up(E, 4), s_al = round_up(S, 4);
   extern __shared__ float4 smem4[];
@@ -262,9 +290,10 @@ __global__ void __launch_bounds__(NTHREADS)
       if (o < nout && p < HW) {
         float v = acc[i];
         if (pb != nullptr) v += pb[c];
+        const size_t oi = out_at<YT>(p, c, cout, W);
         T out = from_f32<T>(v);
-        if (RES) out = from_f32<T>(to_f32(out) + to_f32(rn[(size_t)p * cout + c]));
-        yn[(size_t)p * cout + c] = out;
+        if (RES) out = from_f32<T>(to_f32(out) + to_f32(rn[oi]));
+        yn[oi] = out;
       }
     }
   }
@@ -272,13 +301,14 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // y (n, hw, cout) from hidden (n, hw, e) and its exact sums (n, e); d0t is
 // the SE's first dense kernel transposed, (s, e); d1k (s, e); wpt the
-// projection transposed, (cout, e); pb and res may be null.
-template <typename T>
+// projection transposed, (cout, e); pb and res may be null.  With YT, y and
+// res are (n, hw / w, cout, w).
+template <typename T, bool YT = false>
 cudaError_t launch(const void* hidden, const void* sums, const void* d0t,
                    const void* d0b, const void* d1k, const void* d1b,
                    const void* wpt, const void* pb, const void* res, void* y,
-                   int n, int hw, int e, int s, int cout,
-                   cudaStream_t stream) {
+                   int n, int hw, int e, int s, int cout, cudaStream_t stream,
+                   int w = 1) {
   const int e_al = round_up(e, 4), s_al = round_up(s, 4);
   const float inv_hw = (float)(1.0 / hw);
   const bool mma = sizeof(T) == 2 && e % 8 == 0 && cout % 2 == 0 &&
@@ -291,8 +321,8 @@ cudaError_t launch(const void* hidden, const void* sums, const void* d0t,
   if (mma) {
     const int nt = (cout + 7) / 8, ldw = round_up(e, 16) + 8;
     const int smem = (2 * e_al + s_al) * 4 + nt * 8 * ldw * 2 + TP * HS_LD * 2;
-    auto kernel = res != nullptr ? gate_project_mma<true>
-                                 : gate_project_mma<false>;
+    auto kernel = res != nullptr ? gate_project_mma<true, YT>
+                                 : gate_project_mma<false, YT>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -302,15 +332,15 @@ cudaError_t launch(const void* hidden, const void* sums, const void* d0t,
         static_cast<const float*>(d0t), static_cast<const float*>(d0b),
         static_cast<const float*>(d1k), static_cast<const float*>(d1b),
         static_cast<const B*>(wpt), static_cast<const float*>(pb),
-        static_cast<const B*>(res), static_cast<B*>(y), hw, e, s, cout,
+        static_cast<const B*>(res), static_cast<B*>(y), hw, w, e, s, cout,
         inv_hw, tpc);
     return cudaGetLastError();
   }
   if (cout > NTHREADS * MAX_OPT / GTP) return cudaErrorInvalidValue;
   const int smem =
       (2 * e_al + s_al + GTP * (GKC + 1) + GKC * cout) * (int)sizeof(float);
-  auto kernel = res != nullptr ? gate_project_generic<T, true>
-                               : gate_project_generic<T, false>;
+  auto kernel = res != nullptr ? gate_project_generic<T, true, YT>
+                               : gate_project_generic<T, false, YT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -319,8 +349,8 @@ cudaError_t launch(const void* hidden, const void* sums, const void* d0t,
       static_cast<const float*>(d0t), static_cast<const float*>(d0b),
       static_cast<const float*>(d1k), static_cast<const float*>(d1b),
       static_cast<const T*>(wpt), static_cast<const float*>(pb),
-      static_cast<const T*>(res), static_cast<T*>(y), hw, e, s, cout, inv_hw,
-      tpc);
+      static_cast<const T*>(res), static_cast<T*>(y), hw, w, e, s, cout,
+      inv_hw, tpc);
   return cudaGetLastError();
 }
 

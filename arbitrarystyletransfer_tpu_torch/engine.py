@@ -9,8 +9,11 @@ block, the alpha blend, then the decoder with the export clamp.
 "fused" sends the high-resolution stride-1 blocks through the ``expand_dw``
 kernel; "flat", "flat-all" and "auto" plan each block onto the
 ``flat_block`` and ``flat_s2_block`` kernels, the fused route or the plain
-route (``ops/flatblock.py``).  With ``cfg.use_pallas_adaattn`` the
-attention statistics run the ``adaattn_fwd`` kernel.
+route (``ops/flatblock.py``); "mega" runs the high-resolution stride-1 blocks
+on the (B, H, C, W) layout through the ``mega_block`` kernel
+(``ops/megablock.py``).  Any encoder route goes with any decoder route.  With
+``cfg.use_pallas_adaattn`` the attention statistics run the ``adaattn_fwd``
+kernel.
 """
 
 from __future__ import annotations
@@ -25,22 +28,13 @@ from .ops.fused_block import (
     decode_fused,
     encode_fused,
 )
+from .ops.megablock import decode_mega, encode_mega
 from .ops.stats import instance_norm
-
-# Block routes of the JAX engine that this port does not have yet, and the
-# ROADMAP entry that brings each.
-_LATER_IMPLS = {
-    "mega": "ROADMAP queue 2 item 8 (megablock._mega_kernel_t)",
-}
 
 
 def _check_impl(name: str, value: str) -> None:
-    if value == "fused" or value in FLAT_MODE:
-        return
-    if value in _LATER_IMPLS:
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported yet: see {_LATER_IMPLS[value]}")
-    raise ValueError(f"unknown {name} {value!r}")
+    if value not in ("fused", "mega") and value not in FLAT_MODE:
+        raise ValueError(f"unknown {name} {value!r}")
 
 
 def adaattn_apply_pair(att1_params, att2_params, content_maps, style_maps,
@@ -84,7 +78,8 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
     ``state`` is ``{"params": ..., "batch_stats": ...}`` (see weights.py).
     ``exporting=False`` skips the final clamp (the pre-clamp image).
     ``lane`` and ``min_fused_size`` scale the routing rules, so that a test
-    at a small size routes its blocks as the full size does."""
+    at a small size routes its blocks as the full size does; the mega
+    route's thresholds, 256 and 128 in JAX, are ``2 * lane`` and ``lane``."""
     _check_impl("encoder_impl", encoder_impl)
     _check_impl("decoder_impl", decoder_impl)
     params, stats = state["params"], state["batch_stats"]
@@ -96,6 +91,12 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
             cfg.enc_out_layers, expand_ratio=cfg.expand_ratio, dtype=dtype,
             flat_blocks=FLAT_MODE[encoder_impl], lane=lane,
             min_fused_size=min_fused_size,
+        )
+    elif encoder_impl == "mega":
+        both_maps = encode_mega(
+            params["enc"], stats["enc"], both, cfg.enc_conv_shapes,
+            cfg.enc_out_layers, expand_ratio=cfg.expand_ratio, dtype=dtype,
+            min_mega_size=2 * lane, lane=lane, min_fused_size=min_fused_size,
         )
     else:
         both_maps = encode_fused(
@@ -123,6 +124,10 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
                            exporting=exporting, dtype=dtype,
                            flat_blocks=FLAT_MODE[decoder_impl], lane=lane,
                            min_fused_size=min_fused_size)
+    if decoder_impl == "mega":
+        return decode_mega(params["dec"], t, cfg.decoder_conv_shapes,
+                           exporting=exporting, dtype=dtype, min_mega_w=lane,
+                           lane=lane)
     return decode_fused(params["dec"], t, cfg.decoder_conv_shapes,
                         exporting=exporting, dtype=dtype,
                         min_fused_size=min_fused_size)

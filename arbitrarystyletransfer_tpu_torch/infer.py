@@ -25,8 +25,8 @@ class StylePipeline:
         when None), for instance the params and batch_stats of a trainer
         checkpoint.  ``device`` defaults to the card and never falls back:
         a CPU run asks for ``device="cpu"``.  ``decoder_impl`` and
-        ``encoder_impl`` choose the engine's block routes ("fused", "flat",
-        "flat-all", "auto"; see ``engine.stylize_fused``).  The fused engine folds BatchNorm running
+        ``encoder_impl`` choose the engine's block routes ("fused", "mega",
+        "flat", "flat-all", "auto"; see ``engine.stylize_fused``).  The fused engine folds BatchNorm running
         statistics, so a config with ``encoder_eval_stats=False`` is
         refused, as in the JAX pipeline: a checkpoint trained with batch
         statistics would be served with different encoder math."""

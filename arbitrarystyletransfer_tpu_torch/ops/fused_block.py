@@ -5,6 +5,8 @@ fused_block.py``: ``fused_block_apply`` runs the expand + depthwise stage
 through the ``expand_dw`` kernel and leaves the SE gate, the gated
 projection, the bias and the residual to plain PyTorch, as the JAX package
 leaves them to XLA.  ``block_apply`` keeps the JAX routing rule.
+``fused_block_apply_2pass`` is the two-pass block (the ``fused_sums`` and
+``fused_project`` kernels), which no route of the JAX engine takes.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from .blocks import (
     upsample_smooth_apply,
 )
 from .kernels.expand_dw import expand_dw
+from .kernels.fused_2pass import fused_project, fused_sums
 
 # Smallest block resolution sent to the kernel; the value of the JAX
 # package's MIN_FUSED_SIZE (ops/pallas/fused_block.py:709), where it was
@@ -47,6 +50,35 @@ def fused_block_apply(params, x, kernel_size: int, expand_ratio: int,
     y = y.to(dtype)
     if use_identity and c_in == w_proj.shape[-1]:
         y = y + x
+    return y
+
+
+def fused_block_apply_2pass(params, x, kernel_size: int, expand_ratio: int,
+                            use_identity: bool = True, stats=None,
+                            dtype=torch.bfloat16):
+    """One stride-1 DepthWiseConv block in two passes, folded BN
+    (``fused_block.fused_block_apply_2pass``): the SE sums of the unrounded
+    hidden, the gate, then the hidden recomputed, gated and projected, so
+    that it never reaches HBM.
+
+    As in JAX, the residual is added in the kernel only without a folded
+    projection bias; with one, the bias is added to the already rounded y
+    in f32 and rounded again, then x is added."""
+    _, h, w, c_in = x.shape
+    expand = expand_ratio != 1
+    x = x.to(dtype)
+    w_exp, b_exp, w_dw, b_dw, w_proj, proj_bias = block_weights(
+        params, expand, stats)
+    common = dict(pre_act=expand, b_expand=b_exp, b_dw=b_dw)
+    sums = fused_sums(x, w_exp, w_dw, kernel_size, **common)
+    gate = se_gate(sums, h * w, params["SELayer_0"])
+    residual = use_identity and c_in == w_proj.shape[-1]
+    y = fused_project(x, w_exp, w_dw, kernel_size, gate, w_proj,
+                      identity=residual and proj_bias is None, **common)
+    if proj_bias is not None:
+        y = (y.float() + proj_bias).to(dtype)
+        if residual:
+            y = y + x
     return y
 
 

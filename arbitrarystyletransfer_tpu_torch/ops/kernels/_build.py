@@ -39,6 +39,14 @@ _SIGNATURES = {
     "flat_block_launch": [_P] * 14 + [_I] * 11 + [_P],
     # the same without pre_act and identity
     "flat_s2_launch": [_P] * 14 + [_I] * 9 + [_P],
+    # flat_block_launch's arguments, with x and y in (N, H, C, W)
+    "mega_block_launch": [_P] * 14 + [_I] * 11 + [_P],
+    # x, w_expand, w_dw, b_expand, b_dw, sums, n, h, w, c_in, e, k, pre_act,
+    # is_bf16, stream
+    "fused_sums_launch": [_P] * 6 + [_I] * 8 + [_P],
+    # x, w_expand, w_dw, b_expand, b_dw, gate, wpt, y, n, h, w, c_in, e,
+    # c_out, k, pre_act, identity, is_bf16, stream
+    "fused_project_launch": [_P] * 8 + [_I] * 10 + [_P],
     # q, k, v, dm1, dm2, m, l, d, dq, b, nc, ns, c, is_bf16, dm_bf16, stream
     "adaattn_dq_launch": [_P] * 9 + [_I] * 6 + [_P],
     # q, k, v, dm1, dm2, m, l, d, dk, dv, b, nc, ns, c, is_bf16, dm_bf16,

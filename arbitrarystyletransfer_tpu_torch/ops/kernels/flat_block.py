@@ -75,27 +75,30 @@ def _vec(t, n, device, name):
     return t
 
 
-def check_input(name, x, kernel_size, stride=1):
-    """Raise on what the kernels do not take; returns contiguous x."""
+def check_input(name, x, kernel_size, stride=1, spatial=(1, 2)):
+    """Raise on what the kernels do not take; returns contiguous x.
+    ``spatial`` are the dims of H and W: (1, 2) for NHWC, (1, 3) for
+    (N, H, C, W)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
         raise ValueError(f"{name}: x must be a 4-D bfloat16/float32 tensor")
     if kernel_size not in (3, 5):
         raise ValueError(f"{name}: kernel_size must be 3 or 5")
-    if min(x.shape[1:3]) <= (kernel_size - 1) // 2:
+    h, w = (x.shape[d] for d in spatial)
+    if min(h, w) <= (kernel_size - 1) // 2:
         raise ValueError(f"{name}: reflect padding needs H, W > k // 2")
-    if stride == 2 and (x.shape[1] % 2 or x.shape[2] % 2):
+    if stride == 2 and (h % 2 or w % 2):
         raise ValueError(f"{name}: stride 2 needs even H and W")
     return x.contiguous()
 
 
 def kernel_operands(x, w_expand, w_dw, se_params, w_proj, kernel_size,
-                    b_expand, b_dw, proj_bias, name):
+                    b_expand, b_dw, proj_bias, name, channel_dim=-1):
     """The launch functions' weight operands, checked, in their layouts:
     (we, wd, be, bd, d0t, d0b, d1k, d1b, wpt, pb) and (E, S, C_out)."""
     k = kernel_size
-    c_in, dev, dt = x.shape[-1], x.device, x.dtype
+    c_in, dev, dt = x.shape[channel_dim], x.device, x.dtype
     e = w_dw.shape[-1]
     if w_dw.shape != (k, k, e):
         raise ValueError(f"{name}: w_dw must be (k, k, E), got "

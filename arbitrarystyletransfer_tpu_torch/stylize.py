@@ -14,6 +14,9 @@ auto --decoder auto``), with these differences:
   flax-graph engine and ``--recalibrate_dir`` raise ``NotImplementedError``.
 - The AdaAttN statistics take the ``adaattn_fwd`` kernel (its plain twin on
   the CPU); the compute dtype stays ``ModelConfig``'s float32.
+- ``--encoder/--decoder mega`` sends blocks to the ``mega_block`` kernel
+  only at sizes that are a multiple of 128 (512 and 256, not the default
+  320), as the JAX route does.
 """
 
 from __future__ import annotations
@@ -87,7 +90,8 @@ def parse_args(argv=None):
                         help="Inference resolution.")
     parser.add_argument("--decoder", default="auto", choices=IMPLS,
                         help="Decoder block routes (see "
-                             "engine.stylize_fused).")
+                             "engine.stylize_fused); mega takes its kernel "
+                             "only at sizes that are a multiple of 128.")
     parser.add_argument("--encoder", default="auto", choices=IMPLS,
                         help="Encoder block routes (same choices).")
     parser.add_argument("--engine", default="fused",

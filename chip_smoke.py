@@ -11,11 +11,16 @@
    code paths), with the max error against a stated tolerance and the
    device times (CUDA events) of the kernel, the twin and, where one
    PyTorch call computes the same function, that call (the SDPA yardstick
-   of the AdaAttN kernels; never on the port's path).
+   of the AdaAttN kernels; never on the port's path).  Two A/B times per
+   shape: ``mega_block`` against ``flat_block`` on the same block (the
+   (N, H, C, W) layout against NHWC), and the two-pass block
+   (``fused_sums`` + ``fused_project``) against the fused route's block
+   (``expand_dw`` + the PyTorch epilogue).
 4. Routes: ``StylePipeline`` in bfloat16 with the AdaAttN kernel answers
-   requests of 8 content/style pairs at 512x512 through three block routes:
+   requests of 8 content/style pairs at 512x512 through four block routes:
    "fused"/"fused" (3 requests), "flat-all" (4; every block the flat kernels
-   take) and "auto" (2; the CLI's default).  For each route the launch
+   take), "auto" (2; the CLI's default) and "mega" (3; 13 ``mega_block``
+   and 2 ``expand_dw`` launches).  For each route the launch
    counters are reset just before its requests and read just after, and
    each request must launch exactly the route's kernels; outputs must be
    finite and unsaturated; request 1 is held against the same pipeline
@@ -32,10 +37,10 @@
    with a finite loss, a step counter that advances and BatchNorm buffers
    that move; a checkpoint save/restore round trip; a profile of one step
    by phase and by kernel.
-6. Prints one JSON line per the kernels (with each kernel's bound: the
-   larger of its bytes over the HBM rate and its operations over the peak
-   of their type), the nvidia-smi line, and last ``{"ok": true, "device":
-   {...}}``.  Any failure raises: exit code != 0.
+6. Prints each phase's seconds, one JSON line per the kernels (with each
+   kernel's bound: the larger of its bytes over the HBM rate and its
+   operations over the peak of their type), the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.  Any failure raises: exit code != 0.
 
 Weights are random from a seed.  They are drawn at fan-in scale with the
 SE gates mostly open and the head normalized (as in tests/test_torch_*.py),
@@ -58,16 +63,25 @@ DEVICE = "cuda"
 BATCH, SIZE = 8, 512
 ALPHAS = (1.0, 0.8, 0.5, 1.0)
 
+KERNELS = ("expand_dw", "adaattn_fwd", "flat_block", "flat_s2_block",
+           "adaattn_dq", "adaattn_dkv", "mega_block", "fused_sums",
+           "fused_project")
+
+
+def counts(**launched):
+    """{kernel: launches} over every kernel, 0 where not named."""
+    return {k: launched.get(k, 0) for k in KERNELS}
+
+
 # Kernel launches per 512px batch-8 request, by route: (encoder_impl and
-# decoder_impl, requests, {kernel: launches}).
-_NO_BWD = {"adaattn_dq": 0, "adaattn_dkv": 0}
+# decoder_impl, requests, {kernel: launches}).  "mega" (slice 4): 13
+# mega_block (e1, e3, d3-d13), 2 expand_dw (e5, e6 at 128px).
 ROUTES = (
-    ("fused", 3, {"expand_dw": 15, "adaattn_fwd": 1, "flat_block": 0,
-                  "flat_s2_block": 0, **_NO_BWD}),
-    ("flat-all", 4, {"expand_dw": 0, "adaattn_fwd": 1, "flat_block": 15,
-                     "flat_s2_block": 2, **_NO_BWD}),
-    ("auto", 2, {"expand_dw": 10, "adaattn_fwd": 1, "flat_block": 5,
-                 "flat_s2_block": 1, **_NO_BWD}),
+    ("fused", 3, counts(expand_dw=15, adaattn_fwd=1)),
+    ("flat-all", 4, counts(adaattn_fwd=1, flat_block=15, flat_s2_block=2)),
+    ("auto", 2, counts(expand_dw=10, adaattn_fwd=1, flat_block=5,
+                       flat_s2_block=1)),
+    ("mega", 3, counts(expand_dw=2, adaattn_fwd=1, mega_block=13)),
 )
 MAIN_ROUTE = "flat-all"  # the stylize routes' main path (slice 2)
 
@@ -76,8 +90,7 @@ MAIN_ROUTE = "flat-all"  # the stylize routes' main path (slice 2)
 # steps at the last bucket.  Launches per step: one forward and one backward
 # per AdaAttN module (two modules), nothing else.
 TRAIN_BATCH, TRAIN_SIZES, TRAIN_STEPS = 8, (96, 128, 160), 6
-TRAIN_LAUNCHES = {"expand_dw": 0, "adaattn_fwd": 2, "flat_block": 0,
-                  "flat_s2_block": 0, "adaattn_dq": 2, "adaattn_dkv": 2}
+TRAIN_LAUNCHES = counts(adaattn_fwd=2, adaattn_dq=2, adaattn_dkv=2)
 # AdaAttN backward cases: name, B, Nc, Ns, dtype of q/k/v, dtype of dm,
 # launches of each kernel per 160px training step.  The three training
 # buckets (Nc = Ns = (size / 8)^2), a ragged case, bf16 inputs, and the
@@ -150,6 +163,52 @@ FLAT_S2_CASES = (
     ("e4-f32", 2, 64, 24, 144, 40, 5, True, "float32", 0, 0),
     ("cin12", 2, 36, 12, 48, 13, 3, True, "bfloat16", 0, 0),
 )
+# mega_block shapes (x is (N, H, C_in, W)): name, batch, H, W, C_in, E,
+# C_out, k, folded-BN biases, residual, dtype, launches per "mega" request.
+# The 11 rows of the 512px path, then off the path: the f32 path, the
+# expand==1 form, a C_out that is not a multiple of 16, an odd H, an H below
+# the 16-row tile, and a C_in that is not a multiple of 8 with an odd C_out
+# and a W whose last tile is partial (the scalar staging).
+MEGA_CASES = (
+    ("e1", 16, 512, 512, 16, 96, 16, 3, True, True, "bfloat16", 1),
+    ("e3", 16, 256, 256, 24, 144, 24, 3, True, True, "bfloat16", 1),
+    ("d3", 8, 128, 128, 96, 288, 96, 5, False, True, "bfloat16", 1),
+    ("d4", 8, 128, 128, 96, 384, 80, 5, False, False, "bfloat16", 1),
+    ("d5-d6", 8, 256, 256, 80, 320, 80, 3, False, True, "bfloat16", 2),
+    ("d7", 8, 256, 256, 80, 320, 40, 3, False, False, "bfloat16", 1),
+    ("d8-d9", 8, 512, 512, 40, 160, 40, 5, False, True, "bfloat16", 2),
+    ("d10", 8, 512, 512, 40, 240, 24, 5, False, False, "bfloat16", 1),
+    ("d11", 8, 512, 512, 24, 144, 24, 3, False, True, "bfloat16", 1),
+    ("d12", 8, 512, 512, 24, 144, 16, 3, False, False, "bfloat16", 1),
+    ("d13", 8, 512, 512, 16, 96, 16, 3, False, True, "bfloat16", 1),
+    ("e1-f32", 2, 128, 128, 16, 96, 16, 3, True, True, "float32", 0),
+    ("expand1", 2, 128, 128, 40, 40, 40, 3, True, True, "bfloat16", 0),
+    ("cout8", 2, 64, 128, 16, 96, 8, 3, True, False, "bfloat16", 0),
+    ("odd-h", 2, 33, 128, 24, 144, 24, 3, False, True, "bfloat16", 0),
+    ("h9", 2, 9, 128, 8, 24, 16, 3, True, False, "bfloat16", 0),
+    ("cin12", 2, 37, 40, 12, 48, 13, 5, True, False, "bfloat16", 0),
+)
+# fused_sums + fused_project (the two-pass block, NHWC): name, batch, H=W,
+# C_in, E, C_out, k, folded-BN biases (with them the projection bias is
+# added after the kernel), residual, dtype, blocks of that shape on the
+# fused route per request (the 15 of EXPAND_DW_CASES with their C_out).  The
+# last two are off that route: the f32 path and the expand==1 form.
+TWO_PASS_CASES = (
+    ("e1", 16, 512, 16, 96, 16, 3, True, True, "bfloat16", 1),
+    ("e3", 16, 256, 24, 144, 24, 3, True, True, "bfloat16", 1),
+    ("e5-e6", 16, 128, 40, 160, 40, 5, True, True, "bfloat16", 2),
+    ("d3", 8, 128, 96, 288, 96, 5, False, True, "bfloat16", 1),
+    ("d4", 8, 128, 96, 384, 80, 5, False, False, "bfloat16", 1),
+    ("d5-d6", 8, 256, 80, 320, 80, 3, False, True, "bfloat16", 2),
+    ("d7", 8, 256, 80, 320, 40, 3, False, False, "bfloat16", 1),
+    ("d8-d9", 8, 512, 40, 160, 40, 5, False, True, "bfloat16", 2),
+    ("d10", 8, 512, 40, 240, 24, 5, False, False, "bfloat16", 1),
+    ("d11", 8, 512, 24, 144, 24, 3, False, True, "bfloat16", 1),
+    ("d12", 8, 512, 24, 144, 16, 3, False, False, "bfloat16", 1),
+    ("d13", 8, 512, 16, 96, 16, 3, False, True, "bfloat16", 1),
+    ("e1-f32", 2, 128, 16, 96, 16, 3, True, True, "float32", 0),
+    ("expand1", 2, 128, 40, 40, 40, 3, True, True, "bfloat16", 0),
+)
 # AdaAttN: both taps stacked (2B = 16 images of 64x64 = 4096 positions).
 ADAATTN_CASES = (
     ("taps", 16, 4096, 4096, "bfloat16", True),
@@ -216,6 +275,15 @@ class Bound:
         self.nbytes += times * nbytes
         self.flops += times * flops
         self.ops_s += times * flops / peak
+
+    def add_block(self, nbytes, mm_flops, dw_flops, size, times=1):
+        """A block kernel's launches: its 1x1 products at the peak of the
+        I/O dtype of ``size`` bytes (bf16 tensor cores, or f32), its
+        depthwise at the f32 peak (it runs in f32 at every dtype, as the
+        TPU kernels' semantics ask)."""
+        self.add(nbytes, mm_flops, PEAK_BF16 if size == 2 else PEAK_F32,
+                 times)
+        self.add(0, dw_flops, PEAK_F32, times)
 
     def ms(self):
         return 1e3 * max(self.nbytes / HBM_BYTES_S, self.ops_s)
@@ -301,9 +369,9 @@ def expand_dw_phase(gen):
         t_p = timed_ms(lambda: expand_dw_reference(*args), iters=3, warmup=1)
         ms += per_req * t_k
         plain_ms += per_req * t_p
-        bound.add(2 * n * hw * hw * (c_in + e) + 4 * n * e,
-                  2 * n * hw * hw * e * ((c_in if expand else 0) + k * k),
-                  PEAK_BF16, per_req)
+        bound.add_block(2 * n * hw * hw * (c_in + e) + 4 * n * e,
+                        2 * n * hw * hw * e * c_in * expand,
+                        2 * n * hw * hw * e * k * k, 2, per_req)
         log(f"expand_dw {name:8s} x={tuple(x.shape)} E={e} k={k} bn={bn}: "
             f"hidden err {err_h:.4g} (tol {tol_h:.4g}), sums err "
             f"{err_s:.4g} (tol {tol_s:.4g}); kernel {t_k:.4f} ms, "
@@ -423,13 +491,12 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         ho = hw // stride
         size = x.element_size()
         nbytes = size * n * (hw * hw * c_in + ho * ho * c_out) + 4 * n * e
-        flops = 2 * n * (hw * hw * c_in * e * expand
-                         + ho * ho * e * (k * k + c_out))
+        mm = 2 * n * (hw * hw * c_in * e * expand + ho * ho * e * c_out)
+        dw = 2 * n * ho * ho * e * k * k
         for route, per_req in (("flat-all", per_all), ("auto", per_auto)):
             per_route[route][0] += per_req * t_k
             per_route[route][1] += per_req * t_p
-            bounds[route].add(nbytes, flops, PEAK_BF16 if size == 2
-                              else PEAK_F32, per_req)
+            bounds[route].add_block(nbytes, mm, dw, size, per_req)
         log(f"{name} {label:8s} x={tuple(x.shape)} E={e} C_out={c_out} "
             f"k={k} bn={bn} res={residual} {dtype}: y err {err_y:.4g} (tol "
             f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
@@ -441,6 +508,198 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
             f"{t_p:.4f} ms, bound {bounds[route].ms():.4f} ms "
             f"({bounds[route].by()})")
     return worst, per_route, bounds
+
+
+def block_cost(n, h, w, c_in, e, c_out, k, size, expand=True):
+    """(bytes, 1x1 operations, depthwise operations) of one whole stride-1
+    block: x read, y written, the sums; the expand and the projection; the
+    depthwise."""
+    nbytes = size * n * h * w * (c_in + c_out) + 4 * n * e
+    return (nbytes, 2 * n * h * w * e * (c_in * expand + c_out),
+            2 * n * h * w * e * k * k)
+
+
+def mega_phase(gen):
+    """mega_block against its twin at every case, with flat_block timed on
+    the same block (NHWC) beside it; returns the worst y error of the
+    path's cases, (kernel, twin) device ms per "mega" request and the
+    bound."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
+        flat_block,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.mega_block import (
+        mega_block,
+        mega_block_reference,
+    )
+
+    worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
+    for (label, n, h, w, c_in, e, c_out, k, bn, residual, dtype,
+         per_req) in MEGA_CASES:
+        dt = getattr(torch, dtype)
+        expand = label != "expand1"
+        xt = torch.randn(n, h, c_in, w, generator=gen, device=DEVICE).to(dt)
+        (we, wd, se, wp), (be, bd, pb) = random_block(gen, c_in, e, c_out, k,
+                                                      bn, expand)
+        kw = dict(pre_act=expand, b_expand=be, b_dw=bd, proj_bias=pb,
+                  identity=residual)
+        args = (we, wd, se, wp, k)
+        y, sums = mega_block(xt, *args, **kw)
+        torch.cuda.synchronize()
+        r_y, r_sums = mega_block_reference(xt, *args, **kw)
+        err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
+        rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        tol_y = rel * float(r_y.float().abs().max())
+        tol_s = SUMS_TOL * float(r_sums.abs().max())
+        check(tuple(y.shape) == (n, h, c_out, w) and y.dtype == dt,
+              f"mega_block {label}: output {tuple(y.shape)} {y.dtype}")
+        if per_req:
+            worst = max(worst, err_y)
+        del y, sums, r_y, r_sums
+        t_k = timed_ms(lambda: mega_block(xt, *args, **kw))
+        t_p = timed_ms(lambda: mega_block_reference(xt, *args, **kw),
+                       iters=3, warmup=1)
+        # A/B: the same block on NHWC through flat_block (other rounding
+        # points, so times only).
+        x = xt.permute(0, 1, 3, 2).contiguous()
+        t_f = timed_ms(lambda: flat_block(x, *args, **kw))
+        del x
+        ms += per_req * t_k
+        plain_ms += per_req * t_p
+        size = xt.element_size()
+        cost = block_cost(n, h, w, c_in, e, c_out, k, size, expand)
+        bound.add_block(*cost, size, per_req)
+        one = Bound()
+        one.add_block(*cost, size)
+        log(f"mega_block {label:8s} x={tuple(xt.shape)} E={e} C_out={c_out} "
+            f"k={k} bn={bn} res={residual} {dtype}: y err {err_y:.4g} (tol "
+            f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {one.ms():.4f} ms "
+            f"({one.by()}); A/B flat_block on NHWC {t_f:.4f} ms (mega/flat "
+            f"{t_k / t_f:.3f})")
+        check(err_y <= tol_y and err_s <= tol_s, f"mega_block {label} differs")
+        del xt
+        torch.cuda.empty_cache()
+    log(f"mega_block per mega request: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
+    return worst, ms, plain_ms, bound
+
+
+def two_pass_phase(gen):
+    """fused_sums and fused_project against their twins at every case, and
+    the two-pass block timed against the fused route's block (expand_dw +
+    the PyTorch epilogue); returns {kernel: [worst error, ms, plain ms,
+    Bound]} summed over the 15 fused-route blocks of a request."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.basic import se_gate
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
+        expand_dw,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.fused_2pass import (
+        fused_project,
+        fused_project_reference,
+        fused_sums,
+        fused_sums_reference,
+    )
+
+    out = {name: [0.0, 0.0, 0.0, Bound()]
+           for name in ("fused_sums", "fused_project")}
+    ab = [0.0, 0.0]  # per request: two-pass block, fused route's block
+    for (label, n, hw, c_in, e, c_out, k, bn, residual, dtype,
+         per_req) in TWO_PASS_CASES:
+        dt = getattr(torch, dtype)
+        expand = label != "expand1"
+        x = torch.randn(n, hw, hw, c_in, generator=gen, device=DEVICE).to(dt)
+        (we, wd, se, wp), (be, bd, pb) = random_block(gen, c_in, e, c_out, k,
+                                                      bn, expand)
+        common = dict(pre_act=expand, b_expand=be, b_dw=bd)
+        # With a projection bias the residual is added after the kernel.
+        in_kernel = residual and pb is None
+        sums = fused_sums(x, we, wd, k, **common)
+        torch.cuda.synchronize()
+        r_sums = fused_sums_reference(x, we, wd, k, **common)
+        gate = se_gate(r_sums, hw * hw, se)
+        y = fused_project(x, we, wd, k, gate, wp, identity=in_kernel,
+                          **common)
+        torch.cuda.synchronize()
+        r_y = fused_project_reference(x, we, wd, k, gate, wp,
+                                      identity=in_kernel, **common)
+        err_s, err_y = max_err(sums, r_sums), max_err(y, r_y)
+        rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        tol_y = rel * float(r_y.float().abs().max())
+        tol_s = SUMS_TOL * float(r_sums.abs().max())
+        check(tuple(y.shape) == (n, hw, hw, c_out) and y.dtype == dt,
+              f"fused_project {label}: output {tuple(y.shape)} {y.dtype}")
+        if per_req:
+            out["fused_sums"][0] = max(out["fused_sums"][0], err_s)
+            out["fused_project"][0] = max(out["fused_project"][0], err_y)
+        del sums, r_sums, y, r_y
+
+        def two_pass():
+            g = se_gate(fused_sums(x, we, wd, k, **common), hw * hw, se)
+            yy = fused_project(x, we, wd, k, g, wp, identity=in_kernel,
+                               **common)
+            if pb is not None:
+                yy = (yy.float() + pb).to(dt)
+                if residual:
+                    yy = yy + x
+            return yy
+
+        def fused_route():  # ops/fused_block.fused_block_apply's body
+            hidden, s = expand_dw(x, we, wd, k, **common)
+            g = se_gate(s, hw * hw, se)
+            yy = torch.matmul(hidden * g[:, None, None, :].to(dt), wp.to(dt))
+            if pb is not None:
+                yy = yy.float() + pb
+            yy = yy.to(dt)
+            return yy + x if residual else yy
+
+        times = {
+            "fused_sums": (timed_ms(lambda: fused_sums(x, we, wd, k,
+                                                       **common)),
+                           timed_ms(lambda: fused_sums_reference(
+                               x, we, wd, k, **common), iters=3, warmup=1)),
+            "fused_project": (
+                timed_ms(lambda: fused_project(x, we, wd, k, gate, wp,
+                                               identity=in_kernel, **common)),
+                timed_ms(lambda: fused_project_reference(
+                    x, we, wd, k, gate, wp, identity=in_kernel, **common),
+                    iters=3, warmup=1)),
+        }
+        t_2p, t_fr = timed_ms(two_pass), timed_ms(fused_route)
+        ab[0] += per_req * t_2p
+        ab[1] += per_req * t_fr
+        size, pix = x.element_size(), n * hw * hw
+        costs = {
+            "fused_sums": (size * pix * c_in + 4 * n * e,
+                           2 * pix * e * c_in * expand, 2 * pix * e * k * k),
+            "fused_project": block_cost(n, hw, hw, c_in, e, c_out, k, size,
+                                        expand),
+        }
+        report = []
+        for name, (t_k, t_p) in times.items():
+            out[name][1] += per_req * t_k
+            out[name][2] += per_req * t_p
+            out[name][3].add_block(*costs[name], size, per_req)
+            one = Bound()
+            one.add_block(*costs[name], size)
+            report.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound "
+                          f"{one.ms():.4f} {one.by()})")
+        log(f"fused_2pass {label:8s} x={tuple(x.shape)} E={e} C_out={c_out} "
+            f"k={k} bn={bn} res={residual} {dtype}: sums err {err_s:.4g} "
+            f"(tol {tol_s:.4g}), y err {err_y:.4g} (tol {tol_y:.4g}); "
+            + ", ".join(report) + f"; A/B block: two-pass {t_2p:.4f} ms, "
+            f"expand_dw + epilogue {t_fr:.4f} ms")
+        check(err_s <= tol_s and err_y <= tol_y, f"fused_2pass {label} "
+              "differs")
+        del x
+        torch.cuda.empty_cache()
+    for name, (_, t_k, t_p, b) in out.items():
+        log(f"{name} over the 15 fused-route blocks: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, bound {b.ms():.4f} ms ({b.by()})")
+    log(f"A/B per request (15 fused-route blocks): two-pass block "
+        f"{ab[0]:.4f} ms, expand_dw + epilogue {ab[1]:.4f} ms")
+    return out
 
 
 def random_state(cfg, seed):
@@ -611,7 +870,7 @@ def drive_route(pipe, impl, requests, expected):
         f"({BATCH * 1000 / plain_ms:.2f} img/s); peak memory "
         f"{peak_gib:.2f} GiB")
     profile_request(pipe, impl, content, style, alpha,
-                    top=15 if impl == MAIN_ROUTE else 8)
+                    top=15 if impl in (MAIN_ROUTE, "mega") else 8)
     return launches
 
 
@@ -620,21 +879,24 @@ def run_plain(pipe, content, style, alpha, repeats):
     twin; returns the last output and each call's ms (CUDA events)."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops import flatblock, flatblock_s2
-    from arbitrarystyletransfer_tpu_torch.ops import fused_block
+    from arbitrarystyletransfer_tpu_torch.ops import fused_block, megablock
     from arbitrarystyletransfer_tpu_torch.ops.kernels import (
         adaattn_fwd as adaattn_mod,
         expand_dw as expand_mod,
         flat_block as flat_mod,
         flat_s2 as flat_s2_mod,
+        mega_block as mega_mod,
     )
 
     saved = (fused_block.expand_dw, adaattn_mod.adaattn_statistics,
-             flatblock.flat_block, flatblock_s2.flat_s2_block)
+             flatblock.flat_block, flatblock_s2.flat_s2_block,
+             megablock.mega_block)
     fused_block.expand_dw = expand_mod.expand_dw_reference
     adaattn_mod.adaattn_statistics = (
         lambda q, k, v: adaattn_mod.adaattn_fwd_reference(q, k, v)[:2])
     flatblock.flat_block = flat_mod.flat_block_reference
     flatblock_s2.flat_s2_block = flat_s2_mod.flat_s2_block_reference
+    megablock.mega_block = mega_mod.mega_block_reference
     times = []
     try:
         for _ in range(repeats):
@@ -647,7 +909,8 @@ def run_plain(pipe, content, style, alpha, repeats):
             times.append(start.elapsed_time(end))
     finally:
         (fused_block.expand_dw, adaattn_mod.adaattn_statistics,
-         flatblock.flat_block, flatblock_s2.flat_s2_block) = saved
+         flatblock.flat_block, flatblock_s2.flat_s2_block,
+         megablock.mega_block) = saved
     return out, times
 
 
@@ -1065,18 +1328,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = round(time.perf_counter() - t, 1)
+            log(f"phase {name}: {seconds[name]} s")
+
     with torch.inference_mode():
-        e_worst, e_ms, e_plain, e_bound = expand_dw_phase(gen)
-        a_worst, a_ms, a_plain, a_bound, a_lib = adaattn_phase(gen)
-        f_worst, f_ms, f_bound = flat_kernel_phase(
-            gen, "flat_block", flat_block, flat_block_reference,
-            FLAT_BLOCK_CASES, stride=1)
-        s_worst, s_ms, s_bound = flat_kernel_phase(
-            gen, "flat_s2_block", flat_s2_block, flat_s2_block_reference,
-            FLAT_S2_CASES, stride=2)
-    bwd = adaattn_bwd_phase(gen)
-    launches = routes_phase(gen)
-    launches["train"], train_ms, train_peak = train_phase(gen)
+        e_worst, e_ms, e_plain, e_bound = phase("expand_dw", expand_dw_phase,
+                                                gen)
+        a_worst, a_ms, a_plain, a_bound, a_lib = phase("adaattn_fwd",
+                                                       adaattn_phase, gen)
+        f_worst, f_ms, f_bound = phase(
+            "flat_block", flat_kernel_phase, gen, "flat_block", flat_block,
+            flat_block_reference, FLAT_BLOCK_CASES, 1)
+        s_worst, s_ms, s_bound = phase(
+            "flat_s2_block", flat_kernel_phase, gen, "flat_s2_block",
+            flat_s2_block, flat_s2_block_reference, FLAT_S2_CASES, 2)
+        # Slice 4's kernel phases draw from a generator of their own, so
+        # that every other phase gets the inputs it got before them.
+        gen4 = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+        m_worst, m_ms, m_plain, m_bound = phase("mega_block", mega_phase,
+                                                gen4)
+        two_pass = phase("fused_2pass", two_pass_phase, gen4)
+    bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
+    launches = phase("routes", routes_phase, gen)
+    launches["train"], train_ms, train_peak = phase("train", train_phase, gen)
+    log(f"phase seconds: {seconds}")
 
     def row(name, source, replaces, worst, ms, plain_ms, bound, library_ms):
         by_route = {impl: counts[name] for impl, counts in launches.items()}
@@ -1101,6 +1383,12 @@ def main() -> int:
             *bwd["adaattn_dq"]),
         row("adaattn_dkv", "adaattn_bwd.cu", "adaattn_kernel.py:220",
             *bwd["adaattn_dkv"]),
+        row("mega_block", "mega_block.cu", "megablock.py:117", m_worst,
+            m_ms, m_plain, m_bound, None),
+        row("fused_sums", "fused_2pass.cu", "fused_block.py:68",
+            *two_pass["fused_sums"], None),
+        row("fused_project", "fused_2pass.cu", "fused_block.py:68",
+            *two_pass["fused_project"], None),
     ]
     log("kernels: launches = sum over the routes' requests and the timed "
         "train steps (counted per route); for the stylize kernels "
@@ -1108,13 +1396,19 @@ def main() -> int:
         "(hidden for expand_dw, mean/std of the AdaAttN taps case) and ms, "
         "plain_ms, bound_ms are device ms per 512px batch-8 request (fused "
         "route for expand_dw, the AdaAttN taps call for adaattn_fwd, the "
-        f"{MAIN_ROUTE} route for the flat kernels); for adaattn_dq/dkv they "
+        f"{MAIN_ROUTE} route for the flat kernels, the mega route for "
+        "mega_block); fused_sums and fused_project (modes \"sums\" and "
+        "\"project\" of the same TPU kernel) run on no route, so their "
+        "launches are 0, and their ms, plain_ms and bound_ms are the sums "
+        "over the 15 blocks of the fused route's request at those shapes, "
+        "max_abs_err over their sums (resp. y) there; for adaattn_dq/dkv they "
         f"are per {TRAIN_SIZES[-1]}px batch-{TRAIN_BATCH} f32 train step (2 "
         "launches), max_abs_err over dq (resp. dk, dv) at that shape, and "
         "library_ms is the sdpa backward (forward+backward less forward), "
         "which computes dq, dk and dv at once; library_ms of adaattn_fwd is "
         "the sdpa forward of the taps call; bounds at the H100 SXM peaks "
-        "(bf16 989 TFLOP/s, f32 67 TFLOP/s, HBM 3.35 TB/s)")
+        "(bf16 989 TFLOP/s, f32 67 TFLOP/s, HBM 3.35 TB/s), the block "
+        "kernels' f32 depthwise at the f32 peak")
     log(f"train: {train_ms:.3f} ms per {TRAIN_SIZES[-1]}px batch-"
         f"{TRAIN_BATCH} f32 step ({1000 / train_ms:.3f} steps/s), peak "
         f"memory {train_peak:.2f} GiB")

@@ -49,7 +49,7 @@ def test_image_loader_matches_jax(tmp_path):
                                   jax_loader(str(content), 48))
 
 
-@pytest.mark.parametrize("impl", ["auto", "flat-all"])
+@pytest.mark.parametrize("impl", ["auto", "flat-all", "mega"])
 def test_cli_writes_the_pipeline_image(tmp_path, impl):
     content, style = _write_images(tmp_path)
     v = ast_variables(seed=10)

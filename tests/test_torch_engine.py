@@ -149,12 +149,23 @@ def test_route_sends_15_blocks_to_expand_dw(monkeypatch):
 
 
 @pytest.mark.parametrize("impl", ["mega"])
-def test_unported_routes_raise(impl):
+def test_ported_routes_run(impl):
+    """The mega route runs in the engine and through the pipeline, as the
+    encoder route, the decoder route or both; an unknown route raises."""
     state = weights.init_params(CFG, torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 16, 16, 3)
-    for kw in ({"encoder_impl": impl}, {"decoder_impl": impl}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.stylize_fused(state, x, x, cfg=CFG, **kw)
+    content, style = _images(13, size=32, b=1)
+    for kw in ({"encoder_impl": impl}, {"decoder_impl": impl},
+               {"encoder_impl": impl, "decoder_impl": impl}):
+        pipe = StylePipeline(CFG, state=state, device="cpu", **kw)
+        out = pipe.stylize(content, style, 0.5)
+        ref = engine.stylize_fused(
+            state, torch.from_numpy(content), torch.from_numpy(style), 0.5,
+            cfg=CFG, dtype=torch.float32, **kw)
+        assert out.shape == (1, 32, 32, 3) and torch.equal(out, ref)
+    with pytest.raises(ValueError, match="unknown decoder_impl"):
+        engine.stylize_fused(state, torch.from_numpy(content),
+                             torch.from_numpy(style), cfg=CFG,
+                             decoder_impl="megakernel")
 
 
 def test_pipeline_refuses_batch_stats_config():
