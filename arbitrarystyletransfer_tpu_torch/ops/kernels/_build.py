@@ -52,6 +52,16 @@ _SIGNATURES = {
     # q, k, v, dm1, dm2, m, l, d, dk, dv, b, nc, ns, c, is_bf16, dm_bf16,
     # stream
     "adaattn_dkv_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # x, y, nbytes, stream
+    "probe_copy_launch": [_P, _P, ctypes.c_longlong, _P],
+    # x, w, y, r, c, e, width, stream (both schedules)
+    "probe_mm_einsum_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "probe_mm_rowloop_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # x, wd, y, th, c, w, k, stream (both layouts)
+    "probe_dw_t_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "probe_dw_nhwc_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # x, out, c, l, reps, op, par, is_bf16, stream
+    "probe_rate_launch": [_P] * 2 + [_I] * 6 + [_P],
 }
 
 _lib = None

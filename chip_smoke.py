@@ -15,7 +15,14 @@
    shape: ``mega_block`` against ``flat_block`` on the same block (the
    (N, H, C, W) layout against NHWC), and the two-pass block
    (``fused_sums`` + ``fused_project``) against the fused route's block
-   (``expand_dw`` + the PyTorch epilogue).
+   (``expand_dw`` + the PyTorch epilogue).  Then the probe kernels
+   (``ops/kernels/probes.py``: copy, the two product schedules, the two
+   depthwise layouts, the issue rates) at the JAX probe scripts' default
+   shapes, each against its twin (the copy bit-exact), with a library call
+   beside all but the rates; then the two probe drivers as a user runs
+   them, the counters reset just before each and read just after (each
+   must launch exactly its kernels' expected counts), their JSON lines, and
+   the probe rows' times taken from them.
 4. Routes: ``StylePipeline`` in bfloat16 with the AdaAttN kernel answers
    requests of 8 content/style pairs at 512x512 through four block routes:
    "fused"/"fused" (3 requests), "flat-all" (4; every block the flat kernels
@@ -65,7 +72,8 @@ ALPHAS = (1.0, 0.8, 0.5, 1.0)
 
 KERNELS = ("expand_dw", "adaattn_fwd", "flat_block", "flat_s2_block",
            "adaattn_dq", "adaattn_dkv", "mega_block", "fused_sums",
-           "fused_project")
+           "fused_project", "probe_copy", "probe_mm_einsum",
+           "probe_mm_rowloop", "probe_dw_t", "probe_dw_nhwc", "probe_rate")
 
 
 def counts(**launched):
@@ -208,6 +216,27 @@ TWO_PASS_CASES = (
     ("d13", 8, 512, 16, 96, 16, 3, False, True, "bfloat16", 1),
     ("e1-f32", 2, 128, 16, 96, 16, 3, True, True, "float32", 0),
     ("expand1", 2, 128, 40, 40, 40, 3, True, True, "bfloat16", 0),
+)
+# The probe kernels' rows: name, source, TPU kernel under scripts/.
+PROBE_ROWS = (
+    ("probe_copy", "probe_copy.cu", "probe_mega2.py:47"),
+    ("probe_mm_einsum", "probe_mm.cu", "probe_mega2.py:111"),
+    ("probe_mm_rowloop", "probe_mm.cu", "probe_mega2.py:118"),
+    ("probe_dw_t", "probe_dw.cu", "probe_mega2.py:152"),
+    ("probe_dw_nhwc", "probe_dw.cu", "probe_mega2.py:165"),
+    ("probe_rate", "probe_rate.cu", "probe_vpu_rate.py:70"),
+)
+RATE_SHAPE = (256, 4096, 512)  # probe_vpu_rate's defaults: C, L, reps
+RATE_ROW = ("fma", "f32", 8)  # the case of the probe_rate row
+# Launches of each probe kernel in one run of each probe driver at its
+# defaults.  probe_mega2's timed() makes 1 + 3 windows x 20 calls (copy,
+# depthwise), per_call_ms 1 + 3 x 12 and 1 + 3 x 3 chained calls (products,
+# rates), per kernel and shape (rates: per case; seven cases).
+PROBE_DRIVERS = (
+    ("probe_mega2", counts(probe_copy=2 * 61, probe_mm_einsum=2 * 47,
+                           probe_mm_rowloop=2 * 47, probe_dw_t=2 * 61,
+                           probe_dw_nhwc=2 * 61)),
+    ("probe_vpu_rate", counts(probe_rate=7 * 47)),
 )
 # AdaAttN: both taps stacked (2B = 16 images of 64x64 = 4096 positions).
 ADAATTN_CASES = (
@@ -700,6 +729,194 @@ def two_pass_phase(gen):
     log(f"A/B per request (15 fused-route blocks): two-pass block "
         f"{ab[0]:.4f} ms, expand_dw + epilogue {ab[1]:.4f} ms")
     return out
+
+
+def _rate_tol(dtype, op, steps):
+    """Relative tolerance of a probe_rate tile against its twin: bf16 one
+    ulp; f32 fma, whose fmaf rounds once where the twin rounds the product
+    and the sum, two f32 ulps per dependent step (measured: about half of
+    that); the other f32 ops round as the twin does (exact)."""
+    if dtype == "bf16":
+        return BF16_TOL
+    return steps * 2.0 ** -22 if op == "fma" else 0.0
+
+
+def probes_phase(gen):
+    """Every probe entry point against its twin at the JAX probe scripts'
+    default shapes, with its bound, its plain time and its library call;
+    then the two probe drivers as a user runs them, each with the launch
+    counters reset just before and read just after.  Returns ({kernel:
+    (worst error, ms, plain ms, Bound, library ms)}, {driver: {kernel:
+    launches}}).  ms is the drivers' (copy and depthwise: best of 3 windows
+    of 20 calls, the depthwise inputs cycled past L2; products and rates:
+    the slope between 12 and 3 chained calls), summed over the scripts' two
+    shapes for copy, products and depthwise, the fma f32 par 8 case for the
+    rate row; so are the copy's library times (``x * 1.0``, timed by the
+    driver).  The phase times the products' and depthwise's library calls
+    by the drivers' methods, on its own inputs."""
+    import torch
+    import torch.nn.functional as F
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import probes as P
+    from arbitrarystyletransfer_tpu_torch.scripts import (
+        probe_mega2,
+        probe_vpu_rate,
+    )
+
+    timed, per_call = probe_mega2.timed, probe_vpu_rate.per_call_ms
+    # {kernel: [worst error, plain ms, Bound, library ms]}, over both shapes
+    out = {name: [0.0, 0.0, Bound(), 0.0] for name in (
+        "probe_copy", "probe_mm_einsum", "probe_mm_rowloop", "probe_dw_t",
+        "probe_dw_nhwc")}
+
+    def add(name, err, plain_ms, lib_ms):
+        row = out[name]
+        row[0] = max(row[0], err)
+        row[1] += plain_ms
+        row[3] += lib_ms
+
+    for _, key, fn, shape in probe_mega2.PROBES:
+        if fn is probe_mega2.p1_dma_copy:
+            b, h, c, w, th, dt = shape
+            x = torch.randn(b, h, c, w, generator=gen, device=DEVICE).to(dt)
+            y = P.probe_copy(x, th)
+            torch.cuda.synchronize()
+            exact = torch.equal(y, x)
+            del y
+            t_p = timed_ms(lambda: P.probe_copy_reference(x), iters=3,
+                           warmup=1)
+            nbytes = x.numel() * x.element_size()
+            out["probe_copy"][2].add(2 * nbytes, 0, PEAK_BF16)
+            add("probe_copy", 0.0 if exact else float("inf"), t_p, 0.0)
+            log(f"probe_copy {key}: bit-exact {exact}; plain {t_p:.4f} ms, "
+                f"bound {2 * nbytes / HBM_BYTES_S * 1e3:.4f} ms")
+            check(exact, f"probe_copy {key}: the copy differs from x")
+            del x
+        elif fn is probe_mega2.p2_matmul:
+            r, c, e, w, dt = shape
+            x = torch.randn(r, c, w, generator=gen, device=DEVICE).to(dt)
+            wt = (torch.randn(c, e, generator=gen, device=DEVICE)
+                  / math.sqrt(c)).to(dt)
+            ref = P.probe_mm_reference(x, wt)
+            tol = BF16_TOL * float(ref.float().abs().max())
+            t_l = per_call(lambda: torch.einsum("rcw,ce->rew", x, wt))
+            t_p = timed_ms(lambda: P.probe_mm_reference(x, wt), iters=3,
+                           warmup=1)
+            for name, kern in (("probe_mm_einsum", P.probe_mm_einsum),
+                               ("probe_mm_rowloop", P.probe_mm_rowloop)):
+                y = kern(x, wt)
+                torch.cuda.synchronize()
+                err = max_err(y, ref)
+                out[name][2].add(2 * (x.numel() + wt.numel() + y.numel()),
+                                 2 * r * c * e * w, PEAK_BF16)
+                add(name, err, t_p, t_l)
+                log(f"{name} {key}: err {err:.4g} (tol {tol:.4g}); plain "
+                    f"{t_p:.4f} ms, library (einsum bf16) {t_l * 1e3:.2f} us")
+                check(tuple(y.shape) == (r, e, w) and y.dtype == dt
+                      and err <= tol, f"{name} {key} differs")
+        else:
+            th, c, w, k = shape
+            pad = (k - 1) // 2
+            x_t, x_n, wd = probe_mega2.dw_inputs(th, c, w, k, DEVICE, gen)
+            weight = wd.permute(2, 0, 1)[:, None].contiguous()  # (C,1,k,k)
+            lib_t = F.pad(x_t.permute(1, 0, 2)[None], (pad, pad, 0, 0),
+                          mode="circular").contiguous()
+            lib_n = x_n.permute(2, 0, 1)[None].contiguous()
+            for name, kern, twin, x, lib_x, layout in (
+                    ("probe_dw_t", P.probe_dw_t, P.probe_dw_t_reference, x_t,
+                     lib_t, (1, 0, 2)),
+                    ("probe_dw_nhwc", P.probe_dw_nhwc,
+                     P.probe_dw_nhwc_reference, x_n, lib_n, (1, 2, 0))):
+                y = kern(x, wd)
+                torch.cuda.synchronize()
+                ref = twin(x, wd)
+                err = max_err(y, ref)
+                tol = F32_TOL * float(ref.abs().max())
+                lib_err = max_err(F.conv2d(lib_x, weight, groups=c)[0]
+                                  .permute(*layout), ref)
+                t_p = timed_ms(lambda: twin(x, wd), iters=3, warmup=1)
+                t_l = timed(lambda v: F.conv2d(v, weight, groups=c),
+                            probe_mega2.l2_copies(lib_x))
+                nbytes = 4 * (x.numel() + y.numel() + wd.numel())
+                out[name][2].add(nbytes, 2 * k * k * y.numel(), PEAK_F32)
+                add(name, err, t_p, t_l)
+                log(f"{name} {key}: err {err:.4g} (tol {tol:.4g}); plain "
+                    f"{t_p:.4f} ms, library (conv2d groups=C, NCHW, inputs "
+                    f"cycled past L2) {t_l * 1e3:.2f} us (its err "
+                    f"{lib_err:.3g}), bound "
+                    f"{nbytes / HBM_BYTES_S * 1e3 * 1e3:.2f} us")
+                check(tuple(y.shape) == tuple(ref.shape) and err <= tol,
+                      f"{name} {key} differs")
+            del x_t, x_n, lib_t, lib_n
+        torch.cuda.empty_cache()
+
+    # probe_rate: every case of the JAX script at its default tile.
+    c, lanes, reps = RATE_SHAPE
+    for op, dt_name, dt, par in probe_vpu_rate.CASES:
+        x = probe_vpu_rate.rate_input(c, lanes, dt, DEVICE, gen)
+        y = P.probe_rate(x, op, par, reps)
+        torch.cuda.synchronize()
+        ref = P.probe_rate_reference(x, op, par, reps)
+        tol = _rate_tol(dt_name, op, reps // par)
+        ok = bool(((y - ref).abs() <= tol * ref.abs()).all())
+        rel = float(((y - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+        log(f"probe_rate {op} {dt_name} par={par}: [0, 0] {float(y[0, 0]):.9g}"
+            f" vs twin {float(ref[0, 0]):.9g}; tile max rel err {rel:.3g} "
+            f"(tol {tol:.3g})")
+        check(ok, f"probe_rate {op} {dt_name} par={par} differs")
+        if (op, dt_name, par) == RATE_ROW:
+            rate_plain = timed_ms(
+                lambda: P.probe_rate_reference(x, op, par, reps), iters=3,
+                warmup=1)
+            rate_ops = c * lanes * (reps // par * par)
+            rate_bound = Bound()
+            rate_bound.add(8 * c * lanes, 2 * rate_ops, PEAK_F32)
+            rate_err = max_err(y, ref)
+
+    # The drivers, as a user runs them (their own seeded inputs).
+    launches, results = {}, {}
+    for (driver, expected), module in zip(PROBE_DRIVERS,
+                                          (probe_mega2, probe_vpu_rate)):
+        reset_launches()
+        results[driver] = module.run(module.parse_args(["--device", DEVICE]))
+        launches[driver] = dict(LAUNCHES)
+        log(json.dumps(results[driver]))
+        log(f"{driver} launches: {launches[driver]}")
+        check(launches[driver] == expected, f"{driver} launched "
+              f"{launches[driver]}, expected {expected}")
+
+    res = results["probe_mega2"]
+    keys = {fn: [key for _, key, f, _ in probe_mega2.PROBES if f is fn]
+            for fn in (probe_mega2.p1_dma_copy, probe_mega2.p2_matmul,
+                       probe_mega2.p3_dw)}
+    ms = {
+        "probe_copy": sum(res[k]["kernel_ms"]
+                          for k in keys[probe_mega2.p1_dma_copy]),
+        "probe_mm_einsum": sum(res[k]["einsum"]["ms"]
+                               for k in keys[probe_mega2.p2_matmul]),
+        "probe_mm_rowloop": sum(res[k]["rowloop"]["ms"]
+                                for k in keys[probe_mega2.p2_matmul]),
+        "probe_dw_t": sum(res[k]["transposed_ms"]
+                          for k in keys[probe_mega2.p3_dw]),
+        "probe_dw_nhwc": sum(res[k]["nhwc_ms"]
+                             for k in keys[probe_mega2.p3_dw]),
+    }
+    out["probe_copy"][3] = sum(res[k]["torch_ms"]
+                               for k in keys[probe_mega2.p1_dma_copy])
+    rows = {name: (err, ms[name], plain, bound, lib)
+            for name, (err, plain, bound, lib) in out.items()}
+    op, dt_name, par = RATE_ROW
+    gops = results["probe_vpu_rate"][f"{op}_{dt_name}_p{par}_Gops"]
+    rows["probe_rate"] = (rate_err, rate_ops / gops / 1e6, rate_plain,
+                          rate_bound, None)
+    for name, (err, t_k, t_p, bound, t_l) in rows.items():
+        log(f"{name}: kernel {t_k:.5f} ms (driver), plain {t_p:.4f} ms, "
+            f"library {t_l} ms, bound {bound.ms():.5f} ms ({bound.by()}), "
+            f"max err {err:.4g}")
+    return rows, launches
 
 
 def random_state(cfg, seed):
@@ -1355,43 +1572,52 @@ def main() -> int:
         m_worst, m_ms, m_plain, m_bound = phase("mega_block", mega_phase,
                                                 gen4)
         two_pass = phase("fused_2pass", two_pass_phase, gen4)
+        # So do slice 5's probes.
+        gen5 = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        probe_rows, probe_launches = phase("probes", probes_phase, gen5)
     bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
     launches = phase("routes", routes_phase, gen)
     launches["train"], train_ms, train_peak = phase("train", train_phase, gen)
+    launches.update(probe_launches)
     log(f"phase seconds: {seconds}")
 
+    pallas = "arbitrarystyletransfer_tpu/ops/pallas/"
+
     def row(name, source, replaces, worst, ms, plain_ms, bound, library_ms):
+        """``replaces`` is the TPU kernel's file:line from the repo root."""
         by_route = {impl: counts[name] for impl, counts in launches.items()}
         return {"name": name, "route": "cuda",
                 "source": f"arbitrarystyletransfer_tpu_torch/csrc/{source}",
-                "replaces": f"arbitrarystyletransfer_tpu/ops/pallas/{replaces}",
+                "replaces": replaces,
                 "launches": sum(by_route.values()),
                 "launches_by_route": by_route, "max_abs_err": worst,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.ms(),
                 "bound_by": bound.by(), "library_ms": library_ms}
 
     kernels = [
-        row("expand_dw", "expand_dw.cu", "fused_block.py:68", e_worst, e_ms,
-            e_plain, e_bound, None),
-        row("adaattn_fwd", "adaattn_fwd.cu", "adaattn_kernel.py:57", a_worst,
-            a_ms, a_plain, a_bound, a_lib),
-        row("flat_block", "flat_block.cu", "flatblock.py:92", f_worst,
-            *f_ms[MAIN_ROUTE], f_bound[MAIN_ROUTE], None),
-        row("flat_s2_block", "flat_s2.cu", "flatblock_s2.py:121", s_worst,
-            *s_ms[MAIN_ROUTE], s_bound[MAIN_ROUTE], None),
-        row("adaattn_dq", "adaattn_bwd.cu", "adaattn_kernel.py:183",
+        row("expand_dw", "expand_dw.cu", pallas + "fused_block.py:68",
+            e_worst, e_ms, e_plain, e_bound, None),
+        row("adaattn_fwd", "adaattn_fwd.cu", pallas + "adaattn_kernel.py:57",
+            a_worst, a_ms, a_plain, a_bound, a_lib),
+        row("flat_block", "flat_block.cu", pallas + "flatblock.py:92",
+            f_worst, *f_ms[MAIN_ROUTE], f_bound[MAIN_ROUTE], None),
+        row("flat_s2_block", "flat_s2.cu", pallas + "flatblock_s2.py:121",
+            s_worst, *s_ms[MAIN_ROUTE], s_bound[MAIN_ROUTE], None),
+        row("adaattn_dq", "adaattn_bwd.cu", pallas + "adaattn_kernel.py:183",
             *bwd["adaattn_dq"]),
-        row("adaattn_dkv", "adaattn_bwd.cu", "adaattn_kernel.py:220",
-            *bwd["adaattn_dkv"]),
-        row("mega_block", "mega_block.cu", "megablock.py:117", m_worst,
-            m_ms, m_plain, m_bound, None),
-        row("fused_sums", "fused_2pass.cu", "fused_block.py:68",
+        row("adaattn_dkv", "adaattn_bwd.cu",
+            pallas + "adaattn_kernel.py:220", *bwd["adaattn_dkv"]),
+        row("mega_block", "mega_block.cu", pallas + "megablock.py:117",
+            m_worst, m_ms, m_plain, m_bound, None),
+        row("fused_sums", "fused_2pass.cu", pallas + "fused_block.py:68",
             *two_pass["fused_sums"], None),
-        row("fused_project", "fused_2pass.cu", "fused_block.py:68",
+        row("fused_project", "fused_2pass.cu", pallas + "fused_block.py:68",
             *two_pass["fused_project"], None),
-    ]
-    log("kernels: launches = sum over the routes' requests and the timed "
-        "train steps (counted per route); for the stylize kernels "
+    ] + [row(name, source, "scripts/" + replaces, *probe_rows[name])
+         for name, source, replaces in PROBE_ROWS]
+    log("kernels: launches = sum over the routes' requests, the timed "
+        "train steps and the two probe drivers' runs (counted per route or "
+        "driver); for the stylize kernels "
         "max_abs_err is the worst output error over their 512px bf16 cases "
         "(hidden for expand_dw, mean/std of the AdaAttN taps case) and ms, "
         "plain_ms, bound_ms are device ms per 512px batch-8 request (fused "
@@ -1408,7 +1634,20 @@ def main() -> int:
         "which computes dq, dk and dv at once; library_ms of adaattn_fwd is "
         "the sdpa forward of the taps call; bounds at the H100 SXM peaks "
         "(bf16 989 TFLOP/s, f32 67 TFLOP/s, HBM 3.35 TB/s), the block "
-        "kernels' f32 depthwise at the f32 peak")
+        "kernels' f32 depthwise at the f32 peak; the probe rows run on no "
+        "route, their launches are the probe drivers' (probe_mega2 for "
+        "copy, products and depthwise, probe_vpu_rate for the rates) and "
+        "their ms the drivers' measurements; for probe_copy, probe_mm_* and "
+        "probe_dw_* ms, plain_ms, bound_ms and library_ms are sums over the "
+        "JAX probe script's two default shapes (copy: best of 3 windows of "
+        "20 calls, bit-exact, max_abs_err 0, library x * 1.0; products: the "
+        "slope between 12 and 3 chained calls, L2-resident, max_abs_err over "
+        "both shapes, library torch.einsum in bf16; depthwise: best of 3 "
+        "windows with the inputs cycled past L2, f32, library "
+        "F.conv2d(groups=C) on NCHW, circular in W for probe_dw_t); "
+        "probe_rate is the fma f32 par 8 case at (256, 4096), 512 reps "
+        "(slope method; its max_abs_err over the whole tile, library "
+        "null)")
     log(f"train: {train_ms:.3f} ms per {TRAIN_SIZES[-1]}px batch-"
         f"{TRAIN_BATCH} f32 step ({1000 / train_ms:.3f} steps/s), peak "
         f"memory {train_peak:.2f} GiB")
