@@ -92,10 +92,6 @@ __device__ __forceinline__ void load_row_terms(float* ms, float* ls, float* ds,
   }
 }
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
 // For the thread's query rows ty*4+i and keys tx+16j of the resident tiles:
 // p = exp(q k^T - m) / l (keys past ns_left masked) and ds = p (T - D), with
 // T = dm1 v^T + dm2 (v^2)^T.
@@ -104,25 +100,11 @@ __device__ __forceinline__ void p_and_ds(
     const float* vs, const float* ms, const float* ls, const float* Ds,
     int ty, int tx, int ns_left, float (&p)[4][4], float (&ds)[4][4]) {
   float s[4][4], t[4][4];
+  adaattn_logits<C, LD>(qs, ks, ty, tx, s);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
-
-#pragma unroll 2
-  for (int d = 0; d < C; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&qs[(ty * 4 + i) * LD + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += dot4(a[i], b[j]);
-  }
+    for (int j = 0; j < 4; ++j) t[i][j] = 0.f;
 
 #pragma unroll 2
   for (int d = 0; d < C; d += 4) {

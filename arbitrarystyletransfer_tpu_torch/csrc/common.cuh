@@ -58,6 +58,40 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// a . b over four channels, summed in this order.
+__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// The AdaAttN logits s[i][j] = q[ty*4+i] . k[tx+16j] of a 16 x 16 thread
+// grid over row-major f32 tiles (C channels, row stride LD).  The f32
+// forward kernel and the backward kernels all sum them here, so they are
+// equal bit for bit and the backward's P = exp(s - m) / l sums to 1 to
+// within rounding (adaattn_fwd.cu says why that matters).
+template <int C, int LD>
+__device__ __forceinline__ void adaattn_logits(const float* qs,
+                                               const float* ks, int ty,
+                                               int tx, float (&s)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < C; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(&qs[(ty * 4 + i) * LD + d]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * LD + d]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] += dot4(a[i], b[j]);
+  }
+}
+
 inline bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }

@@ -3,7 +3,9 @@
 Twins of the helpers in ``arbitrarystyletransfer_tpu/ops/pallas/fused_block.py``
 and ``ops/blocks.py``.  Convolutions go through ``F.conv2d`` on an NCHW view
 of the NHWC tensor: that view is channels-last in memory, so cuDNN runs it
-without a layout copy.
+(the depthwise convs too) without a layout copy.  The pads therefore build
+NHWC-contiguous tensors themselves: ``F.pad`` on the NCHW view would return
+an NCHW-contiguous one, and the conv after it would copy it back.
 """
 
 from __future__ import annotations
@@ -18,10 +20,32 @@ def hardswish(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pad_hw(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+    """Pad H and W of an NHWC tensor into a new NHWC-contiguous one: the
+    interior is copied once, then each border row (over the interior
+    columns) and each border column (over all rows, so the corners follow)
+    is copied from the padded tensor itself.  Only copies: equal to
+    ``F.pad`` bit for bit, and differentiable."""
     if pad == 0:
         return x
-    xc = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode=mode)
-    return xc.permute(0, 2, 3, 1)
+    b, h, w, c = x.shape
+    if mode == "reflect" and pad >= min(h, w):
+        raise ValueError(f"reflect pad {pad} needs H and W above it, got "
+                         f"{tuple(x.shape)}")
+    out = x.new_empty((b, h + 2 * pad, w + 2 * pad, c))
+    out[:, pad:pad + h, pad:pad + w] = x
+
+    def source(i, n):
+        """The padded index that border index ``i`` of an axis of length
+        ``n`` (padded: ``n + 2 pad``) copies."""
+        if i < pad:
+            return 2 * pad - i if mode == "reflect" else pad
+        return 2 * (pad + n - 1) - i if mode == "reflect" else pad + n - 1
+
+    for i in [*range(pad), *range(pad + h, h + 2 * pad)]:
+        out[:, i, pad:pad + w] = out[:, source(i, h), pad:pad + w]
+    for j in [*range(pad), *range(pad + w, w + 2 * pad)]:
+        out[:, :, j] = out[:, :, source(j, w)]
+    return out
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -10,10 +10,13 @@ JAX tree's child names (``Conv_0``, ``DepthwiseConv2D_0``, ``SELayer_0``,
 The functions are the engine's plain routes, twins of ``xla_block_apply``,
 ``upsample_smooth_apply`` and the stem and head convs of
 ``arbitrarystyletransfer_tpu/ops/pallas/fused_block.py``.  They keep the JAX
-rounding points: a matmul of ``dtype`` operands stands where JAX writes
-``preferred_element_type=float32``.  At float32 that is the same arithmetic;
-at bfloat16 torch rounds the product to bfloat16 before a following f32 bias
-add, one rounding JAX does not make.
+rounding points.  Where JAX writes ``preferred_element_type=float32`` and
+adds a float32 bias before rounding (the expand and projection products),
+``matmul_f32`` gives the product in float32, the bias is added, and the sum
+is rounded once.  Where JAX rounds the float32 product straight to
+``dtype`` (the upsample phases' projection) a matmul in ``dtype`` does the
+same: torch accumulates in float32 and rounds once.  The stem and head
+convs are in ``dtype`` on both sides, as JAX writes them.
 """
 
 from __future__ import annotations
@@ -222,6 +225,22 @@ def block_weights(params, expand: bool, stats=None):
     return w_exp, b_exp, w_dw, b_dw, w_proj, proj_bias
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
+    """``x @ w (+ bias)`` over the last axis of x with a float32 result,
+    JAX's ``preferred_element_type=float32`` product (then its float32 bias
+    add).  On the card one cuBLAS call takes the ``dtype`` operands and
+    writes float32 (``out_dtype``), the bias added in its epilogue; on the
+    CPU the operands are widened first.  Products of bfloat16 values are
+    exact in float32, so the two differ only in summation order."""
+    if x.is_cuda and x.dtype != torch.float32:
+        x2 = x.reshape(-1, x.shape[-1])
+        y = (torch.mm(x2, w, out_dtype=torch.float32) if bias is None else
+             torch.addmm(bias, x2, w, out_dtype=torch.float32))
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    y = torch.matmul(x.float(), w.float())
+    return y if bias is None else y + bias
+
+
 def plain_block_apply(params, x, kernel_size: int, stride: int,
                       expand_ratio: int, use_identity: bool = True,
                       stats=None, dtype=torch.bfloat16):
@@ -236,9 +255,7 @@ def plain_block_apply(params, x, kernel_size: int, stride: int,
         params, expand, stats)
 
     if expand:
-        hid = torch.matmul(x, w_exp.to(dtype)).float()
-        if b_exp is not None:
-            hid = hid + b_exp
+        hid = matmul_f32(x, w_exp.to(dtype), b_exp)
         # Rounded to dtype before the depthwise, as XLA's route does.
         hid = hardswish(hid).to(dtype)
     else:
@@ -251,10 +268,7 @@ def plain_block_apply(params, x, kernel_size: int, stride: int,
     gate = se_gate_from_mean(out.float().mean(dim=(1, 2)),
                              params["SELayer_0"])
     gated = out * gate[:, None, None, :].to(dtype)
-    y = torch.matmul(gated, w_proj.to(dtype))
-    if proj_bias is not None:
-        y = y.float() + proj_bias
-    y = y.to(dtype)
+    y = matmul_f32(gated, w_proj.to(dtype), proj_bias).to(dtype)
     if use_identity and stride == 1 and c_in == w_proj.shape[-1]:
         y = y + x
     return y

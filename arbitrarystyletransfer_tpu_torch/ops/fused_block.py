@@ -17,6 +17,7 @@ from .basic import se_gate
 from .blocks import (
     block_weights,
     head_apply,
+    matmul_f32,
     plain_block_apply,
     stem_apply,
     upsample_smooth_apply,
@@ -44,10 +45,7 @@ def fused_block_apply(params, x, kernel_size: int, expand_ratio: int,
                              b_expand=b_exp, b_dw=b_dw)
     gate = se_gate(sums, h * w, params["SELayer_0"])
     gated = hidden * gate[:, None, None, :].to(hidden.dtype)
-    y = torch.matmul(gated, w_proj.to(dtype))
-    if proj_bias is not None:
-        y = y.float() + proj_bias
-    y = y.to(dtype)
+    y = matmul_f32(gated, w_proj.to(dtype), proj_bias).to(dtype)
     if use_identity and c_in == w_proj.shape[-1]:
         y = y + x
     return y

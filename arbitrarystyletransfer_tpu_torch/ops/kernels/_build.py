@@ -31,8 +31,10 @@ _SIGNATURES = {
     # x, w_expand, w_dw, b_expand, b_dw, hidden, sums,
     # n, h, w, c_in, e, k, pre_act, is_bf16, stream
     "expand_dw_launch": [_P] * 7 + [_I] * 8 + [_P],
-    # q, k, v, mean, std, m, l, b, nc, ns, c, is_bf16, stream
+    # q, k, v, mean, std, m, l, b, nc, ns, c, is_bf16, stream (the simt
+    # entry: the CUDA-core kernel at either dtype, for A/B timing)
     "adaattn_fwd_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "adaattn_fwd_simt_launch": [_P] * 7 + [_I] * 5 + [_P],
     # x, w_expand, w_dw, b_expand, b_dw, d0t, d0b, d1k, d1b, wpt, pb,
     # hidden, sums, y, n, h, w, c_in, e, s, c_out, k, pre_act, identity,
     # is_bf16, stream

@@ -3,8 +3,16 @@ the differentiable ``AdaAttnStatistics`` around it.
 
 Replaces ``arbitrarystyletransfer_tpu/ops/pallas/adaattn_kernel.py:57``
 ``_fwd_kernel`` (host wrapper ``_adaattn_pallas_fwd``).  The CUDA kernel is
-``csrc/adaattn_fwd.cu``; ``adaattn_fwd_reference`` is its plain PyTorch twin.
-Both compute in float32 whatever the input dtype, with unscaled logits.
+``csrc/adaattn_fwd.cu``; ``adaattn_fwd_reference`` is its plain PyTorch twin,
+in float32 whatever the input dtype, with unscaled logits.  At float32 the
+kernel computes on the CUDA cores (the training step's gates hold it to
+the twin at 1e-5): the logits and exps in float32, the sums in float64,
+which keeps std accurate where it is small against the mean.  At bfloat16
+it runs on the tensor cores: the logits and sums stay exact products in
+float32, and the probabilities are rounded to bfloat16 for the product
+with [v, v^2];
+``adaattn_fwd_error_bound`` is the elementwise tolerance that rounding
+implies.
 ``AdaAttnStatistics`` is the counterpart of the ``custom_vjp`` of
 ``adaattn_statistics_pallas`` (``adaattn_kernel.py:337-371``): this kernel
 forward, the backward kernels of ``adaattn_bwd``.
@@ -34,6 +42,41 @@ def adaattn_fwd_reference(q, k, v):
     return mean.to(q.dtype), std.to(q.dtype), m, l
 
 
+# Relative error of one probability in the bf16 kernel's product with
+# [v, v^2]: its rounding to bfloat16 (unit roundoff 2^-8), and 2^-10 for the
+# float32 parts (exp2 of pre-scaled logits, the online rescaling and the
+# accumulation order; each stays below 2^-12 of the same sums at Ns = 4096).
+P_ROUND, F32_SUMS = 2.0 ** -8, 2.0 ** -10
+BF16_ULP = 2.0 ** -7  # one bf16 ulp of |x| is at most 2^-7 |x|
+
+
+def adaattn_fwd_error_bound(q, k, v):
+    """Elementwise bounds (mean, std) on |kernel - twin| for bf16 inputs.
+
+    From the twin's float32 p and l: rounding each p to bf16 moves
+    ``mean`` by at most ``P_ROUND (p @ |v|) / l`` and ``ev2`` by at most
+    ``P_ROUND (p @ v^2) / l`` (plus ``F32_SUMS`` of the same sums), so
+    std^2 = ev2 - mean^2 moves by at most ``D = |d ev2| + 2 |mean| |d mean|
+    + d mean^2``, and std by at most ``min(sqrt(D), D / std)`` (|sqrt(a') -
+    sqrt(a)| <= |a' - a| / (sqrt(a') + sqrt(a))).  Each bound adds one bf16
+    ulp for the rounding of the output.  Returns float32 tensors of the
+    outputs' shape."""
+    s = q.float() @ k.float().transpose(1, 2)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    inv_l = 1.0 / p.sum(dim=-1, keepdim=True)
+    vf = v.float()
+    mean = (p @ vf) * inv_l
+    ev2 = (p @ vf.square()) * inv_l
+    rel = P_ROUND + F32_SUMS
+    d_mean = rel * (p @ vf.abs()) * inv_l
+    d_ev2 = rel * ev2
+    d_sq = d_ev2 + 2.0 * mean.abs() * d_mean + d_mean.square()
+    std = torch.sqrt(torch.clamp(ev2 - mean.square(), min=0.0))
+    d_std = torch.minimum(torch.sqrt(d_sq), d_sq / std.clamp_min(1e-30))
+    return (d_mean + BF16_ULP * (mean.abs() + d_mean),
+            d_std + BF16_ULP * (std + d_std))
+
+
 def adaattn_fwd(q, k, v):
     """(mean, std, m, l) of the attention-weighted style moments.
 
@@ -45,7 +88,8 @@ def adaattn_fwd(q, k, v):
       row max and sum of exp of the logits.
 
     A CPU tensor takes ``adaattn_fwd_reference``; a CUDA tensor launches the
-    kernel or raises.
+    kernel (bf16: tensor cores, within ``adaattn_fwd_error_bound`` of the
+    twin; f32: CUDA cores) or raises.
     """
     if q.device.type == "cpu":
         return adaattn_fwd_reference(q, k, v)

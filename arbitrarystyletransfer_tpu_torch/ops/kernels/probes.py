@@ -4,7 +4,7 @@ issue rate, each a CUDA kernel beside its plain PyTorch twin.
 They replace the TPU probes of the repository's ``scripts/``:
 
 - ``probe_copy`` (``csrc/probe_copy.cu``): ``probe_mega2.py:47
-  _copy_kernel``, a (B, H, C, W) copy through a two-slot on-chip ring;
+  _copy_kernel``, a (B, H, C, W) copy through a ring of on-chip slots;
 - ``probe_mm_einsum``, ``probe_mm_rowloop`` (``csrc/probe_mm.cu``):
   ``probe_mega2.py:111 _einsum_kernel`` and ``:118 _rowloop_kernel``,
   y[r, e, w] = sum_c x[r, c, w] w[c, e] with f32 accumulation, two schedules;

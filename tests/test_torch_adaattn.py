@@ -27,6 +27,7 @@ from arbitrarystyletransfer_tpu_torch.models.adaattn import (
 from arbitrarystyletransfer_tpu_torch.ops.kernels import LAUNCHES
 from arbitrarystyletransfer_tpu_torch.ops.kernels.adaattn_fwd import (
     adaattn_fwd,
+    adaattn_fwd_error_bound,
     adaattn_fwd_reference,
     adaattn_statistics,
 )
@@ -59,6 +60,104 @@ def test_reference_matches_pallas_and_dense(b, nc, ns):
         assert_close(std, ref_std, 1e-4, "std")
     assert_close(m, r_m, 1e-6, "row max")
     assert_close(l, r_l, 1e-5, "row sum-exp")
+
+
+def _bf16_kernel_emulation(q, k, v, bk=64, exact_square=True):
+    """The bf16 kernel's arithmetic on the CPU: an online softmax over
+    ``bk``-key tiles in f32, each tile's probabilities rounded to bf16 for
+    the product with [v, v^2] (v^2 of a bf16 v is exact in f32, as the
+    kernel's hi + lo is), the outputs rounded to bf16.  With
+    ``exact_square`` off, v^2 is rounded to bf16 as well: one product over
+    [v, bf16(v^2)], the design without the hi/lo split."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    b, nc, c = qf.shape
+    m = torch.full((b, nc), -torch.inf)
+    l = torch.zeros(b, nc)
+    acc_m, acc_s = torch.zeros(b, nc, c), torch.zeros(b, nc, c)
+    for k0 in range(0, kf.shape[1], bk):
+        s = qf @ kf[:, k0:k0 + bk].transpose(1, 2)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        pb = p.bfloat16().float()
+        vt = vf[:, k0:k0 + bk]
+        acc_m = acc_m * corr[..., None] + pb @ vt
+        v2 = vt.square() if exact_square else vt.square().bfloat16().float()
+        acc_s = acc_s * corr[..., None] + pb @ v2
+        m = m_new
+    mean, ev2 = acc_m / l[..., None], acc_s / l[..., None]
+    std = torch.sqrt(torch.clamp(ev2 - mean.square(), min=0.0))
+    return mean.bfloat16(), std.bfloat16(), m, l
+
+
+@pytest.mark.parametrize("b,nc,ns", [(2, 96, 128), (1, 70, 77)])
+@pytest.mark.parametrize("scale", [0.3, 0.55])
+def test_bf16_rounding_within_error_bound(b, nc, ns, scale):
+    """``adaattn_fwd_error_bound`` holds the bf16 kernel's only new rounding
+    (P to bf16, tile by tile) and its output rounding: an emulation of that
+    arithmetic stays within it of the Pallas forward (f32, on the same
+    bf16-valued inputs), elementwise, for a flat softmax (scale 0.3: logits
+    of std ~1) and a peaked one (0.55: std ~3.4), with a ragged style tail
+    (Ns = 77: one 64-key tile and 13 keys)."""
+    q, k, _ = _qkv(b, nc, ns, seed=ns, scale=scale)
+    v = np.random.default_rng(ns + 1).normal(0, 1, (b, ns, 128))
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).bfloat16()
+               for a in (q, k, v))
+    logits = q.float() @ k.float().transpose(1, 2)
+    assert float(logits.std()) >= (3.0 if scale > 0.5 else 0.5)
+    mean, std, m, l = _bf16_kernel_emulation(q, k, v)
+    with pltpu.force_tpu_interpret_mode():
+        r_mean, r_std, r_m, r_l = _adaattn_pallas_fwd(
+            *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    b_mean, b_std = adaattn_fwd_error_bound(q, k, v)
+    for what, out, ref, bound in (("mean", mean, r_mean, b_mean),
+                                  ("std", std, r_std, b_std)):
+        err = (out.float() - torch.from_numpy(np.array(ref))).abs()
+        assert bool((err <= bound).all()), (
+            f"{what}: err/bound up to {float((err / bound).max()):.3g}")
+        assert float(err.max()) > 0  # the rounding is there to bound
+    assert_close(m, r_m, 1e-6, "row max")
+    assert_close(l, r_l, 1e-5, "row sum-exp")
+
+
+@pytest.mark.parametrize("ns", [128, 100])
+def test_one_hot_attention_is_exact(ns):
+    """A one-hot softmax (key j is e_j; query i has the logit 0 at its key
+    t[i] and -256 elsewhere, where exp underflows to 0) has mean = v[t] and
+    std = 0 exactly: the Pallas forward, the port's twin and the bf16
+    kernel's emulation give exactly that (``chip_smoke.py`` holds the CUDA
+    kernels to it).  With v^2 rounded to bf16 instead of fed in as hi + lo,
+    std is nonzero, yet within ``adaattn_fwd_error_bound``: the bound cannot
+    tell the two designs apart, and this check can.  Ns = 100 leaves a
+    ragged style tail."""
+    b, nc = 2, 96
+    rng = np.random.default_rng(ns)
+    t = rng.integers(0, ns, (b, nc))
+    q = -256.0 * (1.0 - np.eye(128, dtype=np.float32)[t])
+    k = np.broadcast_to(np.eye(ns, 128, dtype=np.float32), (b, ns, 128))
+    q = torch.from_numpy(q).bfloat16()
+    k = torch.from_numpy(k.copy()).bfloat16()
+    v = torch.from_numpy(rng.normal(0, 1, (b, ns, 128)).astype(
+        np.float32)).bfloat16()
+    want = torch.gather(v.float(), 1, torch.from_numpy(t)[..., None].expand(
+        b, nc, 128))
+    with pltpu.force_tpu_interpret_mode():
+        r_mean, r_std, _, r_l = _adaattn_pallas_fwd(
+            *(jnp.asarray(x.float().numpy()) for x in (q, k, v)))
+    outs = {"pallas": (torch.from_numpy(np.array(r_mean)),
+                       torch.from_numpy(np.array(r_std))),
+            "twin": adaattn_fwd(q, k, v)[:2],
+            "emulation": _bf16_kernel_emulation(q, k, v)[:2]}
+    for what, (mean, std) in outs.items():
+        assert torch.equal(mean.float(), want), what
+        assert bool((std == 0).all()), what
+    np.testing.assert_array_equal(np.array(r_l), 1.0)
+    mean, std, _, _ = _bf16_kernel_emulation(q, k, v, exact_square=False)
+    assert torch.equal(mean.float(), want)
+    assert float(std.float().max()) > 2.0 ** -5 * float(want.abs().max())
+    b_mean, b_std = adaattn_fwd_error_bound(q, k, v)
+    assert bool((std.float() <= b_std).all())
 
 
 def test_dense_golden_matches_jax():

@@ -133,6 +133,63 @@ def test_encoder_matches_jax():
         assert_close(o, r, 1e-5, "encoder tap")
 
 
+def _jax_plain_route(part, dtype):
+    """JAX's encoder taps or pre-clamp decoder output on its all-XLA route
+    (``min_fused_size=10**6``, the decoder unfolded), at ``dtype``."""
+    if part == "encoder":
+        v = ast_variables(seed=2)
+        return jfb.encode_fused(
+            to_jax(v["params"]["enc"]), to_jax(v["batch_stats"]["enc"]),
+            jnp.asarray(_images(2)[0]), JCFG.enc_conv_shapes,
+            JCFG.enc_out_layers, expand_ratio=JCFG.expand_ratio, dtype=dtype,
+            min_fused_size=10**6)
+    v = ast_variables(seed=1)
+    z = np.random.default_rng(1).normal(0, 1, (2, 8, 8, 128))
+    return [jfb.decode_fused(to_jax(v["params"]["dec"]),
+                             jnp.asarray(z.astype(np.float32)),
+                             JCFG.decoder_conv_shapes, exporting=False,
+                             dtype=dtype, min_fused_size=10**6,
+                             fold_upsample=False)]
+
+
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_bf16_plain_route_matches_jax(part):
+    """bf16 through the plain route on both sides: the port with
+    ``min_fused_size=10**6`` against ``_jax_plain_route``, as the f32 tests
+    above.  Each block rounds where JAX rounds
+    (test_torch_ops.test_plain_block_bf16_matches_xla_block), but the few
+    one-ulp flips of a block grow through the ~14 blocks after it, as any
+    bf16 difference does.  So the port is held to JAX's own bf16 error:
+    its distance to JAX bf16 is at most twice JAX bf16's distance to JAX
+    f32, in max and in mean (the image gate of chip_smoke.py)."""
+    if part == "encoder":
+        v = ast_variables(seed=2)
+        state = weights.from_jax_tree(v["params"], v["batch_stats"])
+        outs = pfb.encode_fused(
+            state["params"]["enc"], state["batch_stats"]["enc"],
+            torch.from_numpy(_images(2)[0]), CFG.enc_conv_shapes,
+            CFG.enc_out_layers, expand_ratio=CFG.expand_ratio,
+            dtype=torch.bfloat16, min_fused_size=10**6)
+    else:
+        v = ast_variables(seed=1)
+        dec = weights.from_jax_tree(v["params"], {})["params"]["dec"]
+        z = np.random.default_rng(1).normal(0, 1, (2, 8, 8, 128))
+        outs = [pfb.decode_fused(dec, torch.from_numpy(z.astype(np.float32)),
+                                 CFG.decoder_conv_shapes, exporting=False,
+                                 dtype=torch.bfloat16,
+                                 min_fused_size=10**6)]
+    refs = _jax_plain_route(part, jnp.bfloat16)
+    refs32 = _jax_plain_route(part, jnp.float32)
+    for o, r, r32 in zip(outs, refs, refs32):
+        o = o.float().numpy()
+        r = np.asarray(r.astype(jnp.float32))
+        own = np.abs(r - np.asarray(r32))
+        err = np.abs(o - r)
+        assert o.shape == r.shape and own.max() > 0
+        assert err.max() <= 2.0 * own.max(), (err.max(), own.max())
+        assert err.mean() <= 2.0 * own.mean(), (err.mean(), own.mean())
+
+
 def test_route_sends_15_blocks_to_expand_dw(monkeypatch):
     """At 1/8 of the 512px size and threshold, the routing sends exactly
     the 15 blocks of the 512px main path through the kernel wrapper."""

@@ -249,6 +249,29 @@ def test_basic_ops_match_jax():
     assert 0.0 < float(gate.mean()) < 1.0
 
 
+@pytest.mark.parametrize("fn,mode", [(basic.reflect_pad, "reflect"),
+                                     (basic.edge_pad, "replicate")])
+@pytest.mark.parametrize("pad", [1, 2])
+def test_pads_equal_f_pad_in_nhwc(fn, mode, pad):
+    """The NHWC pads equal ``F.pad`` on the NCHW view bit for bit, at f32
+    and bf16, return an NHWC-contiguous tensor (what the channels-last conv
+    after them reads without a copy) and pass a gradcheck."""
+    rng = np.random.default_rng(pad)
+    x = rng.normal(0.0, 3.0, (2, 6, 5, 4)).astype(np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        xt = _t(x).to(dt)
+        out = fn(xt, pad)
+        ref = torch.nn.functional.pad(
+            xt.permute(0, 3, 1, 2), (pad,) * 4, mode=mode).permute(0, 2, 3, 1)
+        assert out.dtype == dt and out.is_contiguous()
+        assert torch.equal(out, ref), f"{mode} pad {pad} {dt}"
+    # A permuted input still gives an NHWC-contiguous result.
+    assert fn(_t(x).transpose(1, 2), pad).is_contiguous()
+    x64 = torch.from_numpy(x[:, :4, :4, :2].astype(np.float64))
+    assert torch.autograd.gradcheck(lambda t: fn(t, pad),
+                                    (x64.requires_grad_(),))
+
+
 # -- plain block routes ----------------------------------------------------
 
 
@@ -273,6 +296,39 @@ def test_plain_block_matches_xla_block(c_in, c_out, k, stride, t, use_norm):
                               stats=to_jax(s), dtype=jnp.float32)
     # Conv and matmul sums in another order: well inside 1e-5 of max.
     assert_close(out, ref, 1e-5, "plain block")
+
+
+@pytest.mark.parametrize(
+    "c_in,c_out,k,stride,t,differ",
+    [
+        (16, 24, 3, 2, 6, 0.0),     # e2: on the plain route at 512px
+        (40, 80, 3, 2, 4, 0.02),    # e7 (64px stage)
+        (80, 80, 3, 1, 4, 0.02),    # e8-e9, residual
+        (128, 128, 3, 1, 3, 0.02),  # e13-e14, residual
+    ],
+)
+def test_plain_block_bf16_matches_xla_block(c_in, c_out, k, stride, t,
+                                            differ):
+    """At bf16 the plain route rounds where ``xla_block_apply`` rounds: the
+    expand and projection products stay f32 until the folded-BN bias is
+    added.  e2 is equal bit for bit; in the other blocks at most ``differ``
+    of the elements differ (measured 0.08-0.84%: f32 sums taken in other
+    orders round to other bf16 values), by at most one bf16 ulp of the
+    largest value.  Rounding the products to bf16 before the bias made
+    26-70% differ."""
+    p, s = block_params(c_in, c_out, k, t, True, seed=c_in + k)
+    x = np.random.default_rng(2).normal(0, 1, (2, 16, 16, c_in))
+    x = x.astype(np.float32)
+    out = blocks.plain_block_apply(to_port(p), _t(x), k, stride, t,
+                                   stats=to_port(s), dtype=torch.bfloat16)
+    ref = jfb.xla_block_apply(to_jax(p), jnp.asarray(x), k, stride, t,
+                              stats=to_jax(s), dtype=jnp.bfloat16)
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    ref = np.asarray(ref.astype(jnp.float32))
+    frac = np.mean(out != ref)
+    assert frac <= differ, f"{frac:.2%} of the elements differ"
+    assert_close(out, ref, 2.0 ** -7, "plain block bf16")
 
 
 def test_upsample_smooth_matches_unfolded_block():
