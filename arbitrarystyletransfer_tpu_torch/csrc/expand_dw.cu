@@ -30,3 +30,11 @@ extern "C" int expand_dw_launch(const void* x, const void* we, const void* wd,
   return (int)edw::dispatch<float, edw::kFused>(
       x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, k, pre_act, s);
 }
+
+// Registers, dynamic shared memory (bytes) and resident CTAs per SM of the
+// bf16 kernel a block with this k and C_in launches, into out[0..2], for
+// measurement.  Launches nothing.
+extern "C" int expand_dw_occupancy(int k, int cin, int* out) {
+  using namespace ast_kernels;
+  return (int)edw::occupancy<edw::kFused>(k, cin, out);
+}

@@ -309,8 +309,8 @@ template <typename T>
 cudaError_t run(const void* x, const void* we, const void* wd, const void* be,
                 const void* bd, const void* d0t, const void* d0b,
                 const void* d1k, const void* d1b, const void* wpt,
-                const void* pb, void* hidden, void* sums, void* y, int n,
-                int h, int w, int cin, int e, int s, int cout, int k,
+                const void* pb, void* hidden, void* sums, void* gate, void* y,
+                int n, int h, int w, int cin, int e, int s, int cout, int k,
                 cudaStream_t st) {
   cudaError_t err;
   if (k == 3)
@@ -322,16 +322,17 @@ cudaError_t run(const void* x, const void* we, const void* wd, const void* be,
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  return gp::launch<T>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, nullptr, y,
-                       n, (h / 2) * (w / 2), e, s, cout, st);
+  return gp::launch<T>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, nullptr,
+                       gate, y, n, (h / 2) * (w / 2), e, s, cout, st);
 }
 
 }  // namespace
 }  // namespace s2
 }  // namespace ast_kernels
 
-// x (n, h, w, cin) with h, w even; hidden (n, h/2, w/2, e), sums (n, e) and
-// y (n, h/2, w/2, cout) must be allocated by the caller, sums zeroed.  The
+// x (n, h, w, cin) with h, w even; hidden (n, h/2, w/2, e), sums (n, e),
+// gate (n, e; f32 scratch) and y (n, h/2, w/2, cout) must be allocated by
+// the caller, sums zeroed.  The
 // SE and projection operands are as in flat_block_launch.  Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int flat_s2_launch(const void* x, const void* we, const void* wd,
@@ -339,9 +340,9 @@ extern "C" int flat_s2_launch(const void* x, const void* we, const void* wd,
                               const void* d0b, const void* d1k,
                               const void* d1b, const void* wpt,
                               const void* pb, void* hidden, void* sums,
-                              void* y, int n, int h, int w, int cin, int e,
-                              int s, int cout, int k, int is_bf16,
-                              void* stream) {
+                              void* gate, void* y, int n, int h, int w,
+                              int cin, int e, int s, int cout, int k,
+                              int is_bf16, void* stream) {
   using namespace ast_kernels;
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
   if (h % 2 != 0 || w % 2 != 0 || we == nullptr)
@@ -349,8 +350,9 @@ extern "C" int flat_s2_launch(const void* x, const void* we, const void* wd,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)s2::run<__nv_bfloat16>(x, we, wd, be, bd, d0t, d0b, d1k, d1b,
-                                       wpt, pb, hidden, sums, y, n, h, w, cin,
-                                       e, s, cout, k, st);
+                                       wpt, pb, hidden, sums, gate, y, n, h,
+                                       w, cin, e, s, cout, k, st);
   return (int)s2::run<float>(x, we, wd, be, bd, d0t, d0b, d1k, d1b, wpt, pb,
-                             hidden, sums, y, n, h, w, cin, e, s, cout, k, st);
+                             hidden, sums, gate, y, n, h, w, cin, e, s, cout,
+                             k, st);
 }

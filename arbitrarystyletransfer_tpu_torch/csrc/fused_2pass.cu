@@ -23,11 +23,13 @@
 // its shared-memory traffic, as expand_dw is.
 //
 // Design (simple; the same 16x16 tiles as expand_dw.cuh):
-//   * "sums": expand_dw.cuh with kSums, one CTA per (image, tile, 32-channel
-//     chunk), the sums of the unrounded hidden by atomics, no hidden stored.
+//   * "sums": expand_dw.cuh's persistent sweep with kSums, the sums of the
+//     unrounded hidden by atomics, no hidden stored.
 //   * "project": one CTA per (image, 16x16 tile), 256 threads, looping over
-//     E in chunks of 32.  Each chunk's expand + depthwise (expand_dw.cuh)
-//     leaves 256 pixels x 32 gated, rounded hidden values in shared memory;
+//     E in chunks of 32.  The tile's x halo is staged once (expand_dw.cuh's
+//     stage_x, a TMA box); each chunk's expand + depthwise (expand_dw.cuh's
+//     device functions) leaves 256 pixels x 32 gated, rounded hidden values in
+//     shared memory;
 //     for bf16 with an even C_out <= 96 each warp then runs mma.sync
 //     m16n8k16 on 32 pixels x all of C_out, accumulating in registers across
 //     the chunks; otherwise (f32) each thread owns one pixel and accumulates
@@ -42,35 +44,43 @@ namespace f2p {
 namespace {
 
 using edw::CE;
+using edw::DW_COLS;
+using edw::DW_ROWS;
 using edw::NTHREADS;
 using edw::NWARPS;
 using edw::TH;
 using edw::TW;
-using edw::XS_LD;
 
 constexpr int TP = TH * TW;        // pixels per tile
 constexpr int MAX_NT = 12;         // 8-wide output tiles: C_out <= 96
 constexpr int MAX_COUT = MAX_NT * 8;
+constexpr int HS_LD = CE + 8;      // bf16 hidden row: 80 B, conflict-free frags
 constexpr int HS_F32_LD = CE + 1;  // f32 hidden row (CUDA-core projection)
 static_assert(TP == NTHREADS, "one pixel per thread in the f32 projection");
 static_assert(TP == NWARPS * 2 * 16, "two 16-pixel MMA tiles per warp");
 
-// Shared memory of the project kernel: the expand_dw.cuh halo buffer, the
-// gated hidden chunk, the projection weights' chunk and (f32) the outputs.
-template <int K, bool PMMA>
+// Shared memory of the project kernel (byte offsets): expand_dw.cuh's
+// (the halo buffers and the chunk's expand weights), then the gated hidden
+// chunk, the projection weights' chunk and (f32) the outputs.
+template <int K, bool EXPAND, bool MMA, bool PMMA>
 struct Smem {
-  static constexpr int HALO = edw::halo_smem_bytes<K>();
-  static constexpr int HS = PMMA ? TP * XS_LD * 2 : TP * HS_F32_LD * 4;
-  static constexpr int WS = PMMA ? MAX_COUT * XS_LD * 2 : CE * MAX_COUT * 4;
-  static constexpr int YS = PMMA ? 0 : TP * (MAX_COUT + 1) * 4;
-  static constexpr int TOTAL = HALO + HS + WS + YS;
+  edw::Smem<K, EXPAND, MMA> ex;
+  int hs, ws, ys, total;
+  __host__ __device__ explicit Smem(int cin) : ex(cin) {
+    hs = ex.total;
+    ws = hs + (PMMA ? TP * HS_LD * 2 : TP * HS_F32_LD * 4);
+    ys = ws + (PMMA ? MAX_COUT * HS_LD * 2 : CE * MAX_COUT * 4);
+    total = ys + (PMMA ? 0 : TP * (MAX_COUT + 1) * 4);
+  }
 };
 
 // y (n, h, w, cout); gate (n, e) f32 from the sums pass; wpt the projection
-// transposed, (cout, e).  PMMA: the projection runs on the tensor cores.
+// transposed, (cout, e); xmap: x as edw::make_x_map's map (MMA only).
+// PMMA: the projection runs on the tensor cores.
 template <typename T, int K, bool EXPAND, bool MMA, bool PMMA>
 __global__ void __launch_bounds__(NTHREADS)
-    fused_project_kernel(const T* __restrict__ x, const T* __restrict__ we,
+    fused_project_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const T* __restrict__ x, const T* __restrict__ we,
                          const float* __restrict__ wd,
                          const float* __restrict__ be,
                          const float* __restrict__ bd,
@@ -78,13 +88,12 @@ __global__ void __launch_bounds__(NTHREADS)
                          const T* __restrict__ wpt, T* __restrict__ y, int H,
                          int W, int cin, int E, int cout, int pre_act,
                          int identity, int tiles_x) {
-  using S = Smem<K, PMMA>;
-  extern __shared__ float4 smem4[];
-  char* base = reinterpret_cast<char*>(smem4);
+  char* base = edw::smem_base();
+  const Smem<K, EXPAND, MMA, PMMA> L(cin);
   float* buf = reinterpret_cast<float*>(base);
-  char* hs_b = base + S::HALO;
-  char* ws_b = hs_b + S::HS;
-  float* ys = reinterpret_cast<float*>(ws_b + S::WS);  // [TP][cout | 1]
+  char* hs_b = base + L.hs;
+  char* ws_b = base + L.ws;
+  float* ys = reinterpret_cast<float*>(base + L.ys);  // [TP][cout | 1]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -108,28 +117,56 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int idx = threadIdx.x; idx < TP * ldy; idx += NTHREADS) ys[idx] = 0.f;
   }
 
+  // The tile's x halo is staged once for every chunk of E (the expand's
+  // first barrier publishes it).
+  if constexpr (MMA) {
+    uint64_t* xbar = reinterpret_cast<uint64_t*>(base + L.ex.bar);
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + L.ex.xs);
+    if (threadIdx.x == 0) {
+      mbar_init(xbar, 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+    edw::stage_x<T, K, edw::kFused>(&xmap, xbar, x, xs, L.ex.ldx,
+                                    L.ex.cin16, H, W, cin, n, ty0, tx0);
+    edw::wait_x<K>(xbar, 0, xs, L.ex.ldx, H, W, ty0, tx0);
+  }
+  const int oy0 = edw::dw_row0(), ox0 = edw::dw_col0();
   for (int c0 = 0; c0 < E; c0 += CE) {
-    // Starts with a barrier: the previous chunk's projection is done.
-    edw::expand_halo<T, K, EXPAND, MMA, edw::kFused>(
-        xn, we, be, buf, H, W, cin, E, pre_act, ty0, tx0, c0);
+    // The previous chunk's expand is done with the expand weights (its last
+    // barrier), its projection with the hidden chunk (this expand's first).
+    edw::stage_weights<T, K, EXPAND, MMA>(we, be, base, L.ex, cin, E, c0);
+    if constexpr (EXPAND)
+      edw::expand_halo<T, K, EXPAND, MMA, edw::kFused>(
+          xn, base, L.ex, H, W, cin, pre_act, ty0, tx0);
+    else
+      edw::expand_halo_identity<T, K, edw::kFused>(
+          xn, base, reinterpret_cast<const float*>(base + L.ex.bes), H, W,
+          cin, pre_act, ty0, tx0, c0);
     const int c = c0 + lane;
     const float gc = c < E ? round_to<T>(gate[(size_t)n * E + c]) : 0.f;
-    edw::depthwise_tile<K>(buf, wd, bd, E, c, [&](int r, int ox, float v) {
-      const int p = r * TW + ox;
-      float hv = 0.f;
-      if (c < E && ty0 + r < H && tx0 + ox < W)
-        hv = round_to<T>(round_to<T>(v) * gc);
-      if constexpr (PMMA)
-        reinterpret_cast<__nv_bfloat16*>(hs_b)[p * XS_LD + lane] =
-            __float2bfloat16_rn(hv);
-      else
-        reinterpret_cast<float*>(hs_b)[p * HS_F32_LD + lane] = hv;
-    });
+    float wk[K * K], bdv, o[DW_ROWS][DW_COLS];
+    edw::load_dw<K>(wd, bd, E, c, wk, bdv);
+    edw::depthwise_tile<K>(buf, wk, bdv, o);
+#pragma unroll
+    for (int r = 0; r < DW_ROWS; ++r)
+#pragma unroll
+      for (int j = 0; j < DW_COLS; ++j) {
+        const int p = (oy0 + r) * TW + ox0 + j;
+        float hv = 0.f;
+        if (c < E && ty0 + oy0 + r < H && tx0 + ox0 + j < W)
+          hv = round_to<T>(round_to<T>(o[r][j]) * gc);
+        if constexpr (PMMA)
+          reinterpret_cast<__nv_bfloat16*>(hs_b)[p * HS_LD + lane] =
+              __float2bfloat16_rn(hv);
+        else
+          reinterpret_cast<float*>(hs_b)[p * HS_F32_LD + lane] = hv;
+      }
     if constexpr (PMMA) {
       __nv_bfloat16* wsT = reinterpret_cast<__nv_bfloat16*>(ws_b);
       for (int idx = threadIdx.x; idx < nt_count * 8 * CE; idx += NTHREADS) {
         const int co = idx / CE, kk = idx % CE;
-        wsT[co * XS_LD + kk] = (co < cout && c0 + kk < E)
+        wsT[co * HS_LD + kk] = (co < cout && c0 + kk < E)
                                    ? wpt[(size_t)co * E + c0 + kk]
                                    : __float2bfloat16_rn(0.f);
       }
@@ -150,14 +187,14 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const __nv_bfloat16* ap =
-              hs + ((warp * 2 + i) * 16 + g) * XS_LD + ks + tig * 2;
-          const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * XS_LD),
-                                 lds32(ap + 8), lds32(ap + 8 * XS_LD + 8)};
+              hs + ((warp * 2 + i) * 16 + g) * HS_LD + ks + tig * 2;
+          const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * HS_LD),
+                                 lds32(ap + 8), lds32(ap + 8 * HS_LD + 8)};
 #pragma unroll
           for (int nt = 0; nt < MAX_NT; ++nt) {
             if (nt < nt_count) {
               const __nv_bfloat16* bp =
-                  wsT + (nt * 8 + g) * XS_LD + ks + tig * 2;
+                  wsT + (nt * 8 + g) * HS_LD + ks + tig * 2;
               const uint32_t b[2] = {lds32(bp), lds32(bp + 8)};
               mma_bf16(acc[i][nt], a, b);
             }
@@ -224,8 +261,11 @@ cudaError_t launch_project(const void* x, const void* we, const void* wd,
                            const void* wpt, void* y, int n, int h, int w,
                            int cin, int e, int cout, int pre_act, int identity,
                            cudaStream_t stream) {
-  constexpr int smem = Smem<K, PMMA>::TOTAL;
+  const int smem = Smem<K, EXPAND, MMA, PMMA>(cin).total;
   auto kernel = fused_project_kernel<T, K, EXPAND, MMA, PMMA>;
+  CUtensorMap xmap{};
+  if (MMA && !edw::make_x_map<K>(&xmap, x, n, h, w, cin))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -233,7 +273,7 @@ cudaError_t launch_project(const void* x, const void* we, const void* wd,
   const int tiles_y = (h + TH - 1) / TH;
   dim3 grid(tiles_x * tiles_y, n);
   kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(we),
+      xmap, static_cast<const T*>(x), static_cast<const T*>(we),
       static_cast<const float*>(wd), static_cast<const float*>(be),
       static_cast<const float*>(bd), static_cast<const float*>(gate),
       static_cast<const T*>(wpt), static_cast<T*>(y), h, w, cin, e, cout,

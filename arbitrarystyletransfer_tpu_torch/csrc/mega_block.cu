@@ -27,9 +27,9 @@
 //     shared memory only), the bf16 hidden is written once (NHWC, the
 //     layout sweep 2 streams), and the exact per-image sums of the rounded
 //     hidden are added with atomics;
-//   * sweep 2, gate_project.cuh with YT: every CTA recomputes its image's
-//     gate from the sums, projects a run of pixel tiles on the tensor cores,
-//     adds the bias and the residual read from x, and writes y in
+//   * sweep 2, gate_project.cuh with YT: each image's gate from its sums,
+//     then the hidden streamed, gated and projected on the tensor cores, the
+//     bias and the residual read from x added, and y written in
 //     (N, H, C_out, W).
 // Nothing outside the kernel transposes.  What bounds each sweep is in its
 // header: sweep 1 the f32 depthwise and its shared-memory traffic, sweep 2
@@ -38,8 +38,9 @@
 #include "expand_dw.cuh"
 #include "gate_project.cuh"
 
-// x (n, h, cin, w); hidden (n, h, w, e), sums (n, e) and y (n, h, cout, w)
-// must be allocated by the caller, sums zeroed.  we == nullptr is the
+// x (n, h, cin, w); hidden (n, h, w, e), sums (n, e), gate (n, e; f32
+// scratch) and y (n, h, cout, w) must be allocated by the caller, sums
+// zeroed.  we == nullptr is the
 // expand==1 form (e == cin); identity adds x (cin == cout).  d0t is the SE's
 // first dense kernel transposed, (s, e); d1k (s, e); wpt the projection
 // transposed, (cout, e).  Returns the cudaError_t of the launches (0 on
@@ -50,8 +51,9 @@ extern "C" int mega_block_launch(const void* x, const void* we,
                                  const void* d0b, const void* d1k,
                                  const void* d1b, const void* wpt,
                                  const void* pb, void* hidden, void* sums,
-                                 void* y, int n, int h, int w, int cin, int e,
-                                 int s, int cout, int k, int pre_act,
+                                 void* gate, void* y, int n, int h, int w,
+                                 int cin, int e, int s, int cout, int k,
+                                 int pre_act,
                                  int identity, int is_bf16, void* stream) {
   using namespace ast_kernels;
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
@@ -65,13 +67,13 @@ extern "C" int mega_block_launch(const void* x, const void* we,
                                        w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<B, true>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res,
-                              y, n, h * w, e, s, cout, st, w);
+                              gate, y, n, h * w, e, s, cout, st, w);
   } else {
     err = edw::dispatch<float, edw::kMega>(x, we, wd, be, bd, hidden, sums, n,
                                            h, w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<float, true>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb,
-                                  res, y, n, h * w, e, s, cout, st, w);
+                                  res, gate, y, n, h * w, e, s, cout, st, w);
   }
   return (int)err;
 }

@@ -36,13 +36,13 @@ _SIGNATURES = {
     "adaattn_fwd_launch": [_P] * 7 + [_I] * 5 + [_P],
     "adaattn_fwd_simt_launch": [_P] * 7 + [_I] * 5 + [_P],
     # x, w_expand, w_dw, b_expand, b_dw, d0t, d0b, d1k, d1b, wpt, pb,
-    # hidden, sums, y, n, h, w, c_in, e, s, c_out, k, pre_act, identity,
-    # is_bf16, stream
-    "flat_block_launch": [_P] * 14 + [_I] * 11 + [_P],
+    # hidden, sums, gate (scratch), y, n, h, w, c_in, e, s, c_out, k,
+    # pre_act, identity, is_bf16, stream
+    "flat_block_launch": [_P] * 15 + [_I] * 11 + [_P],
     # the same without pre_act and identity
-    "flat_s2_launch": [_P] * 14 + [_I] * 9 + [_P],
+    "flat_s2_launch": [_P] * 15 + [_I] * 9 + [_P],
     # flat_block_launch's arguments, with x and y in (N, H, C, W)
-    "mega_block_launch": [_P] * 14 + [_I] * 11 + [_P],
+    "mega_block_launch": [_P] * 15 + [_I] * 11 + [_P],
     # x, w_expand, w_dw, b_expand, b_dw, sums, n, h, w, c_in, e, k, pre_act,
     # is_bf16, stream
     "fused_sums_launch": [_P] * 6 + [_I] * 8 + [_P],
@@ -54,6 +54,10 @@ _SIGNATURES = {
     # q, k, v, dm1, dm2, m, l, d, dk, dv, b, nc, ns, c, is_bf16, dm_bf16,
     # stream
     "adaattn_dkv_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # k, c_in, out[3]: registers, shared memory, CTAs per SM (no launch)
+    "expand_dw_occupancy": [_I, _I, _P],
+    # k, c_in, e, c_out, identity, out[6]: the same of both sweeps
+    "flat_block_occupancy": [_I] * 5 + [_P],
     # x, y, nbytes, stream
     "probe_copy_launch": [_P, _P, ctypes.c_longlong, _P],
     # x, w, y, r, c, e, width, stream (both schedules)

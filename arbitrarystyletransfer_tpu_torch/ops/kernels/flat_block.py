@@ -171,11 +171,13 @@ def flat_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         raise ValueError("flat_block: identity needs C_in == C_out")
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    gate = torch.empty((n, e), dtype=torch.float32, device=x.device)
     y = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
     rc = load_library().flat_block_launch(
         x.data_ptr(), *map(ptr, ops), hidden.data_ptr(), sums.data_ptr(),
-        y.data_ptr(), n, h, w, c_in, e, s, c_out, kernel_size, int(pre_act),
-        int(identity), int(x.dtype == torch.bfloat16),
+        gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out,
+        kernel_size, int(pre_act), int(identity),
+        int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "flat_block")

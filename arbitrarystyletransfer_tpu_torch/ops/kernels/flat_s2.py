@@ -71,10 +71,11 @@ def flat_s2_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
     ho, wo = h // 2, w // 2
     hidden = torch.empty((n, ho, wo, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    gate = torch.empty((n, e), dtype=torch.float32, device=x.device)
     y = torch.empty((n, ho, wo, c_out), dtype=x.dtype, device=x.device)
     rc = load_library().flat_s2_launch(
         x.data_ptr(), *map(ptr, ops), hidden.data_ptr(), sums.data_ptr(),
-        y.data_ptr(), n, h, w, c_in, e, s, c_out, kernel_size,
+        gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out, kernel_size,
         int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

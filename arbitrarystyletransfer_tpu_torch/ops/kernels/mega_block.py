@@ -87,11 +87,13 @@ def mega_block(xt, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         raise ValueError("mega_block: identity needs C_in == C_out")
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    gate = torch.empty((n, e), dtype=torch.float32, device=x.device)
     y = torch.empty((n, h, c_out, w), dtype=x.dtype, device=x.device)
     rc = load_library().mega_block_launch(
         x.data_ptr(), *map(ptr, ops), hidden.data_ptr(), sums.data_ptr(),
-        y.data_ptr(), n, h, w, c_in, e, s, c_out, kernel_size, int(pre_act),
-        int(identity), int(x.dtype == torch.bfloat16),
+        gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out,
+        kernel_size, int(pre_act), int(identity),
+        int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "mega_block")

@@ -28,7 +28,11 @@
    must launch exactly its kernels' expected counts), their JSON lines,
    and the probe rows' times taken from them.  Then e2 on the plain route at 512px, timed
    as it is and with its two repairs undone (bf16 products before the
-   bias, the NCHW pad).
+   bias, the NCHW pad).  Then rows 1 and 4 by sweep at every path shape
+   (``sweeps_phase``: each sweep's device ms, bound, share of it, rates,
+   registers and CTAs per SM), after ragged shapes off the path through
+   every sweep-1 mode and both sweep-2 layouts (H, W, E not multiples of
+   the sweeps' tiles and channel chunks), held to the same gates.
 4. Routes: ``StylePipeline`` in bfloat16 with the AdaAttN kernel answers
    requests of 8 content/style pairs at 512x512 through four block routes:
    "fused"/"fused" (3 requests), "flat-all" (4; every block the flat kernels
@@ -233,6 +237,26 @@ TWO_PASS_CASES = (
     ("e1-f32", 2, 128, 16, 96, 16, 3, True, True, "float32", 0),
     ("expand1", 2, 128, 40, 40, 40, 3, True, True, "bfloat16", 0),
 )
+# Ragged shapes off the path (0 launches per request), in each table's
+# layout, one per k: H and W not multiples of the sweeps' 16x16 and
+# 128-pixel tiles, E not a multiple of sweep 1's 32-channel chunk or sweep
+# 2's 64-channel box, for every sweep-1 mode (expand_dw: fused; flat_block:
+# flat; mega_block: mega; fused_sums: sums) and both sweep-2 layouts
+# (flat_block: NHWC y; mega_block: (N, H, C, W) y).  ``ragged_phase`` runs
+# them with a generator of their own.
+RAGGED = {
+    "expand_dw": (("rag-k3", 2, 37, 16, 48, 3, True, 0),
+                  ("rag-k5", 2, 37, 40, 48, 5, False, 0)),
+    "flat_block": (
+        ("rag-k3", 2, 37, 16, 48, 16, 3, True, True, "bfloat16", 0, 0),
+        ("rag-k5", 2, 37, 40, 48, 24, 5, False, False, "bfloat16", 0, 0)),
+    "mega_block": (
+        ("rag-k3", 2, 37, 37, 16, 48, 16, 3, True, True, "bfloat16", 0),
+        ("rag-k5", 2, 37, 37, 40, 48, 24, 5, False, False, "bfloat16", 0)),
+    "fused_2pass": (
+        ("rag-k3", 2, 37, 16, 48, 16, 3, True, True, "bfloat16", 0),
+        ("rag-k5", 2, 37, 40, 48, 24, 5, False, False, "bfloat16", 0)),
+}
 # The probe kernels' rows: name, source, TPU kernel under scripts/.
 PROBE_ROWS = (
     ("probe_copy", "probe_copy.cu", "probe_mega2.py:47"),
@@ -391,7 +415,7 @@ def sdpa_yardstick(q, k, v, backward=False, iters=5):
     raise AssertionError("no SDPA backend took the yardstick")
 
 
-def expand_dw_phase(gen):
+def expand_dw_phase(gen, cases=None):
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
         expand_dw,
@@ -403,8 +427,9 @@ def expand_dw_phase(gen):
     bound = Bound()
     # Off the main path: the expand==1 form, and a C_in that is not a
     # multiple of 8 (the CUDA-core expand instead of the tensor cores).
-    cases = EXPAND_DW_CASES + (("expand1", 2, 128, 40, 40, 3, True, 0),
-                               ("cin12", 2, 37, 12, 40, 5, True, 0))
+    if cases is None:
+        cases = EXPAND_DW_CASES + (("expand1", 2, 128, 40, 40, 3, True, 0),
+                                   ("cin12", 2, 37, 12, 40, 5, True, 0))
     for name, n, hw, c_in, e, k, bn, per_req in cases:
         expand = name != "expand1"
         dev = dict(device=DEVICE)
@@ -437,6 +462,47 @@ def expand_dw_phase(gen):
         check(err_h <= tol_h and err_s <= tol_s, f"expand_dw {name} differs")
         torch.cuda.empty_cache()
     return worst, ms, plain_ms, bound
+
+
+def ragged_phase(gen):
+    """The ragged shapes (``RAGGED``) through every sweep-1 mode and both
+    sweep-2 layouts, each against its twin at its usual gate."""
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
+        flat_block,
+        flat_block_reference,
+    )
+
+    expand_dw_phase(gen, RAGGED["expand_dw"])
+    flat_kernel_phase(gen, "flat_block", flat_block, flat_block_reference,
+                      RAGGED["flat_block"], 1)
+    mega_phase(gen, RAGGED["mega_block"])
+    two_pass_phase(gen, RAGGED["fused_2pass"])
+
+
+def sweeps_phase(gen):
+    """Rows 1 and 4 by sweep at every shape of their path: each sweep's
+    device ms (a profiler trace), its own bound (sweep 1: the f32
+    depthwise at the f32 peak and the expand at the bf16 peak against x,
+    the hidden and the sums at HBM; sweep 2: the hidden, the sums, y and
+    the residual at HBM against the projection at the bf16 peak), its
+    share of it, its TFLOP/s and TB/s, its kernel's registers, shared
+    memory and CTAs per SM (``scripts/sweep_times.py``, one JSON line per
+    shape and sweep); then each sweep's ms per request."""
+    from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import (
+        time_sweeps,
+    )
+
+    records = time_sweeps(
+        gen, [c for c in EXPAND_DW_CASES if c[-1]],
+        [c for c in FLAT_BLOCK_CASES if c[-2] or c[-1]], DEVICE, log)
+    per_req = {}
+    for r in records:
+        key = f"{r['kernel']} {r['sweep']}"
+        per_req[key] = per_req.get(key, 0.0) + r["ms"] * r["per_request"]
+    log("sweeps per request (expand_dw on \"fused\", flat_block on "
+        "\"flat-all\"): " + ", ".join(f"{k} {v:.4f} ms"
+                                       for k, v in per_req.items()))
+    return per_req
 
 
 def adaattn_simt(is_bf16):
@@ -665,9 +731,10 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         check(err_y <= tol_y and err_s <= tol_s, f"{name} {label} differs")
         torch.cuda.empty_cache()
     for route, (t_k, t_p) in per_route.items():
-        log(f"{name} per {route} request: kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, bound {bounds[route].ms():.4f} ms "
-            f"({bounds[route].by()})")
+        if t_k:  # the route runs some of these cases
+            log(f"{name} per {route} request: kernel {t_k:.4f} ms, plain "
+                f"{t_p:.4f} ms, bound {bounds[route].ms():.4f} ms "
+                f"({bounds[route].by()})")
     return worst, per_route, bounds
 
 
@@ -680,7 +747,7 @@ def block_cost(n, h, w, c_in, e, c_out, k, size, expand=True):
             2 * n * h * w * e * k * k)
 
 
-def mega_phase(gen):
+def mega_phase(gen, cases=MEGA_CASES):
     """mega_block against its twin at every case, with flat_block timed on
     the same block (NHWC) beside it; returns the worst y error of the
     path's cases, (kernel, twin) device ms per "mega" request and the
@@ -696,7 +763,7 @@ def mega_phase(gen):
 
     worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
     for (label, n, h, w, c_in, e, c_out, k, bn, residual, dtype,
-         per_req) in MEGA_CASES:
+         per_req) in cases:
         dt = getattr(torch, dtype)
         expand = label != "expand1"
         xt = torch.randn(n, h, c_in, w, generator=gen, device=DEVICE).to(dt)
@@ -741,12 +808,13 @@ def mega_phase(gen):
         check(err_y <= tol_y and err_s <= tol_s, f"mega_block {label} differs")
         del xt
         torch.cuda.empty_cache()
-    log(f"mega_block per mega request: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
+    if any(case[-1] for case in cases):
+        log(f"mega_block per mega request: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
     return worst, ms, plain_ms, bound
 
 
-def two_pass_phase(gen):
+def two_pass_phase(gen, cases=TWO_PASS_CASES):
     """fused_sums and fused_project against their twins at every case, and
     the two-pass block timed against the fused route's block (expand_dw +
     the PyTorch epilogue); returns {kernel: [worst error, ms, plain ms,
@@ -768,7 +836,7 @@ def two_pass_phase(gen):
            for name in ("fused_sums", "fused_project")}
     ab = [0.0, 0.0]  # per request: two-pass block, fused route's block
     for (label, n, hw, c_in, e, c_out, k, bn, residual, dtype,
-         per_req) in TWO_PASS_CASES:
+         per_req) in cases:
         dt = getattr(torch, dtype)
         expand = label != "expand1"
         x = torch.randn(n, hw, hw, c_in, generator=gen, device=DEVICE).to(dt)
@@ -854,11 +922,12 @@ def two_pass_phase(gen):
               "differs")
         del x
         torch.cuda.empty_cache()
-    for name, (_, t_k, t_p, b) in out.items():
-        log(f"{name} over the 15 fused-route blocks: kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms, bound {b.ms():.4f} ms ({b.by()})")
-    log(f"A/B per request (15 fused-route blocks): two-pass block "
-        f"{ab[0]:.4f} ms, expand_dw + epilogue {ab[1]:.4f} ms")
+    if any(case[-1] for case in cases):
+        for name, (_, t_k, t_p, b) in out.items():
+            log(f"{name} over the 15 fused-route blocks: kernel {t_k:.4f} "
+                f"ms, plain {t_p:.4f} ms, bound {b.ms():.4f} ms ({b.by()})")
+        log(f"A/B per request (15 fused-route blocks): two-pass block "
+            f"{ab[0]:.4f} ms, expand_dw + epilogue {ab[1]:.4f} ms")
     return out
 
 
@@ -1841,6 +1910,10 @@ def main() -> int:
         gen5 = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
         probe_rows, probe_launches = phase("probes", probes_phase, gen5)
         phase("plain_route", plain_route_phase, gen6)
+        # So do the ragged shapes and the per-sweep times.
+        gen7 = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+        phase("ragged", ragged_phase, gen7)
+        phase("sweeps", sweeps_phase, gen7)
     bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
     launches = phase("routes", routes_phase, gen)
     launches["train"], train_ms, train_peak = phase("train", train_phase, gen)
