@@ -17,7 +17,8 @@
 //     _mega_kernel_t); otherwise of `out` before it is rounded
 //     (_fused_kernel);
 //   * kXT: x is (N, H, C, W) with W contiguous (_mega_kernel_t); otherwise
-//     NHWC.  The hidden is NHWC either way;
+//     NHWC.  The hidden is NHWC either way.  kXBox (with kXT): its halo
+//     comes as a TMA box (below);
 //   * kNoHidden: only the sums are written (_fused_kernel "sums").
 // At f32 the rounding bits change nothing.
 //
@@ -50,8 +51,18 @@
 //     thread while this tile's depthwise runs; the box is zero outside the
 //     image, and the few halo rows and columns that reflection takes from
 //     inside it are copied in shared memory (wait_x), so the reflection
-//     stays an index map.  For (N, H, C, W) x it is staged synchronously by
-//     a thread per (channel, halo row), 16-byte loads of the interior.
+//     stays an index map.  For (N, H, C, W) x with W % 8 == 0 (kXBox: every
+//     mega block) the same, with a box of a (W, C, H, N) map: [halo row]
+//     [cin16 channels][BW = 24 columns] (the inner extent a 16-byte
+//     multiple, and its start too: an unaligned innermost coordinate
+//     faults, so this mode's tile grid starts at column P - 8, XSHIFT, one
+//     more tile per row; channels past C_in zero outside the tensor),
+//     edges copied
+//     by wait_xt, and the expand's A fragments read from it by
+//     ldmatrix.trans (expand_mtile_t: 16-pixel tiles of two 8-column
+//     groups, 24/20 of the MMA work at k5, 24/18 at k3).  Other (N, H, C, W)
+//     x is staged synchronously by a thread per (channel, halo row), 16-byte
+//     loads of the interior.
 //   * Expand: each warp runs mma.sync on 16-row tiles of the halo x all 32
 //     channels over the whole C_in, one tile at a time (the tiles left over
 //     after whole rounds of 8 split by 8-channel column), and writes the
@@ -75,11 +86,18 @@
 //     most 128 registers (three, at most 85, spilled at k3, gained 3-5%
 //     at C_in <= 24 and lost 4% at C_in 80 on an H100; the CUDA-core
 //     expand, off the path, asks for one to keep its 50 accumulators at
-//     k5 in registers).  The launcher sizes the grid
+//     k5 in registers).  kXBox's box instead of the x halo: (16+2p) *
+//     C_in16 * 24 * 2 B, 46,080 B at k5 C_in 40 (two CTAs).  At C_in16 >= 64
+//     the whole box (k3 C_in 80: 69,120 B, 117.5 KB in all) would leave
+//     one CTA per SM (two need at most 115,712 B each), so kXSplit loads it
+//     in two channel halves, the second after the first half's products
+//     (stored as f32 partial sums in the halo buffer): 90.9 KB at k3 C_in
+//     80, 105.2 KB at k5 C_in 96, two CTAs.  The launcher sizes the grid
 //     from the occupancy the runtime reports for the shape, never above it.
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -106,6 +124,8 @@ constexpr int kRoundEx = 1;
 constexpr int kSumRounded = 2;
 constexpr int kXT = 4;
 constexpr int kNoHidden = 8;
+constexpr int kXBox = 16;  // with kXT: x's halo as a TMA box (see stage_x)
+constexpr int kXSplit = 32;  // with kXBox: the box in two channel halves
 constexpr int kFused = 0;                      // _fused_kernel "hidden"
 constexpr int kFlat = kRoundEx | kSumRounded;  // _flat_kernel
 constexpr int kMega = kSumRounded | kXT;       // _mega_kernel_t
@@ -118,6 +138,12 @@ struct Halo {
   static constexpr int HW = TW + 2 * P;      // halo columns
   static constexpr int HP = HH * HW;         // halo pixels
   static constexpr int MT = (HP + 15) / 16;  // 16-row MMA tiles
+  // The (N, H, C, W) box: BW columns (16-byte rows), cut into GPR groups of
+  // 8 pixels along a halo row; two groups make one 16-row MMA tile.
+  static constexpr int BW = (HW + 7) / 8 * 8;
+  static constexpr int GPR = BW / 8;
+  static constexpr int MTB = HH * GPR / 2;
+  static_assert((HH * GPR) % 2 == 0, "whole MMA tiles of groups");
   // The depthwise blocks start at pixels that are multiples of 4, so the
   // swizzle of each of their reads is a compile-time constant.
   static_assert((DW_ROWS * HW) % 4 == 0 && DW_COLS % 4 == 0, "swizzle");
@@ -136,14 +162,22 @@ __host__ __device__ constexpr int swz(int p) { return (p & 3) << 3; }
 //   bes  f32 [32]: the chunk's expand bias (0 past E);
 //   bar  the mbarrier of xs's TMA box;
 // from a 128-byte aligned base (smem_base), which `total` leaves room for.
-template <int K, bool EXPAND, bool MMA>
+//   (XB 1: xs holds the (N, H, C, W) box, bf16 [HH][bch][BW], bch = cin16;
+//   XB 2, kXSplit: one channel half of it at a time, bch = cin16 / 2 and
+//   cin16 padded to 2 bch, the weights' K zero past C_in.)
+template <int K, bool EXPAND, bool MMA, int XB = 0>
 struct Smem {
-  int cin16, ldx, xs, ws, red, bes, bar, total;
+  int cin16, bch, ldx, xs, ws, red, bes, bar, total;
   __host__ __device__ explicit Smem(int cin) {
+    using G = Halo<K>;
     cin16 = (cin + 15) / 16 * 16;
+    bch = XB == 2 ? (cin16 / 2 + 15) / 16 * 16 : cin16;
+    if (XB == 2) cin16 = 2 * bch;
     ldx = cin16 + 8;  // 16-byte multiple; rows 4 banks apart: conflict-free
-    xs = Halo<K>::HP * CE * 4;
-    ws = xs + (MMA ? Halo<K>::MT * 16 * ldx * 2 : 0);
+    xs = G::HP * CE * 4;
+    ws = xs + (!MMA ? 0
+                    : XB ? G::HH * bch * G::BW * 2
+                         : G::MT * 16 * ldx * 2);
     const int wbytes = MMA ? CE * ldx * 2
                            : (EXPAND ? (cin + 3) / 4 * 4 * CE * 4 : 0);
     red = ws + (wbytes + 15) / 16 * 16;
@@ -153,6 +187,21 @@ struct Smem {
   }
 };
 
+// The first output column of a row's tiles: 0, or with kXBox P - 8, so
+// that every box starts at a multiple of 8 columns (TMA takes a box whose
+// innermost coordinate is 16-byte aligned; an unaligned one faults on an
+// H100).  The shifted grid has one more tile per row, its first and last
+// partly outside the image (masked).
+template <int K, int MODE>
+constexpr int XSHIFT = (MODE & kXBox) != 0 ? Halo<K>::P - 8 : 0;
+
+// The layout of a kernel of this MODE.
+template <int K, bool EXPAND, bool MMA, int MODE>
+using SmemM = Smem<K, EXPAND, MMA,
+                   !MMA || (MODE & kXBox) == 0 ? 0
+                   : (MODE & kXSplit) != 0     ? 2
+                                               : 1>;
+
 // The dynamic shared memory, aligned to 128 bytes (TMA's destination).
 __device__ __forceinline__ char* smem_base() {
   extern __shared__ float4 smem4[];
@@ -160,26 +209,48 @@ __device__ __forceinline__ char* smem_base() {
   return raw + ((128 - (smem_addr(raw) & 127)) & 127);
 }
 
-// x (n, h, w, cin) bf16 as the 4-d map of stage_x's boxes (ldx channels,
-// 16 + 2p columns, 16 + 2p rows, 1 image), zeros outside; cin % 8 == 0.
-template <int K>
-bool make_x_map(CUtensorMap* map, const void* x, int n, int h, int w,
-                int cin) {
+// A 4-d bf16 tensor map over x (dims and byte strides innermost first),
+// boxes of `box`, zeros outside.
+inline bool make_map_4d(CUtensorMap* map, const void* x,
+                        const cuuint64_t (&dims)[4],
+                        const cuuint64_t (&strides)[3],
+                        const cuuint32_t (&box)[4]) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const int ldx = (cin + 15) / 16 * 16 + 8;
-  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h,
-                              (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)w * cin * 2,
-                                 (cuuint64_t)h * w * cin * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)ldx, (cuuint32_t)Halo<K>::HW,
-                             (cuuint32_t)Halo<K>::HH, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(x), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x (n, h, w, cin) bf16 as the map of NHWC halo boxes (ldx channels, bw
+// columns, bh rows, 1 image); cin % 8 == 0.
+inline bool make_x_map(CUtensorMap* map, const void* x, int n, int h, int w,
+                       int cin, int bw, int bh) {
+  const int ldx = (cin + 15) / 16 * 16 + 8;
+  return make_map_4d(map, x,
+                     {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h,
+                      (cuuint64_t)n},
+                     {(cuuint64_t)cin * 2, (cuuint64_t)w * cin * 2,
+                      (cuuint64_t)h * w * cin * 2},
+                     {(cuuint32_t)ldx, (cuuint32_t)bw, (cuuint32_t)bh, 1});
+}
+
+// x (n, h, cin, w) bf16 as the map of kXBox's boxes (BW columns, bch
+// channels, 16 + 2p rows, 1 image): the channels past C_in lie outside
+// the tensor and come as zeros.  w % 8 == 0 (16-byte strides).
+template <int K>
+bool make_xt_map(CUtensorMap* map, const void* x, int n, int h, int w,
+                 int cin, int bch) {
+  return make_map_4d(map, x,
+                     {(cuuint64_t)w, (cuuint64_t)cin, (cuuint64_t)h,
+                      (cuuint64_t)n},
+                     {(cuuint64_t)w * 2, (cuuint64_t)cin * w * 2,
+                      (cuuint64_t)h * cin * w * 2},
+                     {(cuuint32_t)Halo<K>::BW, (cuuint32_t)bch,
+                      (cuuint32_t)Halo<K>::HH, 1});
 }
 
 // x[n] at row gy, column gx, channel ci; xn is image n's base.
@@ -192,10 +263,10 @@ __device__ __forceinline__ T x_at(const T* __restrict__ xn, int gy, int gx,
 
 // The expand weights of channels [c0, c0 + 32) into ws, the expand bias
 // into bes.  The caller's next barrier publishes them.
-template <typename T, int K, bool EXPAND, bool MMA>
+template <typename T, int K, bool EXPAND, bool MMA, int XB>
 __device__ __forceinline__ void stage_weights(
     const T* __restrict__ we, const float* __restrict__ be, char* smem,
-    const Smem<K, EXPAND, MMA>& L, int cin, int E, int c0) {
+    const Smem<K, EXPAND, MMA, XB>& L, int cin, int E, int c0) {
   if constexpr (MMA) {
     __nv_bfloat16* wsT = reinterpret_cast<__nv_bfloat16*>(smem + L.ws);
     // Lanes on consecutive output channels: coalesced 64-byte reads.
@@ -222,20 +293,24 @@ __device__ __forceinline__ void stage_weights(
                            : 0.f;
 }
 
-// The bf16 x halo of output tile (ty0, tx0) of image n into xs (MMA only):
-// [pixel][ldx], channels past C_in zero.  NHWC x: one TMA box of
-// (ldx channels, halo columns, halo rows) from xmap, zeros outside the
-// image, completing on bar (wait_x then reflects the image's edges);
-// rows past the halo are not written (they feed only dropped outputs).
-// (N, H, C, W) x: plain loads and stores, reflected here.  xs must be free
-// (the previous expand has ended).
+// The bf16 x halo of output tile (ty0, tx0) of image n into xs (MMA only),
+// channels past C_in zero.  NHWC x: [pixel][ldx], one TMA box of (ldx
+// channels, halo columns, halo rows) from xmap, zeros outside the image,
+// completing on bar (wait_x then reflects the image's edges); rows past
+// the halo are not written (they feed only dropped outputs).  (N, H, C, W)
+// x with kXBox: [halo row][cin16][BW], one TMA box of (BW columns, cin16
+// channels from ch0, halo rows) from make_xt_map's map, completing on bar
+// (wait_xt reflects); kXSplit passes a half's channel count as cin16.
+// (N, H, C, W) x otherwise: [pixel][ldx], plain loads and stores,
+// reflected here.  xs must be free (the previous expand has ended).
 template <typename T, int K, int MODE>
 __device__ __forceinline__ void stage_x(const CUtensorMap* xmap,
                                         uint64_t* bar,
                                         const T* __restrict__ xn,
                                         __nv_bfloat16* xs, int ldx,
                                         int cin16, int H, int W, int cin,
-                                        int n, int ty0, int tx0) {
+                                        int n, int ty0, int tx0,
+                                        int ch0 = 0) {
   using G = Halo<K>;
   constexpr int P = G::P, HW = G::HW, HP = G::HP;
   if constexpr ((MODE & kXT) == 0) {
@@ -243,6 +318,12 @@ __device__ __forceinline__ void stage_x(const CUtensorMap* xmap,
       fence_proxy_async();  // this thread's earlier writes of xs come first
       mbar_expect_tx(bar, HP * ldx * 2);
       tma_load_4d(xs, xmap, 0, tx0 - P, ty0 - P, n, bar);
+    }
+  } else if constexpr ((MODE & kXBox) != 0) {
+    if (threadIdx.x == 0) {
+      fence_proxy_async();
+      mbar_expect_tx(bar, G::HH * cin16 * G::BW * 2);
+      tma_load_4d(xs, xmap, tx0 - P, ch0, ty0 - P, n, bar);
     }
   } else {
     // One thread per (channel, halo row), lanes on consecutive channels, so
@@ -297,30 +378,26 @@ __device__ __forceinline__ void stage_x(const CUtensorMap* xmap,
   }
 }
 
-// Waits for stage_x's TMA box (NHWC x; the barrier's phase parity), then
-// writes the reflected halo rows and columns that lie outside the image
-// (torch ReflectionPad: -1 -> 1, H -> H - 2) from the rows and columns
-// inside it, rows first, so the corners follow.  Halo positions further out
-// feed only dropped outputs and stay zero.  The caller's next barrier
-// publishes xs.
-template <int K>
-__device__ __forceinline__ void wait_x(uint64_t* bar, uint32_t parity,
-                                       __nv_bfloat16* xs, int ldx, int H,
-                                       int W, int ty0, int tx0) {
-  using G = Halo<K>;
-  constexpr int P = G::P, HH = G::HH, HW = G::HW;
-  mbar_wait(bar, parity);
-  const bool top = ty0 < P, bottom = ty0 + TH + P > H;
-  const bool left = tx0 < P, right = tx0 + TW + P > W;
+// The reflected rows and columns of an NHWC halo box in xs ([pixel][ldx],
+// HH x HW pixels from image row y0, column x0) that lie outside the image
+// (torch ReflectionPad: -1 -> 1, H -> H - 2), copied from the rows and
+// columns inside it, rows first, so the corners follow.  Halo positions
+// further out feed only dropped outputs and stay zero.  The caller's next
+// barrier publishes xs.
+template <int P, int HH, int HW>
+__device__ __forceinline__ void reflect_box(__nv_bfloat16* xs, int ldx,
+                                            int H, int W, int y0, int x0) {
+  const bool top = y0 < 0, bottom = y0 + HH > H;
+  const bool left = x0 < 0, right = x0 + HW > W;
   if (!(top || bottom || left || right)) return;  // uniform over the CTA
   const int vpp = ldx / 8;  // 16-byte vectors per pixel
   uint4* v = reinterpret_cast<uint4*>(xs);
-  // Halo row hr (image row ty0 - P + hr) from its reflection, for the P
-  // rows above row 0 and below row H - 1.
+  // Halo row hr (image row y0 + hr) from its reflection, for the P rows
+  // above row 0 and below row H - 1.
   for (int idx = threadIdx.x; idx < 2 * P * HW * vpp; idx += NTHREADS) {
     const int j = idx / (HW * vpp), rest = idx % (HW * vpp);
     const int y = j < P ? j - P : H + (j - P);  // -P..-1, H..H+P-1
-    const int hr = y - (ty0 - P), hs = reflect_idx(y, H) - (ty0 - P);
+    const int hr = y - y0, hs = reflect_idx(y, H) - y0;
     if (hr >= 0 && hr < HH && hs >= 0 && hs < HH)
       v[hr * HW * vpp + rest] = v[hs * HW * vpp + rest];
   }
@@ -329,10 +406,134 @@ __device__ __forceinline__ void wait_x(uint64_t* bar, uint32_t parity,
     const int j = idx / (HH * vpp), rest = idx % (HH * vpp);
     const int hr = rest / vpp, q = rest % vpp;
     const int x = j < P ? j - P : W + (j - P);
-    const int hc = x - (tx0 - P), hs = reflect_idx(x, W) - (tx0 - P);
+    const int hc = x - x0, hs = reflect_idx(x, W) - x0;
     if (hc >= 0 && hc < HW && hs >= 0 && hs < HW)
       v[(hr * HW + hc) * vpp + q] = v[(hr * HW + hs) * vpp + q];
   }
+}
+
+// Waits for stage_x's NHWC TMA box (the barrier's phase parity), then
+// reflects the image's edges into it (reflect_box).
+template <int K>
+__device__ __forceinline__ void wait_x(uint64_t* bar, uint32_t parity,
+                                       __nv_bfloat16* xs, int ldx, int H,
+                                       int W, int ty0, int tx0) {
+  using G = Halo<K>;
+  mbar_wait(bar, parity);
+  reflect_box<G::P, G::HH, G::HW>(xs, ldx, H, W, ty0 - G::P, tx0 - G::P);
+}
+
+// wait_x for kXBox's box ([halo row][cin16][BW]): whole channel planes for
+// the rows, single values for the columns, rows first.
+template <int K>
+__device__ __forceinline__ void wait_xt(uint64_t* bar, uint32_t parity,
+                                        __nv_bfloat16* xs, int cin16, int H,
+                                        int W, int ty0, int tx0) {
+  using G = Halo<K>;
+  constexpr int P = G::P, HH = G::HH, HW = G::HW, BW = G::BW;
+  mbar_wait(bar, parity);
+  const int y0 = ty0 - P, x0 = tx0 - P;
+  const bool top = y0 < 0, bottom = y0 + HH > H;
+  const bool left = x0 < 0, right = x0 + HW > W;
+  if (!(top || bottom || left || right)) return;  // uniform over the CTA
+  const int vpr = cin16 * BW / 8;  // 16-byte vectors per halo row
+  uint4* v = reinterpret_cast<uint4*>(xs);
+  for (int idx = threadIdx.x; idx < 2 * P * vpr; idx += NTHREADS) {
+    const int j = idx / vpr, rest = idx % vpr;
+    const int y = j < P ? j - P : H + (j - P);
+    const int hr = y - y0, hs = reflect_idx(y, H) - y0;
+    if (hr >= 0 && hr < HH && hs >= 0 && hs < HH)
+      v[hr * vpr + rest] = v[hs * vpr + rest];
+  }
+  __syncthreads();
+  if (!(left || right)) return;
+  // The 2P columns' targets and sources are the same in every (row,
+  // channel) line: a thread copies all of them for its lines.
+  int hc[2 * P], hs[2 * P];
+#pragma unroll
+  for (int j = 0; j < 2 * P; ++j) {
+    const int x = j < P ? j - P : W + (j - P);
+    hc[j] = x - x0;
+    hs[j] = reflect_idx(x, W) - x0;
+    if (hc[j] < 0 || hc[j] >= HW || hs[j] < 0 || hs[j] >= HW) hc[j] = -1;
+  }
+  for (int row = threadIdx.x; row < HH * cin16; row += NTHREADS) {
+    __nv_bfloat16* line = xs + row * BW;
+#pragma unroll
+    for (int j = 0; j < 2 * P; ++j)
+      if (hc[j] >= 0) line[hc[j]] = line[hs[j]];
+  }
+}
+
+// One warp's product of a 16-row tile of x (its A fragments from
+// aload(a, ks) at channel ks) by 8-channel columns [nt0, nt0 + NTN) of the
+// chunk's expand weights wsT, on the tensor cores; then store(r, col, v0,
+// v1) for tile row r and channels col, col + 1 (f32 sums).  B fragments by
+// ldmatrix: lane l gives channel row 8 * (l / 16) + l % 8 at k offset
+// 8 * ((l / 8) % 2) (two 8-channel columns; x2 takes lanes 0-15); rows
+// ldx * 2 bytes apart (an odd multiple of 16 modulo 128 for every C_in)
+// meet no bank conflict.
+template <int NTN, typename ALoad, typename Store>
+__device__ __forceinline__ void mma_tile(const __nv_bfloat16* wsT, int ldx,
+                                         int cin16, int nt0, ALoad aload,
+                                         Store store) {
+  static_assert(NTN == 1 || NTN % 2 == 0, "B columns come in pairs");
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  float acc[NTN][4];
+#pragma unroll
+  for (int i = 0; i < NTN; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+  const __nv_bfloat16* bp =
+      wsT + (nt0 * 8 + (lane >> 4) * 8 + (lane & 7)) * ldx +
+      ((lane >> 3) & 1) * 8;
+  for (int ks = 0; ks < cin16; ks += 16) {
+    uint32_t a[4];
+    aload(a, ks);
+    if constexpr (NTN == 1) {
+      uint32_t b[2];
+      ldmatrix_x2(b, bp + ks);
+      mma_bf16(acc[0], a, b);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NTN; i += 2) {
+        uint32_t b[4];  // columns i and i + 1, k 0-7 and 8-15 of each
+        ldmatrix_x4(b, bp + i * 8 * ldx + ks);
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_bf16(acc[i], a, b0);
+        mma_bf16(acc[i + 1], a, b1);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NTN; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      store(g + half * 8, (nt0 + i) * 8 + tig * 2, acc[i][2 * half],
+            acc[i][2 * half + 1]);
+}
+
+// The expand's epilogue of halo pixel p, channels col and col + 1: the
+// bias, hswish and (ROUND_EX) the rounding, then one 8-byte store into buf
+// at the swizzled channel (conflict-free: within a half-warp the four
+// pixels p % 4 land 8 banks apart).
+template <typename T, bool ROUND_EX>
+__device__ __forceinline__ void store_ex(float* buf, const float* bes,
+                                         int pre_act, int p, int col,
+                                         float v0, float v1) {
+  v0 += bes[col];
+  v1 += bes[col + 1];
+  if (pre_act) {
+    v0 = hswish(v0);
+    v1 = hswish(v1);
+  }
+  if (ROUND_EX) {
+    v0 = round_to<T>(v0);
+    v1 = round_to<T>(v1);
+  }
+  *reinterpret_cast<float2*>(&buf[p * CE + (col ^ swz(p))]) =
+      make_float2(v0, v1);
 }
 
 // One warp's expand of 16-row tile mt of the halo, 8-channel columns
@@ -405,16 +606,61 @@ __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
   }
 }
 
+// expand_mtile for kXBox's box ([halo row][bch][BW]): tile mt is the 8-
+// pixel groups 2 mt and 2 mt + 1 (group gi: halo row gi / GPR, columns
+// 8 (gi % GPR) + 0..7; columns past the halo dropped), over the box's bch
+// channels, which are the weights' K columns [kofs, kofs + bch).  A
+// fragments by ldmatrix.trans from the channel rows (BW * 2 = 48 bytes
+// apart: conflict-free): lane l gives group 2 mt + (l / 8) % 2, channel
+// 8 * (l / 16) + l % 8, so matrices 0-3 are the fragment's (rows 0-7 |
+// 8-15) x (k 0-7 | 8-15).  PASS 0: the whole K, its epilogue (store_ex);
+// kXSplit's PASS 1 stores the f32 partial sums in buf, PASS 2 adds them to
+// the second half's and runs the epilogue.
+template <typename T, int K, int NTN, bool ROUND_EX, int PASS>
+__device__ __forceinline__ void expand_mtile_t(const __nv_bfloat16* xs,
+                                               const __nv_bfloat16* wsT,
+                                               const float* bes, float* buf,
+                                               int ldx, int bch, int kofs,
+                                               int mt, int nt0, int pre_act) {
+  using G = Halo<K>;
+  const int lane = threadIdx.x & 31;
+  const int gi = 2 * mt + ((lane >> 3) & 1);
+  const __nv_bfloat16* ap =
+      xs + ((gi / G::GPR) * bch + (lane >> 4) * 8 + (lane & 7)) * G::BW +
+      (gi % G::GPR) * 8;
+  mma_tile<NTN>(
+      wsT + kofs, ldx, bch, nt0,
+      [&](uint32_t(&a)[4], int ks) { ldmatrix_x4_trans(a, ap + ks * G::BW); },
+      [&](int r, int col, float v0, float v1) {
+        const int grp = 2 * mt + (r >> 3);
+        const int hc = (grp % G::GPR) * 8 + (r & 7);
+        if (hc >= G::HW) return;
+        const int p = (grp / G::GPR) * G::HW + hc;
+        float2* part =
+            reinterpret_cast<float2*>(&buf[p * CE + (col ^ swz(p))]);
+        if constexpr (PASS == 1) {
+          *part = make_float2(v0, v1);
+          return;
+        } else if constexpr (PASS == 2) {
+          const float2 a = *part;
+          v0 += a.x;
+          v1 += a.y;
+        }
+        store_ex<T, ROUND_EX>(buf, bes, pre_act, p, col, v0, v1);
+      });
+}
+
 // The expanded halo of output tile (ty0, tx0) for the chunk whose weights
 // stage_weights put in shared memory, into buf (f32, swizzled; rounded to T
 // with kRoundEx).  MMA: the x halo is in xs (stage_x; the caller has waited
 // for its copies); otherwise x is read here.  Starts and ends with a
 // barrier.  EXPAND: a 1x1 expand precedes the depthwise; MMA: it runs on the
 // tensor cores (bf16 only).
-template <typename T, int K, bool EXPAND, bool MMA, int MODE>
+template <typename T, int K, bool EXPAND, bool MMA, int MODE, int PASS = 0>
 __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
                                             char* smem,
-                                            const Smem<K, EXPAND, MMA>& L,
+                                            const SmemM<K, EXPAND, MMA,
+                                                        MODE>& L,
                                             int H, int W, int cin,
                                             int pre_act, int ty0, int tx0) {
   using G = Halo<K>;
@@ -434,17 +680,28 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
     const __nv_bfloat16* wsT =
         reinterpret_cast<const __nv_bfloat16*>(smem + L.ws);
     // Warp w takes the 16-row tiles w, w + 8, ... as whole tiles (32
-    // channels); the MT % 8 left over are split by 8-channel column, one
-    // per warp in turn, so no warp does a whole extra tile (k5: 25 tiles).
-    constexpr int ROUNDS = G::MT / NWARPS;
+    // channels); the tiles left over after whole rounds of 8 are split by
+    // 8-channel column, one per warp in turn, so no warp does a whole
+    // extra tile (k5: 25 tiles, 30 from the (N, H, C, W) box).
+    constexpr bool XBOX = (MODE & kXBox) != 0;
+    constexpr int MT = XBOX ? G::MTB : G::MT;
+    constexpr int ROUNDS = MT / NWARPS;
+    constexpr int LEFT = (MT - ROUNDS * NWARPS) * (CE / 8);
+    auto tile = [&](auto ntn, int mt, int nt0) {
+      constexpr int NTN = decltype(ntn)::value;
+      if constexpr (XBOX)
+        expand_mtile_t<T, K, NTN, ROUND_EX, PASS>(
+            xs, wsT, bes, buf, L.ldx, L.bch, PASS == 2 ? L.bch : 0, mt, nt0,
+            pre_act);
+      else
+        expand_mtile<T, NTN, ROUND_EX>(xs, wsT, bes, buf, L.ldx, L.cin16,
+                                       mt, nt0, pre_act, HP);
+    };
     for (int i = 0; i < ROUNDS; ++i)
-      expand_mtile<T, CE / 8, ROUND_EX>(xs, wsT, bes, buf, L.ldx, L.cin16,
-                                        warp + i * NWARPS, 0, pre_act, HP);
-    constexpr int LEFT = (G::MT - ROUNDS * NWARPS) * (CE / 8);
+      tile(std::integral_constant<int, CE / 8>{}, warp + i * NWARPS, 0);
     for (int u = warp; u < LEFT; u += NWARPS)
-      expand_mtile<T, 1, ROUND_EX>(xs, wsT, bes, buf, L.ldx, L.cin16,
-                                   ROUNDS * NWARPS + u / (CE / 8),
-                                   u % (CE / 8), pre_act, HP);
+      tile(std::integral_constant<int, 1>{}, ROUNDS * NWARPS + u / (CE / 8),
+           u % (CE / 8));
   } else {
     constexpr int NPX = (HP + NWARPS - 1) / NWARPS;  // halo pixels per warp
     const float* ws = reinterpret_cast<const float*>(smem + L.ws);
@@ -606,8 +863,8 @@ __device__ __forceinline__ void flush_sums(float csum, float* red,
   }
 }
 
-// xmap: x as make_x_map's map (NHWC bf16 x with the tensor-core expand;
-// unused otherwise).
+// xmap: x as make_x_map's map (NHWC bf16 x with the tensor-core expand)
+// or make_xt_map's (kXBox); unused otherwise.
 template <typename T, int K, bool EXPAND, bool MMA, int MODE>
 __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     expand_dw_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -617,10 +874,11 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
                      const float* __restrict__ bd, T* __restrict__ hidden,
                      float* __restrict__ sums, int N, int H, int W, int cin,
                      int E, int pre_act, int tiles_x, int tiles_per_image) {
-  constexpr bool ASYNC = MMA && (MODE & kXT) == 0;  // TMA x halo
-  constexpr int VEC = 16 / (int)sizeof(T);          // values per 16 bytes
+  // The x halo as a TMA box, prefetched for the next tile.
+  constexpr bool ASYNC = MMA && ((MODE & kXT) == 0 || (MODE & kXBox) != 0);
+  constexpr int VEC = 16 / (int)sizeof(T);  // values per 16 bytes
   char* smem = smem_base();
-  const Smem<K, EXPAND, MMA> L(cin);
+  const SmemM<K, EXPAND, MMA, MODE> L(cin);
   uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar);
   float* buf = reinterpret_cast<float*>(smem);
   T* hs = reinterpret_cast<T*>(smem);  // the tile's hidden, [256][32]
@@ -630,9 +888,19 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   const int c0 = blockIdx.y * CE;
   const int c = c0 + lane;
   const bool c_ok = c < E;
+  // The CTA's items: every gridDim.x-th, or (kXBox) one contiguous run,
+  // whose few tiles at the image's left and right edges (two per row of
+  // the shifted grid, with the column copies of wait_xt) fall to every CTA
+  // alike (strided, a grid of tiles_x CTAs per chunk gave them all to two).
+  constexpr bool RUN = (MODE & kXBox) != 0;
   const int total = N * tiles_per_image;
-  int item = blockIdx.x;
-  if (item >= total) return;
+  const int step = RUN ? 1 : gridDim.x;
+  int item = RUN ? (int)((long long)blockIdx.x * total / gridDim.x)
+                 : blockIdx.x;
+  const int end = RUN ? (int)((long long)(blockIdx.x + 1) * total /
+                              gridDim.x)
+                      : total;
+  if (item >= end) return;
 
   stage_weights<T, K, EXPAND, MMA>(we, be, smem, L, cin, E, c0);
   float wk[K * K], bdv;
@@ -641,7 +909,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   auto tile_origin = [&](int it, int& ty0, int& tx0) {
     const int t = it % tiles_per_image;
     ty0 = (t / tiles_x) * TH;
-    tx0 = (t % tiles_x) * TW;
+    tx0 = (t % tiles_x) * TW + XSHIFT<K, MODE>;
   };
   uint32_t xphase = 0;
   if constexpr (ASYNC) {
@@ -652,7 +920,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     __syncthreads();
     int ty0, tx0;
     tile_origin(item, ty0, tx0);
-    stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.cin16, H, W, cin,
+    stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.bch, H, W, cin,
                         image_of(item), ty0, tx0);
   }
   const bool vec_out = E % VEC == 0 &&
@@ -661,7 +929,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   int n_cur = image_of(item);
   float csum = 0.f;
 
-  for (; item < total; item += gridDim.x) {
+  for (; item < end; item += step) {
     const int n = image_of(item);
     int ty0, tx0;
     tile_origin(item, ty0, tx0);
@@ -678,38 +946,60 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
           pre_act, ty0, tx0, c0);
     } else {
       if constexpr (ASYNC) {
-        wait_x<K>(xbar, xphase, xs, L.ldx, H, W, ty0, tx0);
+        if constexpr ((MODE & kXBox) != 0)
+          wait_xt<K>(xbar, xphase, xs, L.bch, H, W, ty0, tx0);
+        else
+          wait_x<K>(xbar, xphase, xs, L.ldx, H, W, ty0, tx0);
         xphase ^= 1;
       } else if constexpr (MMA) {
-        stage_x<T, K, MODE>(&xmap, xbar, xn, xs, L.ldx, L.cin16, H, W, cin,
+        stage_x<T, K, MODE>(&xmap, xbar, xn, xs, L.ldx, L.bch, H, W, cin,
                             n, ty0, tx0);
       }
-      expand_halo<T, K, EXPAND, MMA, MODE>(xn, smem, L, H, W, cin, pre_act,
-                                           ty0, tx0);
+      if constexpr (MMA && (MODE & kXSplit) != 0) {
+        // The first channel half's partial sums, then the second half's box
+        // (its load not hidden: the price of two CTAs per SM at C_in >= 80).
+        expand_halo<T, K, EXPAND, MMA, MODE, 1>(xn, smem, L, H, W, cin,
+                                                pre_act, ty0, tx0);
+        stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.bch, H, W, cin, n,
+                            ty0, tx0, L.bch);
+        wait_xt<K>(xbar, xphase, xs, L.bch, H, W, ty0, tx0);
+        xphase ^= 1;
+        expand_halo<T, K, EXPAND, MMA, MODE, 2>(xn, smem, L, H, W, cin,
+                                                pre_act, ty0, tx0);
+      } else {
+        expand_halo<T, K, EXPAND, MMA, MODE>(xn, smem, L, H, W, cin, pre_act,
+                                             ty0, tx0);
+      }
       if constexpr (ASYNC) {
         // The next tile's x halo comes in while this one's depthwise runs.
-        const int next = item + gridDim.x;
-        if (next < total) {
+        const int next = item + step;
+        if (next < end) {
           int ny0, nx0;
           tile_origin(next, ny0, nx0);
-          stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.cin16, H, W, cin,
+          stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.bch, H, W, cin,
                               image_of(next), ny0, nx0);
         }
       }
     }
+    // kXSplit (k5 C_in 96 spilled 12 B with them live through both
+    // passes): the depthwise weights come back from L1 for each tile.
+    if constexpr ((MODE & kXSplit) != 0) load_dw<K>(wd, bd, E, c, wk, bdv);
     float o[DW_ROWS][DW_COLS];
     depthwise_tile<K>(buf, wk, bdv, o);
     // The SE sums (only a tile at the image's lower or right edge masks)
     // and the tile's hidden, staged in buf once every read of it is done.
     constexpr bool STORE = (MODE & kNoHidden) == 0;
-    const bool full = ty0 + TH <= H && tx0 + TW <= W;
+    constexpr bool SHIFT = XSHIFT<K, MODE> != 0;  // tiles start left of 0
+    const bool full = ty0 + TH <= H && (!SHIFT || tx0 >= 0) && tx0 + TW <= W;
     if constexpr (STORE) __syncthreads();
 #pragma unroll
     for (int r = 0; r < DW_ROWS; ++r)
 #pragma unroll
       for (int j = 0; j < DW_COLS; ++j) {
         const T hv = from_f32<T>(o[r][j]);
-        if (c_ok && (full || (ty0 + oy0 + r < H && tx0 + ox0 + j < W)))
+        if (c_ok && (full || (ty0 + oy0 + r < H &&
+                              (!SHIFT || tx0 + ox0 + j >= 0) &&
+                              tx0 + ox0 + j < W)))
           csum += (MODE & kSumRounded) ? to_f32(hv) : o[r][j];
         if constexpr (STORE) hs[((oy0 + r) * TW + ox0 + j) * CE + lane] = hv;
       }
@@ -720,7 +1010,8 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
       for (int idx = threadIdx.x; idx < TH * TW * VPP; idx += NTHREADS) {
         const int p = idx / VPP, cc = (idx % VPP) * VEC;
         const int gy = ty0 + p / TW, gx = tx0 + p % TW;
-        if (gy >= H || gx >= W || c0 + cc >= E) continue;
+        if (gy >= H || (SHIFT && gx < 0) || gx >= W || c0 + cc >= E)
+          continue;
         T* dst = hidden + ((size_t)n * H * W + (size_t)gy * W + gx) * E + c0 +
                  cc;
         const T* src = hs + p * CE + cc;
@@ -737,16 +1028,26 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
              c);
 }
 
+// 1 if the last launch of this source's kernels staged x as a TMA box
+// (asynchronously), 0 if with plain loads, -1 before any launch.
+inline int& last_async() {
+  static int v = -1;
+  return v;
+}
+
 template <typename T, int K, bool EXPAND, bool MMA, int MODE>
 cudaError_t launch(const void* x, const void* we, const void* wd,
                    const void* be, const void* bd, void* hidden, void* sums,
                    int n, int h, int w, int cin, int e, int pre_act,
                    cudaStream_t stream) {
-  const Smem<K, EXPAND, MMA> L(cin);
+  constexpr bool ASYNC = MMA && ((MODE & kXT) == 0 || (MODE & kXBox) != 0);
+  const SmemM<K, EXPAND, MMA, MODE> L(cin);
   auto kernel = expand_dw_kernel<T, K, EXPAND, MMA, MODE>;
   CUtensorMap xmap{};
-  if (MMA && (MODE & kXT) == 0 &&
-      !make_x_map<K>(&xmap, x, n, h, w, cin))
+  if (ASYNC && !((MODE & kXT) != 0
+                     ? make_xt_map<K>(&xmap, x, n, h, w, cin, L.bch)
+                     : make_x_map(&xmap, x, n, h, w, cin, Halo<K>::HW,
+                                  Halo<K>::HH)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
@@ -760,7 +1061,7 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
                                                         NTHREADS, L.total);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int tiles_x = (w + TW - 1) / TW;
+  const int tiles_x = (w - XSHIFT<K, MODE> + TW - 1) / TW;
   const int tiles_per_image = tiles_x * ((h + TH - 1) / TH);
   const int chunks = (e + CE - 1) / CE;
   const long long items = (long long)n * tiles_per_image;
@@ -775,35 +1076,53 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
       static_cast<const float*>(bd), static_cast<T*>(hidden),
       static_cast<float*>(sums), n, h, w, cin, e, pre_act, tiles_x,
       tiles_per_image);
+  last_async() = ASYNC ? 1 : 0;
   return cudaGetLastError();
 }
 
-// Registers, dynamic shared memory (bytes) and resident CTAs per SM of the
-// kernel a bf16 block with this k and C_in launches (the tensor-core
-// expand), into out[0..2].  Launches nothing.
+// Registers, dynamic shared memory (bytes) and resident CTAs per SM of a
+// kernel launched with `smem` bytes, into out[0..2].  Launches nothing.
+template <typename Kernel>
+cudaError_t query(Kernel kernel, int threads, int smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                        threads, smem);
+  out[0] = a.numRegs;
+  out[1] = smem;
+  return err;
+}
+
+// Whether kXBox's box comes in two channel halves: at C_in16 >= 64 (the
+// model's 80 and 96) the whole box would leave one CTA per SM (k3 C_in 80:
+// 117.5 KB; two need at most 115,712 B each), the halves two.
+inline bool xt_split(int cin) { return (cin + 15) / 16 * 16 >= 64; }
+
+// query() of the kernel a bf16 block with this k and C_in launches (the
+// tensor-core expand; for kMega the kXBox staging).
+template <int M>
+cudaError_t query_k(int k, int cin, int* out) {
+  using B = __nv_bfloat16;
+  if (k == 3)
+    return query(expand_dw_kernel<B, 3, true, true, M>, NTHREADS,
+                 SmemM<3, true, true, M>(cin).total, out);
+  if (k == 5)
+    return query(expand_dw_kernel<B, 5, true, true, M>, NTHREADS,
+                 SmemM<5, true, true, M>(cin).total, out);
+  return cudaErrorInvalidValue;
+}
+
 template <int MODE>
 cudaError_t occupancy(int k, int cin, int* out) {
-  using B = __nv_bfloat16;
-  auto query = [&](auto kernel, int smem) {
-    cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
-                                                          NTHREADS, smem);
-    out[0] = a.numRegs;
-    out[1] = smem;
-    return err;
-  };
-  if (k == 3)
-    return query(expand_dw_kernel<B, 3, true, true, MODE>,
-                 Smem<3, true, true>(cin).total);
-  if (k == 5)
-    return query(expand_dw_kernel<B, 5, true, true, MODE>,
-                 Smem<5, true, true>(cin).total);
-  return cudaErrorInvalidValue;
+  if constexpr ((MODE & kXT) != 0) {
+    if (xt_split(cin)) return query_k<MODE | kXBox | kXSplit>(k, cin, out);
+    return query_k<MODE | kXBox>(k, cin, out);
+  }
+  return query_k<MODE>(k, cin, out);
 }
 
 // Whether the expand runs on the tensor cores: bf16, and for NHWC x the
@@ -814,19 +1133,35 @@ bool use_mma(const void* x, int cin) {
          ((MODE & kXT) != 0 || (cin % 8 == 0 && aligned(x, 16)));
 }
 
+// Whether (N, H, C, W) x takes the kXBox staging: its map needs 16-byte
+// strides (W % 8 == 0) and an aligned x.  Every block of the model at a
+// width that is a multiple of 8.
+inline bool xt_box(const void* x, int w) {
+  return w % 8 == 0 && aligned(x, 16);
+}
+
 template <typename T, int K, int MODE>
 cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
                        const void* be, const void* bd, void* hidden,
                        void* sums, int n, int h, int w, int cin, int e,
                        int pre_act, cudaStream_t s) {
+  constexpr bool BF16 = sizeof(T) == 2;
   if (we == nullptr)
     return launch<T, K, false, false, MODE>(x, we, wd, be, bd, hidden, sums,
                                             n, h, w, cin, e, pre_act, s);
-  if (use_mma<T, MODE>(x, cin))
-    return launch<T, K, true, sizeof(T) == 2, MODE>(
-        x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s);
-  return launch<T, K, true, false, MODE>(x, we, wd, be, bd, hidden, sums, n,
-                                         h, w, cin, e, pre_act, s);
+  if (!use_mma<T, MODE>(x, cin))
+    return launch<T, K, true, false, MODE>(x, we, wd, be, bd, hidden, sums,
+                                           n, h, w, cin, e, pre_act, s);
+  if constexpr (BF16 && (MODE & kXT) != 0) {
+    if (xt_box(x, w) && xt_split(cin))
+      return launch<T, K, true, true, MODE | kXBox | kXSplit>(
+          x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s);
+    if (xt_box(x, w))
+      return launch<T, K, true, true, MODE | kXBox>(
+          x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s);
+  }
+  return launch<T, K, true, BF16, MODE>(x, we, wd, be, bd, hidden, sums, n,
+                                        h, w, cin, e, pre_act, s);
 }
 
 // hidden (n, h, w, e) (unused with kNoHidden) and sums (n, e) must be

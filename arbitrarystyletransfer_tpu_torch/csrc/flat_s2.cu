@@ -15,174 +15,178 @@
 // output-resolution hidden is 4x smaller.  The TPU lowers the stride-2
 // depthwise through four space-to-depth parity planes built on the host,
 // because its lanes want stride-1 shifts.  Here the stride is indexed
-// directly and no plane is built:
-//   * sweep 1 (this file): one CTA per (image, output tile, 32-channel chunk
-//     of E), 256 threads.  The output tile is 16x16 (bf16) or 8x8 (f32); its
-//     input halo, (2*16 - 1 + 2p)^2 pixels (33^2 at k3, 35^2 at k5), is
-//     expanded from reflect-indexed x into shared memory, already rounded to
-//     the I/O dtype, which is where the math rounds anyway: 33^2 x 32 x 2 B =
-//     70 KB at k3 and 78 KB at k5.  The expand runs in passes of 256 halo
-//     pixels, on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//     accumulate) for bf16 with C_in % 8 == 0, otherwise on the CUDA cores
-//     (passes of 128 pixels).  The stride-2 taps then read the rounded halo
-//     (lane = channel, each loaded value feeding up to k accumulators of a
-//     column strip), and the output-resolution hidden and its exact sums are
-//     written as in expand_dw.cuh.  The input-resolution hidden never leaves
-//     shared memory.
-//   * sweep 2: gate_project.cuh without residual.
-// What bounds sweep 1 on an H100: the expand at input resolution, 4x the
-// output pixels' C_in x E MACs plus the halo (1.2x at k3), on the tensor
-// cores, then k*k f32 FMAs per output hidden value; HBM traffic is one read
-// of x and one write of the output-resolution hidden.
+// directly and no plane is built.
+//
+// What bounds sweep 1 on an H100: one read of x and one write of the
+// output-resolution hidden (e2: 134 + 201 MB, 0.100 ms at 3.35 TB/s) against
+// the expand at input resolution on the tensor cores and k*k f32 FMAs per
+// output hidden value: bytes at both path shapes.  So the design keeps the
+// x halo's loads, the expand and the hidden's stores out of each other's
+// way, as expand_dw.cuh does for the stride-1 sweep:
+//   * Persistent CTAs of 256 threads, grid (as many as fit at once, E / 32):
+//     a CTA keeps one 32-channel chunk of E (its expand weights staged once,
+//     its depthwise weights in registers) and walks (image, 8 x 16 output
+//     tile) items.  The SE sums are kept per thread across the CTA's tiles
+//     of one image, one atomic per (CTA, image, channel).
+//   * The tile's input halo, (2*8 - 1 + 2p) x (2*16 - 1 + 2p) pixels (17 x
+//     33 at k3, 19 x 35 at k5), is one TMA box of NHWC x ([pixel][C_in16 +
+//     8]: conflict-free ldmatrix rows), issued by one thread for the next
+//     tile while this tile's depthwise runs; the box is zero outside the
+//     image and the reflected edge rows and columns are copied in shared
+//     memory (edw::reflect_box), so the reflection stays an index map.  An
+//     8 x 16 tile, not 16 x 16: the 16 x 16 tile's 35^2-pixel box and its
+//     expanded halo (98 + 78 KB at k5) would leave one CTA per SM; this
+//     one's (54 + 43 KB) leave two, for 1.30x the outputs' input pixels at
+//     k5 (1.20x at 16 x 16).
+//   * Expand: mma.sync m16n8k16 (bf16 in, f32 accumulate) on 16-pixel
+//     tiles of the box, A and B fragments by ldmatrix (edw::mma_tile); the
+//     bias, hswish and the rounding to bf16 (the flat rounding), written as
+//     bf16 pairs into the expanded halo [pixel][32], whose 4-byte words are
+//     XOR-swizzled by 4 * ((pixel / 2) % 4): the stores are conflict-free and
+//     the depthwise's reads (lane = channel) stay so.
+//   * Stride-2 depthwise: each thread owns one channel (lane) and a 4 x 4
+//     block of output pixels (8 warps cover 8 x 16), 16 accumulators; each
+//     of the (6 + k)^2 halo values it reads feeds up to ceil(k / 2)^2 of
+//     them (k5: 400 FMAs per 121 reads), each output summing its k*k taps
+//     in row-major order, one fmaf each (tests/test_torch_sweeps_s2.py
+//     holds that order against the TPU kernel).  Blocks start at halo
+//     pixels that are multiples of 8, so the swizzle of every read is a
+//     compile-time constant.
+//   * The hidden is staged [pixel][32] in the expanded halo's space and
+//     written with 16-byte stores.
+//   * f32, or C_in % 8 != 0 (off the path): the same walk with the x halo
+//     read synchronously (reflect-indexed loads) and expanded on the CUDA
+//     cores in passes of 128 pixels, the halo kept in the I/O dtype.
+// Sweep 2 is gate_project.cuh without residual.
 
 #include "common.cuh"
+#include "expand_dw.cuh"
 #include "gate_project.cuh"
 
 namespace ast_kernels {
 namespace s2 {
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int CE = 32;                       // hidden channels per CTA
-constexpr int CK = 32;                       // input channels per expand step
-constexpr int XS_LD = CK + 8;                // bf16 staging row: 80 B
-constexpr int MT_PASS = 2;                   // 16-pixel tiles per warp (MMA)
-constexpr int PASS_MMA = NWARPS * MT_PASS * 16;  // halo pixels per pass
-constexpr int NPW = 16;                      // pixels per warp (CUDA cores)
+using edw::CE;
+using edw::NTHREADS;
+using edw::NWARPS;
+constexpr int CK = 32;                        // input channels per step (CC)
+constexpr int NPW = 16;                       // pixels per warp and pass (CC)
 constexpr int PASS_CC = NWARPS * NPW;
+constexpr int OH = 8, OW = 16;                // output tile
+constexpr int BR = 4, BC = 4;                 // a thread's depthwise block
+static_assert((OH / BR) * (OW / BC) == NWARPS, "the warps cover the tile");
 
-template <typename T, int K>
+template <int K>
 struct Geo {
   static constexpr int P = (K - 1) / 2;
-  static constexpr int TO = sizeof(T) == 2 ? 16 : 8;  // output tile side
-  static constexpr int HS = 2 * TO - 1 + 2 * P;        // input halo side
-  static constexpr int HP = HS * HS;
-  static constexpr int EX_BYTES =
-      (HP * CE * (int)sizeof(T) + 15) / 16 * 16;       // rounded halo
-  static constexpr int STAGE_MMA = (PASS_MMA + CE) * XS_LD * 2;
-  static constexpr int STAGE_CC = (PASS_CC * CK + CK * CE) * 4;
+  static constexpr int HSH = 2 * OH - 1 + 2 * P;  // input halo rows
+  static constexpr int HSW = 2 * OW - 1 + 2 * P;  // and columns
+  static constexpr int HP = HSH * HSW;
+  static constexpr int MT = (HP + 15) / 16;       // 16-row MMA tiles
+  // Depthwise blocks start at halo pixels 2 * BR * HSW * i + 2 * BC * j.
+  static_assert((2 * BR) % 8 == 0 && (2 * BC) % 8 == 0, "swizzle");
 };
 
-// MMA: the expand runs on the tensor cores (bf16 only, C_in % 8 == 0,
-// 16-byte aligned x).
+__host__ __device__ constexpr int up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Byte offsets of the shared memory from a 128-byte aligned base:
+//   exs  T [HP][32]: the expanded halo (bf16 swizzled, see ex_at), then the
+//        tile's hidden [OH * OW][32] before its stores;
+//   xs   MMA: bf16 [MT * 16][ldx], the x box; else the CUDA-core expand's
+//        f32 staging [PASS_CC][CK] and weights [CK][32];
+//   ws   MMA: bf16 [32][ldx], the chunk's expand weights;
+//   red  f32 [NWARPS][32]; bes f32 [32]; bar the box's mbarrier.
 template <typename T, int K, bool MMA>
-__global__ void __launch_bounds__(NTHREADS)
-    s2_expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we,
-                        const float* __restrict__ wd,
-                        const float* __restrict__ be,
-                        const float* __restrict__ bd, T* __restrict__ hidden,
-                        float* __restrict__ sums, int H, int W, int cin,
-                        int E, int tiles_x) {
-  using G = Geo<T, K>;
-  constexpr int P = G::P, TO = G::TO, HS = G::HS, HP = G::HP;
-  extern __shared__ float4 smem4[];
-  T* exs = reinterpret_cast<T*>(smem4);  // [HP][CE], the rounded halo
-  char* stage = reinterpret_cast<char*>(smem4) + G::EX_BYTES;
+struct Smem {
+  int cin16, ldx, xs, ws, red, bes, bar, total;
+  __host__ __device__ explicit Smem(int cin) {
+    using G = Geo<K>;
+    cin16 = up(cin, 16);
+    ldx = cin16 + 8;
+    xs = up(G::HP * CE * (int)sizeof(T), 128);
+    ws = xs + (MMA ? G::MT * 16 * ldx * 2 : (PASS_CC * CK + CK * CE) * 4);
+    red = ws + (MMA ? up(CE * ldx * 2, 16) : 0);
+    bes = red + NWARPS * 32 * 4;
+    bar = bes + CE * 4;
+    total = bar + 8 + 128;
+  }
+};
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.z;
-  const int c0 = blockIdx.y * CE;
-  const int c = c0 + lane;
-  const bool c_ok = c < E;
-  const int Ho = H / 2, Wo = W / 2;
-  const int oy0 = (blockIdx.x / tiles_x) * TO;
-  const int ox0 = (blockIdx.x % tiles_x) * TO;
-  const int iy0 = 2 * oy0 - P, ix0 = 2 * ox0 - P;  // halo origin, input res.
-  const T* xn = x + (size_t)n * H * W * cin;
+// Element index of channel c of halo pixel p in exs.  bf16: channel pairs
+// are 4-byte words, word c / 2 of pixel p at (c / 2) ^ (4 * ((p / 2) % 4)),
+// so the expand's bf16-pair stores (pixels g and g + 8 of a tile, channel
+// pairs tig) land in 32 distinct banks.  f32: plain.
+template <typename T>
+__device__ __forceinline__ int ex_at(int p, int c) {
+  if constexpr (sizeof(T) == 2)
+    return ((p * 16 + ((c >> 1) ^ (((p >> 1) & 3) << 2))) << 1) | (c & 1);
+  return p * CE + c;
+}
 
+// The expanded halo of output tile (oy0, ox0) into exs, rounded to T.
+// MMA: from the x box in xs (waited for and reflected); otherwise from x,
+// reflect-indexed, on the CUDA cores.  Starts and ends with a barrier.
+template <typename T, int K, bool MMA>
+__device__ __forceinline__ void expand_tile(const T* __restrict__ xn,
+                                            const T* __restrict__ we,
+                                            char* smem,
+                                            const Smem<T, K, MMA>& L, int H,
+                                            int W, int cin, int E, int c0,
+                                            int iy0, int ix0) {
+  using G = Geo<K>;
+  constexpr int HP = G::HP, HSW = G::HSW;
+  T* exs = reinterpret_cast<T*>(smem);
+  const float* bes = reinterpret_cast<const float*>(smem + L.bes);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the box is reflected; exs's readers are done
   if constexpr (MMA) {
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage);
-    __nv_bfloat16* wsT = xs + PASS_MMA * XS_LD;  // [CE][XS_LD]
-    const int g = lane >> 2, tig = lane & 3;
-    for (int pb = 0; pb < HP; pb += PASS_MMA) {
-      float acc[MT_PASS][CE / 8][4];
-#pragma unroll
-      for (int i = 0; i < MT_PASS; ++i)
-#pragma unroll
-        for (int nt = 0; nt < CE / 8; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][nt][r] = 0.f;
-      for (int k0 = 0; k0 < cin; k0 += CK) {
-        __syncthreads();  // the previous step's readers are done
-        for (int idx = threadIdx.x; idx < PASS_MMA * (CK / 8);
-             idx += NTHREADS) {
-          const int p = idx / (CK / 8), q = idx % (CK / 8);
-          const int hp = pb + p, ci = k0 + q * 8;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (hp < HP && ci < cin) {
-            const int gy = reflect_idx(iy0 + hp / HS, H);
-            const int gx = reflect_idx(ix0 + hp % HS, W);
-            v = *reinterpret_cast<const uint4*>(
-                xn + ((size_t)gy * W + gx) * cin + ci);
-          }
-          *reinterpret_cast<uint4*>(&xs[p * XS_LD + q * 8]) = v;
-        }
-        for (int idx = threadIdx.x; idx < CE * CK; idx += NTHREADS) {
-          const int cc = idx / CK, ci = idx % CK;
-          T v = from_f32<T>(0.f);
-          if (k0 + ci < cin && c0 + cc < E)
-            v = we[(size_t)(k0 + ci) * E + c0 + cc];
-          wsT[cc * XS_LD + ci] = v;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < CK; ks += 16) {
-          if (k0 + ks >= cin) break;  // the rest of the chunk is zero
-          uint32_t b[CE / 8][2];
-#pragma unroll
-          for (int nt = 0; nt < CE / 8; ++nt) {
-            const __nv_bfloat16* bp = wsT + (nt * 8 + g) * XS_LD + ks + tig * 2;
-            b[nt][0] = lds32(bp);
-            b[nt][1] = lds32(bp + 8);
-          }
-#pragma unroll
-          for (int i = 0; i < MT_PASS; ++i) {
-            const int mt = warp + i * NWARPS;
-            const __nv_bfloat16* ap = xs + (mt * 16 + g) * XS_LD + ks + tig * 2;
-            const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * XS_LD),
-                                   lds32(ap + 8), lds32(ap + 8 * XS_LD + 8)};
-#pragma unroll
-            for (int nt = 0; nt < CE / 8; ++nt) mma_bf16(acc[i][nt], a, b[nt]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MT_PASS; ++i) {
-        const int mt = warp + i * NWARPS;
-#pragma unroll
-        for (int nt = 0; nt < CE / 8; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int hp = pb + mt * 16 + g + (r >= 2 ? 8 : 0);
-            const int col = nt * 8 + tig * 2 + (r & 1);
-            if (hp < HP) {
-              float v = acc[i][nt][r];
-              if (be != nullptr && c0 + col < E) v += be[c0 + col];
-              exs[hp * CE + col] = from_f32<T>(hswish(v));
-            }
-          }
-      }
-    }
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(smem + L.xs);
+    const __nv_bfloat16* wsT =
+        reinterpret_cast<const __nv_bfloat16*>(smem + L.ws);
+    __nv_bfloat16* exb = reinterpret_cast<__nv_bfloat16*>(smem);
+    auto tile = [&](auto ntn, int mt, int nt0) {
+      constexpr int NTN = decltype(ntn)::value;
+      const __nv_bfloat16* ap =
+          xs + (mt * 16 + (lane & 15)) * L.ldx + (lane >> 4) * 8;
+      edw::mma_tile<NTN>(
+          wsT, L.ldx, L.cin16, nt0,
+          [&](uint32_t(&a)[4], int ks) { ldmatrix_x4(a, ap + ks); },
+          [&](int r, int col, float v0, float v1) {
+            const int p = mt * 16 + r;
+            if (p < HP)
+              *reinterpret_cast<__nv_bfloat162*>(&exb[ex_at<T>(p, col)]) =
+                  __floats2bfloat162_rn(hswish(v0 + bes[col]),
+                                        hswish(v1 + bes[col + 1]));
+          });
+    };
+    constexpr int ROUNDS = G::MT / NWARPS;
+    constexpr int LEFT = (G::MT - ROUNDS * NWARPS) * (CE / 8);
+    for (int i = 0; i < ROUNDS; ++i)
+      tile(std::integral_constant<int, CE / 8>{}, warp + i * NWARPS, 0);
+    for (int u = warp; u < LEFT; u += NWARPS)
+      tile(std::integral_constant<int, 1>{}, ROUNDS * NWARPS + u / (CE / 8),
+           u % (CE / 8));
   } else {
-    float* xsf = reinterpret_cast<float*>(stage);  // [PASS_CC][CK]
-    float* wsf = xsf + PASS_CC * CK;               // [CK][CE]
-    const float bev = (be != nullptr && c_ok) ? be[c] : 0.f;
+    float* xsf = reinterpret_cast<float*>(smem + L.xs);  // [PASS_CC][CK]
+    float* wsf = xsf + PASS_CC * CK;                     // [CK][CE]
     for (int pb = 0; pb < HP; pb += PASS_CC) {
       float acc[NPW];
 #pragma unroll
       for (int i = 0; i < NPW; ++i) acc[i] = 0.f;
       for (int k0 = 0; k0 < cin; k0 += CK) {
         const int kc = min(CK, cin - k0);
-        __syncthreads();  // the previous step's readers are done
+        if (pb > 0 || k0 > 0) __syncthreads();  // the last step's readers
         for (int idx = threadIdx.x; idx < PASS_CC * CK; idx += NTHREADS) {
           const int p = idx / CK, ci = idx % CK;
           const int hp = pb + p;
           float v = 0.f;
           if (hp < HP && ci < kc) {
-            const int gy = reflect_idx(iy0 + hp / HS, H);
-            const int gx = reflect_idx(ix0 + hp % HS, W);
+            const int gy = reflect_idx(iy0 + hp / HSW, H);
+            const int gx = reflect_idx(ix0 + hp % HSW, W);
             v = to_f32(xn[((size_t)gy * W + gx) * cin + k0 + ci]);
           }
           xsf[idx] = v;
@@ -215,81 +219,222 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
       for (int i = 0; i < NPW; ++i) {
         const int hp = pb + warp + i * NWARPS;
-        if (hp < HP) exs[hp * CE + lane] = from_f32<T>(hswish(acc[i] + bev));
+        if (hp < HP)
+          exs[ex_at<T>(hp, lane)] = from_f32<T>(hswish(acc[i] + bes[lane]));
       }
     }
   }
   __syncthreads();
+}
 
-  // Stride-2 depthwise over the rounded halo: output (oy, ox) tap (di, dj)
-  // reads halo (2 oy + di, 2 ox + dj).  Each thread walks column strips
-  // (ox, lane), so each loaded value feeds up to ceil(K / 2) accumulators.
-  float wk[K * K];
+// The stride-2 depthwise of the lane's channel over the expanded halo:
+// o[r][j] = hswish(dw + bd) in f32 at output row 4 * (warp / 4) + r, column
+// 4 * (warp % 4) + j of the tile.  Output (oy, ox) tap (di, dj) reads halo
+// (2 oy + di, 2 ox + dj); each output sums its k*k taps in row-major order
+// (row di, then column dj), one fmaf each.  Only reads exs.
+template <typename T, int K>
+__device__ __forceinline__ void depthwise_s2(const T* exs,
+                                             const float (&wk)[K * K],
+                                             float bdv, float (&o)[BR][BC]) {
+  using G = Geo<K>;
+  constexpr int HSW = G::HSW, SPAN = 2 * (BR - 1) + K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p0 =
+      2 * BR * (warp / (OW / BC)) * HSW + 2 * BC * (warp % (OW / BC));
+  // p0 % 8 == 0, so ex_at(p0 + d, lane) = (p0 + d) * 32 + lw[(d / 2) % 4]
+  // with the lane's four swizzled offsets lw.
+  const T* base = exs + p0 * CE;
+  int lw[4];
 #pragma unroll
-  for (int t = 0; t < K * K; ++t) wk[t] = c_ok ? wd[(size_t)t * E + c] : 0.f;
-  const float bdv = (bd != nullptr && c_ok) ? bd[c] : 0.f;
-  float csum = 0.f;
-  T* hn = hidden + (size_t)n * Ho * Wo * E;
-  for (int ox = warp; ox < TO; ox += NWARPS) {
-    float o[TO];
+  for (int q = 0; q < 4; ++q) lw[q] = ex_at<T>(2 * q, lane) - 2 * q * CE;
 #pragma unroll
-    for (int r = 0; r < TO; ++r) o[r] = 0.f;
+  for (int r = 0; r < BR; ++r)
 #pragma unroll
-    for (int r = 0; r < HS; ++r) {
+    for (int j = 0; j < BC; ++j) o[r][j] = 0.f;
 #pragma unroll
-      for (int dj = 0; dj < K; ++dj) {
-        const float v = to_f32(exs[(r * HS + 2 * ox + dj) * CE + lane]);
+  for (int hr = 0; hr < SPAN; ++hr) {
 #pragma unroll
-        for (int di = 0; di < K; ++di) {
-          const int d = r - di;
-          if (d >= 0 && (d & 1) == 0 && (d >> 1) < TO)
-            o[d >> 1] = fmaf(v, wk[di * K + dj], o[d >> 1]);
+    for (int hc = 0; hc < SPAN; ++hc) {
+      const int d = hr * HSW + hc;  // relative to the block's first pixel
+      const float v = to_f32(base[d * CE + lw[(d >> 1) & 3]]);
+#pragma unroll
+      for (int j = 0; j < BC; ++j) {
+        const int dj = hc - 2 * j;
+        if (dj < 0 || dj >= K) continue;
+#pragma unroll
+        for (int r = 0; r < BR; ++r) {
+          const int di = hr - 2 * r;
+          if (di >= 0 && di < K) o[r][j] = fmaf(v, wk[di * K + dj], o[r][j]);
         }
       }
     }
-    const int gx = ox0 + ox;
+  }
 #pragma unroll
-    for (int r = 0; r < TO; ++r) {
-      const int gy = oy0 + r;
-      if (c_ok && gy < Ho && gx < Wo) {
-        const T hv = from_f32<T>(hswish(o[r] + bdv));
-        hn[((size_t)gy * Wo + gx) * E + c] = hv;
-        csum += to_f32(hv);
+  for (int r = 0; r < BR; ++r)
+#pragma unroll
+    for (int j = 0; j < BC; ++j) o[r][j] = hswish(o[r][j] + bdv);
+}
+
+// xmap: x as edw::make_x_map's map with this tile's box (MMA only).
+template <typename T, int K, bool MMA>
+__global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
+    s2_expand_dw_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const T* __restrict__ x, const T* __restrict__ we,
+                        const float* __restrict__ wd,
+                        const float* __restrict__ be,
+                        const float* __restrict__ bd, T* __restrict__ hidden,
+                        float* __restrict__ sums, int N, int H, int W,
+                        int cin, int E, int tiles_x, int tiles_per_image) {
+  using G = Geo<K>;
+  constexpr int P = G::P, VEC = 16 / (int)sizeof(T);
+  char* smem = edw::smem_base();
+  const Smem<T, K, MMA> L(cin);
+  T* exs = reinterpret_cast<T*>(smem);
+  T* hs = exs;  // the tile's hidden, [OH * OW][32]
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.xs);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.y * CE, c = c0 + lane;
+  const bool c_ok = c < E;
+  const int Ho = H / 2, Wo = W / 2;
+  const int total = N * tiles_per_image;
+  int item = blockIdx.x;
+  if (item >= total) return;
+
+  if constexpr (MMA) {
+    // The chunk's expand weights, lanes on consecutive output channels.
+    __nv_bfloat16* wsT = reinterpret_cast<__nv_bfloat16*>(smem + L.ws);
+    for (int idx = threadIdx.x; idx < CE * L.cin16; idx += NTHREADS) {
+      const int cc = idx % CE, ci = idx / CE;
+      T v = from_f32<T>(0.f);
+      if (ci < cin && c0 + cc < E) v = we[(size_t)ci * E + c0 + cc];
+      wsT[cc * L.ldx + ci] = v;
+    }
+  }
+  float* bes = reinterpret_cast<float*>(smem + L.bes);
+  if (threadIdx.x < CE)
+    bes[threadIdx.x] =
+        (be != nullptr && c0 + (int)threadIdx.x < E) ? be[c0 + threadIdx.x]
+                                                     : 0.f;
+  float wk[K * K], bdv;
+  edw::load_dw<K>(wd, bd, E, c, wk, bdv);
+  auto origin = [&](int it, int& n, int& oy0, int& ox0) {
+    n = it / tiles_per_image;
+    const int t = it % tiles_per_image;
+    oy0 = (t / tiles_x) * OH;
+    ox0 = (t % tiles_x) * OW;
+  };
+  // One thread issues the box of the input halo of item it.
+  auto issue = [&](int it) {
+    int n, oy0, ox0;
+    origin(it, n, oy0, ox0);
+    fence_proxy_async();  // this thread's earlier accesses of xs come first
+    mbar_expect_tx(xbar, G::HP * L.ldx * 2);
+    tma_load_4d(xs, &xmap, 0, 2 * ox0 - P, 2 * oy0 - P, n, xbar);
+  };
+  uint32_t xphase = 0;
+  if constexpr (MMA) {
+    if (threadIdx.x == 0) {
+      mbar_init(xbar, 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) issue(item);
+  }
+  const bool vec_out = E % VEC == 0 &&
+                       (reinterpret_cast<uintptr_t>(hidden) & 15) == 0;
+  const int by0 = BR * (warp / (OW / BC)), bx0 = BC * (warp % (OW / BC));
+  int n_cur = item / tiles_per_image;
+  float csum = 0.f;
+
+  for (; item < total; item += gridDim.x) {
+    int n, oy0, ox0;
+    origin(item, n, oy0, ox0);
+    if (n != n_cur) {
+      edw::flush_sums(csum, red, sums, n_cur, E, c);
+      csum = 0.f;
+      n_cur = n;
+    }
+    const int iy0 = 2 * oy0 - P, ix0 = 2 * ox0 - P;
+    if constexpr (MMA) {
+      mbar_wait(xbar, xphase);
+      xphase ^= 1;
+      edw::reflect_box<P, G::HSH, G::HSW>(xs, L.ldx, H, W, iy0, ix0);
+    }
+    expand_tile<T, K, MMA>(x + (size_t)n * H * W * cin, we, smem, L, H, W,
+                           cin, E, c0, iy0, ix0);
+    if constexpr (MMA) {
+      // The next tile's box comes in while this one's depthwise runs.
+      if (threadIdx.x == 0 && item + (int)gridDim.x < total)
+        issue(item + gridDim.x);
+    }
+    float o[BR][BC];
+    depthwise_s2<T, K>(exs, wk, bdv, o);
+    __syncthreads();  // every read of the expanded halo is done
+#pragma unroll
+    for (int r = 0; r < BR; ++r)
+#pragma unroll
+      for (int j = 0; j < BC; ++j) {
+        const T hv = from_f32<T>(o[r][j]);
+        if (c_ok && oy0 + by0 + r < Ho && ox0 + bx0 + j < Wo)
+          csum += to_f32(hv);
+        hs[((by0 + r) * OW + bx0 + j) * CE + lane] = hv;
+      }
+    __syncthreads();
+    // 16-byte stores: a pixel's 32 channels are CE / VEC vectors.
+    constexpr int VPP = CE / VEC;
+    for (int idx = threadIdx.x; idx < OH * OW * VPP; idx += NTHREADS) {
+      const int p = idx / VPP, cc = (idx % VPP) * VEC;
+      const int gy = oy0 + p / OW, gx = ox0 + p % OW;
+      if (gy >= Ho || gx >= Wo || c0 + cc >= E) continue;
+      T* dst = hidden + (((size_t)n * Ho + gy) * Wo + gx) * E + c0 + cc;
+      const T* src = hs + p * CE + cc;
+      if (vec_out) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int j = 0; j < VEC && c0 + cc + j < E; ++j) dst[j] = src[j];
       }
     }
   }
-
-  // SE sums: reduce the 8 warps' partials per channel, one atomic each.
-  __syncthreads();  // every read of the halo is done
-  float* red = reinterpret_cast<float*>(smem4);
-  red[warp * 32 + lane] = csum;
-  __syncthreads();
-  if (warp == 0 && c_ok) {
-    float s = 0.f;
-#pragma unroll
-    for (int w8 = 0; w8 < NWARPS; ++w8) s += red[w8 * 32 + lane];
-    atomicAdd(&sums[(size_t)n * E + c], s);
-  }
+  edw::flush_sums(csum, red, sums, n_cur, E, c);
 }
 
 template <typename T, int K, bool MMA>
 cudaError_t launch(const void* x, const void* we, const void* wd,
                    const void* be, const void* bd, void* hidden, void* sums,
                    int n, int h, int w, int cin, int e, cudaStream_t stream) {
-  using G = Geo<T, K>;
-  const int smem = G::EX_BYTES + (MMA ? G::STAGE_MMA : G::STAGE_CC);
+  using G = Geo<K>;
+  const Smem<T, K, MMA> L(cin);
   auto kernel = s2_expand_dw_kernel<T, K, MMA>;
+  CUtensorMap xmap{};
+  if (MMA && !edw::make_x_map(&xmap, x, n, h, w, cin, G::HSW, G::HSH))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        NTHREADS, L.total);
   if (err != cudaSuccess) return err;
-  const int tiles_x = (w / 2 + G::TO - 1) / G::TO;
-  const int tiles_y = (h / 2 + G::TO - 1) / G::TO;
-  dim3 grid(tiles_x * tiles_y, (e + CE - 1) / CE, n);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(we),
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles_x = (w / 2 + OW - 1) / OW;
+  const int tiles_per_image = tiles_x * ((h / 2 + OH - 1) / OH);
+  const int chunks = (e + CE - 1) / CE;
+  const long long items = (long long)n * tiles_per_image;
+  // Never more CTAs than fit at once (edw::launch says why).
+  const int gx = (int)std::min<long long>(
+      items, std::max(1, per_sm * sms / chunks));
+  kernel<<<dim3(gx, chunks), NTHREADS, L.total, stream>>>(
+      xmap, static_cast<const T*>(x), static_cast<const T*>(we),
       static_cast<const float*>(wd), static_cast<const float*>(be),
       static_cast<const float*>(bd), static_cast<T*>(hidden),
-      static_cast<float*>(sums), h, w, cin, e, tiles_x);
+      static_cast<float*>(sums), n, h, w, cin, e, tiles_x, tiles_per_image);
+  edw::last_async() = MMA ? 1 : 0;
   return cudaGetLastError();
 }
 
@@ -298,11 +443,26 @@ cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
                        const void* be, const void* bd, void* hidden,
                        void* sums, int n, int h, int w, int cin, int e,
                        cudaStream_t s) {
-  if (sizeof(T) == 2 && cin % 8 == 0 && aligned(x, 16))
+  // The tensor-core expand with the TMA box: bf16, C_in % 8 == 0 (16-byte
+  // box rows), an aligned x.
+  if (edw::use_mma<T, edw::kFlat>(x, cin))
     return launch<T, K, sizeof(T) == 2>(x, we, wd, be, bd, hidden, sums, n,
                                         h, w, cin, e, s);
   return launch<T, K, false>(x, we, wd, be, bd, hidden, sums, n, h, w, cin,
                              e, s);
+}
+
+// Registers, dynamic shared memory and CTAs per SM of the bf16 sweep-1
+// kernel (the tensor-core expand) at this k and C_in, into out[0..2].
+cudaError_t occupancy(int k, int cin, int* out) {
+  using B = __nv_bfloat16;
+  if (k == 3)
+    return edw::query(s2_expand_dw_kernel<B, 3, true>, NTHREADS,
+                      Smem<B, 3, true>(cin).total, out);
+  if (k == 5)
+    return edw::query(s2_expand_dw_kernel<B, 5, true>, NTHREADS,
+                      Smem<B, 5, true>(cin).total, out);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -355,4 +515,20 @@ extern "C" int flat_s2_launch(const void* x, const void* we, const void* wd,
   return (int)s2::run<float>(x, we, wd, be, bd, d0t, d0b, d1k, d1b, wpt, pb,
                              hidden, sums, gate, y, n, h, w, cin, e, s, cout,
                              k, st);
+}
+
+// Registers, dynamic shared memory (bytes) and resident CTAs per SM of the
+// two bf16 sweeps a block of this shape launches, sweep 1 into out[0..2]
+// and sweep 2 into out[3..5], for measurement.  Launches nothing.
+extern "C" int flat_s2_occupancy(int k, int cin, int e, int cout, int* out) {
+  using namespace ast_kernels;
+  cudaError_t err = s2::occupancy(k, cin, out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gp::occupancy(e, cout, false, out + 3);
+}
+
+// How the last flat_s2_launch staged x in sweep 1: 1 as TMA boxes
+// (asynchronous), 0 with plain loads, -1 before any launch.
+extern "C" int flat_s2_block_last_staging() {
+  return ast_kernels::edw::last_async();
 }

@@ -264,7 +264,8 @@ cudaError_t launch_project(const void* x, const void* we, const void* wd,
   const int smem = Smem<K, EXPAND, MMA, PMMA>(cin).total;
   auto kernel = fused_project_kernel<T, K, EXPAND, MMA, PMMA>;
   CUtensorMap xmap{};
-  if (MMA && !edw::make_x_map<K>(&xmap, x, n, h, w, cin))
+  if (MMA && !edw::make_x_map(&xmap, x, n, h, w, cin,
+                                     edw::Halo<K>::HW, edw::Halo<K>::HH))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -45,8 +45,16 @@
 //     32-pixel tiles, 32 pixels x 32 channels per step in f32, up to 16
 //     outputs per thread.
 //   * YT (the mega route): y and the residual are (N, H, C_out, W) with W
-//     contiguous, written and read one value at a time; the hidden stays
-//     pixel-major (NHWC).
+//     contiguous; the hidden stays pixel-major (NHWC).  Where a 128-pixel
+//     tile lies in one image row (W % 128 == 0, every mega block; y and the
+//     residual 16-byte aligned), each consumer warp stages each 8-channel
+//     column of its 32 pixels as [channel][pixel] in shared memory (2.5 KB
+//     per CTA) and each lane writes 8 pixels of one channel with one 16-byte
+//     store: 64 contiguous bytes per channel and warp, whole sectors.  The
+//     tile's residual, C_out runs of 256 bytes, is prefetched into L2 while
+//     the hidden streams and read the same way, added in bf16 after the
+//     rounded projection (the bits of the one-value path).  Other W: one
+//     value at a time.
 #pragma once
 
 #include <algorithm>
@@ -72,6 +80,7 @@ constexpr int SLOTS = 4;        // ring slots
 constexpr int CONSUMERS = 4;    // consumer warps, 32 pixels each
 constexpr int MMA_THREADS = (CONSUMERS + 1) * 32;
 constexpr int MAX_NT = 12;      // 8-wide output tiles: C_out <= 96
+constexpr int YS_LD = 40;       // YT staging row: 32 pixels + 16 bytes
 // The accumulators' 8-wide output tiles by C_out: <= 32 (most blocks),
 // <= 48 (C_out 40), <= 96.
 constexpr int NT_BUCKETS[3] = {4, 6, MAX_NT};
@@ -131,15 +140,17 @@ __device__ __forceinline__ size_t out_at(int p, int c, int cout, int W) {
 
 // Shared memory of gate_project_mma (byte offsets from a 1024-byte aligned
 // base): the ring, the projection matrix [nt * 8][ldw] bf16, the gate
-// [ep] bf16 and the ring's barriers.
+// [ep] bf16, (YT) each consumer warp's staging of 8 channels x its 32
+// pixels, bf16 [8][YS_LD], and the ring's barriers.
 struct MmaSmem {
-  int ep, ldw, wt, gate, bars, total;
-  __host__ __device__ MmaSmem(int E, int cout) {
+  int ep, ldw, wt, gate, ys, bars, total;
+  __host__ __device__ MmaSmem(int E, int cout, bool yt = false) {
     ep = round_up(E, KB);
     ldw = ep + 8;  // rows 4 banks apart: conflict-free B fragments
     wt = SLOTS * BOX_BYTES;
     gate = wt + (cout + 7) / 8 * 8 * ldw * 2;
-    bars = gate + ep * 2;
+    ys = gate + ep * 2;
+    bars = ys + (yt ? CONSUMERS * 8 * YS_LD * 2 : 0);
     total = 1024 + bars + 2 * SLOTS * 8;  // + the alignment slack
   }
 };
@@ -150,7 +161,9 @@ struct MmaSmem {
 // output tiles, one of NT_BUCKETS (16 * NT registers per thread).  The
 // largest instance asks for one CTA per SM, so its accumulators never
 // spill: at the model's C_out > 48 (E >= 288) the ring and the matrix take
-// over half of the shared memory anyway.
+// over half of the shared memory anyway.  yt_rows (YT only): every tile
+// lies in one image row (W % TP == 0) and y and the residual are 16-byte
+// aligned, so the epilogue writes whole channel runs (see below).
 template <bool RES, bool YT, int NT>
 __global__ void __launch_bounds__(MMA_THREADS, NT == MAX_NT ? 1 : 2)
     gate_project_mma(const __grid_constant__ CUtensorMap hmap,
@@ -159,11 +172,11 @@ __global__ void __launch_bounds__(MMA_THREADS, NT == MAX_NT ? 1 : 2)
                      const float* __restrict__ pb,
                      const __nv_bfloat16* __restrict__ res,
                      __nv_bfloat16* __restrict__ y, int HW, int W, int E,
-                     int cout, int tiles_per_image, int total) {
+                     int cout, int tiles_per_image, int total, int yt_rows) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const MmaSmem L(E, cout);
+  const MmaSmem L(E, cout, YT);
   unsigned char* ring = smem;
   __nv_bfloat16* wT = reinterpret_cast<__nv_bfloat16*>(smem + L.wt);
   __nv_bfloat16* gate_s = reinterpret_cast<__nv_bfloat16*>(smem + L.gate);
@@ -228,6 +241,8 @@ __global__ void __launch_bounds__(MMA_THREADS, NT == MAX_NT ? 1 : 2)
     }
     const __nv_bfloat16* rn = RES ? res + (size_t)n * HW * cout : nullptr;
     __nv_bfloat16* yn = y + (size_t)n * HW * cout;
+    // The tile's image row and first column (yt_rows).
+    const int gy = t * TP / W, gx0 = t * TP - gy * W;
     if constexpr (RES && !YT) {
       // The tile's residual is one contiguous run: bring it into L2 while
       // the hidden streams, so the epilogue does not wait on HBM.
@@ -236,6 +251,13 @@ __global__ void __launch_bounds__(MMA_THREADS, NT == MAX_NT ? 1 : 2)
       const int bytes = min(TP, HW - t * TP) * cout * 2;
       for (int o = threadIdx.x * 128; o < bytes; o += CONSUMERS * 32 * 128)
         asm volatile("prefetch.global.L2 [%0];" ::"l"(run + o));
+    } else if constexpr (RES) {
+      // (N, H, C, W): the tile's residual is C_out runs of TP values, one
+      // per channel, two 128-byte lines each.
+      if (yt_rows)
+        for (int o = threadIdx.x; o < cout * 2; o += CONSUMERS * 32)
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(
+              rn + ((size_t)gy * cout + o / 2) * W + gx0 + (o % 2) * 64));
     }
     float acc[2][NT][4];
 #pragma unroll
@@ -279,6 +301,57 @@ __global__ void __launch_bounds__(MMA_THREADS, NT == MAX_NT ? 1 : 2)
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
+    if constexpr (YT) {
+      if (yt_rows) {
+        // Whole rows: each 8-channel column of the warp's 32 pixels is
+        // staged as [channel][pixel] (rows YS_LD * 2 = 80 bytes apart: the
+        // 2-byte stores and the 16-byte reads are conflict-free), then
+        // each lane writes 8 pixels of one channel with one 16-byte store,
+        // its residual read the same way and added in bf16.  A channel's
+        // 32 pixels are 64 contiguous bytes of y: whole sectors.
+        __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem + L.ys) +
+                            warp * 8 * YS_LD;
+        const int c8 = lane & 7, chunk = lane >> 3;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= nt_count) continue;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const int col = nt * 8 + tig * 2 + jj;
+                float v = acc[i][nt][2 * half + jj];
+                if (pb != nullptr && col < cout) v += pb[col];
+                st[(tig * 2 + jj) * YS_LD + i * 16 + g + half * 8] =
+                    __float2bfloat16_rn(v);
+              }
+          __syncwarp();
+          const int c = nt * 8 + c8;
+          if (c < cout) {
+            const size_t o =
+                ((size_t)gy * cout + c) * W + gx0 + warp * 32 + chunk * 8;
+            uint4 v = *reinterpret_cast<const uint4*>(st + c8 * YS_LD +
+                                                      chunk * 8);
+            if constexpr (RES) {
+              const uint4 r = *reinterpret_cast<const uint4*>(rn + o);
+              __nv_bfloat162* vv = reinterpret_cast<__nv_bfloat162*>(&v);
+              const __nv_bfloat162* rr =
+                  reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                vv[q] = __floats2bfloat162_rn(
+                    __bfloat162float(vv[q].x) + __bfloat162float(rr[q].x),
+                    __bfloat162float(vv[q].y) + __bfloat162float(rr[q].y));
+            }
+            *reinterpret_cast<uint4*>(yn + o) = v;
+          }
+          __syncwarp();
+        }
+        continue;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -408,9 +481,10 @@ auto mma_kernel(bool res, int cout) {
 
 // Registers, dynamic shared memory (bytes) and resident CTAs per SM of
 // gate_project_mma for these E, C_out, into out[0..2].  Launches nothing.
+template <bool YT = false>
 cudaError_t occupancy(int e, int cout, bool res, int* out) {
-  auto kernel = mma_kernel<false>(res, cout);
-  const int smem = MmaSmem(e, cout).total;
+  auto kernel = mma_kernel<YT>(res, cout);
+  const int smem = MmaSmem(e, cout, YT).total;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err == cudaSuccess)
@@ -462,8 +536,10 @@ cudaError_t launch(const void* hidden, const void* sums, const void* d0t,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return cudaErrorInvalidValue;
-    const int smem = MmaSmem(e, cout).total;
+    const int smem = MmaSmem(e, cout, YT).total;
     auto kernel = mma_kernel<YT>(res != nullptr, cout);
+    const int yt_rows = YT && w % TP == 0 && aligned(y, 16) &&
+                        (res == nullptr || aligned(res, 16));
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int dev = 0, sms = 0, per_sm = 0;
@@ -481,7 +557,7 @@ cudaError_t launch(const void* hidden, const void* sums, const void* d0t,
     kernel<<<std::min(total, per_sm * sms), MMA_THREADS, smem, stream>>>(
         hmap, static_cast<const float*>(gate), static_cast<const B*>(wpt),
         static_cast<const float*>(pb), static_cast<const B*>(res),
-        static_cast<B*>(y), hw, w, e, cout, tiles_per_image, total);
+        static_cast<B*>(y), hw, w, e, cout, tiles_per_image, total, yt_rows);
     return cudaGetLastError();
   }
   if (cout > NTHREADS * MAX_OPT / GTP) return cudaErrorInvalidValue;

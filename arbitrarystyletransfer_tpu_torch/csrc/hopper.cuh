@@ -109,6 +109,19 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "memory");
 }
 
+// ldmatrix_x4 with each matrix transposed: lane l gives the address of
+// row l % 8 of matrix l / 8 as stored, and r[i] holds matrix i's transpose
+// in the fragment layout (an A fragment from an M-contiguous operand).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
 // Two 8x8 bf16 matrices, as ldmatrix_x4 (lanes 0-15 give the addresses).
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
                                             const void* p) {

@@ -21,16 +21,28 @@
 // has at most 227 KB of shared memory and the card 50 MB of L2, so at 512px
 // the hidden cannot stay on chip (d10: 8 x 240 x 512^2 x 2 B = 1.0 GB per
 // call), and the gate is a barrier across every CTA of an image.  The design
-// takes the TPU kernel's non-resident mode, as flat_block.cu does:
-//   * sweep 1, expand_dw.cuh with kMega: x is read in its (N, H, C, W) layout
-//     (the reflection is an index map, C_in padded to the MMA depth in
-//     shared memory only), the bf16 hidden is written once (NHWC, the
-//     layout sweep 2 streams), and the exact per-image sums of the rounded
-//     hidden are added with atomics;
+// takes the TPU kernel's non-resident mode, as flat_block.cu does, with
+// the two parts that only the (N, H, C, W) layout needs:
+//   * sweep 1, expand_dw.cuh with kMega: x is read in its own layout.  At
+//     W % 8 == 0 (every block of the model; kXBox) each tile's x halo is
+//     one TMA box of a (W, C, H, N) map, [halo row][channel][24 columns]
+//     from a column that is a multiple of 8 (the tile grid shifted by P - 8:
+//     TMA faults on an unaligned innermost coordinate; one more tile per
+//     row), prefetched while the previous tile's depthwise runs, its channels
+//     past C_in zero outside the tensor, the image's edges reflected by
+//     copies in shared memory; the expand reads its A fragments straight
+//     from the box with ldmatrix.trans, 16-pixel MMA tiles of two 8-column
+//     groups (24/20 of the expand at k5, 24/18 at k3).  Other W: the halo
+//     is staged synchronously (plain loads, reflected by index).  The bf16
+//     hidden is written once (NHWC, the layout sweep 2 streams), and the
+//     exact per-image sums of the rounded hidden are added with atomics;
 //   * sweep 2, gate_project.cuh with YT: each image's gate from its sums,
-//     then the hidden streamed, gated and projected on the tensor cores, the
-//     bias and the residual read from x added, and y written in
-//     (N, H, C_out, W).
+//     then the hidden streamed, gated and projected on the tensor cores,
+//     the bias added; where a 128-pixel tile lies in one image row
+//     (W % 128 == 0: every mega block) each warp stages its pixels by
+//     channel in shared memory and writes y (N, H, C_out, W) as 64-byte
+//     channel runs with 16-byte stores, the residual prefetched into L2 and
+//     read the same way; other W one value at a time.
 // Nothing outside the kernel transposes.  What bounds each sweep is in its
 // header: sweep 1 the f32 depthwise and its shared-memory traffic, sweep 2
 // the one read of the hidden from HBM.
@@ -76,4 +88,22 @@ extern "C" int mega_block_launch(const void* x, const void* we,
                                   res, gate, y, n, h * w, e, s, cout, st, w);
   }
   return (int)err;
+}
+
+// Registers, dynamic shared memory (bytes) and resident CTAs per SM of the
+// two bf16 sweeps a block of this shape launches at W % 128 == 0 (sweep 1
+// with the box staging), sweep 1 into out[0..2] and sweep 2 into
+// out[3..5], for measurement.  Launches nothing.
+extern "C" int mega_block_occupancy(int k, int cin, int e, int cout,
+                                    int identity, int* out) {
+  using namespace ast_kernels;
+  cudaError_t err = edw::occupancy<edw::kMega>(k, cin, out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gp::occupancy<true>(e, cout, identity != 0, out + 3);
+}
+
+// How the last mega_block_launch staged x in sweep 1: 1 as TMA boxes
+// (asynchronous), 0 with plain loads, -1 before any launch.
+extern "C" int mega_block_last_staging() {
+  return ast_kernels::edw::last_async();
 }

@@ -58,6 +58,13 @@ _SIGNATURES = {
     "expand_dw_occupancy": [_I, _I, _P],
     # k, c_in, e, c_out, identity, out[6]: the same of both sweeps
     "flat_block_occupancy": [_I] * 5 + [_P],
+    "mega_block_occupancy": [_I] * 5 + [_P],
+    # k, c_in, e, c_out, out[6]
+    "flat_s2_occupancy": [_I] * 4 + [_P],
+    # no arguments: how the last launch staged x in sweep 1 (1 a TMA box,
+    # 0 plain loads, -1 none yet)
+    "mega_block_last_staging": [],
+    "flat_s2_block_last_staging": [],
     # x, y, nbytes, stream
     "probe_copy_launch": [_P, _P, ctypes.c_longlong, _P],
     # x, w, y, r, c, e, width, stream (both schedules)

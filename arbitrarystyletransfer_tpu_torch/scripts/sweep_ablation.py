@@ -1,4 +1,5 @@
-"""Where sweep 1's time goes: ``expand_dw`` with one part cut out.
+"""Where sweep 1's time goes: ``expand_dw`` and ``mega_block`` with one
+part cut out.
 
     python -m arbitrarystyletransfer_tpu_torch.scripts.sweep_ablation
 
@@ -7,15 +8,18 @@ copies the package into ``build/ablation/<cut>/`` (git-ignored), edits
 that copy's ``csrc/expand_dw.cuh`` (the results are wrong on purpose:
 only the times mean anything), builds it into its own library, and times
 ``expand_dw`` (CUDA events, mean of 10 calls after 2) at seven shapes of
-the 512px batch-8 path; it prints one JSON line per cut with the ms per
-shape and the compiler's spills of the edited kernels.  The cuts:
+the 512px batch-8 path and ``mega_block`` (both sweeps; the cuts touch
+sweep 1) at three; it prints one JSON line per cut with the ms per shape
+and the compiler's spills of the edited kernels.  The cuts:
 
 * ``none``: the kernel as it is;
 * ``dw_fma``: the depthwise keeps one tap per output, so most of its
   FMAs and reads go;
 * ``expand_mma``: no ``mma.sync`` in the expand (and so none of its
   fragment reads);
-* ``x_stage``: no TMA box of the x halo (the expand reads stale x);
+* ``x_stage``: no TMA box of the NHWC x halo (the expand reads stale x);
+* ``xt_stage``: no TMA box of the (N, H, C, W) x halo (``mega_block``'s
+  kXBox staging; the expand reads stale x);
 * ``hidden_store``: no store of the hidden to HBM;
 * ``k3_three_ctas``: not a cut: ``__launch_bounds__`` asks for three
   CTAs per SM at k3 (at most 85 registers) instead of two.
@@ -44,6 +48,10 @@ CUTS = {
     "x_stage": [("      mbar_expect_tx(bar, HP * ldx * 2);\n"
                  "      tma_load_4d(xs, xmap, 0, tx0 - P, ty0 - P, n, bar);",
                  "      mbar_arrive(bar);")],
+    "xt_stage": [(
+        "      mbar_expect_tx(bar, G::HH * cin16 * G::BW * 2);\n"
+        "      tma_load_4d(xs, xmap, tx0 - P, ch0, ty0 - P, n, bar);",
+        "      mbar_arrive(bar);")],
     "hidden_store": [("          *reinterpret_cast<uint4*>(dst) =\n"
                       "              *reinterpret_cast<const uint4*>(src);",
                       "          (void)src;")],
@@ -56,35 +64,61 @@ SHAPES = (("e1", 16, 512, 16, 96, 3), ("e3", 16, 256, 24, 144, 3),
           ("d5-d7", 8, 256, 80, 320, 3), ("d8-d9", 8, 512, 40, 160, 5),
           ("d10", 8, 512, 40, 240, 5), ("d11-d12", 8, 512, 24, 144, 3),
           ("d13", 8, 512, 16, 96, 3))
+# name, batch, H=W, C_in, E, C_out, k (chip_smoke.py's MEGA_CASES rows).
+MEGA_SHAPES = (("e1", 16, 512, 16, 96, 16, 3),
+               ("d5-d6", 8, 256, 80, 320, 80, 3),
+               ("d10", 8, 512, 40, 240, 24, 5))
 # Runs inside each copy: times expand_dw and reports the spills.
 TIMER = r"""
 import json, math, sys, torch
 from arbitrarystyletransfer_tpu_torch.ops.kernels import _build
 from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import expand_dw
+from arbitrarystyletransfer_tpu_torch.ops.kernels.mega_block import mega_block
 from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import ptxas_report
 _build.load_library(ptxas_verbose=True)
 spills = sorted({st for _, _, st, _ in
                  ptxas_report(_build.build_info["log"], ("expand_dw_kernel",))
                  if st})
 g = torch.Generator(device="cuda").manual_seed(0)
-ms = {}
-for name, n, hw, cin, e, k in json.loads(sys.argv[1]):
-    x = torch.randn(n, hw, hw, cin, generator=g, device="cuda").bfloat16()
-    we = torch.randn(cin, e, generator=g, device="cuda") / math.sqrt(cin)
-    wd = torch.randn(k, k, e, generator=g, device="cuda") / k
+
+
+def rand(*shape):
+    return torch.randn(*shape, generator=g, device="cuda")
+
+
+def timed(fn):
     with torch.inference_mode():
         for _ in range(2):
-            expand_dw(x, we, wd, k)
+            fn()
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         for _ in range(10):
-            expand_dw(x, we, wd, k)
+            fn()
         b.record()
         torch.cuda.synchronize()
-    ms[name] = a.elapsed_time(b) / 10
+    return a.elapsed_time(b) / 10
+
+
+shapes, mega_shapes = json.loads(sys.argv[1])
+ms, mega_ms = {}, {}
+for name, n, hw, cin, e, k in shapes:
+    x = rand(n, hw, hw, cin).bfloat16()
+    we, wd = rand(cin, e) / math.sqrt(cin), rand(k, k, e) / k
+    ms[name] = timed(lambda: expand_dw(x, we, wd, k))
     del x
     torch.cuda.empty_cache()
-print(json.dumps({"ms": ms, "spill_bytes": spills}))
+for name, n, hw, cin, e, cout, k in mega_shapes:
+    xt = rand(n, hw, cin, hw).bfloat16()
+    we, wd = rand(cin, e) / math.sqrt(cin), rand(k, k, e) / k
+    se = {"Dense_0": {"kernel": rand(e, 16) / math.sqrt(e),
+                      "bias": rand(16)},
+          "Dense_1": {"kernel": rand(16, e) / 4.0, "bias": rand(e)}}
+    wp = rand(e, cout) / math.sqrt(e)
+    mega_ms[name] = timed(lambda: mega_block(xt, we, wd, se, wp, k))
+    del xt
+    torch.cuda.empty_cache()
+print(json.dumps({"ms": ms, "mega_block_ms": mega_ms,
+                  "spill_bytes": spills}))
 """
 
 
@@ -109,7 +143,8 @@ def main(argv=None) -> int:
         env = dict(os.environ, PYTHONPATH=str(copy),
                    AST_TORCH_BUILD_DIR=str(copy / "kernels"))
         run = subprocess.run([sys.executable, "-c", TIMER,
-                              json.dumps(SHAPES)], env=env, cwd=copy,
+                              json.dumps([SHAPES, MEGA_SHAPES])], env=env,
+                             cwd=copy,
                              capture_output=True, text=True)
         if run.returncode != 0:
             raise RuntimeError(f"{cut}: {run.stderr[-2000:]}")

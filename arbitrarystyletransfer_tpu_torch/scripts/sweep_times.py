@@ -47,6 +47,20 @@ def sweep_costs(n, hw, c_in, e, c_out, k, residual, size=2):
     }
 
 
+def s2_sweep_costs(n, hw, c_in, e, c_out, k, size=2):
+    """``sweep_costs`` of one stride-2 block at input size ``hw``: sweep 1
+    reads x and runs the expand at input resolution, writes the hidden and
+    runs the depthwise at output resolution; sweep 2 as a flat block's at
+    output resolution, without residual."""
+    pix, opix = n * hw * hw, n * (hw // 2) ** 2
+    return {
+        "sweep1": (size * (pix * c_in + opix * e) + 4 * n * e,
+                   2 * pix * c_in * e, 2 * opix * e * k * k),
+        "sweep2": sweep_costs(n, hw // 2, c_in, e, c_out, k, False,
+                              size)["sweep2"],
+    }
+
+
 def bound_ms(nbytes, mm, dw):
     """(bound ms, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_S
@@ -94,33 +108,60 @@ def sweep_record(label, kernel, sweep, ms, cost, per_req, occ):
 
 def occupancy(kernel, k, c_in, e=0, c_out=0, residual=False):
     """{sweep: (registers, shared memory bytes, resident CTAs per SM)} of
-    the bf16 kernels of ``kernel`` ("expand_dw" or "flat_block") at this
-    shape, from the runtime; {} where the library has no such query."""
+    the bf16 kernels of ``kernel`` ("expand_dw", "flat_block",
+    "mega_block" or "flat_s2_block") at this shape, from the runtime; {}
+    where the library has no such query."""
     import ctypes
 
     from arbitrarystyletransfer_tpu_torch.ops.kernels import _build
 
     lib = _build.load_library()
     out = (ctypes.c_int * 6)()
-    if kernel == "expand_dw":
-        fn = getattr(lib, "expand_dw_occupancy", None)
-        if fn is None:
-            return {}
-        _build.check(fn(k, c_in, ctypes.cast(out, ctypes.c_void_p)),
-                     "expand_dw_occupancy")
-        return {"sweep1": tuple(out[:3])}
-    fn = getattr(lib, "flat_block_occupancy", None)
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    name, args = {
+        "expand_dw": ("expand_dw_occupancy", (k, c_in)),
+        "flat_block": ("flat_block_occupancy",
+                       (k, c_in, e, c_out, int(residual))),
+        "mega_block": ("mega_block_occupancy",
+                       (k, c_in, e, c_out, int(residual))),
+        "flat_s2_block": ("flat_s2_occupancy", (k, c_in, e, c_out)),
+    }[kernel]
+    fn = getattr(lib, name, None)
     if fn is None:
         return {}
-    _build.check(fn(k, c_in, e, c_out, int(residual),
-                    ctypes.cast(out, ctypes.c_void_p)),
-                 "flat_block_occupancy")
+    _build.check(fn(*args, ptr), name)
+    if kernel == "expand_dw":
+        return {"sweep1": tuple(out[:3])}
     return {"sweep1": tuple(out[:3]), "sweep2": tuple(out[3:])}
 
 
-def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print):
-    """Per-sweep records of expand_dw at ``expand_cases`` and flat_block
-    at ``flat_cases`` (``chip_smoke.py``'s tuples); returns the list."""
+def last_staging(kernel):
+    """"async" (the x halo as a TMA box) or "sync" (plain loads): how the
+    last launch of ``kernel`` ("mega_block" or "flat_s2_block") staged x;
+    None where the library has no such query."""
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import _build
+
+    fn = getattr(_build.load_library(), f"{kernel}_last_staging", None)
+    if fn is None:
+        return None
+    return {1: "async", 0: "sync"}.get(fn())
+
+
+def random_se(rand, e):
+    from arbitrarystyletransfer_tpu_torch.weights import make_divisible
+
+    s = make_divisible(e // 4, 8)
+    return {"Dense_0": {"kernel": rand(e, s) / math.sqrt(e),
+                        "bias": 0.1 * rand(s)},
+            "Dense_1": {"kernel": rand(s, e) / math.sqrt(s),
+                        "bias": 0.5 + 0.1 * rand(e)}}
+
+
+def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
+                mega_cases=(), s2_cases=()):
+    """Per-sweep records of expand_dw at ``expand_cases``, flat_block at
+    ``flat_cases``, mega_block at ``mega_cases`` and flat_s2_block at
+    ``s2_cases`` (``chip_smoke.py``'s tuples); returns the list."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
         expand_dw,
@@ -128,50 +169,79 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print):
     from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
         flat_block,
     )
-    from arbitrarystyletransfer_tpu_torch.weights import make_divisible
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_s2 import (
+        flat_s2_block,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.mega_block import (
+        mega_block,
+    )
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=device)
 
     records = []
+
+    def emit(name, kernel, ms, costs, per_req, occ, staging=None):
+        for sweep in ms:
+            rec = sweep_record(name, kernel, sweep, ms[sweep], costs[sweep],
+                               per_req, occ)
+            if staging is not None and sweep == "sweep1":
+                rec["staging"] = staging
+            records.append(rec)
+            log(json.dumps(rec))
+        torch.cuda.empty_cache()
+
     for name, n, hw, c_in, e, k, bn, per_req in expand_cases:
         x = rand(n, hw, hw, c_in).bfloat16()
         we, wd = rand(c_in, e) / math.sqrt(c_in), rand(k, k, e) / k
         be = 0.1 * rand(e) if bn else None
         bd = 0.1 * rand(e) if bn else None
         ms = profile_sweeps(lambda: expand_dw(x, we, wd, k, True, be, bd))
-        cost = sweep_costs(n, hw, c_in, e, 0, k, False)["sweep1"]
-        rec = sweep_record(name, "expand_dw", "sweep1", ms["sweep1"], cost,
-                           per_req, occupancy("expand_dw", k, c_in))
-        records.append(rec)
-        log(json.dumps(rec))
         del x
-        torch.cuda.empty_cache()
-    for case in flat_cases:
-        name, n, hw, c_in, e, c_out, k, bn, residual = case[:9]
-        per_req = case[-2]
-        x = rand(n, hw, hw, c_in).bfloat16()
-        s = make_divisible(e // 4, 8)
-        se = {"Dense_0": {"kernel": rand(e, s) / math.sqrt(e),
-                          "bias": 0.1 * rand(s)},
-              "Dense_1": {"kernel": rand(s, e) / math.sqrt(s),
-                          "bias": 0.5 + 0.1 * rand(e)}}
+        emit(name, "expand_dw", {"sweep1": ms["sweep1"]},
+             sweep_costs(n, hw, c_in, e, 0, k, False), per_req,
+             occupancy("expand_dw", k, c_in))
+
+    def block(c_in, e, c_out, k, bn):
         we, wd = rand(c_in, e) / math.sqrt(c_in), rand(k, k, e) / k
-        wp = rand(e, c_out) / math.sqrt(e)
+        se, wp = random_se(rand, e), rand(e, c_out) / math.sqrt(e)
         kw = dict(b_expand=0.1 * rand(e) if bn else None,
                   b_dw=0.1 * rand(e) if bn else None,
-                  proj_bias=0.1 * rand(c_out) if bn else None,
-                  pre_act=True, identity=residual)
-        ms = profile_sweeps(lambda: flat_block(x, we, wd, se, wp, k, **kw))
-        costs = sweep_costs(n, hw, c_in, e, c_out, k, residual)
-        occ = occupancy("flat_block", k, c_in, e, c_out, residual)
-        for sweep in SWEEPS:
-            rec = sweep_record(name, "flat_block", sweep, ms[sweep],
-                               costs[sweep], per_req, occ)
-            records.append(rec)
-            log(json.dumps(rec))
+                  proj_bias=0.1 * rand(c_out) if bn else None)
+        return (we, wd, se, wp, k), kw
+
+    for case in flat_cases:
+        name, n, hw, c_in, e, c_out, k, bn, residual = case[:9]
+        x = rand(n, hw, hw, c_in).bfloat16()
+        args, kw = block(c_in, e, c_out, k, bn)
+        ms = profile_sweeps(lambda: flat_block(
+            x, *args, pre_act=True, identity=residual, **kw))
         del x
-        torch.cuda.empty_cache()
+        emit(name, "flat_block", ms,
+             sweep_costs(n, hw, c_in, e, c_out, k, residual), case[-2],
+             occupancy("flat_block", k, c_in, e, c_out, residual))
+    for case in mega_cases:
+        name, n, h, w, c_in, e, c_out, k, bn, residual = case[:10]
+        assert h == w, "the path's mega shapes are square"
+        xt = rand(n, h, c_in, w).bfloat16()
+        args, kw = block(c_in, e, c_out, k, bn)
+        ms = profile_sweeps(lambda: mega_block(
+            xt, *args, pre_act=True, identity=residual, **kw))
+        del xt
+        emit(name, "mega_block", ms,
+             sweep_costs(n, h, c_in, e, c_out, k, residual), case[-1],
+             occupancy("mega_block", k, c_in, e, c_out, residual),
+             last_staging("mega_block"))
+    for case in s2_cases:
+        name, n, hw, c_in, e, c_out, k, bn = case[:8]
+        x = rand(n, hw, hw, c_in).bfloat16()
+        args, kw = block(c_in, e, c_out, k, bn)
+        ms = profile_sweeps(lambda: flat_s2_block(x, *args, **kw))
+        del x
+        emit(name, "flat_s2_block", ms,
+             s2_sweep_costs(n, hw, c_in, e, c_out, k), case[-2],
+             occupancy("flat_s2_block", k, c_in, e, c_out),
+             last_staging("flat_s2_block"))
     return records
 
 
@@ -219,8 +289,11 @@ def main(argv=None) -> int:
     expand_cases = [c for c in chip_smoke.EXPAND_DW_CASES if c[-1]]
     flat_cases = [c for c in chip_smoke.FLAT_BLOCK_CASES
                   if c[-2] or c[-1]]
+    mega_cases = [c for c in chip_smoke.MEGA_CASES if c[-1]]
+    s2_cases = [c for c in chip_smoke.FLAT_S2_CASES if c[-2] or c[-1]]
     with torch.inference_mode():
-        records = time_sweeps(gen, expand_cases, flat_cases)
+        records = time_sweeps(gen, expand_cases, flat_cases,
+                              mega_cases=mega_cases, s2_cases=s2_cases)
     per_req = {}
     for r in records:
         key = f"{r['kernel']} {r['sweep']}"

@@ -182,15 +182,21 @@ FLAT_BLOCK_CASES = (
     ("cin12", 2, 37, 12, 48, 13, 5, True, False, "bfloat16", 0, 0),
 )
 # flat_s2_block shapes: name, batch, input H=W, C_in, E, C_out, k, biases,
-# dtype, launches per request on "flat-all" and on "auto"; the last two are
-# off the path (the f32 path with its 8x8 tiles; the CUDA-core expand and
-# projection with partial tiles).
+# dtype, launches per request on "flat-all" and on "auto"; the last three
+# are off the path (the f32 path; the CUDA-core expand and projection with
+# partial tiles; partial 8x16 output tiles and a partial channel chunk on
+# the path's persistent, TMA-staged sweep 1).
 FLAT_S2_CASES = (
     ("e2", 16, 512, 16, 96, 24, 3, True, "bfloat16", 1, 0),
     ("e4", 16, 256, 24, 144, 40, 5, True, "bfloat16", 1, 1),
     ("e4-f32", 2, 64, 24, 144, 40, 5, True, "float32", 0, 0),
     ("cin12", 2, 36, 12, 48, 13, 3, True, "bfloat16", 0, 0),
+    ("s2-rag-k5", 2, 74, 24, 48, 24, 5, True, "bfloat16", 0, 0),
 )
+# Cases added after the flat phases' first run draw from a generator of
+# their own (seed + 8), so that the other cases and every later phase get
+# the inputs they got before.
+FLAT_OWN_GEN = ("s2-rag-k5",)
 # mega_block shapes (x is (N, H, C_in, W)): name, batch, H, W, C_in, E,
 # C_out, k, folded-BN biases, residual, dtype, launches per "mega" request.
 # The 11 rows of the 512px path, then off the path: the f32 path, the
@@ -480,7 +486,7 @@ def ragged_phase(gen):
 
 
 def sweeps_phase(gen):
-    """Rows 1 and 4 by sweep at every shape of their path: each sweep's
+    """Rows 1, 4, 8 and 5 by sweep at every shape of their path: each sweep's
     device ms (a profiler trace), its own bound (sweep 1: the f32
     depthwise at the f32 peak and the expand at the bf16 peak against x,
     the hidden and the sums at HBM; sweep 2: the hidden, the sums, y and
@@ -494,14 +500,20 @@ def sweeps_phase(gen):
 
     records = time_sweeps(
         gen, [c for c in EXPAND_DW_CASES if c[-1]],
-        [c for c in FLAT_BLOCK_CASES if c[-2] or c[-1]], DEVICE, log)
+        [c for c in FLAT_BLOCK_CASES if c[-2] or c[-1]], DEVICE, log,
+        mega_cases=[c for c in MEGA_CASES if c[-1]],
+        s2_cases=[c for c in FLAT_S2_CASES if c[-2] or c[-1]])
+    for r in records:
+        if r["kernel"] in ("mega_block", "flat_s2_block") and "staging" in r:
+            check(r["staging"] == "async",
+                  f"{r['kernel']} {r['shape']}: x staged {r['staging']}")
     per_req = {}
     for r in records:
         key = f"{r['kernel']} {r['sweep']}"
         per_req[key] = per_req.get(key, 0.0) + r["ms"] * r["per_request"]
-    log("sweeps per request (expand_dw on \"fused\", flat_block on "
-        "\"flat-all\"): " + ", ".join(f"{k} {v:.4f} ms"
-                                       for k, v in per_req.items()))
+    log("sweeps per request (expand_dw on \"fused\", flat_block and "
+        "flat_s2_block on \"flat-all\", mega_block on \"mega\"): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in per_req.items()))
     return per_req
 
 
@@ -684,18 +696,23 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
     error of the path's cases and the device ms per request of "flat-all"
     (kernel, twin) and of "auto" (kernel, twin)."""
     import torch
+    from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import (
+        last_staging,
+    )
 
     worst = 0.0
     per_route = {"flat-all": [0.0, 0.0], "auto": [0.0, 0.0]}
     bounds = {"flat-all": Bound(), "auto": Bound()}
+    gen_own = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     for case in cases:
         label, n, hw, c_in, e, c_out, k, bn = case[:8]
         residual = case[8] if stride == 1 else False
         dtype, per_all, per_auto = case[-3:]
         dt = getattr(torch, dtype)
         expand = label != "expand1"
-        x = torch.randn(n, hw, hw, c_in, generator=gen, device=DEVICE).to(dt)
-        (we, wd, se, wp), (be, bd, pb) = random_block(gen, c_in, e, c_out, k,
+        g = gen_own if label in FLAT_OWN_GEN else gen
+        x = torch.randn(n, hw, hw, c_in, generator=g, device=DEVICE).to(dt)
+        (we, wd, se, wp), (be, bd, pb) = random_block(g, c_in, e, c_out, k,
                                                       bn, expand)
         kw = dict(b_expand=be, b_dw=bd, proj_bias=pb)
         if stride == 1:
@@ -703,6 +720,9 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         args = (x, we, wd, se, wp, k)
         y, sums = fn(*args, **kw)
         torch.cuda.synchronize()
+        staging = last_staging(name) if stride == 2 else None
+        if stride == 2 and (per_all or per_auto):  # the path's: TMA boxes
+            check(staging == "async", f"{name} {label}: x staged {staging}")
         r_y, r_sums = ref_fn(*args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
         rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
@@ -727,7 +747,8 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         log(f"{name} {label:8s} x={tuple(x.shape)} E={e} C_out={c_out} "
             f"k={k} bn={bn} res={residual} {dtype}: y err {err_y:.4g} (tol "
             f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms"
+            + (f", x staged {staging}" if staging else ""))
         check(err_y <= tol_y and err_s <= tol_s, f"{name} {label} differs")
         torch.cuda.empty_cache()
     for route, (t_k, t_p) in per_route.items():
@@ -760,6 +781,9 @@ def mega_phase(gen, cases=MEGA_CASES):
         mega_block,
         mega_block_reference,
     )
+    from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import (
+        last_staging,
+    )
 
     worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
     for (label, n, h, w, c_in, e, c_out, k, bn, residual, dtype,
@@ -774,6 +798,12 @@ def mega_phase(gen, cases=MEGA_CASES):
         args = (we, wd, se, wp, k)
         y, sums = mega_block(xt, *args, **kw)
         torch.cuda.synchronize()
+        # Sweep 1 stages x as TMA boxes at every shape of the path and with
+        # plain loads where the map cannot take W (W % 8 != 0).
+        staging = last_staging("mega_block")
+        want = "async" if per_req else ("sync" if w % 8 else None)
+        check(want is None or staging == want,
+              f"mega_block {label}: x staged {staging}, not {want}")
         r_y, r_sums = mega_block_reference(xt, *args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
         rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
@@ -804,7 +834,7 @@ def mega_phase(gen, cases=MEGA_CASES):
             f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {one.ms():.4f} ms "
             f"({one.by()}); A/B flat_block on NHWC {t_f:.4f} ms (mega/flat "
-            f"{t_k / t_f:.3f})")
+            f"{t_k / t_f:.3f}); x staged {staging}")
         check(err_y <= tol_y and err_s <= tol_s, f"mega_block {label} differs")
         del xt
         torch.cuda.empty_cache()

@@ -24,6 +24,7 @@ import torch
 
 from arbitrarystyletransfer_tpu.ops.pallas import flatblock as jflat
 from arbitrarystyletransfer_tpu.ops.pallas import fused_block as jfb
+from arbitrarystyletransfer_tpu.ops.pallas import megablock as jmega
 
 from arbitrarystyletransfer_tpu_torch.ops.basic import hardswish, se_gate
 from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
@@ -257,3 +258,155 @@ def test_row_major_fma_taps_are_not_the_tpu_order():
     diff = (ours - tpu).abs()
     assert diff.max() > 0
     assert diff.max() <= 1e-5 * ours.abs().max() + 1e-6
+
+
+# -- the mega mode and the halo boxes ---------------------------------------
+
+MEGA_W = 128  # _mega_kernel_t takes W only as a multiple of 128
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c_in,k", CASES)
+def test_mega_emulation_matches_mega_kernel(c_in, k, dtype):
+    """Sweep 1 in the mega mode (kMega: the depthwise on the unrounded f32
+    expand, the sums of the rounded hidden), emulated on x given as (N, H,
+    C, W), and sweep 2 with the residual, against ``_mega_kernel_t``
+    (``mega_expand_dw_project_t``) in interpret mode: the whole block's y,
+    at H = 37 (a partial 16-row tile) and E = 48 (a partial chunk); W is
+    128, the width the TPU kernel takes."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(100 + c_in + k)
+    _, we, wd, se, wp, (be, bd, pb) = random_block(c_in, k, seed=c_in * k + 1)
+    xt = torch.from_numpy(rng.normal(0, 1, (2, SIZE, c_in, MEGA_W))
+                          .astype(np.float32)).to(tdt)
+    x = xt.permute(0, 1, 3, 2).contiguous()  # the emulation's NHWC view
+    hidden, sums = emulate_sweep1(x, we, wd, k, False, True, be, bd)
+    if tdt == torch.bfloat16:
+        y = emulate_sweep2(hidden, sums, se, wp, pb, residual=x)
+    else:
+        gate = se_gate(sums, SIZE * MEGA_W, se)
+        y = (hidden * gate[:, None, None, :]) @ wp + pb + x
+    jdt = getattr(jnp, dtype)
+    ref = jmega.mega_expand_dw_project_t(
+        jnp.asarray(xt.float().numpy()).astype(jdt), j(we).astype(jdt),
+        j(wd), j(se), j(wp).astype(jdt), k, pre_act=True, b_expand=j(be),
+        b_dw=j(bd), proj_bias=j(pb), identity=True, interpret=True)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32)).transpose(0, 1, 3, 2)
+    rel = BF16_ULP if tdt == torch.bfloat16 else 1e-5
+    assert_close(y.float().numpy(), ref, rel, f"mega y c_in={c_in} k={k}")
+
+
+def box_load(img, y0, x0, rows, cols):
+    """A TMA box of ``rows`` x ``cols`` pixels of img (H, W, C) from image
+    row y0, column x0: zeros outside the image."""
+    h, w, c = img.shape
+    box = np.zeros((rows, cols, c), img.dtype)
+    ys, xs = np.arange(y0, y0 + rows), np.arange(x0, x0 + cols)
+    iy, ix = (ys >= 0) & (ys < h), (xs >= 0) & (xs < w)
+    box[np.ix_(iy, ix)] = img[np.ix_(ys[iy], xs[ix])]
+    return box
+
+
+def reflect_nhwc(box, p, h, w, y0, x0):
+    """expand_dw.cuh's reflect_box, loop for loop, on a [pixel][ldx] box of
+    hh x hw pixels seen as 16-byte vectors (8 values): the P halo rows above
+    row 0 and below row h - 1 copied from their reflections, then the P
+    columns left of 0 and right of w - 1, each from inside the image."""
+    hh, hw, ldx = box.shape
+    vpp = ldx // 8
+    v = box.reshape(-1, 8)
+    for idx in range(2 * p * hw * vpp):
+        j, rest = divmod(idx, hw * vpp)
+        y = j - p if j < p else h + (j - p)
+        hr, hs = y - y0, int(reflect(y, h)) - y0
+        if 0 <= hr < hh and 0 <= hs < hh:
+            v[hr * hw * vpp + rest] = v[hs * hw * vpp + rest]
+    for idx in range(2 * p * hh * vpp):
+        j, rest = divmod(idx, hh * vpp)
+        hr, q = divmod(rest, vpp)
+        x = j - p if j < p else w + (j - p)
+        hc, hs = x - x0, int(reflect(x, w)) - x0
+        if 0 <= hc < hw and 0 <= hs < hw:
+            v[(hr * hw + hc) * vpp + q] = v[(hr * hw + hs) * vpp + q]
+    return box
+
+
+def reflect_xt(box, p, h, w, y0, x0, hw):
+    """expand_dw.cuh's wait_xt, loop for loop, on a [row][channel][BW] box
+    (halo columns the first hw of BW): whole channel planes for the rows,
+    then in each (row, channel) line the 2P columns' values."""
+    hh, cin16, bw = box.shape
+    vpr = cin16 * bw // 8
+    v = box.reshape(-1, 8)
+    for idx in range(2 * p * vpr):
+        j, rest = divmod(idx, vpr)
+        y = j - p if j < p else h + (j - p)
+        hr, hs = y - y0, int(reflect(y, h)) - y0
+        if 0 <= hr < hh and 0 <= hs < hh:
+            v[hr * vpr + rest] = v[hs * vpr + rest]
+    hc, hs = [], []
+    for j in range(2 * p):
+        x = j - p if j < p else w + (j - p)
+        hc.append(x - x0)
+        hs.append(int(reflect(x, w)) - x0)
+        if not (0 <= hc[j] < hw and 0 <= hs[j] < hw):
+            hc[j] = -1
+    flat = box.reshape(-1)
+    for row in range(hh * cin16):
+        for j in range(2 * p):
+            if hc[j] >= 0:
+                flat[row * bw + hc[j]] = flat[row * bw + hs[j]]
+    return box
+
+
+# (layout, H, W): the 16x16 tiles' NHWC box, kXBox's (N, H, C, W) box of 24
+# columns (H = 9: below one tile), and flat_s2.cu's stride-2 box of 8x16
+# output tiles (input sizes even).
+BOX_CASES = [("nhwc", 37, 37), ("nhwc", 9, 128), ("xt", 37, 37),
+             ("xt", 9, 128), ("s2", 74, 74), ("s2", 10, 128)]
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("layout,h,w", BOX_CASES)
+def test_box_with_reflected_edges_is_reflect_idx(layout, h, w, k):
+    """A halo box loaded zero-filled outside the image, then its edge rows
+    and columns copied in shared memory as the kernels do, equals the
+    reflect-indexed halo the kernels used to gather (``reflect_idx``) at
+    every tile origin, wherever a halo position feeds an output inside the
+    image (rows and columns -P..H-1+P, -P..W-1+P); positions further out
+    feed only dropped outputs.  The (N, H, C, W) box is [row][channel]
+    [24 columns], of which the halo's first 16 + 2P are used; the NHWC
+    boxes are [pixel][C_in16 + 8] (three channels of C_in16 = 16 real)."""
+    p = (k - 1) // 2
+    c, cin16 = 3, 16
+    img = np.zeros((h, w, cin16), np.float32)
+    img[..., :c] = np.random.default_rng(h * w + k).normal(0, 1, (h, w, c))
+    if layout == "s2":
+        oh, ow = 8, 16
+        hh, hw = 2 * oh - 1 + 2 * p, 2 * ow - 1 + 2 * p
+        origins = [(2 * oy - p, 2 * ox - p) for oy in range(0, h // 2, oh)
+                   for ox in range(0, w // 2, ow)]
+    else:
+        # kXBox's tile grid starts at column P - 8, so that every box
+        # starts at a multiple of 8 columns (16-byte aligned).
+        hh = hw = TILE + 2 * p
+        shift = p - 8 if layout == "xt" else 0
+        origins = [(ty - p, tx - p) for ty in range(0, h, TILE)
+                   for tx in range(shift, w, TILE)]
+        if layout == "xt":
+            assert all(x0 % 8 == 0 for _, x0 in origins)
+    ys_all = np.arange(-p, h + p)
+    for y0, x0 in origins:
+        if layout == "xt":
+            box = box_load(img, y0, x0, hh, 24).transpose(0, 2, 1).copy()
+            got = reflect_xt(box, p, h, w, y0, x0, hw).transpose(0, 2, 1)
+        else:
+            box = np.zeros((hh, hw, cin16 + 8), np.float32)
+            box[..., :cin16] = box_load(img, y0, x0, hh, hw)
+            got = reflect_nhwc(box, p, h, w, y0, x0)[..., :cin16]
+        got = got[:, :hw]
+        ys, xs = np.arange(y0, y0 + hh), np.arange(x0, x0 + hw)
+        want = img[np.ix_(reflect(ys, h), reflect(xs, w))]
+        used = np.isin(ys, ys_all)[:, None] & \
+            ((xs >= -p) & (xs <= w - 1 + p))[None, :]
+        assert np.array_equal(got[used], want[used]), (y0, x0)
