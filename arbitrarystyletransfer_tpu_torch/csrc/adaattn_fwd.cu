@@ -47,39 +47,38 @@
 // [v, v^2] as three m64n128 products (which clears ptxas's C7511 warning
 // that the m64n256 and m64n128 products, sharing accumulators, serialize).
 //
-// float32 (the training step): `adaattn_fwd_kernel<float>`, on the CUDA
-// cores.  The training gates hold the step through this kernel against
-// the plain twins and a float64 reference; TF32 or bf16 products would
-// move them, so f32 inputs stay off the tensor cores.
-//   * One CTA per (image, 64-query tile), 256 threads as a 16 x 16 grid,
-//     looping over 64-key tiles staged in shared memory.
-//   * Each thread computes a 4 x 4 block of the logits (rows ty*4+i, keys
-//     tx+16j), the row max and sum with shuffles across the 16 threads of
-//     its row (one half-warp), and accumulates 4 rows x 8 channels of A v
-//     and A v^2 (64 sums).
-//   * The logits are summed by `adaattn_logits` (common.cuh), as the
-//     backward kernels sum them, so they are equal bit for bit: the
-//     backward's P = exp(s - m) / l then sums to 1 to within rounding.  Otherwise each row's P is off by the two orders' rounding
-//     of s, and the backward's row term D = sum(dm1 mean + dm2 ev2), which
-//     P (dm1 v + dm2 v^2) must cancel, carries that error times
-//     (mean / std)^2.
-//   * At f32 the sums (A v, A v^2 and the row's sum of exp) accumulate in
-//     f64, from exact f64 products of the f32 probabilities and values.
-//     std^2 = ev2 - mean^2 cancels, so the sums' rounding reaches std
-//     multiplied by (mean / std)^2, which reaches ~1e4 where a row's style
-//     values lie close together, as on the training step's batches.
-//     Accumulated in f32, the step's AdaAttN gradients landed ~26 times as
-//     far from a float64 reference as the plain twin's (PERF.md).  The
-//     logits, exp and row max stay f32.  The bf16 instantiation (only the
-//     A/B entry below runs it) accumulates in f32, as it did.
-//   * Shared memory 117,760 B: one CTA per SM.
-// `adaattn_fwd_simt_launch` runs this kernel at bf16 too: the earlier bf16
-// kernel, kept for the A/B of `chip_smoke.py`; no path calls it.
+// float32 (the training step): `adaattn_fwd_f64_kernel`, with every stage
+// in float64: the logits as one chain of FP64 tensor-core products per
+// (query, key) over the exact products (`adaattn_logits64`, common.cuh),
+// the exponentials, the online rescale and the sums (CUDA cores), rounded
+// to f32 once at the end.  Its outputs are then the float64 statistics
+// rounded to f32, bit for bit but for ties at ~1e-15 of a value.  That is
+// what the training step's gate needs: the step's loss moves by ~1e-5
+// under 1-ulp changes of the AdaAttN statistics, so every forward that
+// rounds anything to f32 earlier (f32 logits in any order, f32 logits from
+// an exact f64 sum, f32 exponentials of exact logits) landed 3-6e-6
+// (median) and up to ~3e-4 from the float64 step and failed its 1e-5 loss
+// gate on 3-4 of 35 measured batches (PERF.md).
+//   * One CTA per (image, 32-query tile), 256 threads, looping over 64-key
+//     tiles: q, k and v are staged in shared memory as f64 (exact).
+//   * The logits on the FP64 tensor cores (`adaattn_logits64`,
+//     common.cuh: each warp a 16 x 16 block), through shared memory to a
+//     16 x 16 thread grid: thread (ty, tx) takes rows 2ty, 2ty + 1 and keys
+//     tx + 16j, the row max and sum with shuffles across its half-warp, and
+//     accumulates A v and A v^2 of rows 2ty, 2ty + 1 at channels
+//     2tx + 32e, 2tx + 32e + 1 (v^2 exact in f64) on the CUDA cores.
+//   * The backward kernels form their logits with the same routine, so
+//     they are equal bit for bit: the backward's P = exp(s - m) / l then
+//     sums to 1 to within rounding.  m is returned rounded to f32 and l
+//     rescaled to it, so P is exp(s - m) / l with the returned m.
+//   * Shared memory 182,784 B: one CTA per SM; the grid is twice the 64-row
+//     tiles' (104 CTAs at the training shape (8, 400, 400)).
+// `adaattn_fwd_simt_launch` runs the earlier CUDA-core kernel at bf16
+// (`adaattn_fwd_kernel`, f32 logits and sums): the bf16 kernel before the
+// tensor-core one, kept for the A/B of `chip_smoke.py`; no path calls it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -96,17 +95,33 @@ constexpr int LDT = BQ + 4;    // padded row of the transposed P tile
 constexpr float NEG_INF = -1e30f;
 constexpr int SMEM_FLOATS = BQ * LD + BK * LD + BK * C + BK * LDT;
 
-__device__ __forceinline__ float fma_acc(float a, float b, float c) {
-  return fmaf(a, b, c);
+// a . b over four channels, summed in this order.
+__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
-__device__ __forceinline__ double fma_acc(double a, double b, double c) {
-  return fma(a, b, c);
-}
-__device__ __forceinline__ float sqrt_pos(float x) {
-  return sqrtf(fmaxf(x, 0.f));
-}
-__device__ __forceinline__ double sqrt_pos(double x) {
-  return sqrt(fmax(x, 0.0));
+
+// The f32 logits s[i][j] = q[ty*4+i] . k[tx+16j] of a 16 x 16 thread grid
+// over row-major f32 tiles (row stride LD), in four-channel steps.
+__device__ __forceinline__ void logits_f32(const float* qs, const float* ks,
+                                           int ty, int tx, float (&s)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < C; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(&qs[(ty * 4 + i) * LD + d]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * LD + d]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] += dot4(a[i], b[j]);
+  }
 }
 
 template <typename T>
@@ -135,11 +150,7 @@ __global__ void __launch_bounds__(NT)
     qs[r * LD + d] = (q0 + r < nc) ? to_f32(qb[(size_t)(q0 + r) * C + d]) : 0.f;
   }
 
-  // The sums' type: f64 for f32 inputs, f32 for bf16.
-  using Acc = typename std::conditional<std::is_same<T, float>::value,
-                                        double, float>::type;
-  float m_i[4];
-  Acc l_i[4], acc_m[4][8], acc_s[4][8];
+  float m_i[4], l_i[4], acc_m[4][8], acc_s[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_i[i] = NEG_INF;
@@ -160,7 +171,7 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
 
     float s[4][4];
-    adaattn_logits<C, LD>(qs, ks, ty, tx, s);
+    logits_f32(qs, ks, ty, tx, s);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -176,7 +187,7 @@ __global__ void __launch_bounds__(NT)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_i[i], mx);
       const float corr = expf(m_i[i] - m_new);
-      Acc rs = 0;
+      float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
@@ -205,11 +216,11 @@ __global__ void __launch_bounds__(NT)
       const float vv[8] = {va.x, va.y, va.z, va.w, vb4.x, vb4.y, vb4.z, vb4.w};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const Acc vj = vv[j], v2 = vj * vj;  // exact in f64
+        const float vj = vv[j], v2 = vj * vj;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc_m[i][j] = fma_acc(Acc(pv[i]), vj, acc_m[i][j]);
-          acc_s[i][j] = fma_acc(Acc(pv[i]), v2, acc_s[i][j]);
+          acc_m[i][j] = fmaf(pv[i], vj, acc_m[i][j]);
+          acc_s[i][j] = fmaf(pv[i], v2, acc_s[i][j]);
         }
       }
     }
@@ -219,18 +230,18 @@ __global__ void __launch_bounds__(NT)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= nc) continue;
-    const Acc inv_l = Acc(1) / l_i[i];
+    const float inv_l = 1.f / l_i[i];
     const size_t base = ((size_t)b * nc + row) * C + tx * 8;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const Acc mean = acc_m[i][j] * inv_l;
-      const Acc ev2 = acc_s[i][j] * inv_l;
-      mean_out[base + j] = from_f32<T>((float)mean);
-      std_out[base + j] = from_f32<T>((float)sqrt_pos(ev2 - mean * mean));
+      const float mean = acc_m[i][j] * inv_l;
+      const float ev2 = acc_s[i][j] * inv_l;
+      mean_out[base + j] = from_f32<T>(mean);
+      std_out[base + j] = from_f32<T>(sqrtf(fmaxf(ev2 - mean * mean, 0.f)));
     }
     if (tx == 0) {
       m_out[(size_t)b * nc + row] = m_i[i];
-      l_out[(size_t)b * nc + row] = (float)l_i[i];
+      l_out[(size_t)b * nc + row] = l_i[i];
     }
   }
 }
@@ -251,6 +262,196 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* mean,
       static_cast<float*>(m), static_cast<float*>(l), nc, ns);
   return cudaGetLastError();
 }
+
+
+// ---------------------------------------------------------------------------
+// float32: every stage in float64 on the CUDA cores.
+namespace f64k {
+
+constexpr int BQ = 32;         // query rows per CTA
+constexpr int BK = 64;         // style keys per tile
+constexpr int LDP = BQ + 2;    // row of the transposed P tile (doubles)
+constexpr double NEG_INF = -1e300;
+constexpr int SMEM_BYTES = ((BQ + BK) * LDD + BK * C + BK * LDP) * 8;
+
+__global__ void __launch_bounds__(NT, 1)
+    adaattn_fwd_f64_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ std_out,
+                           float* __restrict__ m_out,
+                           float* __restrict__ l_out, int nc, int ns) {
+  extern __shared__ double2 smem2[];
+  double* qs = reinterpret_cast<double*>(smem2);  // [BQ][LDD]
+  double* ks = qs + BQ * LDD;                     // [BK][LDD]
+  double* vs = ks + BK * LDD;                     // [BK][C]
+  double* pT = vs + BK * C;                       // [BK][LDP]: s, then P
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // softmax: keys tx+16j; sums: channels 2tx+32e
+  const int ty = tid >> 4;  // query rows 2ty, 2ty+1
+  // The logits: warp w forms rows 16 (w % 2) .. + 15 and keys
+  // 16 (w / 2) .. + 15 of the tile (accumulator fragments).
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int sr = 16 * (warp & 1), sk = 16 * (warp >> 1);
+  const float* kb = k + (size_t)b * ns * C;
+  const float* vb = v + (size_t)b * ns * C;
+  stage_f64<C>(qs, q + (size_t)b * nc * C, q0, BQ, nc, tid, NT);
+
+  double m_i[2], l_i[2], acc_m[2][8], acc_s[2][8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m_i[i] = NEG_INF;
+    l_i[i] = 0.0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc_m[i][e] = acc_s[i][e] = 0.0;
+  }
+  const int rows[2] = {2 * ty, 2 * ty + 1};
+  const int keys[4] = {tx, tx + 16, tx + 32, tx + 48};
+
+  for (int k0 = 0; k0 < ns; k0 += BK) {
+    __syncthreads();  // the previous tile's readers are done
+    stage_f64<C>(ks, kb, k0, BK, ns, tid, NT);
+    for (int idx = tid; idx < BK * (C / 2); idx += NT) {
+      const int r = idx / (C / 2), c = 2 * (idx % (C / 2));
+      double2 w = make_double2(0.0, 0.0);
+      if (k0 + r < ns)
+        w = make_double2(vb[(size_t)(k0 + r) * C + c],
+                         vb[(size_t)(k0 + r) * C + c + 1]);
+      *reinterpret_cast<double2*>(&vs[r * C + c]) = w;
+    }
+    __syncthreads();
+
+    {
+      double sb[2][4];
+      const double* ra = qs + (sr + g) * LDD + t;
+      const double* rb = ks + (sk + g) * LDD + t;
+      adaattn_logits64<2>(
+          [&](int c, double& a0, double& a1) {
+            a0 = ra[c];
+            a1 = ra[8 * LDD + c];
+          },
+          [&](int nb, int c) { return rb[8 * nb * LDD + c]; }, sb);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pT[(sk + 8 * nb + 2 * t + (e & 1)) * LDP + sr + g + 8 * (e >> 1)] =
+              sb[nb][e];
+    }
+    __syncthreads();
+    // Each thread reads the logits it then overwrites with P.
+    double s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = pT[keys[j] * LDP + rows[i]];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      double mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + keys[j] >= ns) s[i][j] = NEG_INF;
+        mx = fmax(mx, s[i][j]);
+      }
+      // The 16 threads of a row are one half-warp (lanes differ in bits 0-3).
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const double m_new = fmax(m_i[i], mx);
+      const double corr = exp(m_i[i] - m_new);
+      double rs = 0.0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double p = exp(s[i][j] - m_new);
+        rs += p;
+        pT[keys[j] * LDP + rows[i]] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l_i[i] = l_i[i] * corr + rs;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        acc_m[i][e] *= corr;
+        acc_s[i][e] *= corr;
+      }
+    }
+    __syncthreads();
+
+    const int kn = min(BK, ns - k0);
+#pragma unroll 2
+    for (int kk = 0; kk < kn; ++kk) {
+      const double2 p2 =
+          *reinterpret_cast<const double2*>(&pT[kk * LDP + 2 * ty]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const double2 w =
+            *reinterpret_cast<const double2*>(&vs[kk * C + 2 * tx + 32 * e]);
+        const double w0 = w.x * w.x, w1 = w.y * w.y;  // exact
+        acc_m[0][2 * e] = fma(p2.x, w.x, acc_m[0][2 * e]);
+        acc_m[0][2 * e + 1] = fma(p2.x, w.y, acc_m[0][2 * e + 1]);
+        acc_s[0][2 * e] = fma(p2.x, w0, acc_s[0][2 * e]);
+        acc_s[0][2 * e + 1] = fma(p2.x, w1, acc_s[0][2 * e + 1]);
+        acc_m[1][2 * e] = fma(p2.y, w.x, acc_m[1][2 * e]);
+        acc_m[1][2 * e + 1] = fma(p2.y, w.y, acc_m[1][2 * e + 1]);
+        acc_s[1][2 * e] = fma(p2.y, w0, acc_s[1][2 * e]);
+        acc_s[1][2 * e + 1] = fma(p2.y, w1, acc_s[1][2 * e + 1]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rows[i];
+    if (row >= nc) continue;
+    const size_t base = ((size_t)b * nc + row) * C;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float2 mo, so;
+      const double mean0 = acc_m[i][2 * e] / l_i[i];
+      const double mean1 = acc_m[i][2 * e + 1] / l_i[i];
+      mo.x = (float)mean0;
+      mo.y = (float)mean1;
+      so.x = (float)sqrt(fmax(acc_s[i][2 * e] / l_i[i] - mean0 * mean0, 0.0));
+      so.y = (float)sqrt(fmax(acc_s[i][2 * e + 1] / l_i[i] - mean1 * mean1,
+                              0.0));
+      const int c = 2 * tx + 32 * e;
+      *reinterpret_cast<float2*>(&mean_out[base + c]) = mo;
+      *reinterpret_cast<float2*>(&std_out[base + c]) = so;
+    }
+    if (tx == 0) {
+      // m rounded to f32, and l rescaled to it: the backward forms
+      // exp(s - m) / l with these two.
+      const float m32 = (float)m_i[i];
+      m_out[(size_t)b * nc + row] = m32;
+      l_out[(size_t)b * nc + row] =
+          (float)(l_i[i] * exp(m_i[i] - (double)m32));
+    }
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* mean,
+                   void* stdv, void* m, void* l, int b, int nc, int ns,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      adaattn_fwd_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((nc + BQ - 1) / BQ, b);
+  adaattn_fwd_f64_kernel<<<grid, NT, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(mean),
+      static_cast<float*>(stdv), static_cast<float*>(m),
+      static_cast<float*>(l), nc, ns);
+  return cudaGetLastError();
+}
+
+}  // namespace f64k
 
 
 // ---------------------------------------------------------------------------
@@ -533,8 +734,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* mean,
 
 // q (b, nc, c), k and v (b, ns, c); mean, std (b, nc, c) in the input dtype;
 // m, l (b, nc) f32.  c must be 128 and ns > 0.  bf16 takes the tensor-core
-// kernel, f32 the CUDA-core one.  Returns the cudaError_t of the launch (0
-// on success).
+// kernel, f32 the float64 CUDA-core one.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int adaattn_fwd_launch(const void* q, const void* k, const void* v,
                                   void* mean, void* stdv, void* m, void* l,
                                   int b, int nc, int ns, int c, int is_bf16,
@@ -545,11 +746,12 @@ extern "C" int adaattn_fwd_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)tc::launch(q, k, v, mean, stdv, m, l, b, nc, ns, s);
-  return (int)launch<float>(q, k, v, mean, stdv, m, l, b, nc, ns, s);
+  return (int)f64k::launch(q, k, v, mean, stdv, m, l, b, nc, ns, s);
 }
 
-// The same function through the CUDA-core kernel at either dtype: the bf16
-// kernel before the tensor-core one, for A/B timing only.
+// The same function through a CUDA-core kernel at either dtype: at bf16 the
+// kernel before the tensor-core one, for A/B timing only; at f32 the f64
+// kernel that adaattn_fwd_launch runs.
 extern "C" int adaattn_fwd_simt_launch(const void* q, const void* k,
                                        const void* v, void* mean, void* stdv,
                                        void* m, void* l, int b, int nc, int ns,
@@ -560,5 +762,5 @@ extern "C" int adaattn_fwd_simt_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)launch<__nv_bfloat16>(q, k, v, mean, stdv, m, l, b, nc, ns, s);
-  return (int)launch<float>(q, k, v, mean, stdv, m, l, b, nc, ns, s);
+  return (int)f64k::launch(q, k, v, mean, stdv, m, l, b, nc, ns, s);
 }

@@ -58,37 +58,66 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// a . b over four channels, summed in this order.
-__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+// Row stride (doubles) of the f64 tiles of 128 channels: 130, so that the
+// mma fragments' reads of eight rows at four channels take the fewest
+// shared-memory wavefronts, and a row pointer plus immediate offsets
+// address them.
+constexpr int LDD = 130;
+
+// D(16x8, f64) += A(16x4) B(4x8) on the FP64 tensor cores: a0 = A(g, t),
+// a1 = A(g + 8, t), b = B(t, g); d = D(g, 2t), D(g, 2t + 1), D(g + 8, 2t),
+// D(g + 8, 2t + 1) (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void dmma_16x8x4(double (&d)[4], double a0,
+                                            double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
-// The AdaAttN logits s[i][j] = q[ty*4+i] . k[tx+16j] of a 16 x 16 thread
-// grid over row-major f32 tiles (C channels, row stride LD).  The f32
-// forward kernel and the backward kernels all sum them here, so they are
-// equal bit for bit and the backward's P = exp(s - m) / l sums to 1 to
-// within rounding (adaattn_fwd.cu says why that matters).
-template <int C, int LD>
-__device__ __forceinline__ void adaattn_logits(const float* qs,
-                                               const float* ks, int ty,
-                                               int tx, float (&s)[4][4]) {
+// The AdaAttN logits of a warp's 16 x 8 NB block, s = a . b over the 128
+// channels of f32 rows taken exactly as f64: load_a(c, a0, a1) gives the A
+// rows g and g + 8 of the block at channel c + t, load_b(nb, c) the B row
+// 8 nb + g at channel c + t (t = lane % 4).  Each logit is ONE chain of
+// FP64 tensor-core products over the channel quads 0-3, 4-7, .., 124-127 in
+// order, from 0: exact products, f64 sums.  s[nb] is the accumulator
+// fragment (rows g, g + 8; columns 8 nb + 2t, 8 nb + 2t + 1).  The f32
+// forward and the backward kernels all form their logits here, whatever
+// their layout, wherever their operands lie and whichever of q and k is A
+// (the products are exact), so they are equal bit for bit and the
+// backward's P = exp(s - m) / l sums to 1 against the forward's l
+// (adaattn_fwd.cu says why that matters).
+template <int NB, typename LoadA, typename LoadB>
+__device__ __forceinline__ void adaattn_logits64(LoadA load_a, LoadB load_b,
+                                                 double (&s)[NB][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < C; d += 4) {
-    float4 a[4], b[4];
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&qs[(ty * 4 + i) * LD + d]);
+  for (int c = 0; c < 128; c += 4) {
+    double a0, a1;
+    load_a(c, a0, a1);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += dot4(a[i], b[j]);
+    for (int nb = 0; nb < NB; ++nb) dmma_16x8x4(s[nb], a0, a1, load_b(nb, c));
+  }
+}
+
+// Rows [row0, row0 + rows) of an (n, C) f32 or bf16 matrix into an f64
+// tile of row stride LDD, converted exactly; rows past n are zeros.  All
+// `nt` threads of the CTA take part.
+template <int C, typename T>
+__device__ __forceinline__ void stage_f64(double* dst, const T* src, int row0,
+                                          int rows, int n, int tid, int nt) {
+  for (int idx = tid; idx < rows * (C / 2); idx += nt) {
+    const int r = idx / (C / 2), c = 2 * (idx % (C / 2));
+    double2 w = make_double2(0.0, 0.0);
+    if (row0 + r < n) {
+      const T* p = src + (size_t)(row0 + r) * C + c;
+      w = make_double2(to_f32(p[0]), to_f32(p[1]));
+    }
+    *reinterpret_cast<double2*>(&dst[r * LDD + c]) = w;
   }
 }
 

@@ -49,11 +49,20 @@ _SIGNATURES = {
     # x, w_expand, w_dw, b_expand, b_dw, gate, wpt, y, n, h, w, c_in, e,
     # c_out, k, pre_act, identity, is_bf16, stream
     "fused_project_launch": [_P] * 8 + [_I] * 10 + [_P],
-    # q, k, v, dm1, dm2, m, l, d, dq, b, nc, ns, c, is_bf16, dm_bf16, stream
-    "adaattn_dq_launch": [_P] * 9 + [_I] * 6 + [_P],
-    # q, k, v, dm1, dm2, m, l, d, dk, dv, b, nc, ns, c, is_bf16, dm_bf16,
-    # stream
-    "adaattn_dkv_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # q, k, v, vbar, dm1, dm2, m, l, d (f64), dq, part, b, nc, ns, c, splits,
+    # is_bf16, dm_bf16, stream
+    "adaattn_dq_launch": [_P] * 11 + [_I] * 7 + [_P],
+    # q, k, v, vbar, dm1, dm2, m, l, d, dk, dv, part, b, nc, ns, c, splits,
+    # is_bf16, dm_bf16, stream
+    "adaattn_dkv_launch": [_P] * 12 + [_I] * 7 + [_P],
+    # b, nc, ns: the kernels' chunks of the reduction axis for the shape
+    "adaattn_dq_splits": [_I] * 3,
+    "adaattn_dkv_splits": [_I] * 3,
+    # which, cut, q, k, v, vbar, dm1, dm2, m, l, d, out1, out2, part, b, nc,
+    # ns, splits, stream (f32, one part cut out: timing only)
+    "adaattn_bwd_cut_launch": [_I] * 2 + [_P] * 12 + [_I] * 4 + [_P],
+    # which, out[3]: registers, shared memory, CTAs per SM (no launch)
+    "adaattn_bwd_occupancy": [_I, _P],
     # k, c_in, out[3]: registers, shared memory, CTAs per SM (no launch)
     "expand_dw_occupancy": [_I, _I, _P],
     # k, c_in, e, c_out, identity, out[6]: the same of both sweeps

@@ -5,9 +5,11 @@ Replaces ``arbitrarystyletransfer_tpu/ops/pallas/adaattn_kernel.py:57``
 ``_fwd_kernel`` (host wrapper ``_adaattn_pallas_fwd``).  The CUDA kernel is
 ``csrc/adaattn_fwd.cu``; ``adaattn_fwd_reference`` is its plain PyTorch twin,
 in float32 whatever the input dtype, with unscaled logits.  At float32 the
-kernel computes on the CUDA cores (the training step's gates hold it to
-the twin at 1e-5): the logits and exps in float32, the sums in float64,
-which keeps std accurate where it is small against the mean.  At bfloat16
+kernel computes every stage in float64 on the CUDA cores (the logits as one
+fma chain of exact products, the exponentials, the sums) and rounds once,
+so its outputs are the float64 statistics rounded to float32: the training
+step's loss is chaotic under 1-ulp changes of them (PERF.md), and its gate
+holds the step to the one with the AdaAttN stage in float64.  At bfloat16
 it runs on the tensor cores: the logits and sums stay exact products in
 float32, and the probabilities are rounded to bfloat16 for the product
 with [v, v^2];
@@ -89,7 +91,7 @@ def adaattn_fwd(q, k, v):
 
     A CPU tensor takes ``adaattn_fwd_reference``; a CUDA tensor launches the
     kernel (bf16: tensor cores, within ``adaattn_fwd_error_bound`` of the
-    twin; f32: CUDA cores) or raises.
+    twin; f32: CUDA cores, float64 inside) or raises.
     """
     if q.device.type == "cpu":
         return adaattn_fwd_reference(q, k, v)
@@ -127,21 +129,29 @@ def adaattn_fwd(q, k, v):
     return mean, std, m, l
 
 
-def fold_cotangents(mean, std, dmean, dstd):
-    """(dm1, dm2, D) in float32 from the cotangents of (mean, std) (None
-    for zero): the elementwise chain of ``_vjp_bwd``.  g2 = dstd / (2 std)
-    is 0 where std == 0 (the dense route's ``safe_sqrt`` convention); ev2
-    is re-formed as std^2 + mean^2, the clipped second moment; D =
-    sum(dm1 mean + dm2 ev2) over the channels."""
-    std_f, mean_f = std.float(), mean.float()
-    dmean = torch.zeros_like(mean_f) if dmean is None else dmean.float()
+def fold_cotangents(mean, std, dmean, dstd, v):
+    """(vbar, dm1, dm2, D) from the cotangents of (mean, std) (None for
+    zero): the elementwise chain of ``_vjp_bwd``, on the style values
+    centred by vbar = v's mean over the keys (B, 128) float32.  g2 =
+    dstd / (2 std) is 0 where std == 0 (the dense route's ``safe_sqrt``
+    convention); with mean' = mean - vbar, dm1 = dmean - 2 mean' g2 and
+    dm2 = g2 (float32), and D = sum(dm1 mean' + g2 (std^2 + mean'^2)) over
+    the channels (the clipped second moment of v - vbar) in float64 from
+    those float32 values, as the backward forms T - D (``adaattn_bwd``).
+    The backward kernels take vbar and subtract it from v: the gradients
+    are the uncentred chain's, but T and D no longer carry the mean's
+    offset (``csrc/adaattn_bwd.cu``)."""
+    std_f = std.float()
+    vbar = v.float().mean(dim=1)
+    mean_c = mean.double() - vbar.double()[:, None, :]
+    dmean = torch.zeros_like(std_f) if dmean is None else dmean.float()
     dstd = torch.zeros_like(std_f) if dstd is None else dstd.float()
     pos = std_f > 0
     g2 = torch.where(pos, 0.5 * dstd / torch.where(pos, std_f, 1.0), 0.0)
-    dm1 = dmean - 2.0 * mean_f * g2
-    ev2 = std_f.square() + mean_f.square()
-    d_row = (dm1 * mean_f + g2 * ev2).sum(dim=-1)
-    return dm1, g2, d_row
+    dm1 = (dmean.double() - 2.0 * mean_c * g2.double()).float()
+    ev2 = std_f.double().square() + mean_c.square()
+    d_row = (dm1.double() * mean_c + g2.double() * ev2).sum(dim=-1)
+    return vbar, dm1, g2, d_row
 
 
 class AdaAttnStatistics(torch.autograd.Function):
@@ -161,9 +171,10 @@ class AdaAttnStatistics(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dmean, dstd):
         q, k, v, mean, std, m, l = ctx.saved_tensors
-        dm1, dm2, d_row = fold_cotangents(mean, std, dmean, dstd)
-        dq = adaattn_bwd.adaattn_dq(q, k, v, dm1, dm2, m, l, d_row)
-        dk, dv = adaattn_bwd.adaattn_dkv(q, k, v, dm1, dm2, m, l, d_row)
+        folded = fold_cotangents(mean, std, dmean, dstd, v)
+        dq = adaattn_bwd.adaattn_dq(q, k, v, *folded[:3], m, l, folded[3])
+        dk, dv = adaattn_bwd.adaattn_dkv(q, k, v, *folded[:3], m, l,
+                                         folded[3])
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

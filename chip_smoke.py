@@ -32,7 +32,15 @@
    (``sweeps_phase``: each sweep's device ms, bound, share of it, rates,
    registers and CTAs per SM), after ragged shapes off the path through
    every sweep-1 mode and both sweep-2 layouts (H, W, E not multiples of
-   the sweeps' tiles and channel chunks), held to the same gates.
+   the sweeps' tiles and channel chunks), held to the same gates.  Then
+   the AdaAttN backward kernels (``adaattn_bwd_phase``) at the training
+   buckets, ragged, bf16 and 512px shapes and an "offset" case (v = 30 +
+   0.1 N(0, 1), also held to float64 autograd), at forced chunkings of the
+   reduction axis and twice for equal bits, beside the SDPA yardstick
+   (median of 5 windows, its backend named), and by part at the 160px and
+   512px shapes (``bwd_sweep``: share of the bound, registers, CTAs per
+   SM, ms with the tensor-core products, the TMA prefetch or the f64
+   logits cut out).
 4. Routes: ``StylePipeline`` in bfloat16 with the AdaAttN kernel answers
    requests of 8 content/style pairs at 512x512 through four block routes:
    "fused"/"fused" (3 requests), "flat-all" (4; every block the flat kernels
@@ -51,7 +59,10 @@
    with the AdaAttN stage in float64 (the loss and the AdaAttN projection
    gradients, as close as the twins' step or within a stated share) and
    against the kernel forward with the twins' backward (the gradients; see
-   ``kernel_vs_twin_step``); one warm-up step per bucket (96, 128, 160px),
+   ``kernel_vs_twin_step``), on three batches of the shared generator and
+   the standing ill-conditioned batch ``TRAIN_OWN_SEEDS`` (and logs the
+   gate, unheld, on an open fault's batch, ``TRAIN_WATCH_SEEDS``); one warm-up
+   step per bucket (96, 128, 160px),
    then timed steps at 160px, each of which must launch exactly 2
    ``adaattn_fwd``, 2 ``adaattn_dq`` and 2 ``adaattn_dkv`` and nothing else,
    with a finite loss, a step counter that advances and BatchNorm buffers
@@ -114,6 +125,14 @@ TRAIN_BATCH, TRAIN_SIZES, TRAIN_STEPS = 8, (96, 128, 160), 6
 # Batches on which the kernel step is held against the twins' and the
 # float64 step (``kernel_vs_twin_step``): their conditioning differs.
 STEP_BATCHES = 3
+# Then standing batches, each from a generator of its own (device seed),
+# each of which must reach TRAIN_OWN_RATIO: 103 reaches (mean / std)^2 ~9e4
+# and failed the float64 gradient gate with f32 logits and T - D (PERF.md).
+# Then batches run through the gate and logged but not held to it, for an
+# open fault: 108 reaches ~1e8, where dv's f32 epilogue misses the 1e-4 gate
+# against the twins' backward on the W_v gradient (ROADMAP queue 3).
+TRAIN_OWN_SEEDS, TRAIN_OWN_RATIO = (103,), 5e4
+TRAIN_WATCH_SEEDS = (108,)
 TRAIN_LAUNCHES = counts(adaattn_fwd=2, adaattn_dq=2, adaattn_dkv=2)
 # AdaAttN backward cases: name, B, Nc, Ns, dtype of q/k/v, dtype of dm,
 # launches of each kernel per 160px training step.  The three training
@@ -127,7 +146,20 @@ BWD_CASES = (
     ("bf16", 8, 400, 400, "bfloat16", "float32", 0),
     ("bf16-dm", 8, 400, 400, "bfloat16", "bfloat16", 0),
     ("512px", 16, 4096, 4096, "float32", "float32", 0),
+    ("offset", 8, 400, 400, "float32", "float32", 0),
 )
+# Cases added after the backward phase's first run draw from a generator of
+# their own (seed + 9), so that every later phase keeps its inputs.
+# "offset": v = 30 + 0.1 N(0, 1), where (mean / std)^2 exceeds 1e4 and the
+# uncentred backward cancels; its residuals come from the f32 forward kernel
+# (the float64 statistics rounded), and its gradients are also held to
+# float64 autograd of the dense statistics.
+BWD_OWN_GEN = ("offset",)
+BWD_OFFSET_RATIO = 1e4  # the least (mean / std)^2 the offset case must reach
+# The cases whose rows 6-7 are timed by part (``bwd_sweep``): ms, share of
+# the bound, registers, CTAs per SM, and ms with one part cut out.
+BWD_SWEEP_CASES = ("160px", "512px")
+BWD_SWEEP_SPLITS = (1, 2, 3, 4, 7)
 # dq, dk, dv sum up to 4096 terms in another order than the twin's.
 BWD_F32_TOL = 1e-4
 # The training step through the kernels vs the step whose AdaAttN stage
@@ -140,8 +172,10 @@ BWD_F32_TOL = 1e-4
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_OWN_FACTOR = 1e-5, 1e-4, 2.0
 
 # H100 SXM peaks for the bounds (NVIDIA's data sheet, dense, at 700 W):
-# bf16 tensor cores, f32 on the CUDA cores, HBM3.
+# bf16 tensor cores, f32 on the CUDA cores, HBM3; TF32 tensor cores and f64
+# (tensor cores, the card's highest f64 rate) for rows 6-7.
 PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+PEAK_TF32, PEAK_F64 = 495e12, 67e12
 
 # Every distinct expand_dw shape of the 512px batch-8 request: name, batch
 # (the encoder runs content and style stacked: 16), H=W, C_in, E, k,
@@ -380,44 +414,63 @@ class Bound:
         return ("bytes" if self.nbytes / HBM_BYTES_S >= self.ops_s
                 else "operations")
 
+    def merge(self, other, times=1):
+        """Adds ``times`` of another bound's launches."""
+        self.nbytes += times * other.nbytes
+        self.flops += times * other.flops
+        self.ops_s += times * other.ops_s
 
-def sdpa_yardstick(q, k, v, backward=False, iters=5):
+
+def sdpa_yardstick(q, k, v, backward=False, windows=5, iters=10,
+                   warmup=3):
     """Device ms of one ``F.scaled_dot_product_attention(q, k, cat([v,
     v*v]), scale=1.0)`` call (with ``backward``: forward plus the gradients
     of q, k, v under autograd): A [v, v^2] and its gradients, the function
     of the AdaAttN kernels.  A yardstick only; the port never calls it.
-    Tries the fused backends in the inputs' dtype, then in bf16, then the
-    math backend; returns (ms, what was timed)."""
+    Each fused backend (flash, efficient attention, cuDNN) that takes the
+    inputs' dtype is timed, else each that takes bf16, else the math
+    backend: ``warmup`` calls, then the median of ``windows`` windows of
+    ``iters`` calls.  Returns (ms, what was timed: the fastest backend and
+    its dtype)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
              SDPBackend.CUDNN_ATTENTION]
-    attempts = [(q.dtype, fused, "fused")]
+    groups = [[(q.dtype, be) for be in fused]]
     if q.dtype != torch.bfloat16:
-        attempts.append((torch.bfloat16, fused, "fused"))
-    attempts.append((q.dtype, [SDPBackend.MATH], "math"))
-    for dt, backends, label in attempts:
-        qq, kk, vv = (t.detach().to(dt)[:, None].requires_grad_(backward)
-                      for t in (q, k, v))
-        g = (torch.randn(*qq.shape[:-1], 2 * qq.shape[-1], device=q.device,
-                         dtype=dt) if backward else None)
+        groups.append([(torch.bfloat16, be) for be in fused])
+    groups.append([(q.dtype, SDPBackend.MATH)])
+    for group in groups:
+        best = None
+        for dt, backend in group:
+            qq, kk, vv = (t.detach().to(dt)[:, None].requires_grad_(backward)
+                          for t in (q, k, v))
+            g = (torch.randn(*qq.shape[:-1], 2 * qq.shape[-1],
+                             device=q.device, dtype=dt) if backward else None)
 
-        def run():
-            with sdpa_kernel(backends):
-                out = F.scaled_dot_product_attention(
-                    qq, kk, torch.cat([vv, vv * vv], dim=-1), scale=1.0)
-                if backward:
-                    torch.autograd.grad(out, (qq, kk, vv), g)
+            def run():
+                with sdpa_kernel([backend]):
+                    out = F.scaled_dot_product_attention(
+                        qq, kk, torch.cat([vv, vv * vv], dim=-1), scale=1.0)
+                    if backward:
+                        torch.autograd.grad(out, (qq, kk, vv), g)
 
-        try:
-            run()
-            torch.cuda.synchronize()
-        except RuntimeError as exc:
-            log(f"  sdpa {label} {dt}: refused ({str(exc).splitlines()[0][:100]})")
-            continue
-        return timed_ms(run, iters=iters, warmup=1), f"{label} {dt}"
+            try:
+                run()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            for _ in range(warmup - 1):
+                run()
+            ms = statistics.median(timed_ms(run, iters=iters, warmup=0)
+                                   for _ in range(windows))
+            label = f"{backend.name.lower()} {str(dt).removeprefix('torch.')}"
+            if best is None or ms < best[0]:
+                best = (ms, label)
+        if best is not None:
+            return best
     raise AssertionError("no SDPA backend took the yardstick")
 
 
@@ -1497,11 +1550,113 @@ def plain_route_phase(gen):
     torch.cuda.empty_cache()
 
 
+def bwd_bounds(b, nc, ns, size, dsize):
+    """{kernel: Bound} of rows 6-7 at one shape: q, k, v, vbar, dm1, dm2, m,
+    l (f32) and D (f64) read once and the gradients written once, against
+    the float64 products (the logits, 2 B Nc Ns C FLOPs as the f32
+    forward forms them, and T, 4 B Nc Ns C) at the f64 peak and the other
+    products (2 for dq: dS k; 6 for dkv: dS^T q, P^T dm1, P^T dm2) at a
+    third of the TF32 peak (3xTF32: f32 accuracy)."""
+    work = b * nc * ns * 128
+    in_bytes = ((size * (nc + 2 * ns) + 2 * dsize * nc) * b * 128
+                + 16 * b * nc + 4 * b * 128)
+    out = {}
+    for kernel, out_rows, rest in (("adaattn_dq", nc, 2),
+                                   ("adaattn_dkv", 2 * ns, 6)):
+        bound = Bound()
+        bound.add(in_bytes + size * b * out_rows * 128, 6 * work, PEAK_F64)
+        bound.add(0, rest * work, PEAK_TF32 / 3)
+        out[kernel] = bound
+    return out
+
+
+def dense_grads_f64(q, k, v, dmean, dstd):
+    """dq, dk, dv of sum(mean dmean + std dstd) through the dense
+    statistics in float64 (autograd)."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.stats import safe_sqrt
+
+    with torch.enable_grad():
+        q64, k64, v64 = (t.detach().double().requires_grad_()
+                         for t in (q, k, v))
+        attn = torch.softmax(q64 @ k64.transpose(1, 2), dim=-1)
+        mean = attn @ v64
+        std = safe_sqrt(attn @ v64.square() - mean.square())
+        return torch.autograd.grad(
+            (mean * dmean.double()).sum() + (std * dstd.double()).sum(),
+            (q64, k64, v64))
+
+
+def bwd_sweep(name, args, bounds):
+    """Rows 6-7 at one f32 shape by part: device ms (median of 3 windows),
+    the share of the bound, the f32-accurate work's TFLOP/s, registers,
+    shared memory and CTAs per SM, the chunks of the reduction axis, ms
+    with one part cut out (``adaattn_bwd_cut_launch``: the tensor-core
+    products, the TMA ring's prefetch, the f64 logits; results discarded)
+    and ms at the chunkings ``BWD_SWEEP_SPLITS``.  One JSON line per
+    kernel."""
+    import ctypes
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import adaattn_bwd
+    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
+        load_library,
+    )
+
+    lib = load_library()
+    q, k, v = args[:3]
+    b, nc, _ = q.shape
+    ns = k.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.contiguous().data_ptr() for t in args]
+    for which, kernel in enumerate(("adaattn_dq", "adaattn_dkv")):
+        occ = (ctypes.c_int * 3)()
+        check(lib.adaattn_bwd_occupancy(which, occ) == 0,
+              f"{kernel}: occupancy query failed")
+        fn = getattr(adaattn_bwd, kernel)
+        if which == 0:
+            splits = lib.adaattn_dq_splits(b, nc, ns)
+            outs = (torch.empty_like(q), torch.empty(0, device=DEVICE))
+            part = torch.empty(splits * b * nc * 128, device=DEVICE)
+        else:
+            splits = lib.adaattn_dkv_splits(b, nc, ns)
+            outs = (torch.empty_like(k), torch.empty_like(v))
+            part = torch.empty(2 * splits * b * ns * 128, device=DEVICE)
+        ms = statistics.median(timed_ms(lambda: fn(*args), iters=10)
+                               for _ in range(3))
+        rec = {"kernel": kernel, "shape": name, "b": b, "nc": nc, "ns": ns,
+               "ms": ms, "bound_ms": bounds[kernel].ms(),
+               "bound_by": bounds[kernel].by(),
+               "share": bounds[kernel].ms() / ms,
+               "tflops": bounds[kernel].flops / ms / 1e9,
+               "registers": occ[0], "smem": occ[1], "ctas_per_sm": occ[2],
+               "splits": splits,
+               "ctas": b * splits * (-(-nc // 32) if which == 0
+                                     else -(-ns // 64))}
+        for cut, label in ((1, "ms_no_mma"), (2, "ms_sync_staging"),
+                           (3, "ms_no_logits")):
+            def run(cut=cut):
+                rc = lib.adaattn_bwd_cut_launch(
+                    which, cut, *ptrs, outs[0].data_ptr(),
+                    outs[1].data_ptr(), part.data_ptr(), b, nc, ns, splits,
+                    stream)
+                check(rc == 0, f"{kernel} cut {cut}: CUDA error {rc}")
+
+            rec[label] = timed_ms(run, iters=10)
+        # The same kernel at other chunkings of the reduction axis.
+        rec["ms_by_splits"] = {
+            n: timed_ms(lambda n=n: fn(*args, splits=n), iters=10)
+            for n in BWD_SWEEP_SPLITS}
+        log(json.dumps(rec))
+
+
 def adaattn_bwd_phase(gen):
-    """adaattn_dq and adaattn_dkv against their twins at every case, with
-    the forward kernel's time at the training buckets; returns
-    {kernel: (worst error, ms, plain ms, Bound, library ms)} per 160px
-    training step."""
+    """adaattn_dq and adaattn_dkv against their twins at every case (the
+    "offset" case also against float64 autograd; the training shape also
+    at forced chunkings of the reduction axis, and run twice for equal
+    bits), with the forward kernel's time at the training buckets and rows
+    6-7 by part at ``BWD_SWEEP_CASES``; returns {kernel: (worst error, ms,
+    plain ms, Bound, library ms)} per 160px training step."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.adaattn_bwd import (
         adaattn_dkv,
@@ -1515,19 +1670,25 @@ def adaattn_bwd_phase(gen):
         fold_cotangents,
     )
 
+    gen_own = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
     out = {name: [0.0, 0.0, 0.0, Bound(), None]
            for name in ("adaattn_dq", "adaattn_dkv")}
     for name, b, nc, ns, dtype, dm_dtype, per_step in BWD_CASES:
         dt, dmt = getattr(torch, dtype), getattr(torch, dm_dtype)
-        dev = dict(device=DEVICE)
-        q = (0.3 * torch.randn(b, nc, 128, generator=gen, **dev)).to(dt)
-        k = (0.3 * torch.randn(b, ns, 128, generator=gen, **dev)).to(dt)
-        v = torch.randn(b, ns, 128, generator=gen, **dev).to(dt)
-        mean, std, m, l = adaattn_fwd_reference(q, k, v)
-        dm1, dm2, d_row = fold_cotangents(
-            mean, std, torch.randn(b, nc, 128, generator=gen, **dev),
-            torch.randn(b, nc, 128, generator=gen, **dev))
-        args = (q, k, v, dm1.to(dmt), dm2.to(dmt), m, l, d_row)
+        dev = dict(device=DEVICE,
+                   generator=gen_own if name in BWD_OWN_GEN else gen)
+        q = (0.3 * torch.randn(b, nc, 128, **dev)).to(dt)
+        k = (0.3 * torch.randn(b, ns, 128, **dev)).to(dt)
+        if name == "offset":
+            v = (30.0 + 0.1 * torch.randn(b, ns, 128, **dev)).to(dt)
+            mean, std, m, l = adaattn_fwd(q, k, v)
+        else:
+            v = torch.randn(b, ns, 128, **dev).to(dt)
+            mean, std, m, l = adaattn_fwd_reference(q, k, v)
+        dmean = torch.randn(b, nc, 128, **dev)
+        dstd = torch.randn(b, nc, 128, **dev)
+        vbar, dm1, dm2, d_row = fold_cotangents(mean, std, dmean, dstd, v)
+        args = (q, k, v, vbar, dm1.to(dmt), dm2.to(dmt), m, l, d_row)
         got = (adaattn_dq(*args), *adaattn_dkv(*args))
         torch.cuda.synchronize()
         ref = (adaattn_dq_reference(*args), *adaattn_dkv_reference(*args))
@@ -1543,6 +1704,35 @@ def adaattn_bwd_phase(gen):
             if name == "160px":
                 kernel = "adaattn_dq" if what == "dq" else "adaattn_dkv"
                 out[kernel][0] = max(out[kernel][0], err)
+        if name in BWD_OWN_GEN:
+            ratio = float((mean.double().square()
+                           / std.double().square().clamp_min(1e-300)).max())
+            errs.append(f"max (mean / std)^2 {ratio:.4g}")
+            check(ratio >= BWD_OFFSET_RATIO,
+                  f"adaattn bwd {name}: (mean / std)^2 only {ratio:.4g}")
+            for what, o, r in zip(("dq", "dk", "dv"), got,
+                                  dense_grads_f64(q, k, v, dmean, dstd)):
+                err = max_err(o, r)
+                tol = BWD_F32_TOL * float(r.abs().max()) + 1e-6
+                errs.append(f"{what} vs float64 autograd {err:.4g} (tol "
+                            f"{tol:.4g})")
+                check(err <= tol, f"adaattn bwd {name} {what} differs from "
+                      "float64 autograd")
+        if name == "160px":
+            again = (adaattn_dq(*args), *adaattn_dkv(*args))
+            check(all(torch.equal(a, g) for a, g in zip(again, got)),
+                  "adaattn bwd: a second run gave other bits")
+            for splits in (1, 2, 3, 5, 13):
+                forced = (adaattn_dq(*args, splits=splits),
+                          *adaattn_dkv(*args, splits=splits))
+                for what, o, r in zip(("dq", "dk", "dv"), forced, ref):
+                    err = max_err(o, r)
+                    tol = rel * float(r.float().abs().max()) + 1e-6
+                    check(err <= tol, f"adaattn bwd {name} {what} at "
+                          f"{splits} chunks differs ({err:.4g}, tol "
+                          f"{tol:.4g})")
+                errs.append(f"{splits} chunks ok")
+            del again, forced
         del got, ref
         t_dq = timed_ms(lambda: adaattn_dq(*args), iters=5)
         t_dkv = timed_ms(lambda: adaattn_dkv(*args), iters=5)
@@ -1553,33 +1743,28 @@ def adaattn_bwd_phase(gen):
         lib_fb, what_fb = sdpa_yardstick(q, k, v, backward=True)
         lib_f, _ = sdpa_yardstick(q, k, v)
         fwd = ""
-        if dtype == dm_dtype == "float32" and name != "ragged":
+        if dtype == dm_dtype == "float32" and name not in ("ragged", "offset"):
             t_f = timed_ms(lambda: adaattn_fwd(q, k, v), iters=5)
             t_pf = timed_ms(lambda: adaattn_fwd_reference(q, k, v), iters=3,
                             warmup=1)
             fwd = f"; adaattn_fwd kernel {t_f:.4f} ms, plain {t_pf:.4f} ms"
-        size, dsize = q.element_size(), dm1.to(dmt).element_size()
-        in_bytes = (size * (nc + 2 * ns) + 2 * dsize * nc) * b * 128 \
-            + 12 * b * nc
-        bounds = {"adaattn_dq": Bound(), "adaattn_dkv": Bound()}
-        bounds["adaattn_dq"].add(in_bytes + size * b * nc * 128,
-                                 8 * b * nc * ns * 128, PEAK_F32)
-        bounds["adaattn_dkv"].add(in_bytes + 2 * size * b * ns * 128,
-                                  12 * b * nc * ns * 128, PEAK_F32)
+        bounds = bwd_bounds(b, nc, ns, q.element_size(),
+                            dm1.to(dmt).element_size())
         log(f"adaattn bwd {name:7s} B={b} Nc={nc} Ns={ns} {dtype} (dm "
             f"{dm_dtype}): " + ", ".join(errs)
             + f"; adaattn_dq {t_dq:.4f} ms (plain {t_pdq:.4f}, bound "
             f"{bounds['adaattn_dq'].ms():.4f}), adaattn_dkv {t_dkv:.4f} ms "
             f"(plain {t_pdkv:.4f}, bound {bounds['adaattn_dkv'].ms():.4f}); "
             f"library sdpa {what_fb}: forward+backward {lib_fb:.4f} ms, "
-            f"forward {lib_f:.4f} ms" + fwd)
+            f"forward {lib_f:.4f} ms (median of 5 windows of 10)" + fwd)
+        if name in BWD_SWEEP_CASES:
+            bwd_sweep(name, args, bounds)
         if per_step:
             for kernel, t_k, t_p in (("adaattn_dq", t_dq, t_pdq),
                                      ("adaattn_dkv", t_dkv, t_pdkv)):
                 out[kernel][1] += per_step * t_k
                 out[kernel][2] += per_step * t_p
-                out[kernel][3].add(bounds[kernel].nbytes,
-                                   bounds[kernel].flops, PEAK_F32, per_step)
+                out[kernel][3].merge(bounds[kernel], per_step)
                 # The sdpa backward computes dq, dk and dv at once: its
                 # forward+backward less its forward stands for both rows.
                 out[kernel][4] = per_step * (lib_fb - lib_f)
@@ -1597,6 +1782,18 @@ def _uniform_batches(gen, size):
                torch.rand(shape, generator=gen, device=DEVICE))
 
 
+def seeded_batch(seed):
+    """A uniform (content, style) batch at the last training size from a
+    generator of its own."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    size = TRAIN_SIZES[-1]
+    shape = (TRAIN_BATCH, size, size, 3)
+    return (torch.rand(shape, generator=gen, device=DEVICE),
+            torch.rand(shape, generator=gen, device=DEVICE))
+
+
 def train_phase(gen):
     """ASTTrainer on the card: warm-up, timed steps with their launches,
     the kernel-vs-twin step, the checkpoint round trip and a profile.
@@ -1604,37 +1801,29 @@ def train_phase(gen):
     import tempfile
 
     import torch
-    from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
-    from arbitrarystyletransfer_tpu_torch.config import ASTTrainConfig
+    from arbitrarystyletransfer_tpu_torch import weights
     from arbitrarystyletransfer_tpu_torch.ops.kernels import (
         LAUNCHES,
         reset_launches,
     )
     from arbitrarystyletransfer_tpu_torch.train import checkpoint as ckpt
-    from arbitrarystyletransfer_tpu_torch.train.ast_trainer import ASTTrainer
 
     with tempfile.TemporaryDirectory() as tmp:
-        tcfg = ASTTrainConfig(batch_size=TRAIN_BATCH, save_dir=tmp,
-                              ae_model="")
-        model_cfg = ModelConfig(use_pallas_adaattn=True)
         batches = {size: _uniform_batches(gen, size) for size in TRAIN_SIZES}
-        trainer = ASTTrainer(tcfg, batches[TRAIN_SIZES[-1]],
-                             model_cfg=model_cfg, seed=SEED, preview_dir=None,
-                             device=DEVICE, log_fn=log)
-        check(trainer.vgg_weights_path is None,
-              f"a VGG weight file was used: {trainer.vgg_weights_path}")
-        # The parity tests' redrawn weights (``random_state``: AdaAttN logits
-        # of std ~1.4, SE gates open), and the head normalized so that the
-        # image lies inside [0, 1].  With the reference init the unscaled
-        # logits have std ~11 and the closed SE gates flatten the maps:
-        # std = sqrt(ev2 - mean^2) is rounding noise and so is its gradient
-        # (dstd / 2 std), in the twins as in the kernels.  And an image
-        # at the clip bounds puts the 1e8-weighted out-of-range term's
-        # gradient (proportional to the overshoot) on rounding noise too.
-        weights.load_state(trainer.ast, random_state(model_cfg, SEED))
-        normalize_train_head(trainer, next(batches[TRAIN_SIZES[-1]]))
+        trainer = make_trainer(tmp, batches[TRAIN_SIZES[-1]])
         for _ in range(STEP_BATCHES):
             kernel_vs_twin_step(trainer, next(batches[TRAIN_SIZES[-1]]))
+        for seed in TRAIN_OWN_SEEDS:
+            log(f"train gate, standing batch (seed {seed}):")
+            dist = kernel_vs_twin_step(trainer, seeded_batch(seed))
+            check(dist["ratio"] >= TRAIN_OWN_RATIO,
+                  f"standing batch {seed}: (mean / std)^2 only "
+                  f"{dist['ratio']:.4g}")
+        for seed in TRAIN_WATCH_SEEDS:
+            log(f"train gate, open fault's batch (seed {seed}), not held:")
+            dist = kernel_vs_twin_step(trainer, seeded_batch(seed), gate=False)
+            log(f"  open fault's batch {seed}: (mean / std)^2 "
+                f"{dist['ratio']:.4g}; outside the gate: {dist['failed']}")
         buffers0 = [b.clone() for b in trainer.buffers]
         for size in TRAIN_SIZES:
             t0 = time.perf_counter()
@@ -1694,6 +1883,33 @@ def train_phase(gen):
     return launches, ms, peak_gib
 
 
+def make_trainer(tmp, batches):
+    """The train phase's ``ASTTrainer`` (saving under ``tmp``), with the
+    parity tests' weights and its head normalized on the first batch of
+    ``batches``, which it also trains on."""
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
+    from arbitrarystyletransfer_tpu_torch.config import ASTTrainConfig
+    from arbitrarystyletransfer_tpu_torch.train.ast_trainer import ASTTrainer
+
+    tcfg = ASTTrainConfig(batch_size=TRAIN_BATCH, save_dir=tmp, ae_model="")
+    model_cfg = ModelConfig(use_pallas_adaattn=True)
+    trainer = ASTTrainer(tcfg, batches, model_cfg=model_cfg, seed=SEED,
+                         preview_dir=None, device=DEVICE, log_fn=log)
+    check(trainer.vgg_weights_path is None,
+          f"a VGG weight file was used: {trainer.vgg_weights_path}")
+    # The parity tests' redrawn weights (``random_state``: AdaAttN logits
+    # of std ~1.4, SE gates open), and the head normalized so that the
+    # image lies inside [0, 1].  With the reference init the unscaled
+    # logits have std ~11 and the closed SE gates flatten the maps:
+    # std = sqrt(ev2 - mean^2) is rounding noise and so is its gradient
+    # (dstd / 2 std), in the twins as in the kernels.  And an image
+    # at the clip bounds puts the 1e8-weighted out-of-range term's
+    # gradient (proportional to the overshoot) on rounding noise too.
+    weights.load_state(trainer.ast, random_state(model_cfg, SEED))
+    normalize_train_head(trainer, next(batches))
+    return trainer
+
+
 def normalize_train_head(trainer, batch):
     """Scale the decoder head so that the stylized image of ``batch`` has a
     per-channel mean 0.5 and spatial std 0.05 (as ``routes_phase`` does)."""
@@ -1732,7 +1948,7 @@ def adaattn_statistics_f64(q, k, v):
     return mean.float(), std.float()
 
 
-def kernel_vs_twin_step(trainer, batch):
+def kernel_vs_twin_step(trainer, batch, variants=None, gate=True):
     """One step's loss and AdaAttN projection gradients through the kernels
     (A), through the kernel forward with the twins' backward (C), through
     the twins (B) and with the AdaAttN stage in float64 (D), from the same
@@ -1748,7 +1964,12 @@ def kernel_vs_twin_step(trainer, batch):
     so the f32 rounding of the AdaAttN stage, the twins' as the kernels',
     reaches these gradients amplified by the largest (mean / std)^2, which
     is logged.  A fixed share held the kernels to the twins' own rounding.
-    Every comparison is logged before any is checked."""
+    Every comparison is logged before any is checked (none with ``gate``
+    false).  ``variants`` ({name: statistics function}) adds the loss of
+    the step with each as its AdaAttN stage, against D.  Returns the
+    distances: {"loss": relative distance of A, "own": of B, "ratio": the
+    largest (mean / std)^2, "variants": {name: relative distance},
+    "failed": [what failed]}."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels import (
         LAUNCHES,
@@ -1761,10 +1982,10 @@ def kernel_vs_twin_step(trainer, batch):
     index = {n: i for i, n in enumerate(trainer.opt.names)}
     ratio = []
 
-    def fold(mean, std, dmean, dstd):
+    def fold(mean, std, dmean, dstd, v):
         ratio.append(float((mean.square() / std.square().clamp_min(
             1e-30)).max()))
-        return fold_real(mean, std, dmean, dstd)
+        return fold_real(mean, std, dmean, dstd, v)
 
     def run(**patch):
         """The step with ``patch``'s attributes of ``fwd_mod``/``bwd_mod``
@@ -1808,6 +2029,12 @@ def kernel_vs_twin_step(trainer, batch):
         f"twins' step {loss_b:.9g}, {own:.3g} from it); kernel forward with "
         f"the twin backward: {loss_c:.9g}; max (mean / std)^2 of the "
         f"AdaAttN statistics {max(ratio):.4g}")
+    dist = {"loss": rel, "own": own, "ratio": max(ratio), "variants": {}}
+    for name, fn in (variants or {}).items():
+        loss_v = run(adaattn_statistics=fn)[0]
+        dist["variants"][name] = abs(loss_v - loss_d) / abs(loss_d)
+        log(f"  loss with the AdaAttN stage {name}: {loss_v:.9g} (relative "
+            f"{dist['variants'][name]:.3g} from the float64 step's)")
     failed = [] if rel <= tol_loss else ["the kernel step's loss differs"]
     for name in names:
         ga, gb, gc, gd = (g[index[name]]
@@ -1826,7 +2053,10 @@ def kernel_vs_twin_step(trainer, batch):
         if err_d > tol_d:
             failed.append(f"the kernel step's gradient of {name} differs "
                           "from the float64 step's")
-    check(not failed, "; ".join(failed))
+    dist["failed"] = failed
+    if gate:
+        check(not failed, "; ".join(failed))
+    return dist
 
 
 def profile_train_step(trainer, batch, top=12):
@@ -2003,7 +2233,10 @@ def main() -> int:
         "which computes dq, dk and dv at once; library_ms of adaattn_fwd is "
         "the sdpa forward of the taps call; bounds at the H100 SXM peaks "
         "(bf16 989 TFLOP/s, f32 67 TFLOP/s, HBM 3.35 TB/s), the block "
-        "kernels' f32 depthwise at the f32 peak; the probe rows run on no "
+        "kernels' f32 depthwise at the f32 peak, adaattn_dq/dkv's float64 "
+        "logits and T at the f64 peak (67 TFLOP/s) and their other products "
+        "at a third of the TF32 peak (495 TFLOP/s; 3xTF32); the probe rows "
+        "run on no "
         "route, their launches are the probe drivers' (probe_mega2 for "
         "copy, products and depthwise, probe_vpu_rate for the rates) and "
         "their ms the drivers' measurements; for probe_copy, probe_mm_* and "

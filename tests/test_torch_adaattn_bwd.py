@@ -57,12 +57,17 @@ def test_backward_twins_match_pallas(b, nc, ns):
     q, k, v, dmean, dstd = _inputs(b, nc, ns, seed=nc + ns)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     mean, std, m, l = adaattn_fwd_reference(tq, tk, tv)
-    dm1, dm2, d_row = fold_cotangents(mean, std, torch.from_numpy(dmean),
-                                      torch.from_numpy(dstd))
-    args = (tq, tk, tv, dm1, dm2, m, l, d_row)
+    vbar, dm1, dm2, d_row = fold_cotangents(
+        mean, std, torch.from_numpy(dmean), torch.from_numpy(dstd), tv)
+    args = (tq, tk, tv, vbar, dm1, dm2, m, l, d_row)
     dq, dk, dv = adaattn_dq(*args), *adaattn_dkv(*args)
+    # The centred inputs through the Pallas kernels: v - vbar for v (the
+    # same gradients; tests/test_torch_adaattn_bwd_centred.py holds them
+    # against the uncentred chain too).
+    pallas_args = (tq, tk, tv - vbar[:, None], dm1, dm2, m, l, d_row.float())
     with pltpu.force_tpu_interpret_mode():
-        ref = _adaattn_pallas_bwd(*(jnp.asarray(a.numpy()) for a in args))
+        ref = _adaattn_pallas_bwd(*(jnp.asarray(a.numpy())
+                                    for a in pallas_args))
     for what, out, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         # Sums over up to 144 style and content positions in another order.
         assert_close(out, r, 1e-5, what)
