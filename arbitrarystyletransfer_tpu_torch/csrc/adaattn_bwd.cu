@@ -27,16 +27,21 @@
 // the training step's batches.  So T and D are formed in float64 from the
 // f32 inputs: in f32, T - D carried their rounding amplified by that
 // factor, 1e-3-scale errors in dq and dk on such batches in the twins and
-// the kernels alike (PERF.md).  The centring keeps dv's f32
-// epilogue, dm1 + 2 vc g2, from cancelling by |mean| / std.  Everything
+// the kernels alike (PERF.md).  The centring keeps dv = P^T dm1 + 2 vc o
+// (P^T dm2) from cancelling by |mean| / std, but its two terms still cancel
+// by |vc| / std, ~1e4 on the most ill-conditioned training batches
+// ((mean / std)^2 ~1e8): so dv's two products and their sum are float64
+// too, from the exact f32 P and dm, rounded once per chunk of queries
+// (in f32 its error reached 1.4e-3 of dv's largest value).  Everything
 // else is f32 whatever the input dtype, as the TPU kernels cast to f32;
 // neither P nor dS reaches HBM.
 //
 // What bounds it on an H100: per (query, key, channel) 2 f64 FLOPs of logits
-// and 4 of T (both kernels), then 2 f32 FLOPs of dS k (dq) or 6 of dS^T q,
-// P^T dm1, P^T dm2 (dkv), against ~(6 Nc + 5 Ns) C f32 per image of reads
-// and writes: operations bound it, at the f64 peak for the float64 products
-// and a third of the TF32 peak for the others (3xTF32).
+// and 4 of T (both kernels), then 2 f32 FLOPs of dS k (dq), or 2 of dS^T q
+// and 4 f64 FLOPs of P^T dm1, P^T dm2 (dkv), against ~(6 Nc + 5 Ns) C f32
+// per image of reads and writes: operations bound it, at the f64 peak for
+// the float64 products and a third of the TF32 peak for the others
+// (3xTF32).
 //
 // Design (both kernels: 256 threads = 8 warps, one CTA per SM):
 //   * The logits are formed as in the f32 forward kernel, by
@@ -48,7 +53,7 @@
 //     f64 accumulator fragment has the TF32 one's layout (rows g, g + 8;
 //     columns 2t, 2t + 1 of each 8-column block), so P and dS stay in
 //     registers.
-//   * dS k, dS^T q, P^T dm1 and P^T dm2 run on `mma.sync.m16n8k8` TF32 with
+//   * dS k and dS^T q run on `mma.sync.m16n8k8` TF32 with
 //     the 3xTF32 split (hi = x rounded to TF32, lo = x - hi; a b ~ hi hi +
 //     hi lo + lo hi; f32 accumulators).  An accumulator fragment feeds the next
 //     product as its A fragment without moving: its columns 2t, 2t + 1 are
@@ -65,8 +70,14 @@
 //   * adaattn_dkv: one CTA per (image, 64-key tile, query chunk); warps 0-3
 //     form dk (s, T, dS^T q) and warps 4-7 dv (s, P^T dm1, P^T dm2), each
 //     for keys 16 (w % 4) .. + 15 and all 32 queries of each tile, so a warp
-//     holds 64 or 128 accumulators, not 192, and every SM runs both kinds
-//     of work (as separate CTAs the dk ones set the pace).  The dv warps
+//     holds 64 f32 (dk) or 64 f64 (dv) accumulators, and every SM runs both
+//     kinds of work (as separate CTAs the dk ones set the pace).  The two
+//     roles run separate code paths, so the two kinds of accumulators never
+//     share the 255 registers.  A dv warp forms each tile's P^T dm1 and
+//     P^T dm2 on the FP64 tensor cores (m16n8k4, P's f32 accumulator
+//     fragment taken as the A fragment, as for TF32 below) two 8-channel
+//     blocks at a time and adds P^T dm1 + 2 vc o P^T dm2 into its f64
+//     accumulators at once, so the two products never need 128 more.  The dv warps
 //     form s and hand it to the dk warps of the same keys through shared
 //     memory (a named barrier per warp pair for full, one for free), which
 //     evens out the two groups' work; P and dS are formed in registers.
@@ -94,6 +105,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -108,8 +120,8 @@ constexpr int STAGES = 2;
 // Parts cut out for the ablation of `adaattn_bwd_cut_launch` (timing only;
 // the results are wrong): the tensor-core products (their operands are
 // still formed), the ring's prefetch (each tile copied and awaited in
-// turn), the f64 logits.
-enum Cut { kNone = 0, kNoMma = 1, kSyncStage = 2, kNoLogits = 3 };
+// turn), the f64 logits, dkv's f64 dv products (their epilogue kept).
+enum Cut { kNone = 0, kNoMma = 1, kSyncStage = 2, kNoLogits = 3, kNoDv = 4 };
 
 // Element (r, c) of a tile of R rows x 128 channels that TMA staged as
 // boxes of 128-byte rows (32 f32 or 64 bf16 channels, box b at
@@ -581,186 +593,227 @@ __global__ void __launch_bounds__(NT, 1)
   __syncthreads();  // the resident tiles; the ring's space is free
   if (tid == 0)
     for (int j = t0; j < min(t1, t0 + AHEAD); ++j) issue(j);
-  // dk (role 0), or P^T dm1 and P^T dm2 (role 1): 16 keys x 128 channels.
-  float acc[16][4], acc2[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = acc2[n][e] = 0.f;
   const bool keys_live = k0 + r0 < ns;
   const int x0 = (2 * t) & 7, x1 = (2 * t + 1) & 7;  // rows 8 k + 2t (+1)
 
-  for (int j = t0; j < t1; ++j) {
-    const int s = (j - t0) % STAGES, use = (j - t0) / STAGES;
-    const uint8_t* st = sm + s * S::STAGE;
-    const T* qs = reinterpret_cast<const T*>(st);
-    const TD* d1s = reinterpret_cast<const TD*>(st + S::QT);
-    const TD* d2s = reinterpret_cast<const TD*>(st + S::QT + S::DM);
-    // m, l (and D) of this thread's query columns 8 nb + 2t + e, loaded
-    // now and first used after the logits.
-    float cm[4][2], cl[4][2];
-    double cd[4][2];
+  // The tile loop of one role, with its accumulators: dk (role 0) in f32,
+  // 16 keys x 128 channels; dv (role 1) in f64, the same 16 x 128.  Two
+  // code paths, so that the two kinds of accumulators are never live at
+  // once (dv's 128 registers beside dk's 64 would not fit in 255).
+  auto run = [&](auto role_c) {
+    constexpr int ROLE = decltype(role_c)::value;
+    using Acc = std::conditional_t<ROLE == 0, float, double>;
+    Acc acc[16][4];
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * BQ + 8 * nb + 2 * t + e;
-        const bool ok = col < nc;
-        cm[nb][e] = ok ? m[(size_t)b * nc + col] : 0.f;
-        cl[nb][e] = ok ? l[(size_t)b * nc + col] : 1.f;
-        cd[nb][e] = ok && role == 0 ? D[(size_t)b * nc + col] : 0.0;
-      }
-    if (CUT == kSyncStage && tid == 0) {
-      wait_slot(&empty[s], use);
-      issue(j);
-    }
-    mbar_wait(&full[s], use & 1);
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0;
 
-    if (keys_live) {
-      // s^T: A = k (keys r0 + g, + 8), B = q (the tile's 32 queries),
-      // formed by the dv warp and handed to the dk warp of the same keys
-      // (named barriers 1 + kg: the buffer is full, 5 + kg: it is free).
-      double sl[4][4];
-      double* xb = sx + (warp & 3) * 512 + lane;
-      if (role == 1) {
-        if (CUT == kNoLogits) {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) (&sl[0][0])[i] = 0.0;
-        } else {
-          const double* ra = k64 + (r0 + g) * LDD + t;
-          adaattn_logits64<4>(
-              [&](int c, double& a0, double& a1) {
-                a0 = ra[c];
-                a1 = ra[8 * LDD + c];
-              },
-              [&](int nb, int c) {
-                return (double)tldk<T, BQ>(qs, 8 * nb + g, c + t, g);
-              },
-              sl);
-        }
-        if (j > t0) pair_sync(5 + (warp & 3));  // the buffer is free
-#pragma unroll
-        for (int i = 0; i < 16; ++i) xb[32 * i] = (&sl[0][0])[i];
-        pair_arrive(1 + (warp & 3));
-      } else {
-        pair_sync(1 + (warp & 3));
-#pragma unroll
-        for (int i = 0; i < 16; ++i) (&sl[0][0])[i] = xb[32 * i];
-        if (j + 1 < t1) pair_arrive(5 + (warp & 3));
-      }
-      // P^T in the accumulator layout: rows keys r0 + g (+8), columns the
-      // queries 8 nb + 2t + e.
-      float pd[4][4];
+    for (int j = t0; j < t1; ++j) {
+      const int s = (j - t0) % STAGES, use = (j - t0) / STAGES;
+      const uint8_t* st = sm + s * S::STAGE;
+      const T* qs = reinterpret_cast<const T*>(st);
+      const TD* d1s = reinterpret_cast<const TD*>(st + S::QT);
+      const TD* d2s = reinterpret_cast<const TD*>(st + S::QT + S::DM);
+      // m, l (and D) of this thread's query columns 8 nb + 2t + e, loaded
+      // now and first used after the logits.
+      float cm[4][2], cl[4][2];
+      double cd[4][2];
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool live = j * BQ + 8 * nb + 2 * t + (e & 1) < nc;
-          pd[nb][e] = live ? expf((float)(sl[nb][e] -
-                                          (double)cm[nb][e & 1])) /
-                                 cl[nb][e & 1]
-                           : 0.f;
+        for (int e = 0; e < 2; ++e) {
+          const int col = j * BQ + 8 * nb + 2 * t + e;
+          const bool ok = col < nc;
+          cm[nb][e] = ok ? m[(size_t)b * nc + col] : 0.f;
+          cl[nb][e] = ok ? l[(size_t)b * nc + col] : 1.f;
+          cd[nb][e] = ok && ROLE == 0 ? D[(size_t)b * nc + col] : 0.0;
         }
-      if (role == 0) {
-        // T^T - D in f64 on the FP64 tensor cores: T^T = vc dm1^T +
-        // vc^2 dm2^T, one accumulator fragment per product and 8-query
-        // block; then dS^T = P^T o (T^T - D).
-        double ta[2][4][4];
+      if (CUT == kSyncStage && tid == 0) {
+        wait_slot(&empty[s], use);
+        issue(j);
+      }
+      mbar_wait(&full[s], use & 1);
+
+      if (keys_live) {
+        // s^T: A = k (keys r0 + g, + 8), B = q (the tile's 32 queries),
+        // formed by the dv warp and handed to the dk warp of the same keys
+        // (named barriers 1 + kg: the buffer is full, 5 + kg: it is free).
+        double sl[4][4];
+        double* xb = sx + (warp & 3) * 512 + lane;
+        if constexpr (ROLE == 1) {
+          if (CUT == kNoLogits) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) (&ta[0][0][0])[i] = 0.0;
-#pragma unroll 4
-        for (int c = 0; c < C; c += 4) {
-          const double vbc = vb64[c + t];
-          const double w0 =
-              (double)tldk<float, BK>(vr, r0 + g, c + t, g) - vbc;
-          const double w1 =
-              (double)tldk<float, BK>(vr, r0 + g + 8, c + t, g) - vbc;
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            const int qr = 8 * nb + g;
-            const double b1 = (double)tldk<TD, BQ>(d1s, qr, c + t, g);
-            const double b2 = (double)tldk<TD, BQ>(d2s, qr, c + t, g);
-            if (CUT != kNoMma) {
-              dmma_16x8x4(ta[0][nb], w0, w1, b1);
-              dmma_16x8x4(ta[1][nb], w0 * w0, w1 * w1, b2);
-            } else {
-              ta[0][nb][0] += w0 * b1 + w1 * w1 * b2;
-            }
+            for (int i = 0; i < 16; ++i) (&sl[0][0])[i] = 0.0;
+          } else {
+            const double* ra = k64 + (r0 + g) * LDD + t;
+            adaattn_logits64<4>(
+                [&](int c, double& a0, double& a1) {
+                  a0 = ra[c];
+                  a1 = ra[8 * LDD + c];
+                },
+                [&](int nb, int c) {
+                  return (double)tldk<T, BQ>(qs, 8 * nb + g, c + t, g);
+                },
+                sl);
           }
+          if (j > t0) pair_sync(5 + (warp & 3));  // the buffer is free
+#pragma unroll
+          for (int i = 0; i < 16; ++i) xb[32 * i] = (&sl[0][0])[i];
+          pair_arrive(1 + (warp & 3));
+        } else {
+          pair_sync(1 + (warp & 3));
+#pragma unroll
+          for (int i = 0; i < 16; ++i) (&sl[0][0])[i] = xb[32 * i];
+          if (j + 1 < t1) pair_arrive(5 + (warp & 3));
         }
-        float ds[4][4];
+        // P^T in the accumulator layout: rows keys r0 + g (+8), columns the
+        // queries 8 nb + 2t + e.
+        float pd[4][4];
 #pragma unroll
         for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[nb][e] = pd[nb][e] * (float)((ta[0][nb][e] + ta[1][nb][e]) -
-                                            cd[nb][e & 1]);
-        // dk += dS^T q: the k-steps are the four 8-query blocks.
+          for (int e = 0; e < 4; ++e) {
+            const bool live = j * BQ + 8 * nb + 2 * t + (e & 1) < nc;
+            pd[nb][e] = live ? expf((float)(sl[nb][e] -
+                                            (double)cm[nb][e & 1])) /
+                                   cl[nb][e & 1]
+                             : 0.f;
+          }
+        if constexpr (ROLE == 0) {
+          // T^T - D in f64 on the FP64 tensor cores: T^T = vc dm1^T +
+          // vc^2 dm2^T, one accumulator fragment per product and 8-query
+          // block; then dS^T = P^T o (T^T - D).
+          double ta[2][4][4];
 #pragma unroll
-        for (int kb = 0; kb < 4; ++kb) {
-          AFrag a;
-          afrag_from_acc(a, ds[kb]);
-          const int qr = 8 * kb + 2 * t;
+          for (int i = 0; i < 32; ++i) (&ta[0][0][0])[i] = 0.0;
+#pragma unroll 4
+          for (int c = 0; c < C; c += 4) {
+            const double vbc = vb64[c + t];
+            const double w0 =
+                (double)tldk<float, BK>(vr, r0 + g, c + t, g) - vbc;
+            const double w1 =
+                (double)tldk<float, BK>(vr, r0 + g + 8, c + t, g) - vbc;
 #pragma unroll
-          for (int n = 0; n < 16; ++n)
-            mma3<CUT>(acc[n], a, tldk<T, BQ>(qs, qr, 8 * n + g, x0),
-                      tldk<T, BQ>(qs, qr + 1, 8 * n + g, x1));
-        }
-      } else {
+            for (int nb = 0; nb < 4; ++nb) {
+              const int qr = 8 * nb + g;
+              const double b1 = (double)tldk<TD, BQ>(d1s, qr, c + t, g);
+              const double b2 = (double)tldk<TD, BQ>(d2s, qr, c + t, g);
+              if (CUT != kNoMma) {
+                dmma_16x8x4(ta[0][nb], w0, w1, b1);
+                dmma_16x8x4(ta[1][nb], w0 * w0, w1 * w1, b2);
+              } else {
+                ta[0][nb][0] += w0 * b1 + w1 * w1 * b2;
+              }
+            }
+          }
+          float ds[4][4];
 #pragma unroll
-        for (int kb = 0; kb < 4; ++kb) {
-          AFrag a;
-          afrag_from_acc(a, pd[kb]);
-          const int qr = 8 * kb + 2 * t;
+          for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-          for (int n = 0; n < 16; ++n) {
-            mma3<CUT>(acc[n], a, tldk<TD, BQ>(d1s, qr, 8 * n + g, x0),
-                      tldk<TD, BQ>(d1s, qr + 1, 8 * n + g, x1));
-            mma3<CUT>(acc2[n], a, tldk<TD, BQ>(d2s, qr, 8 * n + g, x0),
-                      tldk<TD, BQ>(d2s, qr + 1, 8 * n + g, x1));
+            for (int e = 0; e < 4; ++e)
+              ds[nb][e] = pd[nb][e] * (float)((ta[0][nb][e] + ta[1][nb][e]) -
+                                              cd[nb][e & 1]);
+          // dk += dS^T q: the k-steps are the four 8-query blocks.
+#pragma unroll
+          for (int kb = 0; kb < 4; ++kb) {
+            AFrag a;
+            afrag_from_acc(a, ds[kb]);
+            const int qr = 8 * kb + 2 * t;
+#pragma unroll
+            for (int n = 0; n < 16; ++n)
+              mma3<CUT>(acc[n], a, tldk<T, BQ>(qs, qr, 8 * n + g, x0),
+                        tldk<T, BQ>(qs, qr + 1, 8 * n + g, x1));
+          }
+        } else {
+          // dv += P^T dm1 + 2 vc o (P^T dm2), the two products on the FP64
+          // tensor cores from the exact f32 P and dm (k-step 2 nb + par:
+          // queries 8 nb + 2t + par, the accumulator's columns taken as
+          // k-indices), summed with vc in f64 for the tile: the two terms
+          // cancel by up to |vc| / std, which f32 sums did not survive on
+          // ill-conditioned batches (PERF.md).
+          double a0[8], a1[8];
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int par = 0; par < 2; ++par) {
+              a0[2 * nb + par] = pd[nb][par];
+              a1[2 * nb + par] = pd[nb][2 + par];
+            }
+          constexpr int NP = 2;  // 8-channel blocks at a time: 4 chains
+#pragma unroll
+          for (int n0 = 0; n0 < 16; n0 += NP) {
+            double p1[NP][4], p2[NP][4];
+#pragma unroll
+            for (int i = 0; i < NP; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) p1[i][e] = p2[i][e] = 0.0;
+            if (CUT != kNoDv) {
+#pragma unroll
+              for (int ks = 0; ks < 8; ++ks) {
+                const int qr = 4 * (ks & ~1) + 2 * t + (ks & 1);
+                const int key = (ks & 1) ? x1 : x0;
+#pragma unroll
+                for (int i = 0; i < NP; ++i) {
+                  const int ch = 8 * (n0 + i) + g;
+                  const double b1 = (double)tldk<TD, BQ>(d1s, qr, ch, key);
+                  const double b2 = (double)tldk<TD, BQ>(d2s, qr, ch, key);
+                  if (CUT != kNoMma) {
+                    dmma_16x8x4(p1[i], a0[ks], a1[ks], b1);
+                    dmma_16x8x4(p2[i], a0[ks], a1[ks], b2);
+                  } else {
+                    p1[i][0] += a0[ks] * b1 + a1[ks] * b2;
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < NP; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int c = 8 * (n0 + i) + 2 * t + (e & 1);
+                const double vc =
+                    (double)tldk<float, BK>(vr, r0 + g + 8 * (e >> 1), c, g) -
+                    vb64[c];
+                acc[n0 + i][e] += p1[i][e] + 2.0 * vc * p2[i][e];
+              }
           }
         }
       }
+      release_slot(&empty[s], lane);
+      if (AHEAD && tid == 0 && j + AHEAD < t1) {
+        wait_slot(&empty[s], use + 1);
+        issue(j + AHEAD);
+      }
     }
-    release_slot(&empty[s], lane);
-    if (AHEAD && tid == 0 && j + AHEAD < t1) {
-      wait_slot(&empty[s], use + 1);
-      issue(j + AHEAD);
-    }
-  }
 
-  // dk, or dv = P^T dm1 + 2 vc o (P^T dm2).
-  T* out = role == 0 ? dk : dv;
+    // dk, or dv, each rounded once (to the f32 partial of a chunk, or to T).
+    T* out = ROLE == 0 ? dk : dv;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int rr = r0 + g + 8 * h, key = k0 + rr;
-    if (key >= ns) continue;
-    const size_t base = ((size_t)b * ns + key) * C;
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r0 + g + 8 * h, key = k0 + rr;
+      if (key >= ns) continue;
+      const size_t base = ((size_t)b * ns + key) * C;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      float x[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * n + 2 * t + e;
-        x[e] = acc[n][2 * h + e];
-        if (role == 1) {
-          const float vcf =
-              (float)((double)tld<float, BK>(vr, rr, c) - vb64[c]);
-          x[e] += 2.f * vcf * acc2[n][2 * h + e];
+      for (int n = 0; n < 16; ++n) {
+        const float x[2] = {(float)acc[n][2 * h], (float)acc[n][2 * h + 1]};
+        const int c = 8 * n + 2 * t;
+        if (splits > 1) {
+          // part is (2, splits, b, ns, C): dk's chunks, then dv's.
+          *reinterpret_cast<float2*>(
+              &part[((size_t)ROLE * splits + sp) * gridDim.y * ns * C + base +
+                    c]) = make_float2(x[0], x[1]);
+        } else {
+          out[base + c] = from_f32<T>(x[0]);
+          out[base + c + 1] = from_f32<T>(x[1]);
         }
       }
-      const int c = 8 * n + 2 * t;
-      if (splits > 1) {
-        // part is (2, splits, b, ns, C): dk's chunks, then dv's.
-        *reinterpret_cast<float2*>(
-            &part[((size_t)role * splits + sp) * gridDim.y * ns * C + base +
-                  c]) = make_float2(x[0], x[1]);
-      } else {
-        out[base + c] = from_f32<T>(x[0]);
-        out[base + c + 1] = from_f32<T>(x[1]);
-      }
     }
-  }
+  };
+  if (role == 0)
+    run(std::integral_constant<int, 0>{});
+  else
+    run(std::integral_constant<int, 1>{});
 }
 
 }  // namespace dkv
@@ -994,8 +1047,9 @@ extern "C" int adaattn_dkv_launch(const void* q, const void* k, const void* v,
 }
 
 // f32 inputs through a kernel with one part cut out (`cut`: 1 the
-// tensor-core products, 2 the ring's prefetch, 3 the f64 logits), for the
-// ablation's timing only: its results are wrong.  which 0: adaattn_dq
+// tensor-core products, 2 the ring's prefetch, 3 the f64 logits, 4 (dkv
+// only) the f64 dv products), for the ablation's timing only: its results
+// are wrong.  which 0: adaattn_dq
 // (out1 = dq), 1: adaattn_dkv (out1 = dk, out2 = dv).
 extern "C" int adaattn_bwd_cut_launch(int which, int cut, const void* q,
                                       const void* k, const void* v,
@@ -1006,7 +1060,8 @@ extern "C" int adaattn_bwd_cut_launch(int which, int cut, const void* q,
                                       int b, int nc, int ns, int splits,
                                       void* stream) {
   using namespace ast_kernels;
-  if (ns <= 0 || nc <= 0 || b <= 0 || splits < 1 || cut < 1 || cut > 3)
+  if (ns <= 0 || nc <= 0 || b <= 0 || splits < 1 || cut < 1 || cut > 4 ||
+      (cut == kNoDv && which == 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define AST_CUT(CUT)                                                         \
@@ -1019,7 +1074,10 @@ extern "C" int adaattn_bwd_cut_launch(int which, int cut, const void* q,
                                                   nc, ns, splits, s)
   if (cut == kNoMma) AST_CUT(kNoMma);
   if (cut == kSyncStage) AST_CUT(kSyncStage);
-  AST_CUT(kNoLogits);
+  if (cut == kNoLogits) AST_CUT(kNoLogits);
+  return (int)launch_dkv<float, float, kNoDv>(q, k, v, vbar, dm1, dm2, m, l,
+                                              d, out1, out2, part, b, nc, ns,
+                                              splits, s);
 #undef AST_CUT
 }
 

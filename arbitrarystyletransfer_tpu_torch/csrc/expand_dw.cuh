@@ -202,6 +202,17 @@ using SmemM = Smem<K, EXPAND, MMA,
                    : (MODE & kXSplit) != 0     ? 2
                                                : 1>;
 
+// A barrier over the CTA (BAR 0: __syncthreads) or, in a warp-specialised
+// kernel whose first NTHREADS threads run these sweep-1 functions, over
+// those threads alone (named barrier BAR).
+template <int BAR>
+__device__ __forceinline__ void sweep_sync() {
+  if constexpr (BAR == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"n"(BAR), "n"(NTHREADS) : "memory");
+}
+
 // The dynamic shared memory, aligned to 128 bytes (TMA's destination).
 __device__ __forceinline__ char* smem_base() {
   extern __shared__ float4 smem4[];
@@ -384,7 +395,7 @@ __device__ __forceinline__ void stage_x(const CUtensorMap* xmap,
 // columns inside it, rows first, so the corners follow.  Halo positions
 // further out feed only dropped outputs and stay zero.  The caller's next
 // barrier publishes xs.
-template <int P, int HH, int HW>
+template <int P, int HH, int HW, int BAR = 0>
 __device__ __forceinline__ void reflect_box(__nv_bfloat16* xs, int ldx,
                                             int H, int W, int y0, int x0) {
   const bool top = y0 < 0, bottom = y0 + HH > H;
@@ -401,7 +412,7 @@ __device__ __forceinline__ void reflect_box(__nv_bfloat16* xs, int ldx,
     if (hr >= 0 && hr < HH && hs >= 0 && hs < HH)
       v[hr * HW * vpp + rest] = v[hs * HW * vpp + rest];
   }
-  __syncthreads();
+  sweep_sync<BAR>();
   for (int idx = threadIdx.x; idx < 2 * P * HH * vpp; idx += NTHREADS) {
     const int j = idx / (HH * vpp), rest = idx % (HH * vpp);
     const int hr = rest / vpp, q = rest % vpp;
@@ -654,9 +665,10 @@ __device__ __forceinline__ void expand_mtile_t(const __nv_bfloat16* xs,
 // stage_weights put in shared memory, into buf (f32, swizzled; rounded to T
 // with kRoundEx).  MMA: the x halo is in xs (stage_x; the caller has waited
 // for its copies); otherwise x is read here.  Starts and ends with a
-// barrier.  EXPAND: a 1x1 expand precedes the depthwise; MMA: it runs on the
-// tensor cores (bf16 only).
-template <typename T, int K, bool EXPAND, bool MMA, int MODE, int PASS = 0>
+// barrier (sweep_sync<BAR>).  EXPAND: a 1x1 expand precedes the depthwise;
+// MMA: it runs on the tensor cores (bf16 only).
+template <typename T, int K, bool EXPAND, bool MMA, int MODE, int PASS = 0,
+          int BAR = 0>
 __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
                                             char* smem,
                                             const SmemM<K, EXPAND, MMA,
@@ -673,7 +685,7 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  __syncthreads();  // x and the weights are staged; buf's readers are done
+  sweep_sync<BAR>();  // x and the weights are staged; buf's readers are done
   if constexpr (MMA) {
     const __nv_bfloat16* xs =
         reinterpret_cast<const __nv_bfloat16*>(smem + L.xs);
@@ -710,7 +722,7 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
     for (int i = 0; i < NPX; ++i) acc[i] = 0.f;
     for (int k0 = 0; k0 < cin; k0 += CK) {
       const int kc = min(CK, cin - k0);
-      if (k0 > 0) __syncthreads();  // the previous step's readers are done
+      if (k0 > 0) sweep_sync<BAR>();  // the previous step's readers are done
       for (int idx = threadIdx.x; idx < HP * CK; idx += NTHREADS) {
         const int p = idx / CK, ci = idx % CK;
         float v = 0.f;
@@ -721,7 +733,7 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
         }
         buf[idx] = v;
       }
-      __syncthreads();
+      sweep_sync<BAR>();
       const int kc4 = (kc + 3) & ~3;  // staged tail channels are zero
       for (int ci = 0; ci < kc4; ci += 4) {
         const float w0 = ws[(k0 + ci + 0) * CE + lane];
@@ -742,7 +754,7 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
         }
       }
     }
-    __syncthreads();  // every read of the staged x is done
+    sweep_sync<BAR>();  // every read of the staged x is done
 #pragma unroll
     for (int i = 0; i < NPX; ++i) {
       const int p = warp + i * NWARPS;
@@ -753,7 +765,7 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
       }
     }
   }
-  __syncthreads();
+  sweep_sync<BAR>();
 }
 
 // expand==1 (E == cin): the halo of x's channels [c0, c0 + 32) plus the

@@ -46,9 +46,18 @@ _SIGNATURES = {
     # x, w_expand, w_dw, b_expand, b_dw, sums, n, h, w, c_in, e, k, pre_act,
     # is_bf16, stream
     "fused_sums_launch": [_P] * 6 + [_I] * 8 + [_P],
-    # x, w_expand, w_dw, b_expand, b_dw, gate, wpt, y, n, h, w, c_in, e,
-    # c_out, k, pre_act, identity, is_bf16, stream
+    # x, w_expand, w_dw, b_expand, b_dw, gate, w_proj (e, c_out), y, n, h,
+    # w, c_in, e, c_out, k, pre_act, identity, is_bf16, stream
     "fused_project_launch": [_P] * 8 + [_I] * 10 + [_P],
+    # design (0 tile, 1 persistent), cut, then fused_project_launch's
+    # arguments without is_bf16 (bf16 only; timing only)
+    "fused_project_cut_launch": [_I] * 2 + [_P] * 8 + [_I] * 9 + [_P],
+    # design, k, c_in, e, c_out, out[4]: registers, shared memory, CTAs per
+    # SM, resident expand weights (no launch)
+    "fused_project_occupancy": [_I] * 5 + [_P],
+    # no arguments: the design of the last fused_project launch (1
+    # persistent, 0 tile, -1 none yet)
+    "fused_project_last_design": [],
     # q, k, v, vbar, dm1, dm2, m, l, d (f64), dq, part, b, nc, ns, c, splits,
     # is_bf16, dm_bf16, stream
     "adaattn_dq_launch": [_P] * 11 + [_I] * 7 + [_P],

@@ -16,8 +16,9 @@ float32, and the row term D (B, Nc) float64.  The gradients are those of
 the uncentred form (the JAX kernels').  Like the kernels, the twins form
 the logits and T - D = dm1 vc^T + dm2 (vc^2)^T - D in float64 (T and D
 cancel by up to the square of the style values' spread over their
-attention-weighted std: ``csrc/adaattn_bwd.cu`` says why) and everything
-else in float32.
+attention-weighted std: ``csrc/adaattn_bwd.cu`` says why), and dv = P^T dm1
++ 2 vc o (P^T dm2) in float64 (its terms cancel by up to that spread over
+the std), and everything else in float32.
 """
 
 from __future__ import annotations
@@ -47,13 +48,13 @@ def split_bounds(n, splits, tile=SPLIT_TILE):
 def _p_and_ds(q, k, v, vbar, dm1, dm2, m, l, d_row):
     """P = exp(q k^T - m) / l (logits in float64, the rest in float32) and
     dS = P o (dm1 vc^T + dm2 (vc^2)^T - D) (T - D in float64), vc = v -
-    vbar, and vc in float32."""
+    vbar, and vc in float64."""
     s = q.double() @ k.double().transpose(1, 2)
     p = torch.exp((s - m.double()[..., None]).float()) / l[..., None]
     vc = v.double() - vbar.double()[:, None, :]
     t = (dm1.double() @ vc.transpose(1, 2)
          + dm2.double() @ vc.square().transpose(1, 2))
-    return p, p * (t - d_row.double()[..., None]).float(), vc.float()
+    return p, p * (t - d_row.double()[..., None]).float(), vc
 
 
 def adaattn_dq_reference(q, k, v, vbar, dm1, dm2, m, l, d_row, splits=1):
@@ -72,14 +73,16 @@ def adaattn_dq_reference(q, k, v, vbar, dm1, dm2, m, l, d_row, splits=1):
 def adaattn_dkv_reference(q, k, v, vbar, dm1, dm2, m, l, d_row, splits=1):
     """Plain twin of ``adaattn_dkv``: dk = dS^T q, dv = P^T dm1 + 2 vc o
     (P^T dm2), in k's dtype; ``splits`` cuts the queries as
-    ``adaattn_dq_reference`` cuts the keys."""
+    ``adaattn_dq_reference`` cuts the keys.  dv's two products and their
+    sum are float64 from the f32 P and dm, each chunk's rounded once to f32
+    (the two terms cancel by up to |vc| / std), as in the kernel."""
     p, ds, vc = _p_and_ds(q, k, v, vbar, dm1, dm2, m, l, d_row)
-    qf, d1, d2 = q.float(), dm1.float(), dm2.float()
+    qf, d1, d2 = q.float(), dm1.double(), dm2.double()
     dk = dv = None
     for a, b in split_bounds(q.shape[1], splits):
-        pt = p[:, a:b].transpose(1, 2)
+        pt = p[:, a:b].transpose(1, 2).double()
         part_k = ds[:, a:b].transpose(1, 2) @ qf[:, a:b]
-        part_v = pt @ d1[:, a:b] + 2.0 * vc * (pt @ d2[:, a:b])
+        part_v = (pt @ d1[:, a:b] + 2.0 * vc * (pt @ d2[:, a:b])).float()
         dk = part_k if dk is None else dk + part_k
         dv = part_v if dv is None else dv + part_v
     return dk.to(k.dtype), dv.to(v.dtype)

@@ -133,10 +133,10 @@ def fused_project(x, w_expand, w_dw, kernel_size: int, gate, w_proj,
         raise ValueError(f"fused_project: gate must be float32 ({n}, {e}) "
                          f"on {x.device}")
     gate = gate.contiguous()
-    wpt = w_proj.to(device=x.device, dtype=x.dtype).t().contiguous()
+    wp = w_proj.to(device=x.device, dtype=x.dtype).contiguous()
     y = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
     rc = load_library().fused_project_launch(
-        x.data_ptr(), *map(ptr, ops), gate.data_ptr(), wpt.data_ptr(),
+        x.data_ptr(), *map(ptr, ops), gate.data_ptr(), wp.data_ptr(),
         y.data_ptr(), n, h, w, c_in, e, c_out, kernel_size, int(pre_act),
         int(identity), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -19,7 +19,10 @@
    shape: ``mega_block`` against ``flat_block`` on the same block
    (the (N, H, C, W) layout against NHWC), and the two-pass block
    (``fused_sums`` + ``fused_project``) against the fused route's block
-   (``expand_dw`` + the PyTorch epilogue).  Then the probe kernels
+   (``expand_dw`` + the PyTorch epilogue); ``fused_project`` by part at
+   the path's shapes in both of its designs (``project_sweep``: share of
+   the bound, registers, CTAs per SM, ms with the projection, the
+   depthwise or the prefetch cut out).  Then the probe kernels
    (``ops/kernels/probes.py``: copy, the two product schedules, the two
    depthwise layouts, the issue rates) at the JAX probe scripts' default
    shapes, each against its twin (the copy bit-exact), with a library call
@@ -34,13 +37,15 @@
    every sweep-1 mode and both sweep-2 layouts (H, W, E not multiples of
    the sweeps' tiles and channel chunks), held to the same gates.  Then
    the AdaAttN backward kernels (``adaattn_bwd_phase``) at the training
-   buckets, ragged, bf16 and 512px shapes and an "offset" case (v = 30 +
-   0.1 N(0, 1), also held to float64 autograd), at forced chunkings of the
+   buckets, ragged, bf16 and 512px shapes, an "offset" case (v = 30 +
+   0.1 N(0, 1), also held to float64 autograd) and an "offset-1e8" case
+   (the same v under a peaked softmax, dv also held to float64 autograd of
+   the same function), at forced chunkings of the
    reduction axis and twice for equal bits, beside the SDPA yardstick
    (median of 5 windows, its backend named), and by part at the 160px and
    512px shapes (``bwd_sweep``: share of the bound, registers, CTAs per
-   SM, ms with the tensor-core products, the TMA prefetch or the f64
-   logits cut out).
+   SM, ms with the tensor-core products, the TMA prefetch, the f64
+   logits or dkv's f64 dv products cut out).
 4. Routes: ``StylePipeline`` in bfloat16 with the AdaAttN kernel answers
    requests of 8 content/style pairs at 512x512 through four block routes:
    "fused"/"fused" (3 requests), "flat-all" (4; every block the flat kernels
@@ -60,9 +65,9 @@
    gradients, as close as the twins' step or within a stated share) and
    against the kernel forward with the twins' backward (the gradients; see
    ``kernel_vs_twin_step``), on three batches of the shared generator and
-   the standing ill-conditioned batch ``TRAIN_OWN_SEEDS`` (and logs the
-   gate, unheld, on an open fault's batch, ``TRAIN_WATCH_SEEDS``); one warm-up
-   step per bucket (96, 128, 160px),
+   the standing ill-conditioned batches ``TRAIN_OWN_SEEDS`` (and would log
+   the gate, unheld, on an open fault's batches, ``TRAIN_WATCH_SEEDS``,
+   none now); one warm-up step per bucket (96, 128, 160px),
    then timed steps at 160px, each of which must launch exactly 2
    ``adaattn_fwd``, 2 ``adaattn_dq`` and 2 ``adaattn_dkv`` and nothing else,
    with a finite loss, a step counter that advances and BatchNorm buffers
@@ -127,12 +132,13 @@ TRAIN_BATCH, TRAIN_SIZES, TRAIN_STEPS = 8, (96, 128, 160), 6
 STEP_BATCHES = 3
 # Then standing batches, each from a generator of its own (device seed),
 # each of which must reach TRAIN_OWN_RATIO: 103 reaches (mean / std)^2 ~9e4
-# and failed the float64 gradient gate with f32 logits and T - D (PERF.md).
+# and failed the float64 gradient gate with f32 logits and T - D; 108
+# reaches ~1e8, where dv's f32 epilogue missed the 1e-4 gate against the
+# twins' backward on the W_v gradient until dv was float64 (PERF.md).
 # Then batches run through the gate and logged but not held to it, for an
-# open fault: 108 reaches ~1e8, where dv's f32 epilogue misses the 1e-4 gate
-# against the twins' backward on the W_v gradient (ROADMAP queue 3).
-TRAIN_OWN_SEEDS, TRAIN_OWN_RATIO = (103,), 5e4
-TRAIN_WATCH_SEEDS = (108,)
+# open fault (none now).
+TRAIN_OWN_SEEDS, TRAIN_OWN_RATIO = (103, 108), 5e4
+TRAIN_WATCH_SEEDS = ()
 TRAIN_LAUNCHES = counts(adaattn_fwd=2, adaattn_dq=2, adaattn_dkv=2)
 # AdaAttN backward cases: name, B, Nc, Ns, dtype of q/k/v, dtype of dm,
 # launches of each kernel per 160px training step.  The three training
@@ -147,15 +153,23 @@ BWD_CASES = (
     ("bf16-dm", 8, 400, 400, "bfloat16", "bfloat16", 0),
     ("512px", 16, 4096, 4096, "float32", "float32", 0),
     ("offset", 8, 400, 400, "float32", "float32", 0),
+    ("offset-1e8", 8, 400, 400, "float32", "float32", 0),
 )
 # Cases added after the backward phase's first run draw from a generator of
 # their own (seed + 9), so that every later phase keeps its inputs.
 # "offset": v = 30 + 0.1 N(0, 1), where (mean / std)^2 exceeds 1e4 and the
 # uncentred backward cancels; its residuals come from the f32 forward kernel
 # (the float64 statistics rounded), and its gradients are also held to
-# float64 autograd of the dense statistics.
-BWD_OWN_GEN = ("offset",)
-BWD_OFFSET_RATIO = 1e4  # the least (mean / std)^2 the offset case must reach
+# float64 autograd of the dense statistics.  "offset-1e8": the same v under
+# a peaked softmax (q and k at scale 1: logits of std ~11), where (mean /
+# std)^2 exceeds 1e8 and dv's two terms cancel by up to |vc| / std; dv is
+# also held to float64 autograd of the function on the same inputs
+# (``dv_f64``), which f32 sums of dv missed.
+BWD_OWN_GEN = ("offset", "offset-1e8")
+# The least (mean / std)^2 each of those cases must reach.
+BWD_OFFSET_RATIO = {"offset": 1e4, "offset-1e8": 1e8}
+# Their q and k scale.
+BWD_QK_SCALE = {"offset-1e8": 1.0}
 # The cases whose rows 6-7 are timed by part (``bwd_sweep``): ms, share of
 # the bound, registers, CTAs per SM, and ms with one part cut out.
 BWD_SWEEP_CASES = ("160px", "512px")
@@ -897,14 +911,73 @@ def mega_phase(gen, cases=MEGA_CASES):
     return worst, ms, plain_ms, bound
 
 
+def project_sweep(label, x, we, wd, k, gate, wp, common, identity, bound):
+    """``fused_project`` at one bf16 path shape by part, for both designs
+    (``fused_project_cut_launch``: 0 "tile", the first design, one CTA per
+    tile, and 1 "persistent", the path's): device ms (median of 3 windows), the share
+    of ``block_cost``'s bound, registers, shared memory, CTAs per SM,
+    whether the persistent design keeps every chunk's expand weights, and
+    ms with the projection's products, the depthwise's FMAs or (persistent)
+    the x halo's prefetch and the resident weights cut out (results
+    discarded).  One JSON line per design."""
+    import ctypes
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import fused_2pass
+    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
+        load_library,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import ptr
+
+    lib = load_library()
+    xx, ops = fused_2pass._operands("project_sweep", x, we, wd, k,
+                                    common["b_expand"], common["b_dw"])
+    n, h, w, c_in = xx.shape
+    e, c_out = wp.shape
+    wpc = wp.to(device=xx.device, dtype=xx.dtype).contiguous()
+    y = torch.empty((n, h, w, c_out), dtype=xx.dtype, device=xx.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for design, name in enumerate(("tile", "persistent")):
+        occ = (ctypes.c_int * 4)()
+        check(lib.fused_project_occupancy(design, k, c_in, e, c_out, occ)
+              == 0, f"fused_project {name}: occupancy query failed")
+
+        def run(cut=0, design=design):
+            rc = lib.fused_project_cut_launch(
+                design, cut, xx.data_ptr(), *map(ptr, ops), gate.data_ptr(),
+                wpc.data_ptr(), y.data_ptr(), n, h, w, c_in, e, c_out, k,
+                int(common["pre_act"]), int(identity), stream)
+            check(rc == 0, f"fused_project {name} cut {cut}: CUDA error "
+                  f"{rc}")
+
+        ms = statistics.median(timed_ms(run, iters=10) for _ in range(3))
+        rec = {"kernel": "fused_project", "design": name, "shape": label,
+               "x": [n, h, w, c_in], "e": e, "c_out": c_out, "k": k,
+               "ms": ms, "bound_ms": bound.ms(), "bound_by": bound.by(),
+               "share": bound.ms() / ms, "registers": occ[0],
+               "smem": occ[1], "ctas_per_sm": occ[2]}
+        if design:
+            rec["resident_weights"] = bool(occ[3])
+        cuts = [(1, "ms_no_proj"), (2, "ms_no_dw")]
+        if design:
+            cuts.append((3, "ms_sync_staging"))
+        for cut, key in cuts:
+            rec[key] = timed_ms(lambda cut=cut: run(cut), iters=10)
+        log(json.dumps(rec))
+
+
 def two_pass_phase(gen, cases=TWO_PASS_CASES):
     """fused_sums and fused_project against their twins at every case, and
     the two-pass block timed against the fused route's block (expand_dw +
-    the PyTorch epilogue); returns {kernel: [worst error, ms, plain ms,
-    Bound]} summed over the 15 fused-route blocks of a request."""
+    the PyTorch epilogue), and ``fused_project`` by part at the path's
+    shapes (``project_sweep``); returns {kernel: [worst error, ms, plain
+    ms, Bound]} summed over the 15 fused-route blocks of a request."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.basic import se_gate
     from arbitrarystyletransfer_tpu_torch.ops.blocks import matmul_f32
+    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
+        load_library,
+    )
     from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
         expand_dw,
     )
@@ -935,6 +1008,12 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
         y = fused_project(x, we, wd, k, gate, wp, identity=in_kernel,
                           **common)
         torch.cuda.synchronize()
+        # Every bf16 shape of the path and the ragged ones take the
+        # persistent design.
+        design = {1: "persistent", 0: "tile"}.get(
+            load_library().fused_project_last_design())
+        check(dt != torch.bfloat16 or not expand or design == "persistent",
+              f"fused_project {label}: the {design} design ran")
         r_y = fused_project_reference(x, we, wd, k, gate, wp,
                                       identity=in_kernel, **common)
         err_s, err_y = max_err(sums, r_sums), max_err(y, r_y)
@@ -998,11 +1077,17 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
                           f"{one.ms():.4f} {one.by()})")
         log(f"fused_2pass {label:8s} x={tuple(x.shape)} E={e} C_out={c_out} "
             f"k={k} bn={bn} res={residual} {dtype}: sums err {err_s:.4g} "
-            f"(tol {tol_s:.4g}), y err {err_y:.4g} (tol {tol_y:.4g}); "
-            + ", ".join(report) + f"; A/B block: two-pass {t_2p:.4f} ms, "
-            f"expand_dw + epilogue {t_fr:.4f} ms")
+            f"(tol {tol_s:.4g}), y err {err_y:.4g} (tol {tol_y:.4g}), "
+            f"{design} design; " + ", ".join(report)
+            + f"; A/B block: two-pass {t_2p:.4f} ms, expand_dw + epilogue "
+            f"{t_fr:.4f} ms")
         check(err_s <= tol_s and err_y <= tol_y, f"fused_2pass {label} "
               "differs")
+        if per_req:
+            one = Bound()
+            one.add_block(*costs["fused_project"], size)
+            project_sweep(label, x, we, wd, k, gate, wp, common, in_kernel,
+                          one)
         del x
         torch.cuda.empty_cache()
     if any(case[-1] for case in cases):
@@ -1554,17 +1639,18 @@ def bwd_bounds(b, nc, ns, size, dsize):
     """{kernel: Bound} of rows 6-7 at one shape: q, k, v, vbar, dm1, dm2, m,
     l (f32) and D (f64) read once and the gradients written once, against
     the float64 products (the logits, 2 B Nc Ns C FLOPs as the f32
-    forward forms them, and T, 4 B Nc Ns C) at the f64 peak and the other
-    products (2 for dq: dS k; 6 for dkv: dS^T q, P^T dm1, P^T dm2) at a
-    third of the TF32 peak (3xTF32: f32 accuracy)."""
+    forward forms them, and T, 4 B Nc Ns C; for dkv also P^T dm1 and P^T
+    dm2, 4 B Nc Ns C) at the f64 peak and the other products (2 for dq: dS
+    k; 2 for dkv: dS^T q) at a third of the TF32 peak (3xTF32: f32
+    accuracy)."""
     work = b * nc * ns * 128
     in_bytes = ((size * (nc + 2 * ns) + 2 * dsize * nc) * b * 128
                 + 16 * b * nc + 4 * b * 128)
     out = {}
-    for kernel, out_rows, rest in (("adaattn_dq", nc, 2),
-                                   ("adaattn_dkv", 2 * ns, 6)):
+    for kernel, out_rows, f64, rest in (("adaattn_dq", nc, 6, 2),
+                                        ("adaattn_dkv", 2 * ns, 10, 2)):
         bound = Bound()
-        bound.add(in_bytes + size * b * out_rows * 128, 6 * work, PEAK_F64)
+        bound.add(in_bytes + size * b * out_rows * 128, f64 * work, PEAK_F64)
         bound.add(0, rest * work, PEAK_TF32 / 3)
         out[kernel] = bound
     return out
@@ -1587,14 +1673,30 @@ def dense_grads_f64(q, k, v, dmean, dstd):
             (q64, k64, v64))
 
 
+def dv_f64(q, k, v, vbar, dm1, dm2, m, l):
+    """dv of ``adaattn_dkv``'s function on the same inputs in float64
+    (autograd): the gradient in v of sum P (dm1 . vc + dm2 . vc^2), with P =
+    exp(q k^T - m) / l held fixed and vc = v - vbar."""
+    import torch
+
+    with torch.enable_grad():
+        v64 = v.detach().double().requires_grad_()
+        p = torch.exp(q.double() @ k.double().transpose(1, 2)
+                      - m.double()[..., None]) / l.double()[..., None]
+        vc = v64 - vbar.double()[:, None, :]
+        return torch.autograd.grad(
+            (dm1.double() * (p @ vc)).sum()
+            + (dm2.double() * (p @ vc.square())).sum(), v64)[0]
+
+
 def bwd_sweep(name, args, bounds):
     """Rows 6-7 at one f32 shape by part: device ms (median of 3 windows),
     the share of the bound, the f32-accurate work's TFLOP/s, registers,
     shared memory and CTAs per SM, the chunks of the reduction axis, ms
     with one part cut out (``adaattn_bwd_cut_launch``: the tensor-core
-    products, the TMA ring's prefetch, the f64 logits; results discarded)
-    and ms at the chunkings ``BWD_SWEEP_SPLITS``.  One JSON line per
-    kernel."""
+    products, the TMA ring's prefetch, the f64 logits and, for dkv, the
+    f64 dv products; results discarded) and ms at the chunkings
+    ``BWD_SWEEP_SPLITS``.  One JSON line per kernel."""
     import ctypes
 
     import torch
@@ -1633,8 +1735,9 @@ def bwd_sweep(name, args, bounds):
                "splits": splits,
                "ctas": b * splits * (-(-nc // 32) if which == 0
                                      else -(-ns // 64))}
-        for cut, label in ((1, "ms_no_mma"), (2, "ms_sync_staging"),
-                           (3, "ms_no_logits")):
+        cuts = [(1, "ms_no_mma"), (2, "ms_sync_staging"),
+                (3, "ms_no_logits")] + ([(4, "ms_no_dv")] if which else [])
+        for cut, label in cuts:
             def run(cut=cut):
                 rc = lib.adaattn_bwd_cut_launch(
                     which, cut, *ptrs, outs[0].data_ptr(),
@@ -1677,9 +1780,10 @@ def adaattn_bwd_phase(gen):
         dt, dmt = getattr(torch, dtype), getattr(torch, dm_dtype)
         dev = dict(device=DEVICE,
                    generator=gen_own if name in BWD_OWN_GEN else gen)
-        q = (0.3 * torch.randn(b, nc, 128, **dev)).to(dt)
-        k = (0.3 * torch.randn(b, ns, 128, **dev)).to(dt)
-        if name == "offset":
+        scale = BWD_QK_SCALE.get(name, 0.3)
+        q = (scale * torch.randn(b, nc, 128, **dev)).to(dt)
+        k = (scale * torch.randn(b, ns, 128, **dev)).to(dt)
+        if name in BWD_OFFSET_RATIO:
             v = (30.0 + 0.1 * torch.randn(b, ns, 128, **dev)).to(dt)
             mean, std, m, l = adaattn_fwd(q, k, v)
         else:
@@ -1705,11 +1809,21 @@ def adaattn_bwd_phase(gen):
                 kernel = "adaattn_dq" if what == "dq" else "adaattn_dkv"
                 out[kernel][0] = max(out[kernel][0], err)
         if name in BWD_OWN_GEN:
+            live = std > 0  # a one-hot row's std is 0
             ratio = float((mean.double().square()
-                           / std.double().square().clamp_min(1e-300)).max())
-            errs.append(f"max (mean / std)^2 {ratio:.4g}")
-            check(ratio >= BWD_OFFSET_RATIO,
+                           / std.double().square())[live].max())
+            errs.append(f"max (mean / std)^2 {ratio:.4g} (std > 0)")
+            check(ratio >= BWD_OFFSET_RATIO[name],
                   f"adaattn bwd {name}: (mean / std)^2 only {ratio:.4g}")
+        if name == "offset-1e8":
+            r = dv_f64(q, k, v, vbar, dm1, dm2, m, l)
+            err = max_err(got[2], r)
+            tol = BWD_F32_TOL * float(r.abs().max())
+            errs.append(f"dv vs float64 autograd of the same function "
+                        f"{err:.4g} (tol {tol:.4g})")
+            check(err <= tol, f"adaattn bwd {name} dv differs from float64 "
+                  "autograd of the same function")
+        if name == "offset":
             for what, o, r in zip(("dq", "dk", "dv"), got,
                                   dense_grads_f64(q, k, v, dmean, dstd)):
                 err = max_err(o, r)
@@ -1743,7 +1857,8 @@ def adaattn_bwd_phase(gen):
         lib_fb, what_fb = sdpa_yardstick(q, k, v, backward=True)
         lib_f, _ = sdpa_yardstick(q, k, v)
         fwd = ""
-        if dtype == dm_dtype == "float32" and name not in ("ragged", "offset"):
+        if (dtype == dm_dtype == "float32" and name != "ragged"
+                and name not in BWD_OWN_GEN):
             t_f = timed_ms(lambda: adaattn_fwd(q, k, v), iters=5)
             t_pf = timed_ms(lambda: adaattn_fwd_reference(q, k, v), iters=3,
                             warmup=1)

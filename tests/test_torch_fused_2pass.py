@@ -108,31 +108,47 @@ def test_sums_twin_matches_pallas_sums_mode(c_in, e, k, expand, biases):
     assert_close(sums, np.asarray(ref)[:, :e], 1e-5, "sums")
 
 
-@pytest.mark.parametrize("dtype,identity,expand", [
-    ("float32", True, True),
-    ("bfloat16", True, True),
-    ("bfloat16", False, True),
-    ("float32", True, False),  # expand==1
+# (C_in, E, C_out, k, H = W) of the project-mode cases; the last ones are
+# the shapes the CUDA kernels' tiling must get right: E not a multiple of
+# the 32-channel chunk, an odd C_out (the tile design's CUDA-core
+# projection), and 37 x 37 at k5 (partial 16 x 16 tiles, reflected edges).
+SMALL = (16, 64, 16, 3, 12)
+
+
+@pytest.mark.parametrize("dtype,identity,expand,shape", [
+    pytest.param("float32", True, True, SMALL, id="float32-True-True"),
+    pytest.param("bfloat16", True, True, SMALL, id="bfloat16-True-True"),
+    pytest.param("bfloat16", False, True, SMALL, id="bfloat16-False-True"),
+    pytest.param("float32", True, False, (16, 16, 16, 3, 12),  # expand==1
+                 id="float32-True-False"),
+    pytest.param("bfloat16", False, True, (16, 48, 24, 3, 12),
+                 id="bfloat16-e48"),
+    pytest.param("bfloat16", False, True, (16, 64, 13, 3, 12),
+                 id="bfloat16-cout13"),
+    pytest.param("bfloat16", True, True, (40, 48, 40, 5, 37),
+                 id="bfloat16-hw37-k5"),
+    pytest.param("float32", False, True, (40, 48, 24, 5, 37),
+                 id="float32-hw37-k5"),
 ])
-def test_project_twin_matches_pallas_project_mode(dtype, identity, expand):
+def test_project_twin_matches_pallas_project_mode(dtype, identity, expand,
+                                                  shape):
     tdt, jdt, rel = DTYPES[dtype]
-    c_in = c_out = 16
-    e = 64 if expand else c_in
-    we, wd, be, bd = _kernel_args(c_in, e, 3, expand, True, seed=9)
+    c_in, e, c_out, k, hw = shape
+    we, wd, be, bd = _kernel_args(c_in, e, k, expand, True, seed=9)
     rng = np.random.default_rng(10)
     gate = rng.uniform(0, 1, (2, e)).astype(np.float32)
     wp = rng.normal(0, 0.2, (e, c_out)).astype(np.float32)
-    x = _x(c_in, seed=11)
-    y = fused_project(torch.from_numpy(x).to(tdt), _t(we), _t(wd), 3,
+    x = _x(c_in, seed=11, h=hw, w=hw)
+    y = fused_project(torch.from_numpy(x).to(tdt), _t(we), _t(wd), k,
                       torch.from_numpy(gate), torch.from_numpy(wp),
                       pre_act=expand, b_expand=_t(be), b_dw=_t(bd),
                       identity=identity)
-    ref = jfb.fused_expand_dw(jnp.asarray(x, jdt), _j(we), _j(wd), 3,
+    ref = jfb.fused_expand_dw(jnp.asarray(x, jdt), _j(we), _j(wd), k,
                               pre_act=expand, interpret=True,
                               b_expand=_j(be), b_dw=_j(bd), mode="project",
                               gate=jnp.asarray(gate), w_proj=jnp.asarray(wp),
                               identity=identity)
-    assert y.dtype == tdt and y.shape == (2, 12, 12, c_out)
+    assert y.dtype == tdt and y.shape == (2, hw, hw, c_out)
     assert_close(_np(y), _np(ref), rel, f"project {dtype}")
 
 
