@@ -91,6 +91,14 @@ _SIGNATURES = {
     # x, wd, y, th, c, w, k, stream (both layouts)
     "probe_dw_t_launch": [_P] * 3 + [_I] * 4 + [_P],
     "probe_dw_nhwc_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # layout (0 dw_t, 1 dw_nhwc), cut, then the launches' arguments (one
+    # part cut out: timing only)
+    "probe_dw_cut_launch": [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],
+    # layout, th, c, w, k, out[6]: registers, local bytes, shared memory,
+    # CTAs per SM, tiles, grid (no launch)
+    "probe_dw_occupancy": [_I] * 5 + [_P],
+    # layout: how its last launch staged x (1 async, 0 plain loads, -1 none)
+    "probe_dw_last_staging": [_I],
     # x, out, c, l, reps, op, par, is_bf16, stream
     "probe_rate_launch": [_P] * 2 + [_I] * 6 + [_P],
 }

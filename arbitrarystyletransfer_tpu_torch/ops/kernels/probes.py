@@ -10,7 +10,13 @@ They replace the TPU probes of the repository's ``scripts/``:
   y[r, e, w] = sum_c x[r, c, w] w[c, e] with f32 accumulation, two schedules;
 - ``probe_dw_t``, ``probe_dw_nhwc`` (``csrc/probe_dw.cu``):
   ``probe_mega2.py:152 _dw_t_kernel`` (channel-planar, circular in W) and
-  ``:165 _dw_nhwc_kernel`` (NHWC, valid over a pre-padded input), f32;
+  ``:165 _dw_nhwc_kernel`` (NHWC, valid over a pre-padded input), f32, on
+  one schedule that differs in the layout alone: persistent CTAs stage
+  each tile's halo asynchronously into a two-slot ring in shared memory
+  (dw_t: bulk copies of whole rows, the circular wrap an index; dw_nhwc: a
+  TMA box) and each thread reads its window once into registers.
+  ``probe_dw_cut`` times the schedule with its FMAs or its asynchronous
+  staging cut out, ``probe_dw_occupancy`` reports what a shape launches;
 - ``probe_rate`` (``csrc/probe_rate.cu``): ``probe_vpu_rate.py:70 kernel``,
   ``reps`` elementwise ops as ``par`` accumulator chains, the whole tile out.
 
@@ -22,11 +28,18 @@ kernel or raises.  The drivers that time them are
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import LAUNCHES
 from ._build import check, load_library
 
+# The depthwise kernels' layouts and the parts ``probe_dw_cut`` can cut out:
+# "fma" (y is the centre tap: the staging and the stores alone) and "async"
+# (each tile staged by plain loads instead of the ring's copies).
+DW_LAYOUTS = ("probe_dw_t", "probe_dw_nhwc")
+DW_CUTS = ("none", "fma", "async")
 RATE_OPS = ("fma", "roll", "select", "hswish", "cast")
 # The (op, par) pairs of the JAX probe's cases, the only ones the kernel is
 # built for (bf16: fma at par 8).
@@ -155,14 +168,21 @@ def probe_dw_nhwc_reference(x, wd):
     return out
 
 
-def _dw(name, x, wd, out_shape, size):
+def _dw(name, x, wd, out_shape, size, cut=None):
+    """Launches ``name``'s kernel (counted), or with ``cut`` the same
+    schedule with that part cut out (``DW_CUTS``; timing only, uncounted)."""
     _dw_size(name, x, wd)
     x, wd = _on_card(name, x, wd.to(x.device), dtypes=(torch.float32,),
                      dims=(3, 3))
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    fn = getattr(load_library(), f"{name}_launch")
-    check(fn(x.data_ptr(), wd.data_ptr(), y.data_ptr(), *size, wd.shape[0],
-             _stream(x)), name)
+    lib = load_library()
+    args = (x.data_ptr(), wd.data_ptr(), y.data_ptr(), *size, wd.shape[0],
+            _stream(x))
+    if cut is not None:
+        check(lib.probe_dw_cut_launch(DW_LAYOUTS.index(name),
+                                      DW_CUTS.index(cut), *args), name)
+        return y
+    check(getattr(lib, f"{name}_launch")(*args), name)
     LAUNCHES[name] += 1
     return y
 
@@ -190,6 +210,39 @@ def probe_dw_nhwc(x, wd):
                          "multiple of 4")
     th, w = t2 - 2 * p, wp - 2 * p
     return _dw("probe_dw_nhwc", x, wd, (th, w, c), (th, c, w))
+
+
+def probe_dw_cut(name, x, wd, cut):
+    """``name``'s kernel on a CUDA tensor with the part ``cut`` of its
+    schedule cut out (``DW_CUTS``; "none" is the entry's kernel), for
+    timing only: its output is not the depthwise for "fma", and it counts
+    no launch."""
+    k, p = _dw_size(name, x, wd)
+    t2, a, b = x.shape
+    if name == "probe_dw_t":  # x (th + 2p, C, W)
+        out, size = (t2 - 2 * p, a, b), (t2 - 2 * p, a, b)
+    else:  # x (th + 2p, W + 2p, C)
+        out, size = (t2 - 2 * p, a - 2 * p, b), (t2 - 2 * p, b, a - 2 * p)
+    return _dw(name, x, wd, out, size, cut)
+
+
+def probe_dw_occupancy(name, th, c, w, k):
+    """What ``name``'s kernel would launch for output (th, C, W) at this
+    k: {registers, local_bytes (spill), smem (a CTA), ctas_per_sm, tiles,
+    grid} (launches nothing)."""
+    out = (ctypes.c_int * 6)()
+    check(load_library().probe_dw_occupancy(DW_LAYOUTS.index(name), th, c,
+                                            w, k, out), name)
+    return dict(zip(("registers", "local_bytes", "smem", "ctas_per_sm",
+                     "tiles", "grid"), out))
+
+
+def probe_dw_last_staging(name):
+    """How ``name``'s last launch staged its tiles: "async" (dw_t's bulk
+    copies, dw_nhwc's TMA box), "sync" (plain loads: dw_t at W % 4 != 0)
+    or None."""
+    code = load_library().probe_dw_last_staging(DW_LAYOUTS.index(name))
+    return {1: "async", 0: "sync"}.get(code)
 
 
 # ---------------------------------------------------------------- rate

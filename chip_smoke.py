@@ -332,6 +332,18 @@ PROBE_DRIVERS = (
                            probe_dw_nhwc=2 * 61)),
     ("probe_vpu_rate", counts(probe_rate=7 * 47)),
 )
+# Depthwise probe shapes off probe_mega2's, for correctness only: (th,
+# C, W, k) not multiples of the kernels' tiles (8 or 4 rows; dw_t 512
+# columns of one channel, dw_nhwc 16 columns of 32 channels).  dw_t stages
+# a W that is not a multiple of 4 with plain loads ("sync"), any other shape
+# asynchronously: whole rows (W 20, 4: one strip that wraps both ways), or
+# two segments whose sides are staged (516).
+DW_RAGGED = {
+    "probe_dw_t": ((13, 37, 37, 3), (11, 5, 516, 5), (9, 3, 20, 5),
+                   (6, 3, 4, 3), (5, 2, 3, 5), (7, 3, 1030, 3)),
+    "probe_dw_nhwc": ((13, 36, 37, 3), (11, 68, 21, 5), (9, 4, 3, 5),
+                      (17, 100, 50, 3)),
+}
 # AdaAttN: both taps stacked (2B = 16 images of 64x64 = 4096 positions).
 # name, B, Nc, Ns, dtype, scale of q and k (logits of std 128^0.5 scale^2:
 # ~1 at 0.3, ~3.4 at 0.55, a peaked softmax), the main path's call.  The
@@ -1109,6 +1121,34 @@ def _rate_tol(dtype, op, steps):
     return steps * 2.0 ** -22 if op == "fma" else 0.0
 
 
+def dw_sweep(name, key, x, wd, shape, nbytes):
+    """One JSON line for a depthwise probe at one shape: its occupancy
+    (registers, spill bytes a thread, shared memory a CTA, CTAs per SM,
+    tiles, grid, waves of the card), its ms by ``probe_mega2.timed`` (best
+    of 3 windows of 20 calls, inputs cycled past L2) as launched, with its
+    FMAs cut out (``ms_no_fma``: the staging and the stores alone) and with
+    every tile staged by plain loads (``ms_sync_staging``), its bound and
+    share of it, the rate of the cut without FMAs and the taps a second."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import probes as P
+    from arbitrarystyletransfer_tpu_torch.scripts import probe_mega2
+
+    th, c, w, k = shape
+    occ = P.probe_dw_occupancy(name, th, c, w, k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    xs = probe_mega2.l2_copies(x)
+    ms = {cut: probe_mega2.timed(lambda v: P.probe_dw_cut(name, v, wd, cut),
+                                 xs) for cut in P.DW_CUTS}
+    bound = nbytes / HBM_BYTES_S * 1e3
+    log(json.dumps({
+        "dw_sweep": name, "shape": key, "ms": ms["none"],
+        "ms_no_fma": ms["fma"], "ms_sync_staging": ms["async"],
+        "bound_ms": bound, "share": bound / ms["none"],
+        "no_fma_TBps": nbytes / ms["fma"] / 1e9,
+        "taps_per_s": k * k * th * c * w / ms["none"] * 1e3, **occ,
+        "waves": occ["tiles"] / (occ["ctas_per_sm"] * sms)}))
+
+
 def probes_phase(gen):
     """Every probe entry point against its twin at the JAX probe scripts'
     default shapes, with its bound, its plain time and its library call;
@@ -1121,7 +1161,9 @@ def probes_phase(gen):
     shapes for copy, products and depthwise, the fma f32 par 8 case for the
     rate row; so are the copy's library times (``x * 1.0``, timed by the
     driver).  The phase times the products' and depthwise's library calls
-    by the drivers' methods, on its own inputs."""
+    by the drivers' methods, on its own inputs.  Each depthwise kernel is
+    also timed by part at probe_mega2's shapes (``dw_sweep``) and held to its
+    twin at ``DW_RAGGED``'s shapes, with the staging each shape must take."""
     import torch
     import torch.nn.functional as F
     from arbitrarystyletransfer_tpu_torch.ops.kernels import (
@@ -1200,6 +1242,7 @@ def probes_phase(gen):
                      P.probe_dw_nhwc_reference, x_n, lib_n, (1, 2, 0))):
                 y = kern(x, wd)
                 torch.cuda.synchronize()
+                staging = P.probe_dw_last_staging(name)
                 ref = twin(x, wd)
                 err = max_err(y, ref)
                 tol = F32_TOL * float(ref.abs().max())
@@ -1211,13 +1254,17 @@ def probes_phase(gen):
                 nbytes = 4 * (x.numel() + y.numel() + wd.numel())
                 out[name][2].add(nbytes, 2 * k * k * y.numel(), PEAK_F32)
                 add(name, err, t_p, t_l)
-                log(f"{name} {key}: err {err:.4g} (tol {tol:.4g}); plain "
+                log(f"{name} {key}: err {err:.4g} (tol {tol:.4g}), staging "
+                    f"{staging}; plain "
                     f"{t_p:.4f} ms, library (conv2d groups=C, NCHW, inputs "
                     f"cycled past L2) {t_l * 1e3:.2f} us (its err "
                     f"{lib_err:.3g}), bound "
                     f"{nbytes / HBM_BYTES_S * 1e3 * 1e3:.2f} us")
                 check(tuple(y.shape) == tuple(ref.shape) and err <= tol,
                       f"{name} {key} differs")
+                check(staging == "async", f"{name} {key} staged {staging}")
+                del y
+                dw_sweep(name, key, x, wd, shape, nbytes)
             del x_t, x_n, lib_t, lib_n
         torch.cuda.empty_cache()
 
@@ -1243,6 +1290,24 @@ def probes_phase(gen):
             rate_bound = Bound()
             rate_bound.add(8 * c * lanes, 2 * rate_ops, PEAK_F32)
             rate_err = max_err(y, ref)
+
+    for name, shapes in DW_RAGGED.items():
+        kern, twin = getattr(P, name), getattr(P, f"{name}_reference")
+        for th, c, w, k in shapes:
+            x_t, x_n, wd = probe_mega2.dw_inputs(th, c, w, k, DEVICE, gen)
+            x = x_t if name == "probe_dw_t" else x_n
+            y = kern(x, wd)
+            torch.cuda.synchronize()
+            staging = P.probe_dw_last_staging(name)
+            want = "sync" if name == "probe_dw_t" and w % 4 else "async"
+            ref = twin(x, wd)
+            err, tol = max_err(y, ref), F32_TOL * float(ref.abs().max())
+            log(f"{name} ragged (th, C, W, k) {(th, c, w, k)}: err {err:.4g} "
+                f"(tol {tol:.4g}), staging {staging}")
+            check(tuple(y.shape) == tuple(ref.shape) and err <= tol,
+                  f"{name} ragged {(th, c, w, k)} differs")
+            check(staging == want, f"{name} ragged {(th, c, w, k)} staged "
+                  f"{staging}, expected {want}")
 
     # The drivers, as a user runs them (their own seeded inputs).
     launches, results = {}, {}
