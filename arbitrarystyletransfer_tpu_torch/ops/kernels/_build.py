@@ -88,6 +88,15 @@ _SIGNATURES = {
     # x, w, y, r, c, e, width, stream (both schedules)
     "probe_mm_einsum_launch": [_P] * 3 + [_I] * 4 + [_P],
     "probe_mm_rowloop_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # schedule (0 einsum, 1 rowloop), cut, then the launches' arguments (one
+    # part cut out: timing only)
+    "probe_mm_cut_launch": [_I] * 2 + [_P] * 3 + [_I] * 4 + [_P],
+    # schedule, r, c, e, width, out[7]: registers, local bytes, shared
+    # memory, CTAs per SM, items, grid, ring slots (no launch)
+    "probe_mm_occupancy": [_I] * 5 + [_P],
+    # schedule: how its last launch staged x (1 async, 0 plain loads, -1
+    # none)
+    "probe_mm_last_staging": [_I],
     # x, wd, y, th, c, w, k, stream (both layouts)
     "probe_dw_t_launch": [_P] * 3 + [_I] * 4 + [_P],
     "probe_dw_nhwc_launch": [_P] * 3 + [_I] * 4 + [_P],

@@ -7,7 +7,15 @@ They replace the TPU probes of the repository's ``scripts/``:
   _copy_kernel``, a (B, H, C, W) copy through a ring of on-chip slots;
 - ``probe_mm_einsum``, ``probe_mm_rowloop`` (``csrc/probe_mm.cu``):
   ``probe_mega2.py:111 _einsum_kernel`` and ``:118 _rowloop_kernel``,
-  y[r, e, w] = sum_c x[r, c, w] w[c, e] with f32 accumulation, two schedules;
+  y[r, e, w] = sum_c x[r, c, w] w[c, e] with f32 accumulation, two schedules
+  of one kernel: persistent CTAs, as many as the runtime's occupancy allows,
+  walk (row, 64-pixel tile) items (einsum: spread across the card; rowloop:
+  consecutive rows of one tile), the weight staged once per CTA by one bulk
+  copy, x by TMA boxes issued ahead into a ring, the product on the tensor
+  cores, y by TMA stores, each launch a programmatic dependent of the
+  previous kernel.  ``probe_mm_cut`` times the schedule with its product or
+  its asynchronous staging cut out, ``probe_mm_occupancy`` reports what a
+  shape launches;
 - ``probe_dw_t``, ``probe_dw_nhwc`` (``csrc/probe_dw.cu``):
   ``probe_mega2.py:152 _dw_t_kernel`` (channel-planar, circular in W) and
   ``:165 _dw_nhwc_kernel`` (NHWC, valid over a pre-padded input), f32, on
@@ -38,6 +46,11 @@ from ._build import check, load_library
 # The depthwise kernels' layouts and the parts ``probe_dw_cut`` can cut out:
 # "fma" (y is the centre tap: the staging and the stores alone) and "async"
 # (each tile staged by plain loads instead of the ring's copies).
+# The product kernels' schedules and the parts ``probe_mm_cut`` can cut out:
+# "mma" (y = 0: the staging and the stores alone) and "async" (x and the
+# weight staged by plain loads instead of TMA boxes and a bulk copy).
+MM_SCHEDULES = ("probe_mm_einsum", "probe_mm_rowloop")
+MM_CUTS = ("none", "mma", "async")
 DW_LAYOUTS = ("probe_dw_t", "probe_dw_nhwc")
 DW_CUTS = ("none", "fma", "async")
 RATE_OPS = ("fma", "roll", "select", "hswish", "cast")
@@ -100,7 +113,10 @@ def probe_mm_reference(x, w):
                         w.to(x.dtype).float()).to(x.dtype)
 
 
-def _mm(name, x, w):
+def _mm(name, x, w, cut=None, out=None):
+    """Launches ``name``'s kernel (counted), or with ``cut`` the same
+    schedule with that part cut out (``MM_CUTS``; timing only, uncounted)
+    into ``out`` where given."""
     x, w = _on_card(name, x, w.to(device=x.device, dtype=x.dtype),
                     dtypes=(torch.bfloat16,), dims=(3, 2))
     r, c, width = x.shape
@@ -108,28 +124,68 @@ def _mm(name, x, w):
         raise ValueError(f"{name}: needs w (C={c}, E) with E and W multiples "
                          f"of 8, got x {tuple(x.shape)}, w {tuple(w.shape)}")
     e = w.shape[1]
-    y = torch.empty((r, e, width), dtype=x.dtype, device=x.device)
-    fn = getattr(load_library(), f"{name}_launch")
-    check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), r, c, e, width,
-             _stream(x)), name)
+    if out is None:
+        y = torch.empty((r, e, width), dtype=x.dtype, device=x.device)
+    elif (tuple(out.shape) != (r, e, width) or out.dtype != x.dtype
+          or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {x.dtype} "
+                         f"({r}, {e}, {width}) tensor on {x.device}")
+    else:
+        y = out
+    lib = load_library()
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), r, c, e, width,
+            _stream(x))
+    if cut is not None:
+        check(lib.probe_mm_cut_launch(MM_SCHEDULES.index(name),
+                                      MM_CUTS.index(cut), *args), name)
+        return y
+    check(getattr(lib, f"{name}_launch")(*args), name)
     LAUNCHES[name] += 1
     return y
 
 
 def probe_mm_einsum(x, w):
     """y (R, E, W) = einsum('rcw,ce->rew', x, w), f32 accumulation, in x's
-    dtype (bf16 on the card): one launch tiling every (r, w)."""
+    dtype (bf16 on the card): the (r, w) items spread across the card."""
     if x.device.type == "cpu":
         return probe_mm_reference(x, w)
     return _mm("probe_mm_einsum", x, w)
 
 
 def probe_mm_rowloop(x, w):
-    """The same product, each CTA walking its rows with the weight staged
-    once (the same twin)."""
+    """The same product, each CTA walking consecutive rows of one W tile
+    with the weight staged once (the same twin)."""
     if x.device.type == "cpu":
         return probe_mm_reference(x, w)
     return _mm("probe_mm_rowloop", x, w)
+
+
+def probe_mm_cut(name, x, w, cut, out=None):
+    """``name``'s kernel on a CUDA tensor with the part ``cut`` of its
+    schedule cut out (``MM_CUTS``; "none" is the entry's kernel), for
+    timing only: its output is not the product for "mma", and it counts no
+    launch.  ``out``: a (R, E, W) tensor to write y into (a new one if
+    None)."""
+    return _mm(name, x, w, cut, out)
+
+
+def probe_mm_occupancy(name, r, c, e, w):
+    """What ``name``'s kernel would launch for x (R, C, W) and a (C, E)
+    weight: {registers, local_bytes (spill), smem (a CTA), ctas_per_sm,
+    items, grid, slots (of the x ring)} (launches nothing)."""
+    out = (ctypes.c_int * 7)()
+    check(load_library().probe_mm_occupancy(MM_SCHEDULES.index(name), r, c,
+                                            e, w, out), name)
+    return dict(zip(("registers", "local_bytes", "smem", "ctas_per_sm",
+                     "items", "grid", "slots"), out))
+
+
+def probe_mm_last_staging(name):
+    """How ``name``'s last launch staged x and the weight: "async" (TMA
+    boxes and a bulk copy; every shape the kernel takes), "sync" (plain
+    loads: the "async" cut) or None."""
+    code = load_library().probe_mm_last_staging(MM_SCHEDULES.index(name))
+    return {1: "async", 0: "sync"}.get(code)
 
 
 # ---------------------------------------------------------------- depthwise

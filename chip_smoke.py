@@ -26,7 +26,9 @@
    (``ops/kernels/probes.py``: copy, the two product schedules, the two
    depthwise layouts, the issue rates) at the JAX probe scripts' default
    shapes, each against its twin (the copy bit-exact), with a library call
-   beside all but the rates; then the two probe drivers as a user runs
+   beside all but the rates (the product and depthwise schedules also by
+   part, and at shapes off their tiles; the products also in a chain of
+   back-to-back calls, bit-exact); then the two probe drivers as a user runs
    them, the counters reset just before each and read just after (each
    must launch exactly its kernels' expected counts), their JSON lines,
    and the probe rows' times taken from them.  Then e2 on the plain route at 512px, timed
@@ -344,6 +346,31 @@ DW_RAGGED = {
     "probe_dw_nhwc": ((13, 36, 37, 3), (11, 68, 21, 5), (9, 4, 3, 5),
                       (17, 100, 50, 3)),
 }
+# Product probe shapes off probe_mega2's, for correctness only: (R, C, E, W)
+# off the kernels' tiles (64 pixels, k-steps of 16 rows of C, passes of 64
+# columns of E) and limits (C > 256 takes two x boxes, E > 256 two y boxes,
+# an even E / 8 a weight moved to stride E + 8 from the y staging tiles or,
+# where they cannot hold it, in place: the (240, 240) and (160, 320)
+# weights, near the shared memory a CTA has; 4096 items, more than the
+# grid, so each CTA walks a ring of several slots, wrapping).
+# Every shape stages x and the weight asynchronously (TMA boxes and a bulk
+# copy); the "async" cut stages them by plain loads ("sync") and is held to
+# the twin too.  ``probes_phase`` draws them from a generator of their own
+# (seed + 12).
+MM_RAGGED = ((5, 17, 8, 72), (3, 300, 24, 520), (7, 40, 264, 136),
+             (1, 1, 8, 8), (2, 240, 240, 64), (2, 160, 320, 64),
+             (64, 40, 160, 4096))
+# The products' chained checks: (R, C = E, W) and the number of calls, each
+# launched straight after the last (a programmatic dependent of it) and
+# reading its y, the weights permutations (y[:, e] = x[:, perm[e]]: exact);
+# the second walks 4160 items, more than the grid.
+MM_CHAIN = (((32, 64, 520), 8), ((64, 64, 4104), 8))
+# The (C, E) grid over which the product entry points must take every
+# weight whose first design's shared memory (``mm_first_smem``) fit.
+MM_LIMIT_C = (1, 16, 40, 100, 160, 240, 256, 257, 300, 400, 512, 640, 768,
+              1000, 1400)
+MM_LIMIT_E = tuple(range(8, 1601, 8))
+SMEM_OPT_IN = 232448  # bytes of shared memory a CTA may have on an H100
 # AdaAttN: both taps stacked (2B = 16 images of 64x64 = 4096 positions).
 # name, B, Nc, Ns, dtype, scale of q and k (logits of std 128^0.5 scale^2:
 # ~1 at 0.3, ~3.4 at 0.55, a peaked softmax), the main path's call.  The
@@ -1149,6 +1176,163 @@ def dw_sweep(name, key, x, wd, shape, nbytes):
         "waves": occ["tiles"] / (occ["ctas_per_sm"] * sms)}))
 
 
+def mm_yardstick(x, wt):
+    """Device ms (the probe driver's slope between 12 and 3 chained calls)
+    of the faster of two PyTorch calls that compute the product probes'
+    function, y (R, E, W) = einsum('rcw,ce->rew', x, w) in bf16 with f32
+    accumulation: ``torch.einsum`` and ``torch.matmul(w.t(), x)`` ((E, C) @
+    (R, C, W), one batched cuBLAS product).  A yardstick only; the port
+    never calls it.  Returns (ms, its call, {call: ms})."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.scripts import probe_vpu_rate
+
+    calls = {"torch.einsum": lambda: torch.einsum("rcw,ce->rew", x, wt),
+             "torch.matmul(w.t(), x)": lambda: torch.matmul(wt.t(), x)}
+    times = {k: probe_vpu_rate.per_call_ms(fn) for k, fn in calls.items()}
+    best = min(times, key=times.get)
+    return times[best], best, times
+
+
+def mm_sweep(name, key, x, wt, shape, nbytes):
+    """One JSON line for a product schedule at one probe_mega2 shape: its
+    occupancy (registers, spill bytes a thread, shared memory a CTA, CTAs
+    per SM, items, grid, ring slots, waves of the card) and its ms by two
+    clocks, stated apart.  In L2, by the driver's method (the slope between
+    12 and 3 chained calls, the inputs resident in L2: the figure that
+    compares with the parent's row): as launched (``ms``), with the product
+    cut out (``ms_no_mma``: the staging and the stores alone) and with x and
+    the weight staged by plain loads (``ms_sync_staging``).  Past L2
+    (``probe_mega2.timed``: best of 3 windows of at least as many calls as
+    ``l2_copies(x)`` has copies, each call writing a y of its own, so that
+    each window reads more than twice L2 and writes more than L2): as
+    launched (``ms_past_l2``) and without the product
+    (``ms_no_mma_past_l2``).  Then the HBM bound, its share of the past-L2
+    time and the TB/s of the past-L2 cut without the product."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import probes as P
+    from arbitrarystyletransfer_tpu_torch.scripts import (
+        probe_mega2,
+        probe_vpu_rate,
+    )
+
+    r, c, e, w = shape
+    occ = P.probe_mm_occupancy(name, r, c, e, w)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    in_l2 = {cut: probe_vpu_rate.per_call_ms(
+        lambda: P.probe_mm_cut(name, x, wt, cut)) for cut in P.MM_CUTS}
+    # Past L2 each call reads its own copy of x and writes its own y, so
+    # that neither the reads nor the writes stay in L2.
+    xs = probe_mega2.l2_copies(x)
+    pairs = [(v, torch.empty(r, e, w, dtype=x.dtype, device=x.device))
+             for v in xs]
+    iters = max(20, len(xs))
+    past = {cut: probe_mega2.timed(
+        lambda p: P.probe_mm_cut(name, p[0], wt, cut, out=p[1]), pairs,
+        iters) for cut in ("none", "mma")}
+    del pairs
+    bound = nbytes / HBM_BYTES_S * 1e3
+    log(json.dumps({
+        "mm_sweep": name, "shape": key, "ms": in_l2["none"],
+        "ms_no_mma": in_l2["mma"], "ms_sync_staging": in_l2["async"],
+        "ms_past_l2": past["none"], "ms_no_mma_past_l2": past["mma"],
+        "l2_copies": len(xs), "iters": iters, "bound_ms": bound,
+        "share_past_l2": bound / past["none"],
+        "no_mma_TBps": nbytes / past["mma"] / 1e9, **occ,
+        "waves": occ["items"] / (occ["ctas_per_sm"] * sms)}))
+
+
+def mm_ragged(gen):
+    """Both product schedules against their twin at ``MM_RAGGED``'s shapes
+    (``BF16_TOL`` of the largest value), as launched (staged "async") and
+    under the "async" cut (staged "sync"); then ``MM_CHAIN``: calls of both
+    schedules launched back to back, each reading the last one's y through a
+    permutation weight, held bit for bit to the permuted input (a call that
+    read its input, or wrote a y buffer the allocator handed on, before the
+    last call ended would differ)."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import probes as P
+
+    for r, c, e, w in MM_RAGGED:
+        x = torch.randn(r, c, w, generator=gen, device=DEVICE).bfloat16()
+        wt = (torch.randn(c, e, generator=gen, device=DEVICE)
+              / math.sqrt(c)).bfloat16()
+        ref = P.probe_mm_reference(x, wt)
+        tol = BF16_TOL * float(ref.float().abs().max())
+        for name in P.MM_SCHEDULES:
+            for cut, want in (("none", "async"), ("async", "sync")):
+                y = P.probe_mm_cut(name, x, wt, cut)
+                torch.cuda.synchronize()
+                staging = P.probe_mm_last_staging(name)
+                err = max_err(y, ref)
+                log(f"{name} ragged (R, C, E, W) {(r, c, e, w)} cut {cut}: "
+                    f"err {err:.4g} (tol {tol:.4g}), staging {staging}")
+                check(tuple(y.shape) == tuple(ref.shape) and err <= tol,
+                      f"{name} ragged {(r, c, e, w)} cut {cut} differs")
+                check(staging == want, f"{name} ragged {(r, c, e, w)} cut "
+                      f"{cut} staged {staging}, expected {want}")
+    for (r, c, w), calls in MM_CHAIN:
+        x = torch.randn(r, c, w, generator=gen, device=DEVICE).bfloat16()
+        perms = [torch.randperm(c, generator=gen, device=DEVICE)
+                 for _ in range(calls)]
+        weights = []
+        for perm in perms:
+            wt = torch.zeros(c, c, dtype=torch.bfloat16, device=DEVICE)
+            wt[perm, torch.arange(c, device=DEVICE)] = 1.0
+            weights.append(wt)
+        torch.cuda.synchronize()
+        y = x
+        for i, wt in enumerate(weights):
+            y = getattr(P, P.MM_SCHEDULES[i % 2])(y, wt)
+        torch.cuda.synchronize()
+        want = x
+        for perm in perms:
+            want = want[:, perm]
+        exact = torch.equal(y, want)
+        occ = {name: P.probe_mm_occupancy(name, r, c, c, w)
+               for name in P.MM_SCHEDULES}
+        log(f"probe_mm chained {calls} calls (R, C = E, W) {(r, c, w)}: "
+            f"bit-exact {exact}; (items, grid, slots) "
+            + ", ".join(f"{k} {(o['items'], o['grid'], o['slots'])}"
+                        for k, o in occ.items()))
+        check(exact, "probe_mm chained calls differ from the permuted input")
+    mm_limits()
+
+
+def mm_first_smem(c, e):
+    """Shared memory a CTA of the products' first design took: the weight
+    at a row stride of E + 8 (E + 16 where that has an even count of 16-byte
+    chunks), two x tiles and one y tile at rows of 72 bf16."""
+    cp = (c + 15) // 16 * 16
+    ld = e + 8 if (e // 8 + 1) % 2 else e + 16
+    return (cp * ld + 2 * cp * 72 + e * 72) * 2
+
+
+def mm_limits():
+    """Both product schedules must take every (C, E) of ``MM_LIMIT_C`` x
+    ``MM_LIMIT_E`` whose first design fit in a CTA's shared memory: each
+    shape's occupancy query (the launch's own geometry) succeeds within
+    ``SMEM_OPT_IN``."""
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import probes as P
+
+    shapes = [(c, e) for c in MM_LIMIT_C for e in MM_LIMIT_E
+              if mm_first_smem(c, e) <= SMEM_OPT_IN]
+    failed, most = [], 0
+    for name in P.MM_SCHEDULES:
+        for c, e in shapes:
+            try:
+                occ = P.probe_mm_occupancy(name, 1, c, e, 64)
+            except RuntimeError:
+                failed.append((name, c, e))
+                continue
+            most = max(most, occ["smem"])
+            if occ["smem"] > SMEM_OPT_IN or occ["ctas_per_sm"] < 1:
+                failed.append((name, c, e))
+    log(f"probe_mm limits: {len(shapes)} (C, E) shapes a schedule, the most "
+        f"shared memory {most} B; failed {failed[:8]}")
+    check(not failed, f"probe_mm takes not every (C, E) its first design "
+          f"took: {failed[:8]}")
+
+
 def probes_phase(gen):
     """Every probe entry point against its twin at the JAX probe scripts'
     default shapes, with its bound, its plain time and its library call;
@@ -1163,7 +1347,13 @@ def probes_phase(gen):
     driver).  The phase times the products' and depthwise's library calls
     by the drivers' methods, on its own inputs.  Each depthwise kernel is
     also timed by part at probe_mega2's shapes (``dw_sweep``) and held to its
-    twin at ``DW_RAGGED``'s shapes, with the staging each shape must take."""
+    twin at ``DW_RAGGED``'s shapes, with the staging each shape must take.
+    Each product schedule is timed by part at probe_mega2's shapes
+    (``mm_sweep``), must stage both asynchronously, and is held to its twin
+    at ``MM_RAGGED``'s shapes and in a chain of calls (``mm_ragged``, its
+    own generator); the products' library time is the faster of
+    ``torch.einsum`` and ``torch.matmul(w.t(), x)`` per shape
+    (``mm_yardstick``)."""
     import torch
     import torch.nn.functional as F
     from arbitrarystyletransfer_tpu_torch.ops.kernels import (
@@ -1176,7 +1366,7 @@ def probes_phase(gen):
         probe_vpu_rate,
     )
 
-    timed, per_call = probe_mega2.timed, probe_vpu_rate.per_call_ms
+    timed = probe_mega2.timed
     # {kernel: [worst error, plain ms, Bound, library ms]}, over both shapes
     out = {name: [0.0, 0.0, Bound(), 0.0] for name in (
         "probe_copy", "probe_mm_einsum", "probe_mm_rowloop", "probe_dw_t",
@@ -1212,21 +1402,27 @@ def probes_phase(gen):
                   / math.sqrt(c)).to(dt)
             ref = P.probe_mm_reference(x, wt)
             tol = BF16_TOL * float(ref.float().abs().max())
-            t_l = per_call(lambda: torch.einsum("rcw,ce->rew", x, wt))
+            t_l, what, lib_times = mm_yardstick(x, wt)
             t_p = timed_ms(lambda: P.probe_mm_reference(x, wt), iters=3,
                            warmup=1)
-            for name, kern in (("probe_mm_einsum", P.probe_mm_einsum),
-                               ("probe_mm_rowloop", P.probe_mm_rowloop)):
-                y = kern(x, wt)
+            for name in P.MM_SCHEDULES:
+                y = getattr(P, name)(x, wt)
                 torch.cuda.synchronize()
+                staging = P.probe_mm_last_staging(name)
                 err = max_err(y, ref)
-                out[name][2].add(2 * (x.numel() + wt.numel() + y.numel()),
-                                 2 * r * c * e * w, PEAK_BF16)
+                nbytes = 2 * (x.numel() + wt.numel() + y.numel())
+                out[name][2].add(nbytes, 2 * r * c * e * w, PEAK_BF16)
                 add(name, err, t_p, t_l)
-                log(f"{name} {key}: err {err:.4g} (tol {tol:.4g}); plain "
-                    f"{t_p:.4f} ms, library (einsum bf16) {t_l * 1e3:.2f} us")
+                log(f"{name} {key}: err {err:.4g} (tol {tol:.4g}), staging "
+                    f"{staging}; plain {t_p:.4f} ms, library ({what}, bf16) "
+                    f"{t_l * 1e3:.3f} us of "
+                    + ", ".join(f"{k} {v * 1e3:.3f} us"
+                                for k, v in lib_times.items()))
                 check(tuple(y.shape) == (r, e, w) and y.dtype == dt
                       and err <= tol, f"{name} {key} differs")
+                check(staging == "async", f"{name} {key} staged {staging}")
+                del y
+                mm_sweep(name, key, x, wt, (r, c, e, w), nbytes)
         else:
             th, c, w, k = shape
             pad = (k - 1) // 2
@@ -1308,6 +1504,8 @@ def probes_phase(gen):
                   f"{name} ragged {(th, c, w, k)} differs")
             check(staging == want, f"{name} ragged {(th, c, w, k)} staged "
                   f"{staging}, expected {want}")
+
+    mm_ragged(torch.Generator(device=DEVICE).manual_seed(SEED + 12))
 
     # The drivers, as a user runs them (their own seeded inputs).
     launches, results = {}, {}
@@ -2424,7 +2622,9 @@ def main() -> int:
         "JAX probe script's two default shapes (copy: best of 3 windows of "
         "20 calls, bit-exact, max_abs_err 0, library x * 1.0; products: the "
         "slope between 12 and 3 chained calls, L2-resident, max_abs_err over "
-        "both shapes, library torch.einsum in bf16; depthwise: best of 3 "
+        "both shapes, library the faster of torch.einsum and "
+        "torch.matmul(w.t(), x) in bf16 at each shape (the probes phase "
+        "names it); depthwise: best of 3 "
         "windows with the inputs cycled past L2, f32, library "
         "F.conv2d(groups=C) on NCHW, circular in W for probe_dw_t); "
         "probe_rate is the fma f32 par 8 case at (256, 4096), 512 reps "
