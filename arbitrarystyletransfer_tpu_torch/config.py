@@ -1,4 +1,5 @@
-"""Architecture tables, ``ModelConfig`` and ``ASTTrainConfig`` for the port.
+"""Architecture tables, ``ModelConfig``, ``ASTTrainConfig`` and
+``AETrainConfig`` for the port.
 
 The tables and the dataclasses are a copy of the JAX package's
 ``arbitrarystyletransfer_tpu/config.py`` (same names, values and field
@@ -98,7 +99,7 @@ class ASTTrainConfig:
     lr: float = 2e-4
     dis_lr: float = 1e-5
     dis_lam: float = 1e-3
-    # The adversarial step is not ported (ROADMAP queue 1 item 9).
+    # The adversarial step is not ported (ROADMAP queue 1 item 6).
     use_dis: bool = False
     dis_adam_b1: float = 0.5
     dis_adam_b2: float = 0.99
@@ -125,6 +126,27 @@ class ASTTrainConfig:
     identity_mse_weight: float = 100.0
     save_every: int = 32
     log_every: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AETrainConfig:
+    """Stage-1 autoencoder training flags; the fields of the JAX
+    ``AETrainConfig``."""
+
+    train_iter: int = 8192
+    batch_size: int = 16
+    lr: float = 2e-4
+    save_dir: str = "models/auto_encoder/"
+    load: bool = False
+    recon_lam: float = 100.0
+    perp_lam: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.99
+    adam_eps: float = 1e-7
+    grad_clip_norm: float = 10.0
+    save_every: int = 32
+    validate_every: int = 64
+    ae_imsize: int = 256  # fixed AE training resolution
 
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,

@@ -1,14 +1,16 @@
 """Host-side data pipeline (numpy and PIL, threaded or process workers):
-the port's own copy of the paired-batch part of
-``arbitrarystyletransfer_tpu/data/pipeline.py``.
+the port's own copy of ``arbitrarystyletransfer_tpu/data/pipeline.py``'s
+datasets and loaders.
 
 The transforms (the training augmentation stack and the eval resize),
 ``FlatFolderDataset``, ``_paired_make_batch``, ``_PrefetchLoader`` and
-``PairedBatchLoader``, kept line for line so that a seed gives the same
-batches as the JAX pipeline: NHWC float32 in [0, 1], each batch at one (H,
-W) drawn from ``img_sizes`` x ``img_sizes``.  PIL is imported where it is
-used, so the module imports without Pillow (the card's machine may have
-none; ``chip_smoke.py`` feeds in-memory batches).
+``PairedBatchLoader`` (Stage-2 training), and ``FlatFolderDatasetAE``,
+``_content_make_batch`` and ``ContentBatchLoader`` (Stage-1 training and BN
+recalibration), kept line for line so that a seed gives the same batches as
+the JAX pipeline: NHWC float32 in [0, 1], each paired batch at one (H, W)
+drawn from ``img_sizes`` x ``img_sizes``, each content batch at ``imsize``
+square.  PIL is imported where it is used, so the module imports without
+Pillow.
 """
 
 from __future__ import annotations
@@ -290,6 +292,32 @@ class FlatFolderDataset:
         return len(self.content_paths) + len(self.style_paths)
 
 
+class FlatFolderDatasetAE:
+    """Content-only variant for AE pretraining (data_loader.py:208-242)."""
+
+    def __init__(self, content_dirs: Sequence[str], seed: int = 0):
+        import PIL.Image  # noqa: F401  (as in FlatFolderDataset)
+
+        self._rng = random.Random(seed)
+        self.content_paths = _gather_paths(content_dirs, self._rng)
+        if not self.content_paths:
+            raise ValueError("FlatFolderDatasetAE: empty directory list")
+
+    def _draw(self, rng: random.Random) -> np.ndarray:
+        while True:
+            path = self.content_paths[rng.randrange(len(self.content_paths))]
+            try:
+                return _load_image(path)
+            except Exception:
+                continue
+
+    def sample(self, rng: random.Random) -> np.ndarray:
+        return self._draw(self._rng if rng is None else rng)
+
+    def __len__(self):
+        return len(self.content_paths)
+
+
 def _paired_make_batch(dataset, batch_size, img_sizes, augment, rng):
     """One (content, style) batch at a per-batch random bucketed size
     (reference data_loader.py:83-105; conf.py:4).  Module-level so process
@@ -306,6 +334,19 @@ def _paired_make_batch(dataset, batch_size, img_sizes, augment, rng):
             contents.append(eval_transform(c, (h, w)))
             styles.append(eval_transform(s, (h, w)))
     return np.stack(contents), np.stack(styles)
+
+
+def _content_make_batch(dataset, batch_size, imsize, augment, rng):
+    """One content-only batch (AE pretraining; reference
+    train_autoencoder.py:186-195 uses the non-augmenting transform)."""
+    imgs = []
+    for _ in range(batch_size):
+        x = dataset.sample(rng)
+        if augment:
+            imgs.append(train_transform(x, rng, (imsize, imsize)))
+        else:
+            imgs.append(eval_transform(x, (imsize, imsize)))
+    return np.stack(imgs)
 
 
 def _process_worker(batch_fn, fn_args, seed, out_queue, stop):
@@ -434,3 +475,24 @@ class PairedBatchLoader(_PrefetchLoader):
         )
 
 
+class ContentBatchLoader(_PrefetchLoader):
+    """Infinite content-only batches at a fixed size (AE pretraining, BN
+    recalibration)."""
+
+    def __init__(
+        self,
+        dataset: FlatFolderDatasetAE,
+        batch_size: int,
+        imsize: int = 256,
+        num_workers: int = 4,
+        prefetch: int = 4,
+        seed: int = 0,
+        augment: bool = False,
+        worker_mode: str = "thread",
+    ):
+        self.batch_size = batch_size
+        super().__init__(
+            _content_make_batch,
+            (dataset, batch_size, imsize, augment),
+            num_workers, prefetch, seed, worker_mode,
+        )

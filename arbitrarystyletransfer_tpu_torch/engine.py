@@ -29,7 +29,7 @@ from .ops.fused_block import (
     encode_fused,
 )
 from .ops.megablock import decode_mega, encode_mega
-from .ops.stats import instance_norm
+from .ops.stats import at_least_f32, instance_norm
 
 
 def _check_impl(name: str, value: str) -> None:
@@ -62,8 +62,8 @@ def adaattn_apply_pair(att1_params, att2_params, content_maps, style_maps,
     else:
         from .models.adaattn import adaattn_statistics
     mean, std = adaattn_statistics(q, k, v)
-    mean = mean.reshape(2 * b, h, w, c).float()
-    std = std.reshape(2 * b, h, w, c).float()
+    mean = at_least_f32(mean.reshape(2 * b, h, w, c))
+    std = at_least_f32(std.reshape(2 * b, h, w, c))
     out = std * normed_c + mean
     return out[:b], out[b:]
 

@@ -11,15 +11,20 @@ import torch
 from torch import nn
 
 from ..ops.blocks import Conv
-from ..ops.stats import channel_stats, instance_norm, safe_sqrt
+from ..ops.stats import (
+    at_least_f32,
+    channel_stats,
+    instance_norm,
+    safe_sqrt,
+)
 
 
 def adaattn_statistics(q, k, v):
     """Attention-weighted per-position style (mean, std), each (B, Nc, C)
     float32, from q (B, Nc, C) and k, v (B, Ns, C)."""
-    logits = q.float() @ k.float().transpose(1, 2)
+    logits = at_least_f32(q) @ at_least_f32(k).transpose(1, 2)
     attn = torch.softmax(logits, dim=-1)
-    v = v.float()
+    v = at_least_f32(v)
     moments = attn @ torch.cat([v, v.square()], dim=-1)
     c = v.shape[-1]
     mean, ev2 = moments[..., :c], moments[..., c:]

@@ -16,6 +16,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.basic import reflect_pad
 from ..ops.blocks import Conv, DepthWiseConv
+from ..ops.stats import at_least_f32
 from .encoder import module_dtype
 
 
@@ -61,7 +62,7 @@ class Decoder(nn.Module):
     def forward(self, x: torch.Tensor, exporting: bool = False) -> torch.Tensor:
         for i in range(self.n_blocks):
             x = getattr(self, f"decoder_blocks_{i}")(x)
-        x = self.img_out(reflect_pad(x, 1)).float()
+        x = at_least_f32(self.img_out(reflect_pad(x, 1)))
         if exporting:
             x = torch.clamp(x, 0.0, 1.0)
         return x

@@ -33,6 +33,7 @@ from .basic import (
     se_gate_from_mean,
 )
 from .norm import BatchNorm2D
+from .stats import at_least_f32
 
 
 def make_divisible(v: float, divisor: int) -> int:
@@ -128,7 +129,7 @@ class SELayer(nn.Module):
         self.Dense_1 = Dense(hidden, channel, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.float().mean(dim=(1, 2)).to(x.dtype)
+        y = at_least_f32(x).mean(dim=(1, 2)).to(x.dtype)
         y = torch.clamp(self.Dense_1(torch.relu(self.Dense_0(y))), 0.0, 1.0)
         return x * y[:, None, None, :]
 
@@ -232,12 +233,12 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
     writes float32 (``out_dtype``), the bias added in its epilogue; on the
     CPU the operands are widened first.  Products of bfloat16 values are
     exact in float32, so the two differ only in summation order."""
-    if x.is_cuda and x.dtype != torch.float32:
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
         x2 = x.reshape(-1, x.shape[-1])
         y = (torch.mm(x2, w, out_dtype=torch.float32) if bias is None else
              torch.addmm(bias, x2, w, out_dtype=torch.float32))
         return y.reshape(*x.shape[:-1], w.shape[-1])
-    y = torch.matmul(x.float(), w.float())
+    y = torch.matmul(at_least_f32(x), at_least_f32(w))
     return y if bias is None else y + bias
 
 
@@ -264,8 +265,8 @@ def plain_block_apply(params, x, kernel_size: int, stride: int,
                       stride=stride, groups=w_dw.shape[-1])
     if b_dw is not None:
         out = out + b_dw
-    out = hardswish(out.float()).to(dtype)
-    gate = se_gate_from_mean(out.float().mean(dim=(1, 2)),
+    out = hardswish(at_least_f32(out)).to(dtype)
+    gate = se_gate_from_mean(at_least_f32(out).mean(dim=(1, 2)),
                              params["SELayer_0"])
     gated = out * gate[:, None, None, :].to(dtype)
     y = matmul_f32(gated, w_proj.to(dtype), proj_bias).to(dtype)
@@ -308,7 +309,7 @@ def upsample_smooth_apply(params, x, dtype=torch.bfloat16):
                 for v in (0, 1):
                     term = xe[:, a + u:a + u + h, bb + v:bb + v + w, :] * wab[u, v]
                     acc = term if acc is None else acc + term
-            ph = hardswish(acc.float())
+            ph = hardswish(at_least_f32(acc))
             sums = sums + ph.sum(dim=(1, 2))
             phases[(a, bb)] = ph.to(dtype)
 
@@ -327,7 +328,7 @@ def stem_apply(stem_params, x, stride: int = 1, dtype=torch.bfloat16):
     """Encoder stem: reflect pad, 3x3 conv (no bias, no BN), hardswish."""
     h = conv2d_nhwc(reflect_pad(x.to(dtype), 1),
                     stem_params["kernel"].to(dtype), stride=stride)
-    return hardswish(h.float()).to(dtype)
+    return hardswish(at_least_f32(h)).to(dtype)
 
 
 def head_apply(head_params, x, exporting: bool = True, dtype=torch.bfloat16):
@@ -335,7 +336,7 @@ def head_apply(head_params, x, exporting: bool = True, dtype=torch.bfloat16):
     clamped to [0, 1] when exporting."""
     y = conv2d_nhwc(reflect_pad(x.to(dtype), 1),
                     head_params["kernel"].to(dtype))
-    y = (y + head_params["bias"]).float()
+    y = at_least_f32(y + head_params["bias"])
     if exporting:
         y = torch.clamp(y, 0.0, 1.0)
     return y

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .stats import at_least_f32
+
 
 class BatchNorm2D(nn.Module):
     """BatchNorm over an NHWC tensor; parameters ``scale``, ``bias`` and
@@ -32,7 +34,7 @@ class BatchNorm2D(nn.Module):
     def forward(self, x: torch.Tensor, use_batch_stats: bool,
                 update_stats: bool) -> torch.Tensor:
         in_dtype = x.dtype
-        x = x.float()  # statistics and normalization in f32
+        x = at_least_f32(x)  # statistics and normalization in f32
         if use_batch_stats:
             mean = x.mean(dim=(0, 1, 2))
             var = (x - mean).square().mean(dim=(0, 1, 2))  # biased

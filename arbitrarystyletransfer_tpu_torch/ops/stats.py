@@ -5,6 +5,13 @@ from __future__ import annotations
 import torch
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is if it is float64: where the model
+    widens to float32 (statistics, products, the image), a float64
+    reference run stays in float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """``sqrt(max(x, 0))`` with a zero gradient where ``x <= 0``."""
     pos = x > 0
@@ -14,7 +21,7 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Non-affine instance norm over the spatial dims of an NHWC tensor,
     in float32 with the biased variance (torch ``InstanceNorm2d``)."""
-    x = x.float()
+    x = at_least_f32(x)
     mean = x.mean(dim=(1, 2), keepdim=True)
     var = x.var(dim=(1, 2), keepdim=True, unbiased=False)
     return (x - mean) * torch.reciprocal(torch.sqrt(var + eps))

@@ -1,22 +1,30 @@
 """Stylization CLI of the port: the twin of the repo-root ``stylize.py``.
 
     python -m arbitrarystyletransfer_tpu_torch.stylize \\
-        --content c.png --style s.png --weights ast.npz --encoder_eval_stats
+        --content c.png --style s.png --model models/ast/ast
 
-It keeps the JAX CLI's flags and defaults (``--imsize 320``, ``--encoder
-auto --decoder auto``), with these differences:
+It keeps the JAX CLI's flags and defaults (``--model models/ast/ast``,
+``--engine flax``, ``--imsize 320``, ``--encoder auto --decoder auto``,
+``--recalibrate_dir``, ``--recalibrate_batches 16``), with these
+differences:
 
-- ``--weights <npz>`` (a ``weights.save_npz`` state) stands where ``--model``
-  reads a trainer checkpoint; restoring those is ROADMAP queue 1 item 6.
-- ``--device`` defaults to ``cuda`` and fails when CUDA is absent: the CLI
-  never falls back to the CPU by itself (``--device cpu`` asks for it).
-- ``--engine`` defaults to ``fused``, the only engine the port serves; the
-  flax-graph engine and ``--recalibrate_dir`` raise ``NotImplementedError``.
+- ``--model <path>`` reads the trainer checkpoint ``<path>.pt`` (the port's
+  trainers write ``<save_dir>/ast.pt``).  ``--weights <npz>`` (a
+  ``weights.save_npz`` state) takes its place when given.
+- ``--device`` defaults to ``cuda`` and fails, before any file is read,
+  when CUDA is absent: the CLI never falls back to the CPU by itself
+  (``--device cpu`` asks for it).
 - The AdaAttN statistics take the ``adaattn_fwd`` kernel (its plain twin on
-  the CPU); the compute dtype stays ``ModelConfig``'s float32.
+  the CPU) in both engines; the compute dtype stays ``ModelConfig``'s
+  float32.
 - ``--encoder/--decoder mega`` sends blocks to the ``mega_block`` kernel
   only at sizes that are a multiple of 128 (512 and 256, not the default
   320), as the JAX route does.
+
+``--engine fused`` serves a checkpoint trained with the default batch
+statistics only after ``--recalibrate_dir`` has rebuilt its encoder's
+running statistics (or with ``--encoder_eval_stats`` for a checkpoint
+trained that way).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from PIL import Image
 
 from .config import ModelConfig
+from .data.pipeline import ContentBatchLoader, FlatFolderDatasetAE
 from .infer import StylePipeline
 
 IMSIZE = 320  # the JAX package's config.IMSIZE
@@ -51,24 +60,36 @@ def to_uint8(out: torch.Tensor) -> np.ndarray:
     return (np.clip(out[0].float().cpu().numpy(), 0, 1) * 255).astype(np.uint8)
 
 
+def recalibration_batches(dirs, imsize: int, n: int):
+    """``n`` batches of 8 content images at ``imsize`` from ``dirs`` (the
+    JAX CLI's loader: seed 0, no augmentation, two threads)."""
+    loader = ContentBatchLoader(FlatFolderDatasetAE(dirs, seed=0),
+                                batch_size=8, imsize=imsize, num_workers=2,
+                                seed=0, augment=False, worker_mode="thread")
+    try:
+        return [next(loader) for _ in range(n)]
+    finally:
+        loader.close()
+
+
 def main(args) -> None:
-    if args.engine != "fused":
-        raise NotImplementedError(
-            f"--engine {args.engine}: the port serves the fused engine only; "
-            "the flax-graph engine is ROADMAP queue 1 item 7")
-    if args.recalibrate_dir:
-        raise NotImplementedError(
-            "--recalibrate_dir: BN recalibration is ROADMAP queue 1 item 6 "
-            "(serving)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("stylize: --device cuda, but CUDA is not available "
                          "(pass --device cpu to run on the CPU)")
     cfg = ModelConfig(encoder_eval_stats=args.encoder_eval_stats,
                       use_pallas_adaattn=True)
-    pipeline = StylePipeline.from_npz(
-        args.weights, cfg, device=device, decoder_impl=args.decoder,
-        encoder_impl=args.encoder)
+    kw = dict(engine=args.engine, device=device, decoder_impl=args.decoder,
+              encoder_impl=args.encoder)
+    if args.weights:
+        pipeline = StylePipeline.from_npz(args.weights, cfg, **kw)
+    else:
+        recalibrate_with = None
+        if args.recalibrate_dir:
+            recalibrate_with = recalibration_batches(
+                args.recalibrate_dir, args.imsize, args.recalibrate_batches)
+        pipeline = StylePipeline.from_checkpoint(
+            args.model, cfg, recalibrate_with=recalibrate_with, **kw)
     content = image_loader(args.content, args.imsize)
     style = image_loader(args.style, args.imsize)
     out = pipeline.stylize(content, style, alpha=args.alpha)
@@ -81,8 +102,11 @@ def parse_args(argv=None):
     parser.add_argument("--content", required=True, help="Content image path.")
     parser.add_argument("--style", required=True, help="Style image path.")
     parser.add_argument("--output", default="stylized.png")
-    parser.add_argument("--weights", required=True,
-                        help="Model state written by weights.save_npz.")
+    parser.add_argument("--model", default="models/ast/ast",
+                        help="AST trainer checkpoint: <model>.pt is read.")
+    parser.add_argument("--weights", default=None,
+                        help="A weights.save_npz state, read in place of "
+                             "--model.")
     parser.add_argument("--alpha", type=float, default=1.0,
                         help="Style interpolation strength (0 = content "
                              "identity).")
@@ -94,21 +118,30 @@ def parse_args(argv=None):
                              "only at sizes that are a multiple of 128.")
     parser.add_argument("--encoder", default="auto", choices=IMPLS,
                         help="Encoder block routes (same choices).")
-    parser.add_argument("--engine", default="fused",
+    parser.add_argument("--engine", default="flax",
                         choices=["flax", "fused"],
-                        help="Inference engine; the port has the fused one.")
+                        help="Inference engine: the module graph or the "
+                             "fused engine (running-stats encoder "
+                             "semantics: --encoder_eval_stats or "
+                             "--recalibrate_dir).")
     parser.add_argument("--recalibrate_dir", nargs="*", default=[],
-                        help="Not ported: BN recalibration directories.")
+                        help="Image directories for BN recalibration: "
+                             "rebuilds the encoder's running statistics so "
+                             "that a default-trained --model can use "
+                             "--engine fused.")
     parser.add_argument("--recalibrate_batches", type=int, default=16,
                         help="Number of batch-8 recalibration batches.")
     parser.add_argument("--encoder_eval_stats",
                         action=argparse.BooleanOptionalAction, default=False,
                         help="Normalize encoder BN with running statistics; "
-                             "must match how the weights were trained, and "
-                             "the fused engine requires it.")
+                             "must match how the checkpoint was trained.")
     parser.add_argument("--device", default="cuda",
                         help="Torch device (default cuda; never falls back).")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.weights and args.recalibrate_dir:
+        parser.error("--recalibrate_dir recalibrates a --model checkpoint, "
+                     "not --weights")
+    return args
 
 
 if __name__ == "__main__":

@@ -42,12 +42,30 @@ from ..models.vgg import (
 )
 from ..ops.stats import mean_variance_norm
 from . import checkpoint as ckpt
-from .state import Adam
+from .state import Adam, keep_if
 
 TRAIN_DICT_KEYS = ("content_loss", "style_loss", "lf_loss", "tv_loss",
                    "org_img_loss")
 VGG_WARNING = ("WARNING: no VGG-19 weight file found — perceptual losses use "
                "seeded random init (pass --vgg_weights or set VGG19_WEIGHTS)")
+
+
+def load_vgg(model_cfg: ModelConfig, vgg_weights: str | None, device,
+             log_fn=print):
+    """(the frozen VGG of the perceptual losses on ``device``, the weight
+    file it read): ``vgg_weights`` or the file ``find_vgg_weights`` finds,
+    else the seeded random init (seed 1) with ``VGG_WARNING`` (the path is
+    then None)."""
+    vgg = VGG19Features(model_cfg.vgg_content_layers)
+    path = vgg_weights or find_vgg_weights()
+    if path:
+        vgg_params = load_torch_vgg19_state_dict(path)
+    else:
+        log_fn(VGG_WARNING)
+        vgg_params = init_vgg_params(model_cfg.vgg_content_layers,
+                                     torch.Generator().manual_seed(1))
+    vgg.load_params(vgg_params)
+    return vgg.to(device), path
 
 
 def _no_mark(name: str) -> None:
@@ -141,7 +159,7 @@ class ASTTrainer:
         if cfg.use_dis:
             raise NotImplementedError(
                 "use_dis: the adversarial step is the GAN slice of the port, "
-                "ROADMAP queue 1 item 9")
+                "ROADMAP queue 1 item 6")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ASTTrainer: device cuda, but CUDA is not "
@@ -156,17 +174,8 @@ class ASTTrainer:
         weights.load_state(self.ast, weights.init_params(
             model_cfg, torch.Generator().manual_seed(seed)))
         self.ast.to(self.device)
-        self.vgg = VGG19Features(model_cfg.vgg_content_layers)
-        # The file the perceptual losses use; None for the seeded init.
-        self.vgg_weights_path = vgg_path = vgg_weights or find_vgg_weights()
-        if vgg_path:
-            vgg_params = load_torch_vgg19_state_dict(vgg_path)
-        else:
-            log_fn(VGG_WARNING)
-            vgg_params = init_vgg_params(model_cfg.vgg_content_layers,
-                                         torch.Generator().manual_seed(1))
-        self.vgg.load_params(vgg_params)
-        self.vgg.to(self.device)
+        self.vgg, self.vgg_weights_path = load_vgg(
+            model_cfg, vgg_weights, self.device, log_fn)
 
         self.params = list(self.ast.parameters())
         self.buffers = list(self.ast.buffers())
@@ -212,13 +221,8 @@ class ASTTrainer:
         before = torch.cat([b.reshape(-1) for b in self.buffers])
         _, aux, grads = self.loss_and_grads(content, style, mark)
         norm, ok = self.opt.apply_if_finite(grads)
+        keep_if(ok, self.buffers, before)
         with torch.no_grad():
-            after = torch.cat([b.reshape(-1) for b in self.buffers])
-            kept = torch.where(ok, after, before)
-            torch._foreach_copy_(self.buffers, [
-                t.view_as(b) for t, b in
-                zip(kept.split([b.numel() for b in self.buffers]),
-                    self.buffers)])
             self.step += ok.to(self.step.dtype)
         if self.debug_stats:
             aux["grad_absmean"] = {

@@ -9,8 +9,8 @@ so a step is a handful of kernels whatever the number of parameters.
 
 ``apply_if_finite`` is ``apply_gradients_if_finite``: a non-finite global
 gradient norm leaves the parameters, the moments and the count unchanged,
-decided on the device (no host sync); the trainer gates the step counter and
-the BatchNorm running buffers on the same flag.
+decided on the device (no host sync); the trainers gate the step counter and
+the BatchNorm running buffers on the same flag (``keep_if``).
 """
 
 from __future__ import annotations
@@ -81,3 +81,15 @@ class Adam:
             setattr(self, key, flat.to(self.mu.device, torch.float32))
         self.count = torch.as_tensor(state["count"], dtype=torch.int32,
                                      device=self.mu.device)
+
+
+@torch.no_grad()
+def keep_if(ok, tensors, before) -> None:
+    """Where ``ok`` (a device bool) is false, put ``tensors`` back to
+    ``before`` (their values flattened into one tensor), without a host
+    sync."""
+    kept = torch.where(ok, torch.cat([t.reshape(-1) for t in tensors]),
+                       before)
+    torch._foreach_copy_(tensors, [
+        t.view_as(b) for t, b in
+        zip(kept.split([b.numel() for b in tensors]), tensors)])

@@ -138,9 +138,7 @@ def _block(gen, c_in, c_out, expand_ratio, k, use_norm):
     return p, s
 
 
-def init_params(cfg: ModelConfig = ModelConfig(), generator=None):
-    """A seeded state with the JAX AST tree's names and shapes (CPU)."""
-    gen = generator if generator is not None else torch.Generator()
+def _init_encoder(gen, cfg):
     enc_p, enc_s = {}, {}
     shapes = cfg.enc_conv_shapes
     enc_p["mob_net_0"] = {"Conv_0": {
@@ -150,15 +148,15 @@ def init_params(cfg: ModelConfig = ModelConfig(), generator=None):
             k, t = 3, cfg.expand_ratio
         enc_p[f"mob_net_{i}"], enc_s[f"mob_net_{i}"] = _block(
             gen, c_in, c_out, t, k, use_norm=True)
+    return enc_p, enc_s
 
+
+def _init_ada_out(gen, cfg):
     c = cfg.enc_out_channels
-    params = {"enc": enc_p}
-    for name in ("ada_att_1", "ada_att_2"):
-        params[name] = {w: {"kernel": _lecun(gen, (1, 1, c, c))}
-                        for w in ("W_q", "W_k", "W_v")}
-    params["ada_out"], _ = _block(gen, 2 * c, c, cfg.expand_ratio, 3,
-                                  use_norm=False)
+    return _block(gen, 2 * c, c, cfg.expand_ratio, 3, use_norm=False)[0]
 
+
+def _init_decoder(gen, cfg):
     dec = {}
     dshapes = cfg.decoder_conv_shapes
     for i, shape in enumerate(dshapes[:-1]):
@@ -172,8 +170,32 @@ def init_params(cfg: ModelConfig = ModelConfig(), generator=None):
     c_in, c_out = dshapes[-1][:2]
     dec["img_out"] = {"kernel": _lecun(gen, (3, 3, c_in, c_out)),
                       "bias": torch.zeros(c_out)}
-    params["dec"] = dec
+    return dec
+
+
+def init_params(cfg: ModelConfig = ModelConfig(), generator=None):
+    """A seeded state with the JAX AST tree's names and shapes (CPU)."""
+    gen = generator if generator is not None else torch.Generator()
+    enc_p, enc_s = _init_encoder(gen, cfg)
+    c = cfg.enc_out_channels
+    params = {"enc": enc_p}
+    for name in ("ada_att_1", "ada_att_2"):
+        params[name] = {w: {"kernel": _lecun(gen, (1, 1, c, c))}
+                        for w in ("W_q", "W_k", "W_v")}
+    params["ada_out"] = _init_ada_out(gen, cfg)
+    params["dec"] = _init_decoder(gen, cfg)
     return {"params": params, "batch_stats": {"enc": enc_s}}
+
+
+def init_ae_params(cfg: ModelConfig = ModelConfig(), generator=None):
+    """A seeded state with the JAX AutoEncoder tree's names and shapes
+    (CPU): params "encoder", "ada_out", "decoder" and batch_stats
+    "encoder"."""
+    gen = generator if generator is not None else torch.Generator()
+    enc_p, enc_s = _init_encoder(gen, cfg)
+    params = {"encoder": enc_p, "ada_out": _init_ada_out(gen, cfg),
+              "decoder": _init_decoder(gen, cfg)}
+    return {"params": params, "batch_stats": {"encoder": enc_s}}
 
 
 # -- the nn.Module bridge ----------------------------------------------------

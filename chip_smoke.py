@@ -75,7 +75,22 @@
    with a finite loss, a step counter that advances and BatchNorm buffers
    that move; a checkpoint save/restore round trip; a profile of one step
    by phase and by kernel.
-6. Prints each phase's seconds, one JSON line per the kernels (with each
+6. Lifecycle, from training to serving, over synthetic PNGs written to a
+   temporary folder and read by the port's loaders, TF32 off:
+   ``AutoencoderTrainer`` (batch 16, 256px, f32, the parity weights) takes
+   4 steps and writes ``ae.pt`` (finite losses; the first step's loss
+   against the same step in float64 at 1e-4; median ms per step); the
+   ``ASTTrainer`` warm-started from it (its enc, ada_out and dec equal to
+   the AE's bit for bit) takes 2 steps at 160px batch 8 through the AdaAttN
+   kernels and writes ``ast.pt``; ``StylePipeline.from_checkpoint`` serves
+   that checkpoint through the graph engine (f32, 3 requests at 512px
+   batch 8, 2 ``adaattn_fwd`` each; request 1 against the dense twin at the
+   f32 image gate) and, recalibrated from 16 batches of 8 at 320px, through
+   the fused engine's "auto" route (bf16; request 1 against the graph
+   engine at f32 over the same state at the bf16 image gate), printing the
+   drift (and the reference initialization's), whether the call warned or
+   needed ``allow_unstable`` and the seconds it took.
+7. Prints each phase's seconds, one JSON line per the kernels (with each
    kernel's bound: the larger of its bytes over the HBM rate and its
    operations over the peak of their type), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.  Any failure raises: exit code != 0.
@@ -91,6 +106,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import random
 import statistics
 import subprocess
 import sys
@@ -142,6 +158,34 @@ STEP_BATCHES = 3
 TRAIN_OWN_SEEDS, TRAIN_OWN_RATIO = (103, 108), 5e4
 TRAIN_WATCH_SEEDS = ()
 TRAIN_LAUNCHES = counts(adaattn_fwd=2, adaattn_dq=2, adaattn_dkv=2)
+# The lifecycle, from training to serving: the Stage-1 autoencoder at
+# AETrainConfig's width (batch 16, 256px, f32), the AST warm-started from its
+# checkpoint (160px batch 8, the AdaAttN kernels), then that checkpoint
+# served through the graph engine (512px batch 8, f32) and, recalibrated
+# from RECAL_BATCHES batches of 8 at 320px (the CLI's loader), through the
+# fused engine's "auto" route (bf16).  Synthetic PNGs in a temporary folder
+# (LIFE_IMAGES content, LIFE_IMAGES // 2 style), read by the port's loaders.
+LIFE_IMAGES = 24
+LIFE_AE_BATCH, LIFE_AE_SIZE, LIFE_AE_STEPS = 16, 256, 4
+LIFE_AST_BATCH, LIFE_AST_SIZE, LIFE_AST_STEPS = 8, 160, 2
+LIFE_GRAPH_REQUESTS = LIFE_FUSED_REQUESTS = 3
+RECAL_BATCHES, RECAL_SIZE = 16, 320
+# Every loader of the lifecycle has one worker thread and its datasets list
+# their files in an order of the seed's (``seeded_order``), so that its
+# batches, and with them the checkpoints, the recalibrated statistics and
+# the drift, are the seed's in every run (two threads put their batches in
+# any order; the loaders shuffle the file system's listing).
+LIFE_WORKERS = 1
+# The AE's first step's loss against the same step in float64.
+AE_LOSS_TOL = 1e-4
+# The recalibrated state's unclamped image through the graph engine and the
+# fused engine's plain route (BatchNorm folded), both in float64: relative
+# distance.  Folding changes only the rounding, so the distance falls with
+# the unit roundoff (float32's, amplified by the state, parts the two by
+# 1e-2 to 1); a fault in the folding would not.
+FOLD_F64_TOL = 1e-6
+# Launches per graph-engine request: one adaattn_fwd per AdaAttN module.
+GRAPH_LAUNCHES = counts(adaattn_fwd=2)
 # AdaAttN backward cases: name, B, Nc, Ns, dtype of q/k/v, dtype of dm,
 # launches of each kernel per 160px training step.  The three training
 # buckets (Nc = Ns = (size / 8)^2), a ragged case, bf16 inputs, and the
@@ -2289,7 +2333,8 @@ def make_trainer(tmp, batches):
 
 
 def normalize_train_head(trainer, batch):
-    """Scale the decoder head so that the stylized image of ``batch`` has a
+    """Scale the decoder head of ``trainer.ast`` (a trainer's, or a graph
+    engine pipeline's) so that the stylized image of ``batch`` has a
     per-channel mean 0.5 and spatial std 0.05 (as ``routes_phase`` does)."""
     import torch
 
@@ -2480,6 +2525,588 @@ def profile_train_step(trainer, batch, top=12):
             f"{e.key[:90]}")
 
 
+def write_images(root, seed):
+    """LIFE_IMAGES content and LIFE_IMAGES // 2 style PNGs (gradients, a
+    random sinusoid texture and noise, 300-640px a side) under ``root``;
+    returns the two folders."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    dirs = []
+    for sub, n in (("content", LIFE_IMAGES), ("style", LIFE_IMAGES // 2)):
+        d = os.path.join(root, sub)
+        os.makedirs(d)
+        for i in range(n):
+            h, w = rng.integers(300, 641, 2)
+            yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+            f = rng.uniform(2, 30, 3)
+            img = np.stack([
+                rng.uniform(0.2, 0.8) * xx + (1 - xx) * rng.uniform(),
+                0.5 + 0.4 * np.sin(f[0] * xx * 6.28 + f[1] * yy),
+                rng.uniform(0, 1, (h, w)) * rng.uniform(0.2, 1.0)], -1)
+            img = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1)
+            Image.fromarray((img * 255).astype(np.uint8)).save(
+                os.path.join(d, f"img_{i}.png"))
+        dirs.append(d)
+    return dirs
+
+
+def ae_state(state):
+    """The autoencoder's tree of an AST state: its encoder, ada_out and
+    decoder."""
+    p, s = state["params"], state["batch_stats"]
+    return {"params": {"encoder": p["enc"], "ada_out": p["ada_out"],
+                       "decoder": p["dec"]},
+            "batch_stats": {"encoder": s["enc"]}}
+
+
+def seeded_order(dataset, seed):
+    """``dataset`` with its image lists in an order set by ``seed`` alone:
+    the loaders shuffle the directory listing, whose order is the file
+    system's."""
+    for name in ("content_paths", "style_paths"):
+        if hasattr(dataset, name):
+            paths = sorted(getattr(dataset, name))
+            random.Random(seed).shuffle(paths)
+            setattr(dataset, name, paths)
+    return dataset
+
+
+def ae_loss_f64(trainer, batch):
+    """The loss of ``trainer``'s step on ``batch`` through float64 copies of
+    the model and VGG (the model's float32 casts keep float64)."""
+    import copy
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch.train.ae_trainer import ae_loss
+
+    model = copy.deepcopy(trainer.model).double()
+    vgg = copy.deepcopy(trainer.vgg).double()
+    with torch.no_grad():
+        total, aux = ae_loss(model, vgg, trainer.cfg, torch.as_tensor(
+            batch, dtype=torch.float64, device=DEVICE))
+    check(all(a.dtype == torch.float64 for a in aux.values()),
+          f"the float64 loss ran in {[a.dtype for a in aux.values()]}")
+    return float(total)
+
+
+def timed_steps(trainer):
+    """Wraps ``trainer.train_step`` to record each step's device ms (CUDA
+    events, synchronized), its aux and the launches it made."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import LAUNCHES
+
+    step, record = trainer.train_step, {"ms": [], "aux": [], "launches": []}
+
+    def timed(*batch):
+        before = dict(LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        aux = step(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        record["ms"].append(start.elapsed_time(end))
+        record["aux"].append(aux)
+        record["launches"].append({k: LAUNCHES[k] - before[k]
+                                   for k in LAUNCHES})
+        return aux
+
+    trainer.train_step = timed
+    return record
+
+
+def life_ae(tmp, dirs):
+    """Stage 1: AutoencoderTrainer, LIFE_AE_STEPS steps through
+    ``ContentBatchLoader``; its first step's loss against the float64 step.
+    Returns ``ae.pt``'s path and the median ms per step."""
+    import itertools
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
+    from arbitrarystyletransfer_tpu_torch.config import AETrainConfig
+    from arbitrarystyletransfer_tpu_torch.data.pipeline import (
+        ContentBatchLoader,
+        FlatFolderDatasetAE,
+    )
+    from arbitrarystyletransfer_tpu_torch.train.ae_trainer import (
+        AutoencoderTrainer,
+    )
+
+    cfg = AETrainConfig(train_iter=LIFE_AE_STEPS, batch_size=LIFE_AE_BATCH,
+                        ae_imsize=LIFE_AE_SIZE, save_dir=f"{tmp}/ae")
+    loader = ContentBatchLoader(
+        seeded_order(FlatFolderDatasetAE(dirs), SEED),
+        batch_size=cfg.batch_size,
+        imsize=cfg.ae_imsize, num_workers=LIFE_WORKERS, seed=SEED,
+        augment=False,
+        worker_mode="thread")
+    try:
+        first = next(loader)
+        trainer = AutoencoderTrainer(cfg, itertools.chain([first], loader),
+                                     seed=SEED, device=DEVICE, log_fn=log)
+        check(trainer.vgg_weights_path is None,
+              f"a VGG weight file was used: {trainer.vgg_weights_path}")
+        # The parity tests' weights (``random_state``): at the reference
+        # initialization the encoder's eval-stats drift is unbounded, so
+        # no recalibration could serve it, and the closed SE gates make the
+        # decoder's image a constant that hides every difference.
+        weights.load_state(trainer.model,
+                           ae_state(random_state(ModelConfig(), SEED)))
+        t0 = time.perf_counter()
+        loss64 = ae_loss_f64(trainer, first)
+        f64_s = time.perf_counter() - t0
+        f64_gib = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        record = timed_steps(trainer)
+        trainer.train(log_fn=log)
+        steps_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        loader.close()
+    losses = [float(a["loss"]) for a in record["aux"]]
+    check(len(losses) == LIFE_AE_STEPS and all(map(math.isfinite, losses)),
+          f"AE losses {losses}")
+    rel = abs(losses[0] - loss64) / abs(loss64)
+    check(rel <= AE_LOSS_TOL, f"AE step 1 loss {losses[0]} vs float64 "
+          f"{loss64}: {rel:.3g} relative")
+    check(int(trainer.step) == LIFE_AE_STEPS and all(
+        n == counts() for n in record["launches"]),
+        f"AE step {int(trainer.step)}, launches {record['launches']}")
+    ms = statistics.median(record["ms"][1:])
+    log(f"lifecycle AE {LIFE_AE_SIZE}px batch {LIFE_AE_BATCH} f32: step ms "
+        f"{[round(t, 3) for t in record['ms']]}, median of steps 2-"
+        f"{LIFE_AE_STEPS} {ms:.3f} ms; losses {losses}; step 1 loss vs "
+        f"float64 {loss64:.9g}: {rel:.3g} relative (tol {AE_LOSS_TOL}); "
+        f"peak memory {steps_gib:.2f} GiB in the steps, {f64_gib:.2f} GiB in "
+        f"the float64 loss ({f64_s:.1f} s)")
+    return trainer.save_file, ms
+
+
+def life_ast(tmp, dirs, ae_path):
+    """Stage 2: ASTTrainer warm-started from ``ae_path``, LIFE_AST_STEPS
+    steps through ``PairedBatchLoader``.  Returns ``ast.pt``'s path and the
+    launches of its steps."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
+    from arbitrarystyletransfer_tpu_torch.config import ASTTrainConfig
+    from arbitrarystyletransfer_tpu_torch.data.pipeline import (
+        FlatFolderDataset,
+        PairedBatchLoader,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from arbitrarystyletransfer_tpu_torch.train import checkpoint as ckpt
+    from arbitrarystyletransfer_tpu_torch.train.ast_trainer import ASTTrainer
+
+    tcfg = ASTTrainConfig(train_iter=LIFE_AST_STEPS,
+                          batch_size=LIFE_AST_BATCH, save_dir=f"{tmp}/ast",
+                          ae_model=ae_path.removesuffix(".pt"))
+    model_cfg = ModelConfig(use_pallas_adaattn=True)
+    loader = PairedBatchLoader(
+        seeded_order(FlatFolderDataset([dirs[0]], [dirs[1]]), SEED),
+        LIFE_AST_BATCH,
+        img_sizes=(LIFE_AST_SIZE,), num_workers=LIFE_WORKERS, seed=SEED,
+        worker_mode="thread")
+    try:
+        trainer = ASTTrainer(tcfg, loader, model_cfg=model_cfg, seed=SEED,
+                             preview_dir=None, device=DEVICE, log_fn=log)
+        ae = weights.flatten(ckpt.restore_checkpoint(ae_path, DEVICE))
+        ast = weights.flatten(weights.module_state(trainer.ast))
+        names = {"encoder": "enc", "ada_out": "ada_out", "decoder": "dec"}
+
+        def ast_key(key):
+            collection, tree, rest = key.split("/", 2)
+            return f"{collection}/{names[tree]}/{rest}"
+
+        check(all(torch.equal(t, ast[ast_key(k)]) for k, t in ae.items()),
+              "the AST's enc, ada_out and dec are not the AE's tensors")
+        # The AdaAttN projections at the parity tests' scale (q and k gain
+        # 0.35: logits of std ~1.4), as the train phase has them: with the
+        # reference init the logits' std is ~11 and the std statistic is
+        # rounding noise in the twins and the kernels alike.
+        own = random_state(model_cfg, SEED)["params"]
+        with torch.no_grad():
+            for name in ("ada_att_1", "ada_att_2"):
+                for w in ("W_q", "W_k", "W_v"):
+                    getattr(getattr(trainer.ast, name), w).kernel.copy_(
+                        own[name][w]["kernel"])
+        record = timed_steps(trainer)
+        reset_launches()
+        trainer.train(log_fn=log)
+        launches = dict(LAUNCHES)
+    finally:
+        loader.close()
+    losses = [float(a["loss"]) for a in record["aux"]]
+    check(all(map(math.isfinite, losses)), f"AST losses {losses}")
+    for i, n in enumerate(record["launches"]):
+        check(n == TRAIN_LAUNCHES, f"warm-started AST step {i + 1} launched "
+              f"{n}, expected {TRAIN_LAUNCHES}")
+    check(int(trainer.step) == LIFE_AST_STEPS,
+          f"AST step counter {int(trainer.step)}")
+    log(f"lifecycle AST warm-started from {len(ae)} AE tensors (equal bit "
+        f"for bit), {LIFE_AST_SIZE}px batch {LIFE_AST_BATCH}: step ms "
+        f"{[round(t, 3) for t in record['ms']]}, losses {losses}, launches "
+        f"per step {record['launches'][0]}")
+    return trainer.save_file, launches
+
+
+def run_requests(pipe, requests, expected, label):
+    """``pipe.stylize`` over ``requests`` with the counters reset just
+    before and read just after: (outputs, ms each, launches)."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+
+    outs, times = [], []
+    reset_launches()
+    for i, (content, style, alpha) in enumerate(requests):
+        before = dict(LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pipe.stylize(content, style, alpha)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        n = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        sat = float(((out == 0) | (out == 1)).float().mean())
+        log(f"{label} request {i + 1}: alpha {alpha}, {times[-1]:.3f} ms, "
+            f"launches {n}, mean {float(out.mean()):.4f} std "
+            f"{float(out.std()):.4f}, saturated {sat:.4%}")
+        check(tuple(out.shape) == (BATCH, SIZE, SIZE, 3),
+              f"{label}: output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        check(sat < 0.5, f"{label}: {sat:.1%} of the output is 0 or 1")
+        check(n == expected, f"{label} request {i + 1} launched {n}, "
+              f"expected {expected}")
+        outs.append(out)
+    return outs, times, dict(LAUNCHES)
+
+
+def image_errs(a, b):
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), float(d.mean())
+
+
+def life_graph(ast_path, requests):
+    """Serve ``ast_path`` through the graph engine (f32, the AdaAttN
+    kernel), held against the same pipeline with the AdaAttN stage in plain
+    PyTorch.  Returns the launches and the median ms per request."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig
+    from arbitrarystyletransfer_tpu_torch.infer import StylePipeline
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import LAUNCHES
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        adaattn_fwd as fwd_mod,
+    )
+
+    cfg = ModelConfig(use_pallas_adaattn=True)
+    pipe = StylePipeline.from_checkpoint(ast_path.removesuffix(".pt"), cfg,
+                                         device=DEVICE)
+    check(pipe.engine == "flax" and not pipe.cfg.encoder_eval_stats,
+          f"engine {pipe.engine}, {pipe.cfg}")
+    normalize_train_head(pipe, requests[0][:2])
+    outs, times, launches = run_requests(pipe, requests, GRAPH_LAUNCHES,
+                                         "lifecycle flax")
+    # At f32 the kernel computes the statistics in float64 and rounds once
+    # (ops/kernels/adaattn_fwd.py), so its plain version is the dense
+    # statistics in float64, rounded (adaattn_statistics_f64).  The dense
+    # float32 twin's distance to it is logged: this checkpoint's decoder
+    # amplifies the twin's own rounding.
+    saved = fwd_mod.adaattn_statistics
+    fwd_mod.adaattn_statistics = adaattn_statistics_f64
+    try:
+        plain = pipe.stylize(*requests[0])
+    finally:
+        fwd_mod.adaattn_statistics = saved
+    dense = StylePipeline(dataclasses.replace(cfg, use_pallas_adaattn=False),
+                          device=DEVICE, state=pipe.state).stylize(
+                              *requests[0])
+    check(dict(LAUNCHES) == launches, "the plain versions launched a kernel")
+    err, own = image_errs(outs[0], plain), image_errs(dense, plain)
+    log(f"lifecycle flax request 1, f32, kernel vs the float64 AdaAttN "
+        f"stage: max abs {err[0]:.4g} (tol {IMAGE_F32_TOL[0]}), mean abs "
+        f"{err[1]:.4g} (tol {IMAGE_F32_TOL[1]}); the dense float32 twin vs "
+        f"the same: max abs {own[0]:.4g}, mean abs {own[1]:.4g}")
+    check(err[0] <= IMAGE_F32_TOL[0] and err[1] <= IMAGE_F32_TOL[1],
+          "graph engine: the AdaAttN kernel and its plain version disagree")
+    ms = statistics.median(times[1:])
+    log(f"lifecycle flax: median {ms:.3f} ms/request over requests 2-"
+        f"{len(requests)} ({BATCH * 1000 / ms:.2f} img/s at {SIZE}px batch "
+        f"{BATCH}, f32)")
+    del plain, dense
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def folding_gap(state, cfg, content, style, dtype):
+    """Relative distance between the unclamped alpha-1 images of ``state``
+    through the graph engine and through the fused engine's plain route
+    (BatchNorm folded), both in ``dtype``."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch import engine, weights
+    from arbitrarystyletransfer_tpu_torch.models.ast import AST
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              use_pallas_adaattn=False)
+    ast = AST(cfg).to(DEVICE, dtype).requires_grad_(False)
+    weights.load_state(ast, state)
+    c, s = content.to(dtype), style.to(dtype)
+    with torch.inference_mode():
+        graph = ast.dec(ast.encode(c, s, train=False)).double()
+        # No block reaches min_fused_size: every block takes the plain
+        # route.
+        fused = engine.stylize_fused(
+            weights.module_state(ast), c, s, 1.0, cfg=cfg, dtype=dtype,
+            min_fused_size=10**9, exporting=False).double()
+    check(graph.dtype == fused.dtype and bool(torch.isfinite(fused).all()),
+          f"folding_gap {dtype}: {fused.dtype}, finite "
+          f"{bool(torch.isfinite(fused).all())}")
+    return float((fused - graph).norm() / graph.norm())
+
+
+def shadowed(pipe, content, style, alpha):
+    """``pipe.stylize`` (bf16) with each kernel wrapper of the path
+    shadowed by its plain twin: every launch's outputs are held against the
+    twin's on the same inputs, at the bf16 kernel phases' limits (y or
+    hidden one bf16 ulp of the largest value, the SE sums ``SUMS_TOL`` of
+    theirs, the AdaAttN statistics within ``adaattn_fwd_error_bound``).
+    Returns {kernel: (launches, largest error / limit)}."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops import (
+        flatblock,
+        flatblock_s2,
+        fused_block,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        adaattn_fwd as adaattn_mod,
+        expand_dw as expand_mod,
+        flat_block as flat_mod,
+        flat_s2 as flat_s2_mod,
+    )
+
+    seen = {}
+
+    def share(o, r, rel):
+        return max_err(o, r) / (rel * float(r.float().abs().max()) + 1e-30)
+
+    def block_share(out, ref):
+        return max(share(out[0], ref[0], BF16_TOL),
+                   share(out[1], ref[1], SUMS_TOL))
+
+    def adaattn_share(out, ref, q, k, v):
+        bounds = adaattn_mod.adaattn_fwd_error_bound(q, k, v)
+        return max(float(((o.float() - r.float()).abs() / b).max())
+                   for o, r, b in zip(out, ref, bounds))
+
+    slots = (
+        ("expand_dw", fused_block, "expand_dw", expand_mod.expand_dw_reference,
+         block_share),
+        ("adaattn_fwd", adaattn_mod, "adaattn_statistics",
+         lambda q, k, v: adaattn_mod.adaattn_fwd_reference(q, k, v)[:2],
+         None),
+        ("flat_block", flatblock, "flat_block", flat_mod.flat_block_reference,
+         block_share),
+        ("flat_s2_block", flatblock_s2, "flat_s2_block",
+         flat_s2_mod.flat_s2_block_reference, block_share),
+    )
+
+    def shadow(name, kernel, twin, judge):
+        def run(*args, **kw):
+            out = kernel(*args, **kw)
+            ref = twin(*args, **kw)
+            e = (adaattn_share(out, ref, *args) if judge is None
+                 else judge(out, ref))
+            n, worst = seen.get(name, (0, 0.0))
+            seen[name] = (n + 1, max(worst, e))
+            return out
+        return run
+
+    check(pipe.dtype == torch.bfloat16, f"shadowed at {pipe.dtype}")
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr, _, _ in slots]
+    for (name, mod, attr, twin, judge), (_, _, kernel) in zip(slots, saved):
+        setattr(mod, attr, shadow(name, kernel, twin, judge))
+    try:
+        pipe.stylize(content, style, alpha)
+    finally:
+        for mod, attr, kernel in saved:
+            setattr(mod, attr, kernel)
+    return seen
+
+
+def life_fused(ast_path, dirs, requests):
+    """Serve ``ast_path`` recalibrated through the fused engine's "auto"
+    route (bf16): the folding held in float64 against the graph engine,
+    each launch against its plain twin, and the image against the plain
+    twins and the graph engine.  Returns the launches, the drift and the
+    seconds recalibration took."""
+    import warnings
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
+    from arbitrarystyletransfer_tpu_torch.data.pipeline import (
+        ContentBatchLoader,
+        FlatFolderDatasetAE,
+    )
+    from arbitrarystyletransfer_tpu_torch.infer import StylePipeline
+    from arbitrarystyletransfer_tpu_torch.train import checkpoint as ckpt
+    from arbitrarystyletransfer_tpu_torch.train import recalibrate as recal
+
+    # The CLI's loader (stylize.py: seed 0, no augmentation), on one thread.
+    loader = ContentBatchLoader(seeded_order(FlatFolderDatasetAE(dirs), 0),
+                                batch_size=8, imsize=RECAL_SIZE,
+                                num_workers=LIFE_WORKERS, seed=0,
+                                augment=False, worker_mode="thread")
+    try:
+        batches = [next(loader) for _ in range(RECAL_BATCHES)]
+    finally:
+        loader.close()
+
+    # The drift from_checkpoint will measure (its split: the last two
+    # batches held out), to decide allow_unstable before the call; and the
+    # reference initialization's, for the record.
+    def drift_of(state):
+        enc = weights.to_device({"params": state["params"],
+                                 "batch_stats": state["batch_stats"]},
+                                DEVICE)
+        stats = recal.recalibrate_encoder_stats(
+            enc["params"]["enc"], enc["batch_stats"]["enc"], batches[:-2])
+        return recal.eval_stats_drift(enc["params"]["enc"], stats,
+                                      batches[-2:])
+
+    drift = drift_of(ckpt.restore_checkpoint(ast_path))
+    ref_drift = drift_of(weights.init_params(
+        ModelConfig(), torch.Generator().manual_seed(SEED)))
+    allow = not math.isfinite(drift)
+    cfg = ModelConfig(use_pallas_adaattn=True, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pipe = StylePipeline.from_checkpoint(
+            ast_path.removesuffix(".pt"), cfg, engine="fused",
+            encoder_impl="auto", decoder_impl="auto",
+            recalibrate_with=batches, allow_unstable=allow, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    warned = [str(w.message) for w in caught if "drifts" in str(w.message)]
+    check(bool(warned) == (allow or drift > recal.EVAL_DRIFT_SAFE),
+          f"drift {drift}: warnings {warned}")
+    check(pipe.engine == "fused" and pipe.cfg.encoder_eval_stats,
+          f"recalibrated pipeline: {pipe.engine}, {pipe.cfg}")
+    log(f"lifecycle recalibration: {RECAL_BATCHES} batches of 8 at "
+        f"{RECAL_SIZE}px (last 2 held out), from_checkpoint {seconds:.3f} s; "
+        f"drift {drift!r} (EVAL_DRIFT_SAFE {recal.EVAL_DRIFT_SAFE}): "
+        + ("not finite, served with allow_unstable=True" if allow else
+           "finite, allow_unstable not passed")
+        + f", {'warned' if warned else 'no warning'}, not refused; the "
+        f"reference initialization's drift on the same batches "
+        f"{ref_drift!r}")
+
+    # The folding, in float64 and float32, on the recalibrated state with
+    # the checkpoint's head.
+    content, style = requests[0][:2]
+    gap64, gap32 = (folding_gap(pipe.state, pipe.cfg, content, style, dt)
+                    for dt in (torch.float64, torch.float32))
+    log(f"lifecycle recalibrated state, graph engine vs the fused engine's "
+        f"plain route, unclamped image: {gap64:.4g} apart (relative) in "
+        f"float64 (tol {FOLD_F64_TOL}), {gap32:.4g} in float32")
+    check(gap64 <= FOLD_F64_TOL, "the folded and unfolded BatchNorm "
+          "disagree in float64")
+
+    # The head normalized on the graph engine's f32 image (as routes_phase
+    # does), then the route's requests, counted.
+    cfg32 = dataclasses.replace(pipe.cfg, compute_dtype="float32")
+    graph = StylePipeline(cfg32, device=DEVICE, state=pipe.state)
+    normalize_train_head(graph, requests[0][:2])
+    pipe.load_state(graph.state["params"], graph.state["batch_stats"])
+    expected = next(e for impl, _, e in ROUTES if impl == "auto")
+    outs, times, launches = run_requests(
+        pipe, requests[:LIFE_FUSED_REQUESTS], expected,
+        "lifecycle recalibrated-auto")
+
+    # Request 1 again, each launch held to its twin on the same inputs.
+    seen = shadowed(pipe, *requests[0])
+    log(f"lifecycle recalibrated-auto request 1, each launch vs its plain "
+        f"twin on the same inputs (launches, largest error / limit): {seen}")
+    check({k: n for k, (n, _) in seen.items()}
+          == {k: n for k, n in expected.items() if n},
+          f"recalibrated auto route: shadowed launches {seen}")
+    check(all(e <= 1.0 for _, e in seen.values()),
+          "recalibrated auto route: a launch differs from its twin")
+
+    # The image at bf16 against the graph engine at f32, within
+    # IMAGE_BF16_FACTOR of the bf16 twins' distance to it (the bf16 gate).
+    ref32 = graph.stylize(*requests[0])
+    plain16, _ = run_plain(pipe, *requests[0], repeats=1)
+    k = image_errs(outs[0], ref32)
+    kp = image_errs(outs[0], plain16)
+    floor16 = image_errs(plain16, ref32)
+    log(f"lifecycle recalibrated-auto request 1, bf16 vs the graph engine at "
+        f"f32: kernels max abs {k[0]:.4g}, mean abs {k[1]:.4g}; plain twins "
+        f"max abs {floor16[0]:.4g}, mean abs {floor16[1]:.4g}; kernels vs "
+        f"plain twins max abs {kp[0]:.4g}, mean abs {kp[1]:.4g} (tol "
+        f"{IMAGE_BF16_FACTOR}x the twins' distance to f32)")
+    for what, e in (("kernels vs graph f32", k), ("kernels vs twins", kp)):
+        check(e[0] <= IMAGE_BF16_FACTOR * floor16[0]
+              and e[1] <= IMAGE_BF16_FACTOR * floor16[1],
+              f"recalibrated auto route, {what}: {e}, bf16 floor "
+              f"{floor16}")
+    log(f"lifecycle recalibrated-auto: median "
+        f"{statistics.median(times[1:]):.3f} ms/request over requests 2-"
+        f"{len(times)}")
+    return launches, drift, seconds
+
+
+def lifecycle_phase(gen, card):
+    """From training to serving on the card: the autoencoder, the AST
+    warm-started from its checkpoint, the AST checkpoint through the graph
+    engine and, recalibrated, through the fused engine.  Returns the
+    launches by path."""
+    import tempfile
+
+    import torch
+
+    shape = (BATCH, SIZE, SIZE, 3)
+    requests = [(torch.rand(shape, generator=gen, device=DEVICE),
+                 torch.rand(shape, generator=gen, device=DEVICE), a)
+                for a in ALPHAS[:LIFE_GRAPH_REQUESTS]]
+    launches, peaks = {}, {}
+
+    def stage(name, fn, *args):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn(*args)
+        peaks[name] = (round(time.perf_counter() - t, 1),
+                       round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_images(tmp, SEED + 13)
+        ae_path, ae_ms = stage("ae", life_ae, tmp, dirs)
+        ast_path, launches["warm-started-ast"] = stage(
+            "ast", life_ast, tmp, dirs, ae_path)
+        launches["flax"], graph_ms = stage("flax", life_graph, ast_path,
+                                           requests)
+        launches["recalibrated-auto"], drift, seconds = stage(
+            "recalibrated-auto", life_fused, ast_path, dirs, requests)
+    log(f"lifecycle stages (s, peak GiB): {peaks}")
+    log(f"lifecycle on {card}: AE {ae_ms:.3f} ms per {LIFE_AE_SIZE}px batch-"
+        f"{LIFE_AE_BATCH} f32 step; graph engine {graph_ms:.3f} ms per "
+        f"{SIZE}px batch-{BATCH} f32 request; recalibration (from_checkpoint) "
+        f"{seconds:.3f} s; drift {drift:.6g}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2555,6 +3182,9 @@ def main() -> int:
     bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
     launches = phase("routes", routes_phase, gen)
     launches["train"], train_ms, train_peak = phase("train", train_phase, gen)
+    # The lifecycle phase draws from a generator of its own.
+    gen13 = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    launches.update(phase("lifecycle", lifecycle_phase, gen13, card))
     launches.update(probe_launches)
     log(f"phase seconds: {seconds}")
 
@@ -2593,8 +3223,10 @@ def main() -> int:
     ] + [row(name, source, "scripts/" + replaces, *probe_rows[name])
          for name, source, replaces in PROBE_ROWS]
     log("kernels: launches = sum over the routes' requests, the timed "
-        "train steps and the two probe drivers' runs (counted per route or "
-        "driver); for the stylize kernels "
+        "train steps, the lifecycle phase's runs (warm-started-ast: its AST "
+        "steps; flax: the graph engine's requests; recalibrated-auto: the "
+        "recalibrated fused engine's requests) and the two probe drivers' "
+        "runs (counted per route, path or driver); for the stylize kernels "
         "max_abs_err is the worst output error over their 512px bf16 cases "
         "(hidden for expand_dw, mean/std of the AdaAttN taps case) and ms, "
         "plain_ms, bound_ms are device ms per 512px batch-8 request (fused "

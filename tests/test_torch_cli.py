@@ -59,13 +59,13 @@ def test_cli_writes_the_pipeline_image(tmp_path, impl):
     proc = _cli("--device", "cpu", "--imsize", 64, "--weights",
                 tmp_path / "w.npz", "--content", content, "--style", style,
                 "--output", out_png, "--alpha", 0.8, "--encoder_eval_stats",
-                "--encoder", impl, "--decoder", impl)
+                "--encoder", impl, "--decoder", impl, "--engine", "fused")
     assert proc.returncode == 0, proc.stderr
     written = np.asarray(Image.open(out_png))
     assert written.shape == (64, 64, 3)
 
     cfg = ModelConfig(encoder_eval_stats=True, use_pallas_adaattn=True)
-    pipe = StylePipeline(cfg, state=state, encoder_impl=impl,
+    pipe = StylePipeline(cfg, engine="fused", state=state, encoder_impl=impl,
                          decoder_impl=impl, device="cpu")
     out = pipe.stylize(image_loader(content, 64), image_loader(style, 64),
                        alpha=0.8)
@@ -80,12 +80,3 @@ def test_cli_refuses_cuda_without_a_card(tmp_path):
                 "--style", style, "--encoder_eval_stats")
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
-
-
-def test_cli_refuses_the_flax_engine(tmp_path):
-    content, style = _write_images(tmp_path)
-    proc = _cli("--device", "cpu", "--engine", "flax", "--weights",
-                tmp_path / "missing.npz", "--content", content, "--style",
-                style)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "ROADMAP" in proc.stderr

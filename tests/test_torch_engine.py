@@ -213,7 +213,8 @@ def test_ported_routes_run(impl):
     content, style = _images(13, size=32, b=1)
     for kw in ({"encoder_impl": impl}, {"decoder_impl": impl},
                {"encoder_impl": impl, "decoder_impl": impl}):
-        pipe = StylePipeline(CFG, state=state, device="cpu", **kw)
+        pipe = StylePipeline(CFG, engine="fused", state=state, device="cpu",
+                             **kw)
         out = pipe.stylize(content, style, 0.5)
         ref = engine.stylize_fused(
             state, torch.from_numpy(content), torch.from_numpy(style), 0.5,
@@ -227,7 +228,7 @@ def test_ported_routes_run(impl):
 
 def test_pipeline_refuses_batch_stats_config():
     with pytest.raises(ValueError, match="encoder_eval_stats"):
-        StylePipeline(ModelConfig(encoder_eval_stats=False))
+        StylePipeline(ModelConfig(encoder_eval_stats=False), engine="fused")
 
 
 def test_pipeline_defaults_to_the_card():
@@ -243,7 +244,8 @@ def test_pipeline_from_npz_matches_engine(tmp_path):
     v = ast_variables(seed=4)
     state = weights.from_jax_tree(v["params"], v["batch_stats"])
     weights.save_npz(tmp_path / "w.npz", state)
-    pipe = StylePipeline.from_npz(tmp_path / "w.npz", CFG, device="cpu")
+    pipe = StylePipeline.from_npz(tmp_path / "w.npz", CFG, engine="fused",
+                                  device="cpu")
     content, style = _images(4, size=32, b=1)
     out = pipe.stylize(content, style, 0.5)
     ref = engine.stylize_fused(
@@ -380,7 +382,8 @@ def test_pipeline_routes_match_engine(monkeypatch, encoder_impl,
                         lambda d, m, lane: modes.append(m) or real(d, m, lane))
     v = ast_variables(seed=9)
     state = weights.from_jax_tree(v["params"], v["batch_stats"])
-    pipe = StylePipeline(CFG, state=state, encoder_impl=encoder_impl,
+    pipe = StylePipeline(CFG, engine="fused", state=state,
+                         encoder_impl=encoder_impl,
                          decoder_impl=decoder_impl, device="cpu")
     content, style = _images(9, size=32, b=1)
     out = pipe.stylize(content, style, 0.5)
