@@ -1,5 +1,5 @@
-"""Architecture tables, ``ModelConfig``, ``ASTTrainConfig`` and
-``AETrainConfig`` for the port.
+"""Architecture tables, ``ModelConfig``, ``DataConfig``, ``ASTTrainConfig``,
+``AETrainConfig`` and ``default_imsize`` for the port.
 
 The tables and the dataclasses are a copy of the JAX package's
 ``arbitrarystyletransfer_tpu/config.py`` (same names, values and field
@@ -68,6 +68,14 @@ VGG_CONTENT_LAYERS: Tuple[str, ...] = (
 # Multi-resolution training sizes (the AST trainer's resolution buckets).
 IMG_SIZES: Tuple[int, ...] = (96, 128, 160)
 
+# Inference resolution with a card attached (128 without one).
+IMSIZE = 320
+
+
+def default_imsize() -> int:
+    """320 when CUDA is available, else 128."""
+    return IMSIZE if torch.cuda.is_available() else 128
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -91,6 +99,18 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset locations and sampling; the fields of the JAX
+    ``DataConfig``."""
+
+    content_dirs: Tuple[str, ...] = ("temp_dataset/content/",)
+    style_dirs: Tuple[str, ...] = ("temp_dataset/style/",)
+    img_sizes: Tuple[int, ...] = IMG_SIZES
+    num_workers: int = 4
+    prefetch: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ASTTrainConfig:
     """Stage-2 AST training flags; the fields of the JAX ``ASTTrainConfig``."""
 
@@ -99,7 +119,7 @@ class ASTTrainConfig:
     lr: float = 2e-4
     dis_lr: float = 1e-5
     dis_lam: float = 1e-3
-    # The adversarial step is not ported (ROADMAP queue 1 item 6).
+    # Train the MobileNetV2 discriminator beside the model (train/gan.py).
     use_dis: bool = False
     dis_adam_b1: float = 0.5
     dis_adam_b2: float = 0.99

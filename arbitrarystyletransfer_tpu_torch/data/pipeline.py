@@ -6,10 +6,11 @@ The transforms (the training augmentation stack and the eval resize),
 ``FlatFolderDataset``, ``_paired_make_batch``, ``_PrefetchLoader`` and
 ``PairedBatchLoader`` (Stage-2 training), and ``FlatFolderDatasetAE``,
 ``_content_make_batch`` and ``ContentBatchLoader`` (Stage-1 training and BN
-recalibration), kept line for line so that a seed gives the same batches as
-the JAX pipeline: NHWC float32 in [0, 1], each paired batch at one (H, W)
+recalibration), kept line for line so that a seed gives the same batches
+as the JAX pipeline: NHWC float32 in [0, 1], each paired batch at one (H, W)
 drawn from ``img_sizes`` x ``img_sizes``, each content batch at ``imsize``
-square.  PIL is imported where it is used, so the module imports without
+square.  ``add_gaussian_noise`` is there too and, as in JAX, not in the
+stack.  PIL is imported where it is used, so the module imports without
 Pillow.
 """
 
@@ -205,6 +206,17 @@ def random_grayscale(x: np.ndarray, rng: random.Random, p: float = 0.001) -> np.
     if rng.random() <= p:
         gray = x @ np.array([0.299, 0.587, 0.114], dtype=x.dtype)
         x = np.repeat(gray[..., None], 3, axis=-1)
+    return x
+
+
+def add_gaussian_noise(x: np.ndarray, rng: random.Random, mean: float = 0.0,
+                       std: float = 0.01, p: float = 0.9) -> np.ndarray:
+    """Gaussian noise, clipped to [0, 1], when the draw *exceeds* ``p`` (the
+    reference's rule, kept); not part of ``train_transform``'s stack."""
+    if rng.random() > p:
+        noise = np.random.default_rng(rng.randrange(2**31)).normal(
+            mean, std, x.shape)
+        x = np.clip(x + noise.astype(x.dtype), 0.0, 1.0)
     return x
 
 

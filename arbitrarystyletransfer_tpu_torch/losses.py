@@ -1,9 +1,9 @@
 """Loss functions (NHWC): the twins of ``arbitrarystyletransfer_tpu/losses.py``.
 
-Huber (delta 1, mean), the mean/std/gram style loss, total variation (a
-sum), the soft histogram (normalized by the true element count) and its
-squared-CDF earth mover's distance.  The discriminator losses come with the
-GAN slice (ROADMAP queue 1 item 9).
+Huber (delta 1, mean) and the content loss built on it, the mean/std/gram
+style loss, total variation (a sum), the soft histogram (normalized by the
+true element count) and its squared-CDF earth mover's distance, the
+alternative sigmoid histogram, and the discriminator's BCE and R1 penalty.
 """
 
 from __future__ import annotations
@@ -22,6 +22,12 @@ def huber_loss(inp: torch.Tensor, tgt: torch.Tensor,
     quad = 0.5 * err * err
     lin = delta * (abs_err - 0.5 * delta)
     return torch.where(abs_err <= delta, quad, lin).mean()
+
+
+def compute_content_loss(inp: torch.Tensor,
+                         tgt: torch.Tensor) -> torch.Tensor:
+    """The Huber content loss."""
+    return huber_loss(inp, tgt)
 
 
 def gram_matrix(x: torch.Tensor) -> torch.Tensor:
@@ -73,3 +79,46 @@ def compute_hist_loss(t_cs: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
     """Mean EMD between the soft histograms of the two batches."""
     return earth_movers_distance(soft_histogram(t_cs),
                                  soft_histogram(style)).mean()
+
+
+def soft_histogram_alt(x: torch.Tensor, bins: int = 255, vmin: float = 0.0,
+                       vmax: float = 1.0, sigma: float = 3.0) -> torch.Tensor:
+    """The alternative sigmoid soft histogram of the last axis of a (..., N)
+    input: (..., bins), unnormalized."""
+    delta = float(vmax - vmin) / float(bins)
+    centers = vmin + delta * (
+        torch.arange(bins, dtype=x.dtype, device=x.device) + 0.5)
+    d = x[..., None, :] - centers[..., :, None]  # (..., bins, N)
+    vals = (torch.sigmoid(sigma * (d + delta / 2))
+            - torch.sigmoid(sigma * (d - delta / 2)))
+    return vals.sum(dim=-1)
+
+
+def discriminator_loss(output: torch.Tensor,
+                       label: torch.Tensor) -> torch.Tensor:
+    """Binary cross entropy on sigmoid outputs, the output clipped to
+    [1e-12, 1 - 1e-12] as the JAX package writes it: in float32 the upper
+    bound rounds to 1.0, and that is kept."""
+    eps = 1e-12
+    out = torch.clamp(output, eps, 1.0 - eps)
+    return -(label * torch.log(out)
+             + (1.0 - label) * torch.log(1.0 - out)).mean()
+
+
+def r1_loss(disc_apply, real_sample: torch.Tensor,
+            r1_lam: float = 5.0) -> torch.Tensor:
+    """The R1 gradient penalty ``r1_lam * mean(per-sample sum of
+    (dD/dx)^2)``, differentiable (``create_graph``): ``disc_apply`` maps an
+    image batch to per-sample predictions."""
+    x = real_sample if real_sample.requires_grad else (
+        real_sample.detach().requires_grad_(True))
+    return r1_penalty(disc_apply(x), x, r1_lam)
+
+
+def r1_penalty(pred: torch.Tensor, x: torch.Tensor,
+               r1_lam: float) -> torch.Tensor:
+    """``r1_lam * mean(per-sample sum of (d sum(pred) / dx)^2)`` for
+    predictions ``pred`` already computed from ``x`` (one forward serving
+    both the BCE term and the penalty)."""
+    (grad,) = torch.autograd.grad(pred.sum(), x, create_graph=True)
+    return r1_lam * grad.reshape(grad.shape[0], -1).square().sum(dim=1).mean()

@@ -1,1 +1,6 @@
-"""Tensor ops of the port: plain PyTorch routes and the kernel wrappers."""
+"""Tensor ops of the port: plain PyTorch routes, the kernel wrappers and
+the sRGB <-> CIELAB conversions (``color``)."""
+
+from . import color
+
+__all__ = ["color"]

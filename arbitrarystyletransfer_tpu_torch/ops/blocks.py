@@ -1,7 +1,8 @@
 """Block modules of the model graph, and the plain block routes.
 
 The ``nn.Module``s (``DepthwiseConv2D``, ``ConvStem``, ``SELayer``,
-``DepthWiseConv``) are the twins of the flax blocks in
+``DepthWiseConv``, and the discriminator's ``InvertedResidual`` and
+``Reshape``) are the twins of the flax blocks in
 ``arbitrarystyletransfer_tpu/ops/blocks.py``: the trainable graph, with the
 JAX tree's child names (``Conv_0``, ``DepthwiseConv2D_0``, ``SELayer_0``,
 ``BatchNorm2D_0``, ...) and layouts (HWIO kernels, dense (in, out)), so
@@ -22,6 +23,7 @@ convs are in ``dtype`` on both sides, as JAX writes them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .basic import (
@@ -196,6 +198,68 @@ class DepthWiseConv(nn.Module):
         if self.identity:
             x = x + org_x.to(x.dtype)
         return x
+
+
+class InvertedResidual(nn.Module):
+    """The vanilla MobileNetV2 block of the classifier and discriminator
+    (flax ``InvertedResidual``): BatchNorm always on, no SE, hardswish.
+
+    expand_ratio != 1: 1x1 expand -> BN -> hardswish; then the depthwise 3x3
+    (stride s, zero-padded by 1, not reflect-padded) -> BN -> hardswish ->
+    1x1 project -> BN.  Residual iff stride 1 and C_in == C_out.  The
+    children are named in flax's call order: ``Conv_0..2`` and
+    ``BatchNorm2D_0..2`` with the expand, ``Conv_0..1`` and
+    ``BatchNorm2D_0..1`` (the depthwise first) without."""
+
+    def __init__(self, c_in: int, c_out: int, stride: int,
+                 expand_ratio: float):
+        super().__init__()
+        assert stride in (1, 2)
+        hidden = round(c_in * expand_ratio)
+        self.expand = expand_ratio != 1
+        self.identity = stride == 1 and c_in == c_out
+        convs = [DepthwiseConv2D(hidden, 3, stride), Conv(hidden, c_out, 1)]
+        widths = [hidden, c_out]
+        if self.expand:
+            convs.insert(0, Conv(c_in, hidden, 1))
+            widths.insert(0, hidden)
+        for i, (conv, ch) in enumerate(zip(convs, widths)):
+            self.add_module(f"Conv_{i}", conv)
+            self.add_module(f"BatchNorm2D_{i}", BatchNorm2D(ch))
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        def conv_bn(i, h):
+            h = getattr(self, f"Conv_{i}")(h)
+            return getattr(self, f"BatchNorm2D_{i}")(
+                h, use_batch_stats=train, update_stats=train)
+
+        org_x, i = x, 0
+        if self.expand:
+            x, i = hardswish(conv_bn(0, x)), 1
+        x = hardswish(conv_bn(i, F.pad(x, (0, 0, 1, 1, 1, 1))))
+        x = conv_bn(i + 1, x)
+        if self.identity:
+            x = x + org_x
+        return x
+
+
+class Reshape(nn.Module):
+    """A learned positional encoding ``pos_enc`` (4C,), then the raw
+    row-major view of the NCHW tensor (B, 4C, H, W) as (B, C, 2H, 2W): each
+    group of 4 input planes laid end to end as one plane of twice the
+    size, not a pixel shuffle.  NHWC in and out."""
+
+    def __init__(self, num_channels: int):
+        super().__init__()
+        self.num_channels = num_channels
+        self.pos_enc = nn.Parameter(torch.zeros(4 * num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c4 = x.shape
+        assert c4 == 4 * self.num_channels, (c4, self.num_channels)
+        x = (x + self.pos_enc).permute(0, 3, 1, 2).contiguous()
+        x = x.reshape(b, self.num_channels, 2 * h, 2 * w)
+        return x.permute(0, 2, 3, 1)
 
 
 def block_weights(params, expand: bool, stats=None):

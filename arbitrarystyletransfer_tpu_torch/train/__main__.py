@@ -8,9 +8,11 @@ It keeps the JAX CLI's flags and defaults, with these differences:
 
 - ``--device`` defaults to ``cuda`` and fails when CUDA is absent: the CLI
   never falls back to the CPU by itself (``--device cpu`` asks for it).
-- One device: there is no mesh (multi-GPU is ROADMAP queue 1 item 11).
-- ``--use_dis`` raises ``NotImplementedError``: the GAN step is a later
-  slice.  ``--dw_impl`` is accepted and changes nothing (one depthwise).
+- One device: there is no mesh (multi-GPU is ROADMAP queue 1 item 7).
+- ``--use_dis`` trains the MobileNetV2 discriminator beside the model
+  (``train/gan.py``) and saves it to ``<save_dir>/ast_dis.pt``; run it at
+  64px or more, where the discriminator's head map is larger than 1x1.
+  ``--dw_impl`` is accepted and changes nothing (one depthwise).
 - ``--ae_model <path>`` warm-starts from ``<path>.pt``, a Stage-1 AE
   checkpoint in the port's format, when that file exists; checkpoints are
   written to ``<save_dir>/ast.pt``.
@@ -69,9 +71,10 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--lr", type=float, default=2e-4, help="Learning rate.")
     p.add_argument("--dis_lr", type=float, default=1e-5,
-                   help="Discriminator learning rate (GAN slice).")
+                   help="Discriminator learning rate (--use_dis).")
     p.add_argument("--dis_lam", type=float, default=1e-3,
-                   help="Discriminator loss weight (GAN slice).")
+                   help="Weight of the generator's adversarial loss "
+                        "(--use_dis).")
     p.add_argument("--content_lam", type=float, default=1.25)
     p.add_argument("--org_img_lam", type=float, default=0.5,
                    help="Weight of the identity reconstruction loss.")
@@ -80,7 +83,8 @@ def parse_args(argv=None):
     p.add_argument("--lf_lam", type=float, default=1.0)
     p.add_argument("--r1_lam", type=float, default=5.0)
     p.add_argument("--use_dis", action="store_true",
-                   help="Adversarial training; not ported yet (raises).")
+                   help="Adversarial training: also train the MobileNetV2 "
+                        "discriminator (R1 penalty every 8 of its steps).")
     p.add_argument("--save_dir", default="models/ast/")
     p.add_argument("--ae_model", default="models/auto_encoder/ae",
                    help="Stage-1 AE checkpoint; <ae_model>.pt is read if it "

@@ -15,6 +15,14 @@ style taps, the re-encode input, the out-of-range target and the re-encoded
 maps.  The running statistics update in the JAX order: the identity encode
 (inside ``AST.forward``), then the re-encode of the stylized image.
 
+With ``use_dis`` the step is JAX's adversarial variant (``train/gan.py``):
+the generator's objective gains ``dis_lam * BCE(D(t_cs), 1)``, and the
+discriminator then trains on (real = content, fake = the detached t_cs of
+the same forward) with Adam(dis_lr, dis_adam_b1, dis_adam_b2, eps 1e-8)
+and no clip.  Both updates use the discriminator as it was before the step.
+Its dropout masks come from generators that are a function of the step
+counter (``gan.step_generators``), so a resumed run continues the stream.
+
 One device, eagerly: the step is a forward, ``torch.autograd.grad`` and the
 optimizer, with no host sync; per-step values stay on the device until a
 log or save boundary drains them.  A step whose global gradient norm is not
@@ -34,6 +42,7 @@ from .. import weights
 from ..config import ASTTrainConfig, ModelConfig
 from ..losses import compute_hist_loss, compute_style_loss, huber_loss, tv_loss
 from ..models.ast import AST
+from ..models.mobilenetv2 import Discriminator
 from ..models.vgg import (
     VGG19Features,
     find_vgg_weights,
@@ -42,6 +51,7 @@ from ..models.vgg import (
 )
 from ..ops.stats import mean_variance_norm
 from . import checkpoint as ckpt
+from . import gan
 from .state import Adam, keep_if
 
 TRAIN_DICT_KEYS = ("content_loss", "style_loss", "lf_loss", "tv_loss",
@@ -75,10 +85,15 @@ def _no_mark(name: str) -> None:
 def ast_loss(ast: AST, vgg: VGG19Features, cfg: ASTTrainConfig,
              content: torch.Tensor, style: torch.Tensor,
              debug_stats: bool = False,
-             mark: Callable[[str], None] = _no_mark):
+             mark: Callable[[str], None] = _no_mark,
+             adversary: Callable[[torch.Tensor], torch.Tensor] | None = None):
     """(total, aux) of one batch: the JAX ``loss_fn``.  Runs the model in
     train mode, so the encoder's running statistics move.  ``mark(name)``
-    is called at the end of each phase ("forward", "vgg", "losses")."""
+    is called at the end of each phase ("forward", "vgg", "losses", and
+    "adversary" with one).  ``adversary(t_cs)``, when given, is the
+    generator's adversarial loss: the total gains ``dis_lam`` times it, aux
+    its value as "gen_adv_loss" and the detached stylized batch as "fake"
+    (the discriminator's fake batch)."""
     t_cs, (sm1, sm2), org_out = ast(content, style, 1.0, train=True)
     with torch.no_grad():
         enc_stylized = ast.reencode(t_cs.detach(), train=True)
@@ -139,6 +154,13 @@ def ast_loss(ast: AST, vgg: VGG19Features, cfg: ASTTrainConfig,
                    org_out_min=org_out.min(), org_out_max=org_out.max())
     aux = {k: v.detach() for k, v in aux.items()}
     mark("losses")
+    if adversary is not None:
+        gen_adv_loss = adversary(t_cs)
+        total = total + cfg.dis_lam * gen_adv_loss
+        aux["gen_adv_loss"] = gen_adv_loss.detach()
+        aux["loss"] = total.detach()
+        aux["fake"] = t_cs.detach()
+        mark("adversary")
     return total, aux
 
 
@@ -147,7 +169,9 @@ class ASTTrainer:
     Stage-1 AE checkpoint of the port unless resuming, and trains with the
     full loss; saves the model, optimizer and history every ``save_every``
     steps and at the end, and renders alpha-{0, 0.5, 1} previews to files
-    when ``preview_dir`` is set.  Runs on ``device`` (CUDA by default) and
+    when ``preview_dir`` is set.  With ``cfg.use_dis`` it also trains the
+    discriminator (seeded init, seed + 2) and saves it to
+    ``<save_dir>/ast_dis.pt``.  Runs on ``device`` (CUDA by default) and
     never falls back to another."""
 
     def __init__(self, cfg: ASTTrainConfig,
@@ -156,16 +180,13 @@ class ASTTrainer:
                  vgg_weights: str | None = None,
                  preview_dir: str | None = None, debug_stats: bool = False,
                  device="cuda", log_fn=print):
-        if cfg.use_dis:
-            raise NotImplementedError(
-                "use_dis: the adversarial step is the GAN slice of the port, "
-                "ROADMAP queue 1 item 6")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ASTTrainer: device cuda, but CUDA is not "
                                "available (pass device='cpu' to train on the "
                                "CPU)")
         self.cfg = cfg
+        self.seed = seed
         self.content_iter = content_iter
         self.preview_dir = preview_dir
         self.debug_stats = debug_stats
@@ -182,10 +203,32 @@ class ASTTrainer:
         self._new_optimizer()
         self.step = torch.zeros((), dtype=torch.int64, device=self.device)
 
+        self.disc = None
+        if cfg.use_dis:
+            self.disc = Discriminator()
+            weights.load_state(self.disc, weights.init_dis_params(
+                torch.Generator().manual_seed(seed + 2)))
+            self.disc.to(self.device)
+            self.dis_buffers = list(self.disc.buffers())
+            self.dis_opt = Adam(
+                [(n.replace(".", "/"), p)
+                 for n, p in self.disc.named_parameters()],
+                cfg.dis_lr, cfg.dis_adam_b1, cfg.dis_adam_b2, 1e-8, None)
+            self.dis_step = torch.zeros((), dtype=torch.int64,
+                                        device=self.device)
+        # Host mirrors of the two step counters: the dropout stream and the
+        # R1 cadence must be known before the step's graph is built, and
+        # reading the device counters would sync every step.  Set from the
+        # counters here, at load and at every drain.
+        self.host_step = self.host_dis_step = 0
+
         self.save_file = os.path.join(cfg.save_dir, "ast.pt")
+        self.dis_save_file = os.path.join(cfg.save_dir, "ast_dis.pt")
         self.train_dict_file = os.path.join(cfg.save_dir,
                                             "ast_train_dict.json")
-        self.train_dict = {k: [] for k in TRAIN_DICT_KEYS}
+        self.history_keys = TRAIN_DICT_KEYS + (
+            ("dis_loss",) if cfg.use_dis else ())
+        self.train_dict = {k: [] for k in self.history_keys}
         if cfg.load:
             self.load()
         elif cfg.ae_model and ckpt.checkpoint_exists(cfg.ae_model + ".pt"):
@@ -204,22 +247,45 @@ class ASTTrainer:
         """A numpy batch (or tensor) as a float32 tensor on the device."""
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def loss_and_grads(self, content, style, mark=_no_mark):
-        """(total, aux, grads) of one batch, grads one per parameter (None
-        for a parameter the loss does not reach).  Moves the BatchNorm
-        running buffers; updates nothing else."""
+    def step_generators(self):
+        """This step's dropout generators (the generator's discriminator
+        pass, the real pass, the fake pass), from the host step mirror."""
+        return gan.step_generators(self.seed, self.host_step, self.device)
+
+    def loss_and_grads(self, content, style, mark=_no_mark,
+                       dis_generator=None):
+        """(total, aux, grads) of one batch, grads one per parameter of the
+        AST (None for a parameter the loss does not reach).  Moves the AST's
+        BatchNorm running buffers; updates nothing else.  With the
+        discriminator the loss holds the adversarial term, its dropout
+        drawn from ``dis_generator`` (required then), and aux holds "fake",
+        the detached stylized batch."""
         content, style = self._batch(content), self._batch(style)
+        adversary = None
+        if self.disc is not None:
+            if dis_generator is None:
+                raise ValueError("the adversarial term needs its dropout "
+                                 "generator (step_generators()[0])")
+
+            def adversary(t_cs):
+                return gan.generator_adversarial_loss(self.disc, t_cs,
+                                                      dis_generator)
+
         total, aux = ast_loss(self.ast, self.vgg, self.cfg, content, style,
-                              self.debug_stats, mark)
+                              self.debug_stats, mark, adversary)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         mark("backward")
         return total, aux, grads
 
     def train_step(self, content, style, mark=_no_mark):
-        """One optimizer step; returns the aux dict (device tensors), with
-        "grad_norm" and "finite" added."""
+        """One optimizer step (and one of the discriminator, with one);
+        returns the aux dict (device tensors), with "grad_norm" and
+        "finite" added."""
+        content, style = self._batch(content), self._batch(style)
+        gens = self.step_generators() if self.disc is not None else [None]
         before = torch.cat([b.reshape(-1) for b in self.buffers])
-        _, aux, grads = self.loss_and_grads(content, style, mark)
+        _, aux, grads = self.loss_and_grads(content, style, mark, gens[0])
+        fake = aux.pop("fake", None)
         norm, ok = self.opt.apply_if_finite(grads)
         keep_if(ok, self.buffers, before)
         with torch.no_grad():
@@ -230,6 +296,18 @@ class ASTTrainer:
                 if g is not None}
         aux["grad_norm"], aux["finite"] = norm, ok
         mark("optimizer")
+        if self.disc is not None:
+            dis_aux, dis_ok = gan.discriminator_step(
+                self.disc, self.dis_opt, self.cfg, content, fake, gens[1],
+                gens[2], self.host_dis_step, mark=mark)
+            with torch.no_grad():
+                self.dis_step += dis_ok.to(self.dis_step.dtype)
+            aux.update(dis_aux)
+            aux["finite"] = ok & dis_ok
+            # The mirror runs ahead of a counter only after a skipped step,
+            # and that raises at the next drain, before any save.
+            self.host_dis_step += 1
+        self.host_step += 1
         return aux
 
     # -- persistence ---------------------------------------------------------
@@ -237,15 +315,35 @@ class ASTTrainer:
     def save(self):
         ckpt.save_checkpoint(self.save_file, weights.module_state(self.ast),
                              self.opt.state_dict(), self.step)
+        if self.disc is not None:
+            ckpt.save_checkpoint(self.dis_save_file,
+                                 weights.module_state(self.disc),
+                                 self.dis_opt.state_dict(), self.dis_step)
         ckpt.save_history(self.train_dict_file, self.train_dict)
 
     def load(self):
+        """Resume from ``ast.pt`` (and ``ast_dis.pt`` when it exists) and
+        the history."""
         tree = ckpt.restore_checkpoint(self.save_file, self.device)
         weights.load_state(self.ast, tree)
         self.opt.load_state_dict(tree["opt_state"])
         self.step = tree["step"].to(self.device, torch.int64)
+        if self.disc is not None and ckpt.checkpoint_exists(
+                self.dis_save_file):
+            tree = ckpt.restore_checkpoint(self.dis_save_file, self.device)
+            weights.load_state(self.disc, tree)
+            self.dis_opt.load_state_dict(tree["opt_state"])
+            self.dis_step = tree["step"].to(self.device, torch.int64)
+        self._sync_host_steps()
         if os.path.exists(self.train_dict_file):
             self.train_dict = ckpt.load_history(self.train_dict_file)
+            for k in self.history_keys:
+                self.train_dict.setdefault(k, [])
+
+    def _sync_host_steps(self):
+        self.host_step = int(self.step)
+        if self.disc is not None:
+            self.host_dis_step = int(self.dis_step)
 
     def load_ae(self, ae_path: str):
         """Warm-start enc, ada_out and dec from a Stage-1 AE checkpoint in
@@ -283,7 +381,7 @@ class ASTTrainer:
         if a buffered step saw a non-finite gradient (it applied nothing)."""
         if not pending:
             return
-        keys = TRAIN_DICT_KEYS + ("grad_norm", "finite")
+        keys = self.history_keys + ("grad_norm", "finite")
         host = torch.stack([torch.stack([a[k].float() for k in keys])
                             for a in pending]).cpu().numpy()
         last = pending[-1]
@@ -293,12 +391,13 @@ class ASTTrainer:
                 raise FloatingPointError(
                     f"non-finite gradient norm at iter {first_iter + i}: "
                     f"{row[-2]} (update was skipped, not applied)")
-            for k, value in zip(TRAIN_DICT_KEYS, row):
+            for k, value in zip(self.history_keys, row):
                 self.train_dict[k].append(float(value))
+        self._sync_host_steps()
         if log_fn is not None:
             it = first_iter + len(host) - 1
             log_fn(f"iter {it}: " + " ".join(
-                f"{k}={v:.5f}" for k, v in zip(TRAIN_DICT_KEYS, host[-1])))
+                f"{k}={v:.5f}" for k, v in zip(self.history_keys, host[-1])))
             for name, v in sorted(last.get("grad_absmean", {}).items()):
                 log_fn(f"  grad|{name}|.mean = {float(v):.4e}")
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .models.mobilenetv2 import Discriminator
 from .ops.blocks import make_divisible
 
 _COLLECTIONS = ("params", "batch_stats")
@@ -196,6 +197,27 @@ def init_ae_params(cfg: ModelConfig = ModelConfig(), generator=None):
     params = {"encoder": enc_p, "ada_out": _init_ada_out(gen, cfg),
               "decoder": _init_decoder(gen, cfg)}
     return {"params": params, "batch_stats": {"encoder": enc_s}}
+
+
+def init_dis_params(generator=None):
+    """A seeded state with the JAX Discriminator tree's names and shapes
+    (CPU): every conv kernel (k, k, in, out) ~ N(0, sqrt(2 / (k*k*out))),
+    the classifier's kernel ~ N(0, 0.01) with a zero bias, BN scale 1 and
+    bias 0, running mean 0 and var 1."""
+    gen = generator if generator is not None else torch.Generator()
+    flat = {}
+    for key, t in flatten(module_state(Discriminator())).items():
+        name = key.rsplit("/", 2)
+        if key.endswith("classifier/kernel"):
+            flat[key] = _normal(gen, t.shape, 0.01)
+        elif name[-1] == "kernel":
+            k, _, _, c_out = t.shape
+            flat[key] = _he(gen, k, t.shape[2], c_out)
+        elif name[-1] in ("scale", "var"):
+            flat[key] = torch.ones(t.shape)
+        else:  # biases, running means
+            flat[key] = torch.zeros(t.shape)
+    return unflatten(flat)
 
 
 # -- the nn.Module bridge ----------------------------------------------------

@@ -74,7 +74,20 @@
    ``adaattn_fwd``, 2 ``adaattn_dq`` and 2 ``adaattn_dkv`` and nothing else,
    with a finite loss, a step counter that advances and BatchNorm buffers
    that move; a checkpoint save/restore round trip; a profile of one step
-   by phase and by kernel.
+   by phase and by kernel.  Then the GAN step: the same trainer with
+   ``use_dis`` (the full MobileNetV2 discriminator, dropout 0.2), its
+   kernel step held against the twins' and the float64 AdaAttN stage's
+   with the GAN terms (gen_adv_loss, dis_loss and the discriminator's
+   gradients beside the loss and the AdaAttN gradients, and the AdaAttN
+   gradients of the adversarial term alone); warm-up steps at 96, 128 and
+   160px up to the first R1 step, then GAN_STEPS steps at 160px, each
+   launching exactly the train step's kernels, with finite losses, both
+   counters advancing, the discriminator's BatchNorm buffers moving and R1
+   nonzero exactly on its steps; a save and a resume that takes the next
+   step bit for bit as the run does (dropout masks included); the median
+   ms without R1, the R1 steps' ms, each timed step's device time by phase
+   (CUDA events at the trainer's marks, R1 included), and a profile of one
+   GAN step by kernel.
 6. Lifecycle, from training to serving, over synthetic PNGs written to a
    temporary folder and read by the port's loaders, TF32 off:
    ``AutoencoderTrainer`` (batch 16, 256px, f32, the parity weights) takes
@@ -158,6 +171,15 @@ STEP_BATCHES = 3
 TRAIN_OWN_SEEDS, TRAIN_OWN_RATIO = (103, 108), 5e4
 TRAIN_WATCH_SEEDS = ()
 TRAIN_LAUNCHES = counts(adaattn_fwd=2, adaattn_dq=2, adaattn_dkv=2)
+# The GAN step: the train phase's trainer with ``use_dis`` (the
+# full MobileNetV2 discriminator, dropout 0.2, seeded init); one warm-up
+# step at each of the first buckets, then warm-up steps at the last bucket
+# up to and including the first R1 step (discriminator step 7), so that no
+# timed step pays the double backward's first use; then GAN_STEPS timed
+# steps at the last bucket run the discriminator's steps 8-23, R1 at 15 and
+# 23.  Each launches TRAIN_LAUNCHES: the discriminator is plain PyTorch, as
+# JAX's is XLA.
+GAN_STEPS = 16
 # The lifecycle, from training to serving: the Stage-1 autoencoder at
 # AETrainConfig's width (batch 16, 256px, f32), the AST warm-started from its
 # checkpoint (160px batch 8, the AdaAttN kernels), then that checkpoint
@@ -178,11 +200,17 @@ RECAL_BATCHES, RECAL_SIZE = 16, 320
 LIFE_WORKERS = 1
 # The AE's first step's loss against the same step in float64.
 AE_LOSS_TOL = 1e-4
-# The recalibrated state's unclamped image through the graph engine and the
-# fused engine's plain route (BatchNorm folded), both in float64: relative
-# distance.  Folding changes only the rounding, so the distance falls with
-# the unit roundoff (float32's, amplified by the state, parts the two by
-# 1e-2 to 1); a fault in the folding would not.
+# The recalibrated state through the graph engine and the fused engine's
+# plain route (BatchNorm folded), both in float64, stage by stage on the
+# same inputs (the encoder's taps, the attention and ada_out fuse, the
+# decoder): relative distance.  Folding changes only the rounding, so the
+# distance falls with the unit roundoff (the encoder's taps ~1e-12 apart in
+# float64); a fault in the folding would not.  The whole image is not held
+# to it: the decoder of the phase's near-init state amplifies the distance
+# of its input by a factor that moves by orders of magnitude from one
+# retraining to the next, and the image's distance with it
+# (``scripts/fold_gap_spread.py`` in the port); its response to one ulp on
+# the taps is logged beside it.
 FOLD_F64_TOL = 1e-6
 # Launches per graph-engine request: one adaattn_fwd per AdaAttN module.
 GRAPH_LAUNCHES = counts(adaattn_fwd=2)
@@ -2305,15 +2333,177 @@ def train_phase(gen):
     return launches, ms, peak_gib
 
 
-def make_trainer(tmp, batches):
+def gan_phase(gen, train_ms):
+    """``ASTTrainer`` with ``use_dis`` on the card: the kernel-vs-twin step
+    with the GAN terms, warm-up through the first R1 step, timed steps with
+    their launches, R1's cadence and their device time by phase, a
+    save/resume that continues the run bit for bit, and a profile by
+    kernel.  Returns the launches of the timed steps, the median ms without
+    R1, the R1 steps' ms and the peak memory."""
+    import tempfile
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch import weights
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from arbitrarystyletransfer_tpu_torch.train import gan
+
+    with tempfile.TemporaryDirectory() as tmp:
+        batches = {size: _uniform_batches(gen, size) for size in TRAIN_SIZES}
+        trainer = make_trainer(tmp, batches[TRAIN_SIZES[-1]], use_dis=True)
+        log(f"gan: discriminator of {sum(p.numel() for p in trainer.dis_opt.params)}"
+            " parameters, dropout "
+            f"{trainer.disc.mobnet.dropout_rate}")
+        log("gan gate (kernels vs twins, with the GAN terms):")
+        kernel_vs_twin_step(trainer, next(batches[TRAIN_SIZES[-1]]))
+        sizes = list(TRAIN_SIZES[:-1]) + [TRAIN_SIZES[-1]] * (
+            gan.R1_EVERY - len(TRAIN_SIZES) + 1)
+        for size in sizes:
+            dis_step = trainer.host_dis_step
+            t0 = time.perf_counter()
+            aux = trainer.train_step(*next(batches[size]))
+            torch.cuda.synchronize()
+            log(f"gan warm-up {size}px at dis step {dis_step}: "
+                f"{time.perf_counter() - t0:.3f} s, loss "
+                f"{float(aux['loss']):.6g}, dis_loss "
+                f"{float(aux['dis_loss']):.6g}, r1_loss "
+                f"{float(aux['r1_loss']):.6g}")
+        check(gan.r1_due(dis_step), f"the last warm-up step (dis step "
+              f"{dis_step}) is no R1 step")
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        plain, r1_steps, rows, marks = [], [], [], []
+        phases = {False: [], True: []}
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        for _ in range(GAN_STEPS):
+            content, style = next(batches[TRAIN_SIZES[-1]])
+            dis_step = trainer.host_dis_step
+            counters = (int(trainer.step), int(trainer.dis_step))
+            dis_buffers = [b.clone() for b in trainer.dis_buffers]
+            before = dict(LAUNCHES)
+            marks.clear()
+            end = torch.cuda.Event(enable_timing=True)
+            mark("start")
+            aux = trainer.train_step(content, style, mark=mark)
+            end.record()
+            torch.cuda.synchronize()
+            ms = marks[0][1].elapsed_time(end)
+            n = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            row = {k: float(aux[k]) for k in (
+                "loss", "gen_adv_loss", "dis_loss", "r1_loss",
+                "dis_grad_norm")}
+            due = gan.r1_due(dis_step)
+            rows.append((dis_step, round(ms, 3), row))
+            (r1_steps if due else plain).append(ms)
+            phases[due].append({name: a.elapsed_time(b) for (_, a), (name, b)
+                                in zip(marks, marks[1:])})
+            check(n == TRAIN_LAUNCHES, f"gan step at dis step {dis_step} "
+                  f"launched {n}, expected {TRAIN_LAUNCHES}")
+            check(bool(aux["finite"]), f"gan step at dis step {dis_step}: "
+                  f"not finite {row}")
+            check(all(math.isfinite(row[k]) for k in (
+                "loss", "gen_adv_loss", "dis_loss")), f"gan losses {row}")
+            check((int(trainer.step), int(trainer.dis_step))
+                  == (counters[0] + 1, counters[1] + 1),
+                  f"gan step counters {counters} -> "
+                  f"{int(trainer.step), int(trainer.dis_step)}")
+            check(any(not torch.equal(a, b) for a, b in
+                      zip(dis_buffers, trainer.dis_buffers)),
+                  "the discriminator's BatchNorm buffers did not move")
+            check((row["r1_loss"] != 0) == due,
+                  f"r1_loss {row['r1_loss']} at dis step {dis_step} (due: "
+                  f"{due})")
+        launches = dict(LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(len(r1_steps) == GAN_STEPS // gan.R1_EVERY,
+              f"{len(r1_steps)} R1 steps among the timed steps")
+        ms_plain = statistics.median(plain)
+        log(f"gan steps (dis step, ms, values): {rows}")
+        log(f"gan step {TRAIN_SIZES[-1]}px batch {TRAIN_BATCH} f32: median "
+            f"{ms_plain:.3f} ms without R1 ({len(plain)} steps), R1 steps "
+            f"{[round(t, 3) for t in r1_steps]} ms (median "
+            f"{statistics.median(r1_steps):.3f}); the plain train step "
+            f"{train_ms:.3f} ms in this run; launches per step "
+            f"{TRAIN_LAUNCHES}; peak memory {peak_gib:.2f} GiB")
+        for due, label in ((False, f"median of the {len(plain)} steps "
+                            "without R1"), (True, "the R1 steps")):
+            split = {name: [p[name] for p in phases[due]]
+                     for name in phases[due][0]}
+            log(f"gan step device time by phase (CUDA events at the "
+                f"trainer's marks), {label}: " + ", ".join(
+                    f"{name} {statistics.median(t):.3f} ms" if not due else
+                    f"{name} {[round(x, 3) for x in t]} ms"
+                    for name, t in split.items()))
+
+        # Save, resume in a second trainer, and take the same step in both:
+        # equal bit for bit, dropout masks included (cuDNN deterministic).
+        det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            trainer.save()
+            resumed = make_resumed(tmp, trainer)
+            batch = next(batches[TRAIN_SIZES[-1]])
+            aux_a, aux_b = (t.train_step(*batch) for t in (trainer, resumed))
+            diff = {k: float((aux_a[k] - aux_b[k]).abs()) for k in (
+                "loss", "gen_adv_loss", "dis_loss", "grad_norm",
+                "dis_grad_norm")}
+            flat_a = weights.flatten(weights.module_state(trainer.disc))
+            flat_b = weights.flatten(weights.module_state(resumed.disc))
+            flat_a.update(weights.flatten(weights.module_state(trainer.ast)))
+            flat_b.update(weights.flatten(weights.module_state(resumed.ast)))
+            unequal = [k for k in flat_a
+                       if not torch.equal(flat_a[k], flat_b[k])]
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = det
+        log(f"gan resume: ast_dis.pt step {int(resumed.dis_step) - 1}, "
+            f"the resumed step against the run's: |diff| {diff}, "
+            f"{len(unequal)} of {len(flat_a)} tensors unequal")
+        check(not any(diff.values()) and not unequal,
+              f"the resumed step differs: {diff}, {unequal[:5]}")
+        del resumed
+        profile_train_step(trainer, next(batches[TRAIN_SIZES[-1]]),
+                           label="gan")
+    return launches, ms_plain, r1_steps, peak_gib
+
+
+def make_resumed(tmp, trainer):
+    """A trainer like ``trainer`` that resumes from its checkpoints under
+    ``tmp`` (``ast.pt``, ``ast_dis.pt``)."""
+    import dataclasses
+
+    from arbitrarystyletransfer_tpu_torch.train.ast_trainer import ASTTrainer
+
+    resumed = ASTTrainer(dataclasses.replace(trainer.cfg, load=True),
+                         iter(()), model_cfg=trainer.ast.cfg, seed=SEED,
+                         preview_dir=None, device=DEVICE,
+                         log_fn=lambda *a: None)
+    check((resumed.host_step, resumed.host_dis_step)
+          == (trainer.host_step, trainer.host_dis_step),
+          f"resumed at {resumed.host_step, resumed.host_dis_step}")
+    return resumed
+
+
+def make_trainer(tmp, batches, use_dis=False):
     """The train phase's ``ASTTrainer`` (saving under ``tmp``), with the
     parity tests' weights and its head normalized on the first batch of
-    ``batches``, which it also trains on."""
+    ``batches``, which it also trains on; with ``use_dis``, the GAN
+    phase's (the discriminator at its seeded init)."""
     from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
     from arbitrarystyletransfer_tpu_torch.config import ASTTrainConfig
     from arbitrarystyletransfer_tpu_torch.train.ast_trainer import ASTTrainer
 
-    tcfg = ASTTrainConfig(batch_size=TRAIN_BATCH, save_dir=tmp, ae_model="")
+    tcfg = ASTTrainConfig(batch_size=TRAIN_BATCH, save_dir=tmp, ae_model="",
+                          use_dis=use_dis)
     model_cfg = ModelConfig(use_pallas_adaattn=True)
     trainer = ASTTrainer(tcfg, batches, model_cfg=model_cfg, seed=SEED,
                          preview_dir=None, device=DEVICE, log_fn=log)
@@ -2388,7 +2578,10 @@ def kernel_vs_twin_step(trainer, batch, variants=None, gate=True):
     reaches these gradients amplified by the largest (mean / std)^2, which
     is logged.  A fixed share held the kernels to the twins' own rounding.
     Every comparison is logged before any is checked (none with ``gate``
-    false).  ``variants`` ({name: statistics function}) adds the loss of
+    false).  With a discriminator, its terms (``gan_gates``) and the
+    projection gradients of ``dis_lam`` times the adversarial term alone
+    are held too, the latter like the step's at limits of their own size.
+    ``variants`` ({name: statistics function}) adds the loss of
     the step with each as its AdaAttN stage, against D.  Returns the
     distances: {"loss": relative distance of A, "own": of B, "ratio": the
     largest (mean / std)^2, "variants": {name: relative distance},
@@ -2410,33 +2603,49 @@ def kernel_vs_twin_step(trainer, batch, variants=None, gate=True):
             1e-30)).max()))
         return fold_real(mean, std, dmean, dstd, v)
 
-    def run(**patch):
+    def run(adversarial_only=False, **patch):
         """The step with ``patch``'s attributes of ``fwd_mod``/``bwd_mod``
-        replaced."""
+        replaced.  With a discriminator, also its terms on the step's fake
+        batch (``discriminator_terms``), which the last item holds; with
+        ``adversarial_only``, the step's loss is ``dis_lam`` times the
+        adversarial term alone (every other weight 0)."""
         mods = {name: fwd_mod if hasattr(fwd_mod, name) else bwd_mod
                 for name in patch}
         saved = {name: getattr(mods[name], name) for name in patch}
         for name, fn in patch.items():
             setattr(mods[name], name, fn)
+        cfg = trainer.cfg
+        if adversarial_only:
+            trainer.cfg = dataclasses.replace(cfg, **{
+                k: 0.0 for k in ("content_lam", "style_lam", "lf_lam",
+                                 "tv_lam", "hist_lam", "org_img_lam",
+                                 "out_of_range_lam")})
         before = dict(LAUNCHES)
+        gens = trainer.step_generators() if trainer.disc is not None else [
+            None]
         try:
-            loss, _, grads = trainer.loss_and_grads(*batch)
+            loss, aux, grads = trainer.loss_and_grads(
+                *batch, dis_generator=gens[0])
         finally:
+            trainer.cfg = cfg
             for name, fn in saved.items():
                 setattr(mods[name], name, fn)
         for b, saved_b in zip(trainer.buffers, buffers):
             b.copy_(saved_b)
         launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-        return float(loss.detach()), grads, launched
+        dis = (None if trainer.disc is None or adversarial_only else
+               discriminator_terms(trainer, batch[0], aux, gens))
+        return float(loss.detach()), grads, launched, dis
 
     twin_bwd = dict(adaattn_dq=bwd_mod.adaattn_dq_reference,
                     adaattn_dkv=bwd_mod.adaattn_dkv_reference)
     fold_real = fwd_mod.fold_cotangents
-    loss_a, grads_a, n_a = run(fold_cotangents=fold)
-    loss_c, grads_c, n_c = run(**twin_bwd)
-    loss_b, grads_b, n_b = run(adaattn_fwd=fwd_mod.adaattn_fwd_reference,
-                               **twin_bwd)
-    loss_d, grads_d, n_d = run(adaattn_statistics=adaattn_statistics_f64)
+    loss_a, grads_a, n_a, dis_a = run(fold_cotangents=fold)
+    loss_c, grads_c, n_c, dis_c = run(**twin_bwd)
+    loss_b, grads_b, n_b, dis_b = run(
+        adaattn_fwd=fwd_mod.adaattn_fwd_reference, **twin_bwd)
+    loss_d, grads_d, n_d, dis_d = run(
+        adaattn_statistics=adaattn_statistics_f64)
     check(n_a == TRAIN_LAUNCHES, f"the kernel step launched {n_a}")
     check(n_c["adaattn_dq"] == n_c["adaattn_dkv"] == 0
           and n_c["adaattn_fwd"] == TRAIN_LAUNCHES["adaattn_fwd"],
@@ -2459,30 +2668,120 @@ def kernel_vs_twin_step(trainer, batch, variants=None, gate=True):
         log(f"  loss with the AdaAttN stage {name}: {loss_v:.9g} (relative "
             f"{dist['variants'][name]:.3g} from the float64 step's)")
     failed = [] if rel <= tol_loss else ["the kernel step's loss differs"]
-    for name in names:
-        ga, gb, gc, gd = (g[index[name]]
-                          for g in (grads_a, grads_b, grads_c, grads_d))
-        err, err_d, own = max_err(ga, gc), max_err(ga, gd), max_err(gb, gd)
-        tol = STEP_GRAD_TOL * float(gc.abs().max())
-        tol_d = max(STEP_GRAD_TOL * float(gd.abs().max()),
-                    STEP_OWN_FACTOR * own)
-        log(f"  grad {name}: kernels vs twin backward max abs err "
-            f"{err:.4g} (tol {tol:.4g}); vs the float64 step {err_d:.4g} "
-            f"(tol {tol_d:.4g}; the twins' step {own:.4g} from it, the "
-            f"kernels' {max_err(ga, gb):.4g} from the twins'); max |g| "
-            f"{float(gc.abs().max()):.4g}")
-        if err > tol:
-            failed.append(f"the kernel step's gradient of {name} differs")
-        if err_d > tol_d:
-            failed.append(f"the kernel step's gradient of {name} differs "
-                          "from the float64 step's")
+    failed += projection_gates(
+        "grad", [[g[index[n]] for n in names]
+                 for g in (grads_a, grads_b, grads_c, grads_d)], names)
+    if dis_a is not None:
+        failed += gan_gates(dis_a, dis_b, dis_c, dis_d)
+        # The adversarial term alone (every other weight 0): its share of
+        # the gradients above is far below their limits, so it is held to
+        # limits of its own size here.
+        adv = [run(adversarial_only=True, **patch) for patch in (
+            dict(), dict(adaattn_fwd=fwd_mod.adaattn_fwd_reference,
+                         **twin_bwd),
+            twin_bwd, dict(adaattn_statistics=adaattn_statistics_f64))]
+        check(adv[0][2] == TRAIN_LAUNCHES,
+              f"the adversarial-only kernel step launched {adv[0][2]}")
+        grads = [[g[index[n]] for n in names] for _, g, _, _ in adv]
+        missing = [n for n, g in zip(names, grads[0])
+                   if g is None or not bool((g != 0).any())]
+        if missing:
+            failed.append("the adversarial cotangent does not reach "
+                          f"{missing}")
+        else:
+            failed += projection_gates("adversarial grad", grads, names)
     dist["failed"] = failed
     if gate:
         check(not failed, "; ".join(failed))
     return dist
 
 
-def profile_train_step(trainer, batch, top=12):
+def projection_gates(label, grads, names):
+    """``kernel_vs_twin_step``'s gates on the AdaAttN projection gradients
+    ``grads`` (four lists over ``names``: A kernels, B twins, C kernel
+    forward with the twins' backward, D the float64 AdaAttN stage): A
+    against C at ``STEP_GRAD_TOL`` of C's max, A against D at the larger of
+    ``STEP_GRAD_TOL`` of D's max and ``STEP_OWN_FACTOR`` times B's distance
+    to D.  Logs each; returns what failed."""
+    failed = []
+    for name, ga, gb, gc, gd in zip(names, *grads):
+        err, err_d, own = max_err(ga, gc), max_err(ga, gd), max_err(gb, gd)
+        tol = STEP_GRAD_TOL * float(gc.abs().max())
+        tol_d = max(STEP_GRAD_TOL * float(gd.abs().max()),
+                    STEP_OWN_FACTOR * own)
+        log(f"  {label} {name}: kernels vs twin backward max abs err "
+            f"{err:.4g} (tol {tol:.4g}); vs the float64 step {err_d:.4g} "
+            f"(tol {tol_d:.4g}; the twins' step {own:.4g} from it, the "
+            f"kernels' {max_err(ga, gb):.4g} from the twins'); max |g| "
+            f"{float(gc.abs().max()):.4g}")
+        if err > tol:
+            failed.append(f"the kernel step's {label} of {name} differs")
+        if err_d > tol_d:
+            failed.append(f"the kernel step's {label} of {name} differs "
+                          "from the float64 step's")
+    return failed
+
+
+def discriminator_terms(trainer, content, aux, gens):
+    """The discriminator's loss and gradients at the trainer's next
+    discriminator step on the fake batch of ``aux`` (``loss_and_grads``'s),
+    its BatchNorm buffers put back: {"gen_adv_loss", "dis_loss" (floats),
+    "grads"}."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.train import gan
+
+    saved = [b.clone() for b in trainer.dis_buffers]
+    total, dis_aux = gan.discriminator_loss_terms(
+        trainer.disc, trainer.cfg, trainer._batch(content), aux["fake"],
+        gens[1], gens[2], trainer.host_dis_step)
+    grads = torch.autograd.grad(total, trainer.dis_opt.params)
+    with torch.no_grad():
+        torch._foreach_copy_(trainer.dis_buffers, saved)
+    return {"gen_adv_loss": float(aux["gen_adv_loss"]),
+            "dis_loss": float(dis_aux["dis_loss"]), "grads": grads}
+
+
+def gan_gates(dis_a, dis_b, dis_c, dis_d):
+    """``kernel_vs_twin_step``'s gates on the GAN terms of its four steps
+    (A kernels, B twins, C kernel forward with the twins' backward, D the
+    float64 AdaAttN stage): gen_adv_loss and dis_loss A against D at the
+    larger of ``STEP_LOSS_TOL`` and ``STEP_OWN_FACTOR`` times B's distance
+    to D; each of the discriminator's gradients A against C at
+    ``STEP_GRAD_TOL`` of its max (C's fake batch is A's: the same forward)
+    and A against D at the larger of ``STEP_GRAD_TOL`` of the max and
+    ``STEP_OWN_FACTOR`` times B's distance.  Logs the worst share of each
+    limit; returns what failed."""
+    failed = []
+    for key in ("gen_adv_loss", "dis_loss"):
+        a, b, d = dis_a[key], dis_b[key], dis_d[key]
+        rel, own = (abs(x - d) / max(abs(d), 1e-30) for x in (a, b))
+        tol = max(STEP_LOSS_TOL, STEP_OWN_FACTOR * own)
+        log(f"  {key}: kernels {a:.9g} vs the float64 step {d:.9g} "
+            f"(relative {rel:.3g}, tol {tol:.3g}; the twins' {b:.9g}, "
+            f"{own:.3g} from it)")
+        if rel > tol:
+            failed.append(f"the kernel step's {key} differs")
+    worst_c = worst_d = 0.0
+    for ga, gb, gc, gd in zip(dis_a["grads"], dis_b["grads"],
+                              dis_c["grads"], dis_d["grads"]):
+        tol = STEP_GRAD_TOL * max(float(gc.abs().max()), 1e-30)
+        tol_d = max(STEP_GRAD_TOL * float(gd.abs().max()),
+                    STEP_OWN_FACTOR * max_err(gb, gd), 1e-30)
+        worst_c = max(worst_c, max_err(ga, gc) / tol)
+        worst_d = max(worst_d, max_err(ga, gd) / tol_d)
+    log(f"  discriminator gradients ({len(dis_a['grads'])} tensors): worst "
+        f"share of the limit, kernels vs the twin backward {worst_c:.3g}, "
+        f"vs the float64 step {worst_d:.3g}")
+    if worst_c > 1:
+        failed.append("the kernel step's discriminator gradients differ "
+                      "from the twin backward's")
+    if worst_d > 1:
+        failed.append("the kernel step's discriminator gradients differ "
+                      "from the float64 step's")
+    return failed
+
+
+def profile_train_step(trainer, batch, top=12, label="train"):
     """Device time of one step by phase (CUDA events at the trainer's
     marks) and by kernel (torch.profiler), with the AdaAttN kernels'
     share."""
@@ -2509,7 +2808,7 @@ def profile_train_step(trainer, batch, top=12):
     busy = sum(e.self_device_time_total for e in events) / 1000
     att = sum(e.self_device_time_total for e in events
               if "adaattn" in e.key) / 1000
-    log(f"train profile of one step: {wall:.3f} ms (CUDA events, profiler "
+    log(f"{label} profile of one step: {wall:.3f} ms (CUDA events, profiler "
         f"on): {phases}; {busy:.3f} ms of device kernels ({busy / wall:.1%} "
         f"busy), AdaAttN kernels {att:.3f} ms ({att / max(busy, 1e-9):.1%} of device "
         f"time), {len(events)} distinct kernels")
@@ -2519,7 +2818,7 @@ def profile_train_step(trainer, batch, top=12):
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.self_device_time_total > 0]
-    log("train step by op (self device time):")
+    log(f"{label} step by op (self device time):")
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1000:9.3f} ms  x{e.count:<4d} "
             f"{e.key[:90]}")
@@ -2847,30 +3146,73 @@ def life_graph(ast_path, requests):
     return launches, ms
 
 
-def folding_gap(state, cfg, content, style, dtype):
-    """Relative distance between the unclamped alpha-1 images of ``state``
-    through the graph engine and through the fused engine's plain route
-    (BatchNorm folded), both in ``dtype``."""
+def folding_gaps(state, cfg, content, style, dtype):
+    """The graph engine against the fused engine's plain route (BatchNorm
+    folded), both in ``dtype``, as relative distances: stage by stage on
+    the same inputs ("encoder": the taps of both images; "attend": the
+    AdaAttN pair and the ada_out fuse on the graph's taps; "decoder": the
+    unclamped image from the graph's fused map), then the whole unclamped
+    alpha-1 image ("image"), and the graph image's own response to a
+    one-ulp relative perturbation of its taps ("ulp")."""
     import torch
     from arbitrarystyletransfer_tpu_torch import engine, weights
     from arbitrarystyletransfer_tpu_torch.models.ast import AST
+    from arbitrarystyletransfer_tpu_torch.ops.fused_block import (
+        block_apply,
+        decode_fused,
+        encode_fused,
+    )
+
+    def rel(out, ref):
+        out, ref = out.double(), ref.double()
+        check(bool(torch.isfinite(out).all()),
+              f"folding_gaps {dtype}: a folded output is not finite")
+        return float((out - ref).norm() / ref.norm())
 
     cfg = dataclasses.replace(cfg, compute_dtype="float32",
                               use_pallas_adaattn=False)
     ast = AST(cfg).to(DEVICE, dtype).requires_grad_(False)
     weights.load_state(ast, state)
+    tree = weights.module_state(ast)
+    params, stats = tree["params"], tree["batch_stats"]
     c, s = content.to(dtype), style.to(dtype)
+    b, ubs, plain = c.shape[0], not cfg.encoder_eval_stats, 10**9
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def ulp(maps):
+        eps = torch.finfo(dtype).eps
+        return [m * (1 + eps * (2 * torch.rand(
+            m.shape, generator=gen, device=DEVICE, dtype=dtype) - 1))
+            for m in maps]
+
+    gaps = {}
     with torch.inference_mode():
-        graph = ast.dec(ast.encode(c, s, train=False)).double()
+        cm, sm = ast._taps(c, False, ubs), ast._taps(s, False, ubs)
         # No block reaches min_fused_size: every block takes the plain
         # route.
-        fused = engine.stylize_fused(
-            weights.module_state(ast), c, s, 1.0, cfg=cfg, dtype=dtype,
-            min_fused_size=10**9, exporting=False).double()
-    check(graph.dtype == fused.dtype and bool(torch.isfinite(fused).all()),
-          f"folding_gap {dtype}: {fused.dtype}, finite "
-          f"{bool(torch.isfinite(fused).all())}")
-    return float((fused - graph).norm() / graph.norm())
+        both = encode_fused(params["enc"], stats["enc"], torch.cat([c, s]),
+                            cfg.enc_conv_shapes, cfg.enc_out_layers,
+                            expand_ratio=cfg.expand_ratio, dtype=dtype,
+                            min_fused_size=plain)
+        gaps["encoder"] = max(rel(m, torch.cat([g, h]))
+                              for m, g, h in zip(both, cm, sm))
+        t = ast._attend(cm, sm)[2]
+        sm1, sm2 = engine.adaattn_apply_pair(
+            params["ada_att_1"], params["ada_att_2"], cm, sm,
+            use_kernel=False, dtype=dtype)
+        gaps["attend"] = rel(block_apply(
+            params["ada_out"], torch.cat([sm1, sm2], dim=-1), 3,
+            cfg.expand_ratio, use_identity=False, dtype=dtype,
+            min_fused_size=plain), t)
+        graph = ast.dec(t)
+        gaps["decoder"] = rel(decode_fused(
+            params["dec"], t, cfg.decoder_conv_shapes, exporting=False,
+            dtype=dtype, min_fused_size=plain), graph)
+        gaps["image"] = rel(engine.stylize_fused(
+            tree, c, s, 1.0, cfg=cfg, dtype=dtype, min_fused_size=plain,
+            exporting=False), graph)
+        gaps["ulp"] = rel(ast.dec(ast._attend(ulp(cm), ulp(sm))[2]), graph)
+    return gaps
 
 
 def shadowed(pipe, content, style, alpha):
@@ -3012,15 +3354,19 @@ def life_fused(ast_path, dirs, requests):
         f"{ref_drift!r}")
 
     # The folding, in float64 and float32, on the recalibrated state with
-    # the checkpoint's head.
+    # the checkpoint's head: each stage on the same inputs in float64 within
+    # FOLD_F64_TOL; the whole image's distance is the state's amplification
+    # of the encoder's rounding, and is logged beside its response to one
+    # ulp on the taps.
     content, style = requests[0][:2]
-    gap64, gap32 = (folding_gap(pipe.state, pipe.cfg, content, style, dt)
-                    for dt in (torch.float64, torch.float32))
+    gaps64, gaps32 = (folding_gaps(pipe.state, pipe.cfg, content, style, dt)
+                      for dt in (torch.float64, torch.float32))
     log(f"lifecycle recalibrated state, graph engine vs the fused engine's "
-        f"plain route, unclamped image: {gap64:.4g} apart (relative) in "
-        f"float64 (tol {FOLD_F64_TOL}), {gap32:.4g} in float32")
-    check(gap64 <= FOLD_F64_TOL, "the folded and unfolded BatchNorm "
-          "disagree in float64")
+        f"plain route, relative: float64 {gaps64}, float32 {gaps32} (tol "
+        f"{FOLD_F64_TOL} on the float64 encoder, attend and decoder)")
+    for stage in ("encoder", "attend", "decoder"):
+        check(gaps64[stage] <= FOLD_F64_TOL, f"the folded and unfolded "
+              f"{stage} disagree in float64: {gaps64[stage]}")
 
     # The head normalized on the graph engine's f32 image (as routes_phase
     # does), then the route's requests, counted.
@@ -3182,6 +3528,10 @@ def main() -> int:
     bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
     launches = phase("routes", routes_phase, gen)
     launches["train"], train_ms, train_peak = phase("train", train_phase, gen)
+    # The GAN phase draws from a generator of its own.
+    gen14 = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    launches["gan"], gan_ms, gan_r1_ms, gan_peak = phase(
+        "gan", gan_phase, gen14, train_ms)
     # The lifecycle phase draws from a generator of its own.
     gen13 = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
     launches.update(phase("lifecycle", lifecycle_phase, gen13, card))
@@ -3223,7 +3573,8 @@ def main() -> int:
     ] + [row(name, source, "scripts/" + replaces, *probe_rows[name])
          for name, source, replaces in PROBE_ROWS]
     log("kernels: launches = sum over the routes' requests, the timed "
-        "train steps, the lifecycle phase's runs (warm-started-ast: its AST "
+        "train steps, the GAN phase's timed steps (gan), the lifecycle "
+        "phase's runs (warm-started-ast: its AST "
         "steps; flax: the graph engine's requests; recalibrated-auto: the "
         "recalibrated fused engine's requests) and the two probe drivers' "
         "runs (counted per route, path or driver); for the stylize kernels "
@@ -3265,6 +3616,9 @@ def main() -> int:
     log(f"train: {train_ms:.3f} ms per {TRAIN_SIZES[-1]}px batch-"
         f"{TRAIN_BATCH} f32 step ({1000 / train_ms:.3f} steps/s), peak "
         f"memory {train_peak:.2f} GiB")
+    log(f"gan: {gan_ms:.3f} ms per {TRAIN_SIZES[-1]}px batch-{TRAIN_BATCH} "
+        f"f32 GAN step without R1, {[round(t, 3) for t in gan_r1_ms]} ms "
+        f"with R1, peak memory {gan_peak:.2f} GiB; on {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -22,12 +22,17 @@ from arbitrarystyletransfer_tpu.data import pipeline as jax_pipeline
 from arbitrarystyletransfer_tpu.train import checkpoint as jax_ckpt
 
 from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
-from arbitrarystyletransfer_tpu_torch.config import ASTTrainConfig
+from arbitrarystyletransfer_tpu_torch.config import AETrainConfig, ASTTrainConfig
 from arbitrarystyletransfer_tpu_torch.data import pipeline
 from arbitrarystyletransfer_tpu_torch.infer import StylePipeline
 from arbitrarystyletransfer_tpu_torch.train import checkpoint as ckpt
 from arbitrarystyletransfer_tpu_torch.train.ast_trainer import ASTTrainer
+from arbitrarystyletransfer_tpu_torch.train.ae_trainer import (
+    AutoencoderTrainer,
+)
 from arbitrarystyletransfer_tpu_torch.train.state import Adam
+
+from test_torch_autoencoder import ae_variables
 
 REPO = Path(__file__).resolve().parents[1]
 # The CLI's process shares the CPU with the suite's other workers.
@@ -221,7 +226,7 @@ def test_cli_trains_and_writes_a_checkpoint(tmp_path):
     assert len(list((tmp_path / "previews").glob("preview_*.png"))) == 1
 
 
-def test_cli_refuses_cuda_without_a_card_and_the_gan_step(tmp_path):
+def test_cli_refuses_cuda_without_a_card_and_trains_the_gan_step(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the refusal needs none")
     content_dirs, style_dirs = _write_dataset(tmp_path / "data")
@@ -231,8 +236,31 @@ def test_cli_refuses_cuda_without_a_card_and_the_gan_step(tmp_path):
     proc = subprocess.run(base, cwd=REPO, env=CLI_ENV, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
-    proc = subprocess.run(base + ["--device", "cpu", "--use_dis"], cwd=REPO,
-                          env=CLI_ENV, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "ROADMAP" in proc.stderr
+
+    # --use_dis on the CPU at 64px (the discriminator's head map is 2 x 2;
+    # at 32px it is 1 x 1 and the instance norm zeroes it), warm-started
+    # from an AE checkpoint of the parity weights: at the reference
+    # initialization the stylized image is a constant, and through the
+    # discriminator's dropout its gradient is not finite, in JAX as here.
+    ae_dir = tmp_path / "ae"
+    seed_trainer = AutoencoderTrainer(
+        AETrainConfig(save_dir=str(ae_dir)), iter(()), device="cpu",
+        log_fn=lambda *a: None)
+    v = ae_variables(111)
+    weights.load_state(seed_trainer.model, weights.from_jax_tree(
+        v["params"], v["batch_stats"]))
+    seed_trainer.save()
+    save_dir = tmp_path / "models"
+    proc = subprocess.run(
+        base + ["--device", "cpu", "--use_dis", "--img_sizes", "64",
+                "--batch_size", "2", "--save_dir", str(save_dir),
+                "--ae_model", str(ae_dir / "ae"), "--num_workers", "1",
+                "--preview_dir", str(tmp_path / "previews")],
+        cwd=REPO, env=CLI_ENV, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    dis = ckpt.restore_checkpoint(str(save_dir / "ast_dis.pt"))
+    assert int(dis["step"]) == 1
+    assert set(dis["params"]) == {"mobnet"}
+    history = ckpt.load_history(str(save_dir / "ast_train_dict.json"))
+    assert len(history["dis_loss"]) == 1
+    assert np.isfinite(history["dis_loss"]).all()
