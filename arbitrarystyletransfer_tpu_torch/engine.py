@@ -13,7 +13,8 @@ route (``ops/flatblock.py``); "mega" runs the high-resolution stride-1 blocks
 on the (B, H, C, W) layout through the ``mega_block`` kernel
 (``ops/megablock.py``).  Any encoder route goes with any decoder route.  With
 ``cfg.use_pallas_adaattn`` the attention statistics run the ``adaattn_fwd``
-kernel.
+kernel.  ``stylize_fused_sharded`` runs the engine on each rank's rows of a
+batch sharded over a ``parallel`` mesh.
 """
 
 from __future__ import annotations
@@ -131,3 +132,20 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
     return decode_fused(params["dec"], t, cfg.decoder_conv_shapes,
                         exporting=exporting, dtype=dtype,
                         min_fused_size=min_fused_size)
+
+
+def stylize_fused_sharded(state, content_img, style_img, alpha: float,
+                          mesh, **kw):
+    """``stylize_fused`` on this rank's rows of a batch sharded over
+    ``mesh`` (``parallel.shard_batch``): JAX's ``shard_map`` of the engine.
+    Stylization is independent per image and the state is replicated, so
+    each rank runs the whole engine on its rows and returns their images;
+    no collective runs inside (``parallel.gather_batch`` assembles the
+    batch where the caller needs it).  ``kw`` are ``stylize_fused``'s
+    keywords."""
+    for name, t in (("content_img", content_img), ("style_img", style_img)):
+        if t.device != mesh.device:
+            raise ValueError(f"stylize_fused_sharded: {name} is on "
+                             f"{t.device}, this rank's device is "
+                             f"{mesh.device}")
+    return stylize_fused(state, content_img, style_img, alpha, **kw)

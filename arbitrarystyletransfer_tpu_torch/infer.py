@@ -1,5 +1,6 @@
-"""Batched stylization on one device: the port's
-``arbitrarystyletransfer_tpu/infer.StylePipeline``.
+"""Batched stylization: the port's
+``arbitrarystyletransfer_tpu/infer.StylePipeline``, on one device or, with a
+``parallel`` mesh, one process per device.
 
 Two engines serve the same weights.  "flax" (the default, as in JAX) runs
 the module graph ``models/ast.AST`` (``AST.stylize``), whose encoder
@@ -13,6 +14,16 @@ of the module's own tensors, so ``load_state`` moves both engines at once.
 ``recalibrate_with`` it rebuilds the encoder's BatchNorm statistics from
 data first (``train/recalibrate.py``), JAX's route from a checkpoint trained
 with the default batch statistics to the fused engine.
+
+With a ``mesh`` of more than one rank every rank calls the same methods:
+rank 0's batch is sharded over the ranks (the others' arguments are
+ignored), the fused engine runs on each rank's rows
+(``engine.stylize_fused_sharded``, no collective inside), the graph engine's
+BatchNorms take the global batch's statistics where they use batch
+statistics, and ``stylize`` / ``export_forward`` return the whole batch on
+every rank, as JAX returns the global array.  The weights are rank 0's
+(broadcast at construction and at ``load_state``); recalibration runs on
+each rank alone, as JAX's has no mesh.
 """
 
 from __future__ import annotations
@@ -25,8 +36,16 @@ import torch
 
 from . import weights
 from .config import ModelConfig, torch_dtype
-from .engine import stylize_fused
+from .engine import stylize_fused, stylize_fused_sharded
 from .models.ast import AST
+from .parallel.mesh import (
+    Mesh,
+    gather_batch,
+    is_sharded,
+    replicate,
+    set_mesh,
+    shard_batch,
+)
 from .train import checkpoint as ckpt
 from .train.recalibrate import (
     EVAL_DRIFT_SAFE,
@@ -53,10 +72,12 @@ class StylePipeline:
     def __init__(self, model_cfg: ModelConfig = ModelConfig(),
                  engine: str = "flax", device="cuda", state=None,
                  seed: int = 0, decoder_impl: str = "fused",
-                 encoder_impl: str = "fused"):
+                 encoder_impl: str = "fused", mesh: Mesh | None = None):
         """``state`` is a weights.py state (a seeded ``init_params`` one
         when None), copied into the pipeline.  ``device`` defaults to the
-        card and never falls back: a CPU run asks for ``device="cpu"``.
+        card and never falls back: a CPU run asks for ``device="cpu"``; with
+        a ``mesh`` of more than one rank the pipeline runs on the mesh's
+        device.
         ``decoder_impl`` and ``encoder_impl`` choose the fused engine's
         block routes ("fused", "mega", "flat", "flat-all", "auto"; see
         ``engine.stylize_fused``).  The fused engine folds BatchNorm running
@@ -78,7 +99,9 @@ class StylePipeline:
                 "validated with eval-stats semantics.")
         self.cfg, self.engine = model_cfg, engine
         self.decoder_impl, self.encoder_impl = decoder_impl, encoder_impl
-        self.device = _device(device)
+        self.mesh = mesh if is_sharded(mesh) else None
+        self.device = _device(device if self.mesh is None
+                              else self.mesh.device)
         self.dtype = torch_dtype(model_cfg)
         if state is None:
             state = weights.init_params(model_cfg,
@@ -86,6 +109,12 @@ class StylePipeline:
         self.ast = AST(model_cfg).to(self.device).requires_grad_(False)
         weights.load_state(self.ast, state)
         self.state = weights.module_state(self.ast)
+        if self.mesh is not None:
+            set_mesh(self.ast, self.mesh)
+            self._replicate()
+
+    def _replicate(self):
+        replicate(self.mesh, [*self.ast.parameters(), *self.ast.buffers()])
 
     # -- weights -----------------------------------------------------------
 
@@ -99,7 +128,8 @@ class StylePipeline:
                         model_cfg: ModelConfig = ModelConfig(),
                         engine: str = "flax", decoder_impl: str = "fused",
                         encoder_impl: str = "fused", recalibrate_with=None,
-                        allow_unstable: bool = False, device="cuda"):
+                        allow_unstable: bool = False, device="cuda",
+                        mesh: Mesh | None = None):
         """A pipeline over the params and batch_stats of the trainer
         checkpoint ``<path>.pt``.
 
@@ -111,14 +141,16 @@ class StylePipeline:
         are held out for the drift check (``eval_stats_drift``); with fewer
         it runs in-sample on the first 4.  A drift that is not finite raises
         ``ValueError`` unless ``allow_unstable``; one that is not finite or
-        above ``EVAL_DRIFT_SAFE`` warns."""
+        above ``EVAL_DRIFT_SAFE`` warns.  With a ``mesh`` every rank reads
+        the checkpoint and recalibrates from the batches it was given (pass
+        the same on every rank); rank 0's result is served."""
         kw = dict(engine=engine, decoder_impl=decoder_impl,
-                  encoder_impl=encoder_impl)
+                  encoder_impl=encoder_impl, mesh=mesh)
         if recalibrate_with is None or model_cfg.encoder_eval_stats:
             pipe = cls(model_cfg, device=device, **kw)
             pipe.load_state(*cls._restore(path))
             return pipe
-        device = _device(device)
+        device = _device(device if not is_sharded(mesh) else mesh.device)
         params, batch_stats = (weights.to_device(tree, device)
                                for tree in cls._restore(path))
         all_batches = list(recalibrate_with)
@@ -166,13 +198,21 @@ class StylePipeline:
         return tree["params"], tree["batch_stats"]
 
     def load_state(self, params, batch_stats) -> None:
-        """Copy new weights into the pipeline (both engines serve them)."""
+        """Copy new weights into the pipeline (both engines serve them);
+        with a mesh, rank 0's."""
         weights.load_state(self.ast, {"params": params,
                                       "batch_stats": batch_stats})
+        if self.mesh is not None:
+            self._replicate()
 
     # -- inference ---------------------------------------------------------
 
     def _inputs(self, content, style):
+        """The batches on the device as float32; with a mesh, this rank's
+        rows of rank 0's."""
+        if self.mesh is not None:
+            content, style = (shard_batch(self.mesh, x)
+                              for x in (content, style))
         return (torch.as_tensor(content, dtype=torch.float32,
                                 device=self.device),
                 torch.as_tensor(style, dtype=torch.float32,
@@ -180,17 +220,23 @@ class StylePipeline:
 
     @torch.inference_mode()
     def stylize(self, content, style, alpha: float = 1.0) -> torch.Tensor:
-        """Stylized (B, H, W, 3) float32 batch on the pipeline's device."""
+        """Stylized (B, H, W, 3) float32 batch on the pipeline's device
+        (the whole batch on every rank with a mesh)."""
         content, style = self._inputs(content, style)
         if self.engine == "flax":
-            return self.ast.stylize(content, style, alpha)
-        return stylize_fused(self.state, content, style, alpha,
-                             cfg=self.cfg, dtype=self.dtype,
-                             decoder_impl=self.decoder_impl,
-                             encoder_impl=self.encoder_impl)
+            return gather_batch(self.mesh,
+                                self.ast.stylize(content, style, alpha))
+        kw = dict(cfg=self.cfg, dtype=self.dtype,
+                  decoder_impl=self.decoder_impl,
+                  encoder_impl=self.encoder_impl)
+        if self.mesh is None:
+            return stylize_fused(self.state, content, style, alpha, **kw)
+        return gather_batch(self.mesh, stylize_fused_sharded(
+            self.state, content, style, alpha, self.mesh, **kw))
 
     @torch.inference_mode()
     def export_forward(self, content, style) -> torch.Tensor:
         """The exporting path of the graph (``AST.export``): the clamped
         stylization, no blend, whichever the engine."""
-        return self.ast.export(*self._inputs(content, style))
+        return gather_batch(self.mesh,
+                            self.ast.export(*self._inputs(content, style)))

@@ -19,7 +19,10 @@ never called and has no variables, so here it is not built.
 Dropout draws its keep mask from the ``generator`` passed in (``torch.rand``
 takes one, ``F.dropout`` does not): keep with probability 1 - p, scale by
 1 / (1 - p), as flax's ``Dropout`` does.  The masks are not JAX's bits; the
-parity tests run at ``dropout_rate=0``, as the JAX package's own do.
+parity tests run at ``dropout_rate=0``, as the JAX package's own do.  On a
+mesh of more than one rank (``MobileNetV2.mesh``) each rank draws the mask
+of the global batch and keeps its own rows, so that the masks are the
+one-process step's.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..ops.basic import hardswish, reflect_pad
 from ..ops.blocks import Conv, Dense, InvertedResidual, make_divisible
 from ..ops.norm import BatchNorm2D
 from ..ops.stats import instance_norm
+from ..parallel.mesh import is_sharded, shard_rows
 
 # (t, c, n, s) inverted-residual settings.
 MOBILENETV2_CFGS = (
@@ -47,15 +51,23 @@ MOBILENETV2_CFGS = (
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None, mesh=None) -> torch.Tensor:
     """Flax ``Dropout``: the identity when not training or at rate 0, else
     ``where(keep, x / (1 - rate), 0)`` with ``keep`` drawn from
-    ``generator`` (on ``x``'s device)."""
+    ``generator`` (on ``x``'s device).  With a ``mesh`` of more than one
+    rank ``x`` is this rank's rows: the mask is drawn for the global batch
+    and sliced to them."""
     if not train or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < keep_prob
+    if is_sharded(mesh):
+        rows = shard_rows(mesh, x.shape[0] * mesh.size)
+        keep = torch.rand((x.shape[0] * mesh.size, *x.shape[1:]),
+                          generator=generator, device=x.device,
+                          dtype=x.dtype)[rows] < keep_prob
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 
@@ -63,7 +75,11 @@ class MobileNetV2(nn.Module):
     """The classifier; ``stem_instance_norm`` / ``head_instance_norm``
     replace the stem's hardswish and the head's BN with a non-affine
     instance norm, and ``extra_feature_dropout`` adds a dropout after the
-    features (the discriminator's swaps)."""
+    features (the discriminator's swaps).  ``mesh``
+    (``parallel.set_mesh``) slices the dropout masks of the global batch to
+    this rank's rows."""
+
+    mesh = None
 
     def __init__(self, num_classes: int = 1000, width_mult: float = 1.0,
                  stem_instance_norm: bool = False,
@@ -121,13 +137,13 @@ class MobileNetV2(nn.Module):
         masks (two: the features', when present, then the head's)."""
         _, x = self.features(x, (), train)
         if self.extra_feature_dropout:
-            x = dropout(x, self.dropout_rate, train, generator)
+            x = dropout(x, self.dropout_rate, train, generator, self.mesh)
         x = self.head_conv(x)
         if self.head_instance_norm:
             x = instance_norm(x)
         else:
             x = self.head_bn(x, use_batch_stats=train, update_stats=train)
-        x = dropout(x, self.dropout_rate, train, generator)
+        x = dropout(x, self.dropout_rate, train, generator, self.mesh)
         x = hardswish(x)
         return self.classifier(x.mean(dim=(1, 2)))
 

@@ -12,6 +12,7 @@ lists.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -155,6 +156,34 @@ def _compile(sources, flags, target: Path) -> str:
     return log
 
 
+def build_library(ptxas_verbose: bool = False) -> tuple[Path, str]:
+    """(the library's path, the compiler's log): compiled unless a library
+    of these sources and flags is there (``ptxas_verbose`` asks for the
+    compiler's report, which changes no code, so it does not name the
+    library: a process that asks for none loads the one built with it).
+    Processes that start together (the ranks of a mesh) compile once: the
+    first takes a file lock and compiles into a temporary name that it
+    renames onto the target; the others wait for the lock, find the
+    target and compile nothing (log "")."""
+    sources = sorted(CSRC.glob("*.cu"))
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if ptxas_verbose else ())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = Path(os.environ.get("AST_TORCH_BUILD_DIR",
+                                  _PKG.parent / "build" / "kernels"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    target = out_dir / f"libast_kernels_{digest.hexdigest()[:16]}.so"
+    if target.exists():
+        return target, ""
+    with open(target.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():
+            return target, ""
+        return target, _compile(sources, flags, target)
+
+
 def load_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     """Compile (if the sources changed) and load the kernel library.
 
@@ -163,18 +192,8 @@ def load_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    sources = sorted(CSRC.glob("*.cu"))
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if ptxas_verbose else ())
-    digest = hashlib.sha256(" ".join(flags).encode())
-    for src in sources + sorted(CSRC.glob("*.cuh")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out_dir = Path(os.environ.get("AST_TORCH_BUILD_DIR",
-                                  _PKG.parent / "build" / "kernels"))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    target = out_dir / f"libast_kernels_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
-    log = "" if target.exists() else _compile(sources, flags, target)
+    target, log = build_library(ptxas_verbose)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -184,6 +203,21 @@ def load_library(ptxas_verbose: bool = False) -> ctypes.CDLL:
                       path=str(target))
     _lib = lib
     return lib
+
+
+def launch_stream(t) -> int:
+    """The handle of the current stream of ``t``'s card, for a launch on
+    ``t``.  The library launches on the runtime's current device, so
+    ``t`` must be on it: a tensor on another card raises (set the device
+    first, ``torch.cuda.set_device``), and nothing switches silently."""
+    import torch
+
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise RuntimeError(f"a kernel launch on {t.device}, but the current "
+                           f"device is cuda:{current}: call "
+                           "torch.cuda.set_device first")
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(rc: int, name: str) -> None:

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import LAUNCHES
-from ._build import check, load_library
+from ._build import check, launch_stream, load_library
 
 CHANNELS = 128
 # The CUDA kernels' tiles along the reduction axis that a split never cuts:
@@ -161,7 +161,7 @@ def adaattn_dq(q, k, v, vbar, dm1, dm2, m, l, d_row, splits=None):
     rc = lib.adaattn_dq_launch(
         *(t.data_ptr() for t in ins), dq.data_ptr(), part.data_ptr(), b, nc,
         ns, CHANNELS, splits, is_bf16, dm_bf16,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        launch_stream(q))
     check(rc, "adaattn_dq")
     LAUNCHES["adaattn_dq"] += 1
     return dq
@@ -187,7 +187,7 @@ def adaattn_dkv(q, k, v, vbar, dm1, dm2, m, l, d_row, splits=None):
     rc = lib.adaattn_dkv_launch(
         *(t.data_ptr() for t in ins), dk.data_ptr(), dv.data_ptr(),
         part.data_ptr(), b, nc, ns, CHANNELS, splits, is_bf16, dm_bf16,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        launch_stream(q))
     check(rc, "adaattn_dkv")
     LAUNCHES["adaattn_dkv"] += 1
     return dk, dv

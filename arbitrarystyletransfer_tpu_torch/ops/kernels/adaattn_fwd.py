@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import LAUNCHES, adaattn_bwd
-from ._build import check, load_library
+from ._build import check, launch_stream, load_library
 
 CHANNELS = 128
 
@@ -122,7 +122,7 @@ def adaattn_fwd(q, k, v):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mean.data_ptr(),
         std.data_ptr(), m.data_ptr(), l.data_ptr(), b, nc, ns, c,
         int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        launch_stream(q),
     )
     check(rc, "adaattn_fwd")
     LAUNCHES["adaattn_fwd"] += 1

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import LAUNCHES
-from ._build import check, load_library
+from ._build import check, launch_stream, load_library
 from ..basic import hardswish, reflect_pad
 
 
@@ -122,7 +122,7 @@ def expand_dw(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
         None if b_dw is None else b_dw.data_ptr(),
         hidden.data_ptr(), sums.data_ptr(),
         n, h, w, c_in, e, k, int(pre_act), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        launch_stream(x),
     )
     check(rc, "expand_dw")
     LAUNCHES["expand_dw"] += 1

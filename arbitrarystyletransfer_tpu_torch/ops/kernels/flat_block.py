@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import LAUNCHES
-from ._build import check, load_library
+from ._build import check, launch_stream, load_library
 from .expand_dw import depthwise_reference, expand_reference
 from ..basic import se_gate
 
@@ -178,7 +178,7 @@ def flat_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out,
         kernel_size, int(pre_act), int(identity),
         int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        launch_stream(x),
     )
     check(rc, "flat_block")
     LAUNCHES["flat_block"] += 1

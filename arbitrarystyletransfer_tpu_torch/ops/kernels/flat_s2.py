@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import LAUNCHES
-from ._build import check, load_library
+from ._build import check, launch_stream, load_library
 from .expand_dw import depthwise_reference, expand_reference
 from .flat_block import (
     check_input,
@@ -77,7 +77,7 @@ def flat_s2_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         x.data_ptr(), *map(ptr, ops), hidden.data_ptr(), sums.data_ptr(),
         gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out, kernel_size,
         int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        launch_stream(x),
     )
     check(rc, "flat_s2_block")
     LAUNCHES["flat_s2_block"] += 1

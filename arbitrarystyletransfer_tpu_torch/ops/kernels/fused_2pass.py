@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import LAUNCHES
-from ._build import check, load_library
+from ._build import check, launch_stream, load_library
 from .expand_dw import _vec, depthwise_reference, expand_reference
 from .flat_block import check_input, ptr, round_to
 
@@ -95,7 +95,7 @@ def fused_sums(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
     rc = load_library().fused_sums_launch(
         x.data_ptr(), *map(ptr, ops), sums.data_ptr(), n, h, w, c_in, e,
         kernel_size, int(pre_act), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        launch_stream(x),
     )
     check(rc, "fused_sums")
     LAUNCHES["fused_sums"] += 1
@@ -139,7 +139,7 @@ def fused_project(x, w_expand, w_dw, kernel_size: int, gate, w_proj,
         x.data_ptr(), *map(ptr, ops), gate.data_ptr(), wp.data_ptr(),
         y.data_ptr(), n, h, w, c_in, e, c_out, kernel_size, int(pre_act),
         int(identity), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        launch_stream(x),
     )
     check(rc, "fused_project")
     LAUNCHES["fused_project"] += 1

@@ -41,7 +41,7 @@ import ctypes
 import torch
 
 from . import LAUNCHES
-from ._build import check, load_library
+from ._build import check, launch_stream, load_library
 
 # The depthwise kernels' layouts and the parts ``probe_dw_cut`` can cut out:
 # "fma" (y is the centre tap: the staging and the stores alone) and "async"
@@ -60,8 +60,6 @@ RATE_PAIRS = (("fma", 1), ("fma", 8), ("roll", 8), ("select", 8),
               ("hswish", 4), ("cast", 4))
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _on_card(name, *tensors, dtypes, dims):
@@ -101,7 +99,7 @@ def probe_copy(x, th: int):
         raise ValueError("probe_copy: the byte count must be a multiple of 16")
     y = torch.empty_like(x)
     check(load_library().probe_copy_launch(x.data_ptr(), y.data_ptr(), nbytes,
-                                           _stream(x)), "probe_copy")
+                                           launch_stream(x)), "probe_copy")
     LAUNCHES["probe_copy"] += 1
     return y
 
@@ -134,7 +132,7 @@ def _mm(name, x, w, cut=None, out=None):
         y = out
     lib = load_library()
     args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), r, c, e, width,
-            _stream(x))
+            launch_stream(x))
     if cut is not None:
         check(lib.probe_mm_cut_launch(MM_SCHEDULES.index(name),
                                       MM_CUTS.index(cut), *args), name)
@@ -233,7 +231,7 @@ def _dw(name, x, wd, out_shape, size, cut=None):
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     lib = load_library()
     args = (x.data_ptr(), wd.data_ptr(), y.data_ptr(), *size, wd.shape[0],
-            _stream(x))
+            launch_stream(x))
     if cut is not None:
         check(lib.probe_dw_cut_launch(DW_LAYOUTS.index(name),
                                       DW_CUTS.index(cut), *args), name)
@@ -359,6 +357,6 @@ def probe_rate(x, op: str, par: int, reps: int):
     out = torch.empty((c, lanes), dtype=torch.float32, device=x.device)
     check(load_library().probe_rate_launch(
         x.data_ptr(), out.data_ptr(), c, lanes, reps, RATE_OPS.index(op), par,
-        int(x.dtype == torch.bfloat16), _stream(x)), "probe_rate")
+        int(x.dtype == torch.bfloat16), launch_stream(x)), "probe_rate")
     LAUNCHES["probe_rate"] += 1
     return out

@@ -8,7 +8,16 @@ It keeps the JAX CLI's flags and defaults, with these differences:
 
 - ``--device`` defaults to ``cuda`` and fails when CUDA is absent: the CLI
   never falls back to the CPU by itself (``--device cpu`` asks for it).
-- One device: there is no mesh (multi-GPU is ROADMAP queue 1 item 7).
+- Across GPUs, one process per card under torchrun, data-parallel as the
+  JAX CLI is over its mesh (``--batch_size`` is the global batch)::
+
+      torchrun --nproc_per_node 2 -m arbitrarystyletransfer_tpu_torch.train \
+          --pallas --content_dir data/content --style_dir data/style
+
+  ``--dist_backend`` is nccl on cuda (one card per rank; more ranks than
+  cards fail) and gloo on the CPU; two ranks on one card need
+  ``--dist_backend gloo``.  Rank 0 reads the data and writes the
+  checkpoints; ``--device cuda`` means ``cuda:$LOCAL_RANK``.
 - ``--use_dis`` trains the MobileNetV2 discriminator beside the model
   (``train/gan.py``) and saves it to ``<save_dir>/ast_dis.pt``; run it at
   64px or more, where the discriminator's head map is larger than 1x1.
@@ -29,6 +38,7 @@ import torch
 
 from ..config import ASTTrainConfig, ModelConfig
 from ..data.pipeline import FlatFolderDataset, PairedBatchLoader
+from ..parallel.mesh import create_mesh, destroy_mesh
 from .ast_trainer import ASTTrainer
 
 
@@ -37,6 +47,14 @@ def main(args) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train: --device cuda, but CUDA is not available "
                          "(pass --device cpu to train on the CPU)")
+    mesh = create_mesh(device, args.dist_backend)
+    try:
+        _train(args, mesh)
+    finally:
+        destroy_mesh(mesh)
+
+
+def _train(args, mesh) -> None:
     cfg = ASTTrainConfig(
         train_iter=args.train_iter, batch_size=args.batch_size, lr=args.lr,
         dis_lr=args.dis_lr, dis_lam=args.dis_lam,
@@ -48,20 +66,23 @@ def main(args) -> None:
     model_cfg = ModelConfig(compute_dtype=args.dtype,
                             use_pallas_adaattn=args.pallas,
                             depthwise_impl=args.dw_impl)
-    dataset = FlatFolderDataset(args.content_dir, args.style_dir,
-                                seed=args.seed)
-    content_iter = PairedBatchLoader(
-        dataset, batch_size=args.batch_size, img_sizes=tuple(args.img_sizes),
-        num_workers=args.num_workers, seed=args.seed,
-        worker_mode=args.worker_mode)
+    content_iter = None
+    if mesh.rank == 0:
+        dataset = FlatFolderDataset(args.content_dir, args.style_dir,
+                                    seed=args.seed)
+        content_iter = PairedBatchLoader(
+            dataset, batch_size=args.batch_size,
+            img_sizes=tuple(args.img_sizes), num_workers=args.num_workers,
+            seed=args.seed, worker_mode=args.worker_mode)
     try:
         trainer = ASTTrainer(
             cfg, content_iter, model_cfg=model_cfg, seed=args.seed,
             vgg_weights=args.vgg_weights, preview_dir=args.preview_dir,
-            debug_stats=args.debug_stats, device=device)
+            debug_stats=args.debug_stats, device=mesh.device, mesh=mesh)
         trainer.train()
     finally:
-        content_iter.close()
+        if content_iter is not None:
+            content_iter.close()
 
 
 def parse_args(argv=None):
@@ -118,6 +139,9 @@ def parse_args(argv=None):
                    help="Directory for alpha-{0,.5,1} preview strips.")
     p.add_argument("--device", default="cuda",
                    help="Torch device (default cuda; never falls back).")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend under torchrun (default "
+                        "nccl on cuda, gloo on cpu).")
     return p.parse_args(argv)
 
 

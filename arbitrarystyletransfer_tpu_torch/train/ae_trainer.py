@@ -12,7 +12,10 @@ raises at the next drain.  Saves ``<save_dir>/ae.pt`` (the
 ``train/checkpoint`` format, which the AST trainer warm-starts from) and the
 history ``<save_dir>/train_dict.json`` ({train_loss, val_loss, perp_loss})
 every ``save_every`` steps and at the end; validates every
-``validate_every``.  One device, eagerly, as ``ASTTrainer``.
+``validate_every``.  Eagerly, as ``ASTTrainer``, and with a ``mesh``
+data-parallel as it is: rank 0's batches sharded, global BatchNorm
+statistics, each rank's share of the loss, summed gradients, rank 0
+writing; ``validate`` takes the global validation batch.
 """
 
 from __future__ import annotations
@@ -28,17 +31,33 @@ from ..config import AETrainConfig, ModelConfig
 from ..losses import huber_loss
 from ..models.autoencoder import AutoEncoder
 from ..models.vgg import VGG19Features
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_grads,
+    all_reduce_values,
+    barrier,
+    batch_share,
+    is_sharded,
+    local,
+    replicate,
+    set_mesh,
+    shard_batch,
+    shared,
+)
 from . import checkpoint as ckpt
-from .ast_trainer import load_vgg
+from .ast_trainer import _no_log, load_vgg
 from .state import Adam, keep_if
 
 HISTORY_KEYS = ("train_loss", "val_loss", "perp_loss")
 
 
 def ae_loss(ae: AutoEncoder, vgg: VGG19Features, cfg: AETrainConfig,
-            batch: torch.Tensor):
+            batch: torch.Tensor, mesh: Mesh | None = None):
     """(total, aux) of one batch: the JAX step's ``loss_fn``.  Runs the
-    model in train mode, so the encoder's running statistics move."""
+    model in train mode, so the encoder's running statistics move.  With a
+    ``mesh`` of more than one rank, ``batch`` is this rank's rows, ``total``
+    its share of the global loss and aux global."""
+    share = batch_share(mesh)
     recon = ae(batch, train=True)
     recon_loss = huber_loss(recon, batch)
     taps = vgg(torch.cat([batch, recon], dim=0))
@@ -46,23 +65,32 @@ def ae_loss(ae: AutoEncoder, vgg: VGG19Features, cfg: AETrainConfig,
     perp_loss = 0.0
     for tap in taps:
         perp_loss = perp_loss + huber_loss(tap[b:], tap[:b].detach())
+    # Both terms are Huber means over the batch: each rank's share.
+    recon_loss, perp_loss = shared(recon_loss, share), shared(perp_loss, share)
     total = cfg.recon_lam * recon_loss + cfg.perp_lam * perp_loss
     aux = {"train_loss": recon_loss, "perp_loss": perp_loss, "loss": total}
-    return total, {k: v.detach() for k, v in aux.items()}
+    return total, all_reduce_values(mesh, {k: v.detach()
+                                           for k, v in aux.items()})
 
 
 class AutoencoderTrainer:
     """Builds the autoencoder (seeded init) and the frozen VGG and trains
     with the reconstruction and perceptual losses.  Runs on ``device``
-    (CUDA by default) and never falls back to another."""
+    (CUDA by default) and never falls back to another; with a ``mesh`` of
+    more than one rank, on the mesh's device, the loaders read on rank 0
+    only (the others may pass None)."""
 
     def __init__(self, cfg: AETrainConfig,
                  content_iter: Iterator[np.ndarray],
                  val_loader: Iterator[np.ndarray] | None = None,
                  model_cfg: ModelConfig = ModelConfig(), seed: int = 0,
                  vgg_weights: str | None = None, device="cuda",
-                 log_fn=print):
-        self.device = torch.device(device)
+                 log_fn=print, mesh: Mesh | None = None):
+        self.mesh = mesh if is_sharded(mesh) else None
+        self.device = torch.device(device if self.mesh is None
+                                   else self.mesh.device)
+        if self.mesh is not None and self.mesh.rank != 0:
+            log_fn = _no_log
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AutoencoderTrainer: device cuda, but CUDA is "
                                "not available (pass device='cpu' to train on "
@@ -93,6 +121,11 @@ class AutoencoderTrainer:
         if cfg.load:
             self.load()
         self.num_params = sum(p.numel() for p in self.params)
+        if self.mesh is not None:
+            set_mesh(self.model, self.mesh)
+            replicate(self.mesh, [*self.params, *self.buffers, self.opt.mu,
+                                  self.opt.nu, self.opt.count, self.step,
+                                  *self.vgg.parameters()])
 
     def _batch(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -113,18 +146,32 @@ class AutoencoderTrainer:
 
     def loss_and_grads(self, batch):
         """(total, aux, grads) of one batch, grads one per parameter.
-        Moves the BatchNorm running buffers; updates nothing else."""
+        Moves the BatchNorm running buffers; updates nothing else.  With a
+        mesh: this rank's rows and share, the gradients summed."""
         total, aux = ae_loss(self.model, self.vgg, self.cfg,
-                             self._batch(batch))
+                             self._batch(batch), self.mesh)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
-        return total, aux, grads
+        return total, aux, all_reduce_grads(self.mesh, grads, self.params)
+
+    def next_batch(self, loader):
+        """``loader``'s next batch; with a mesh, this rank's rows of rank
+        0's, on the device."""
+        if self.mesh is None:
+            return next(loader)
+        return shard_batch(self.mesh,
+                           next(loader) if self.mesh.rank == 0 else None)
 
     # -- persistence ---------------------------------------------------------
 
     def save(self):
-        ckpt.save_checkpoint(self.save_file, weights.module_state(self.model),
-                             self.opt.state_dict(), self.step)
-        ckpt.save_history(self.train_dict_file, self.train_dict)
+        """Write the checkpoint and the history (rank 0 only; every rank
+        waits for it)."""
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save_checkpoint(self.save_file,
+                                 weights.module_state(self.model),
+                                 self.opt.state_dict(), self.step)
+            ckpt.save_history(self.train_dict_file, self.train_dict)
+        barrier(self.mesh)
 
     def load(self):
         tree = ckpt.restore_checkpoint(self.save_file, self.device)
@@ -140,12 +187,16 @@ class AutoencoderTrainer:
     def validate(self):
         """The L1 of one validation batch's reconstruction (``train=False``);
         the history gets it divided by the batch size, as the reference's
-        curves do."""
+        curves do.  With a mesh: the global batch's mean and size (rank 0
+        reads its loader; the others pass any loader but None)."""
         if self.val_loader is None:
             return None
-        x = self._batch(next(self.val_loader))
-        val_l1 = float((x - self.model(x, train=False)).abs().mean())
-        self.train_dict["val_loss"].append(val_l1 / x.shape[0])
+        x = self._batch(self.next_batch(self.val_loader))
+        l1 = shared((x - self.model(x, train=False)).abs().mean(),
+                    batch_share(self.mesh))
+        val_l1 = float(all_reduce_values(self.mesh, {"l1": l1})["l1"])
+        batch = x.shape[0] * (1 if self.mesh is None else self.mesh.size)
+        self.train_dict["val_loss"].append(val_l1 / batch)
         return val_l1
 
     @torch.no_grad()
@@ -155,17 +206,20 @@ class AutoencoderTrainer:
         num_samples, then summed over the batch axis."""
         enc_sum = None
         for _ in range(num_samples):
-            z = self.model.encode_latent(self._batch(next(self.content_iter)))
-            s = z.sum(dim=0)
+            z = self.model.encode_latent(
+                self._batch(self.next_batch(self.content_iter)))
+            s = all_reduce_values(self.mesh, {"s": z.sum(dim=0)})["s"]
             enc_sum = s if enc_sum is None else enc_sum + s
         return (enc_sum / (self.cfg.batch_size * num_samples)).sum(dim=0)
 
     @torch.no_grad()
     def interpolate(self, img_1, img_2, alpha: float = 0.5):
-        """decode(alpha * enc(img_1) + (1 - alpha) * enc(img_2))."""
-        z1 = self.model.encode_latent(self._batch(img_1))
-        z2 = self.model.encode_latent(self._batch(img_2))
-        return self.model.decode_latent(alpha * z1 + (1.0 - alpha) * z2)
+        """decode(alpha * enc(img_1) + (1 - alpha) * enc(img_2)), on this
+        rank alone (as JAX computes it on one device)."""
+        with local(self.model):
+            z1 = self.model.encode_latent(self._batch(img_1))
+            z2 = self.model.encode_latent(self._batch(img_2))
+            return self.model.decode_latent(alpha * z1 + (1.0 - alpha) * z2)
 
     # -- the loop ------------------------------------------------------------
 
@@ -191,10 +245,12 @@ class AutoencoderTrainer:
     def train(self, num_iters: int | None = None, log_fn=print):
         cfg = self.cfg
         iters = num_iters if num_iters is not None else cfg.train_iter
+        if self.mesh is not None and self.mesh.rank != 0:
+            log_fn = _no_log
         log_fn(f"NUM AutoEncoder PARAMETERS: {self.num_params}")
         last_aux, pending, drained_through = None, [], 0
         for cur_iter in range(iters):
-            last_aux = self.train_step(next(self.content_iter))
+            last_aux = self.train_step(self.next_batch(self.content_iter))
             pending.append(last_aux)
             if (cur_iter + 1) % cfg.save_every == 0 or cur_iter + 1 == iters:
                 # Drained first: a non-finite step raised here, so a

@@ -23,11 +23,19 @@ and no clip.  Both updates use the discriminator as it was before the step.
 Its dropout masks come from generators that are a function of the step
 counter (``gan.step_generators``), so a resumed run continues the stream.
 
-One device, eagerly: the step is a forward, ``torch.autograd.grad`` and the
-optimizer, with no host sync; per-step values stay on the device until a
-log or save boundary drains them.  A step whose global gradient norm is not
-finite changes nothing (parameters, moments, step, BatchNorm buffers) and
-raises at the next drain, as in JAX.
+Eagerly: the step is a forward, ``torch.autograd.grad`` and the optimizer,
+with no host sync; per-step values stay on the device until a log or save
+boundary drains them.  A step whose global gradient norm is not finite
+changes nothing (parameters, moments, step, BatchNorm buffers) and raises
+at the next drain, as in JAX.
+
+With a ``mesh`` (``parallel.create_mesh``, one process per device) the step
+is JAX's sharded step: rank 0's loader batch is sharded over the ranks
+(``--batch_size`` is the global batch), the BatchNorms take the global
+batch's statistics, each rank's loss is its share of the global loss
+(``ast_loss``), the gradients are summed over the ranks, and every rank
+then takes the same update, so the state stays replicated bit for bit.
+Only rank 0 writes checkpoints, the history and previews.
 """
 
 from __future__ import annotations
@@ -50,6 +58,19 @@ from ..models.vgg import (
     load_torch_vgg19_state_dict,
 )
 from ..ops.stats import mean_variance_norm
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_grads,
+    all_reduce_values,
+    barrier,
+    batch_share,
+    is_sharded,
+    local,
+    replicate,
+    set_mesh,
+    shard_batch,
+    shared,
+)
 from . import checkpoint as ckpt
 from . import gan
 from .state import Adam, keep_if
@@ -82,18 +103,30 @@ def _no_mark(name: str) -> None:
     del name
 
 
+def _no_log(*args) -> None:
+    del args
+
+
 def ast_loss(ast: AST, vgg: VGG19Features, cfg: ASTTrainConfig,
              content: torch.Tensor, style: torch.Tensor,
              debug_stats: bool = False,
              mark: Callable[[str], None] = _no_mark,
-             adversary: Callable[[torch.Tensor], torch.Tensor] | None = None):
+             adversary: Callable[[torch.Tensor], torch.Tensor] | None = None,
+             mesh: Mesh | None = None):
     """(total, aux) of one batch: the JAX ``loss_fn``.  Runs the model in
     train mode, so the encoder's running statistics move.  ``mark(name)``
     is called at the end of each phase ("forward", "vgg", "losses", and
     "adversary" with one).  ``adversary(t_cs)``, when given, is the
     generator's adversarial loss: the total gains ``dis_lam`` times it, aux
     its value as "gen_adv_loss" and the detached stylized batch as "fake"
-    (the discriminator's fake batch)."""
+    (the discriminator's fake batch).
+
+    With a ``mesh`` of more than one rank, ``content`` and ``style`` are
+    this rank's rows and ``total`` is this rank's share of the global loss:
+    the ranks' totals sum to the loss of the global batch, so their
+    gradients are summed (``parallel.all_reduce_grads``).  aux holds the
+    global values (one all-reduce)."""
+    share = batch_share(mesh)
     t_cs, (sm1, sm2), org_out = ast(content, style, 1.0, train=True)
     with torch.no_grad():
         enc_stylized = ast.reencode(t_cs.detach(), train=True)
@@ -140,6 +173,17 @@ def ast_loss(ast: AST, vgg: VGG19Features, cfg: ASTTrainConfig,
             mean_variance_norm(t_map), mean_variance_norm(enc_map.detach()))
 
     cur_tv_loss = tv_loss(t_cs)
+    # Each rank's share of the global loss.  Batch means (1 / ranks): the
+    # content loss (Huber means of the taps and the pixels), the style loss
+    # (Huber means of per-image statistics and grams), the local-feature
+    # loss (Huber means), the histogram loss (mean EMD), the identity loss
+    # (Huber means and the pixel MSE mean), the out-of-range loss (a Huber
+    # mean), and below the adversarial term (a BCE mean).  The TV loss is a
+    # sum over the batch: it is the ranks' sum as it stands (weight 1).
+    content_loss, style_loss, local_f_loss, hist_loss, org_img_loss, \
+        out_of_range_loss = (shared(t, share) for t in (
+            content_loss, style_loss, local_f_loss, hist_loss,
+            org_img_loss, out_of_range_loss))
     total = (cfg.content_lam * content_loss + cfg.style_lam * style_loss
              + cfg.lf_lam * local_f_loss + cfg.tv_lam * cur_tv_loss
              + hist_loss + org_img_loss + out_of_range_loss)
@@ -155,12 +199,19 @@ def ast_loss(ast: AST, vgg: VGG19Features, cfg: ASTTrainConfig,
     aux = {k: v.detach() for k, v in aux.items()}
     mark("losses")
     if adversary is not None:
-        gen_adv_loss = adversary(t_cs)
+        gen_adv_loss = shared(adversary(t_cs), share)
         total = total + cfg.dis_lam * gen_adv_loss
         aux["gen_adv_loss"] = gen_adv_loss.detach()
         aux["loss"] = total.detach()
-        aux["fake"] = t_cs.detach()
         mark("adversary")
+    if is_sharded(mesh):
+        ops = {k: k.rpartition("_")[2] if k.endswith(("_min", "_max"))
+               else "sum" for k in aux}
+        for op in ("sum", "min", "max"):
+            aux.update(all_reduce_values(mesh, {
+                k: v for k, v in aux.items() if ops[k] == op}, op))
+    if adversary is not None:
+        aux["fake"] = t_cs.detach()
     return total, aux
 
 
@@ -172,15 +223,22 @@ class ASTTrainer:
     when ``preview_dir`` is set.  With ``cfg.use_dis`` it also trains the
     discriminator (seeded init, seed + 2) and saves it to
     ``<save_dir>/ast_dis.pt``.  Runs on ``device`` (CUDA by default) and
-    never falls back to another."""
+    never falls back to another.  With a ``mesh`` of more than one rank it
+    runs on the mesh's device, data-parallel; ``content_iter`` is read on
+    rank 0 only (the others may pass None), and rank 0's state is
+    broadcast to the others once built."""
 
     def __init__(self, cfg: ASTTrainConfig,
                  content_iter: Iterator[tuple[np.ndarray, np.ndarray]],
                  model_cfg: ModelConfig = ModelConfig(), seed: int = 0,
                  vgg_weights: str | None = None,
                  preview_dir: str | None = None, debug_stats: bool = False,
-                 device="cuda", log_fn=print):
-        self.device = torch.device(device)
+                 device="cuda", log_fn=print, mesh: Mesh | None = None):
+        self.mesh = mesh if is_sharded(mesh) else None
+        self.device = torch.device(device if self.mesh is None
+                                   else self.mesh.device)
+        if self.mesh is not None and self.mesh.rank != 0:
+            log_fn = _no_log
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ASTTrainer: device cuda, but CUDA is not "
                                "available (pass device='cpu' to train on the "
@@ -234,6 +292,21 @@ class ASTTrainer:
         elif cfg.ae_model and ckpt.checkpoint_exists(cfg.ae_model + ".pt"):
             self.load_ae(cfg.ae_model + ".pt")
         self.num_params = sum(p.numel() for p in self.params)
+        if self.mesh is not None:
+            self._replicate()
+
+    def _replicate(self):
+        """Rank 0's models, optimizer states and counters on every rank,
+        and the mesh given to the models' BatchNorms and dropouts."""
+        set_mesh(self.ast, self.mesh)
+        state = [*self.params, *self.buffers, self.opt.mu, self.opt.nu,
+                 self.opt.count, self.step, *self.vgg.parameters()]
+        if self.disc is not None:
+            set_mesh(self.disc, self.mesh)
+            state += [*self.dis_opt.params, *self.dis_buffers,
+                      self.dis_opt.mu, self.dis_opt.nu, self.dis_opt.count,
+                      self.dis_step]
+        replicate(self.mesh, state)
 
     def _new_optimizer(self):
         c = self.cfg
@@ -272,8 +345,9 @@ class ASTTrainer:
                                                       dis_generator)
 
         total, aux = ast_loss(self.ast, self.vgg, self.cfg, content, style,
-                              self.debug_stats, mark, adversary)
+                              self.debug_stats, mark, adversary, self.mesh)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        grads = all_reduce_grads(self.mesh, grads, self.params)
         mark("backward")
         return total, aux, grads
 
@@ -299,7 +373,7 @@ class ASTTrainer:
         if self.disc is not None:
             dis_aux, dis_ok = gan.discriminator_step(
                 self.disc, self.dis_opt, self.cfg, content, fake, gens[1],
-                gens[2], self.host_dis_step, mark=mark)
+                gens[2], self.host_dis_step, mark=mark, mesh=self.mesh)
             with torch.no_grad():
                 self.dis_step += dis_ok.to(self.dis_step.dtype)
             aux.update(dis_aux)
@@ -313,13 +387,19 @@ class ASTTrainer:
     # -- persistence ---------------------------------------------------------
 
     def save(self):
-        ckpt.save_checkpoint(self.save_file, weights.module_state(self.ast),
-                             self.opt.state_dict(), self.step)
-        if self.disc is not None:
-            ckpt.save_checkpoint(self.dis_save_file,
-                                 weights.module_state(self.disc),
-                                 self.dis_opt.state_dict(), self.dis_step)
-        ckpt.save_history(self.train_dict_file, self.train_dict)
+        """Write the checkpoints and the history (rank 0 only; every rank
+        waits for it)."""
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save_checkpoint(self.save_file,
+                                 weights.module_state(self.ast),
+                                 self.opt.state_dict(), self.step)
+            if self.disc is not None:
+                ckpt.save_checkpoint(self.dis_save_file,
+                                     weights.module_state(self.disc),
+                                     self.dis_opt.state_dict(),
+                                     self.dis_step)
+            ckpt.save_history(self.train_dict_file, self.train_dict)
+        barrier(self.mesh)
 
     def load(self):
         """Resume from ``ast.pt`` (and ``ast_dis.pt`` when it exists) and
@@ -361,15 +441,19 @@ class ASTTrainer:
 
     @torch.no_grad()
     def render_previews(self, content, style, step: int):
-        if self.preview_dir is None:
+        """The alpha-{0, 0.5, 1} strip of the first image of the batch
+        (rank 0's first row with a mesh, stylized on rank 0 alone)."""
+        if self.preview_dir is None or (self.mesh is not None
+                                        and self.mesh.rank != 0):
             return
         from PIL import Image
 
         os.makedirs(self.preview_dir, exist_ok=True)
         c = self._batch(content)[:1]
         s = self._batch(style)[:1]
-        panels = [c[0], s[0]] + [self.ast.stylize(c, s, alpha)[0]
-                                 for alpha in (0.0, 0.5, 1.0)]
+        with local(self.ast):
+            panels = [c[0], s[0]] + [self.ast.stylize(c, s, alpha)[0]
+                                     for alpha in (0.0, 0.5, 1.0)]
         strip = torch.cat(panels, dim=1).cpu().numpy()
         img = Image.fromarray((np.clip(strip, 0, 1) * 255).astype(np.uint8))
         img.save(os.path.join(self.preview_dir, f"preview_{step:08d}.png"))
@@ -401,13 +485,24 @@ class ASTTrainer:
             for name, v in sorted(last.get("grad_absmean", {}).items()):
                 log_fn(f"  grad|{name}|.mean = {float(v):.4e}")
 
+    def next_batch(self):
+        """The loader's next (content, style); with a mesh, this rank's
+        rows of rank 0's batch, on the device."""
+        if self.mesh is None:
+            return next(self.content_iter)
+        host = (next(self.content_iter) if self.mesh.rank == 0
+                else (None, None))
+        return tuple(shard_batch(self.mesh, h) for h in host)
+
     def train(self, num_iters: int | None = None, log_fn=print):
         cfg = self.cfg
         iters = num_iters if num_iters is not None else cfg.train_iter
+        if self.mesh is not None and self.mesh.rank != 0:
+            log_fn = _no_log
         log_fn(f"NUM AST PARAMETERS: {self.num_params}")
         last_aux, pending, drained_through = None, [], 0
         for j in range(iters):
-            content, style = next(self.content_iter)
+            content, style = self.next_batch()
             last_aux = self.train_step(content, style)
             pending.append(last_aux)
             log_now = (j + 1) % cfg.log_every == 0

@@ -11,6 +11,13 @@ One real forward serves both the BCE term and the penalty, as in JAX, and
 the BatchNorm running buffers move through the real forward, then the fake
 one.  The generator's pass through the discriminator runs in train mode
 with batch statistics, and its running update is undone: JAX discards it.
+
+With a mesh of more than one rank, ``real`` and ``fake`` are this rank's
+rows: the discriminator's BatchNorms and dropout masks are the global
+batch's (its ``mesh``, set by the trainer), each BCE mean and the R1 mean
+enter as this rank's share (``parallel.batch_share``), the gradients are
+summed over the ranks and aux holds the global values.  The R1 cadence
+mirror is per process and equal on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +30,13 @@ import torch
 from ..config import ASTTrainConfig
 from ..losses import discriminator_loss, r1_penalty
 from ..models.mobilenetv2 import Discriminator
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_grads,
+    all_reduce_values,
+    batch_share,
+    shared,
+)
 from .state import Adam, keep_if
 
 R1_EVERY = 8
@@ -55,12 +69,15 @@ def discriminator_loss_terms(disc: Discriminator, cfg: ASTTrainConfig,
                              real: torch.Tensor, fake: torch.Tensor,
                              gen_t: torch.Generator | None,
                              gen_f: torch.Generator | None, step: int,
-                             mark: Callable[[str], None] = _no_mark):
+                             mark: Callable[[str], None] = _no_mark,
+                             mesh: Mesh | None = None):
     """(total, aux) of the discriminator's objective: label-smoothed BCE on
     ``real`` plus BCE-zero on the detached ``fake`` plus R1 when due.  Moves
     ``disc``'s running buffers (real pass, then fake pass).  ``mark`` is
     called after the two forwards ("dis_forward") and, when due, after the
-    penalty ("r1")."""
+    penalty ("r1").  With a ``mesh``: this rank's share of the objective,
+    aux global."""
+    share = batch_share(mesh)
     b = real.shape[0]
     due = r1_due(step)
     x = real.detach().requires_grad_(True) if due else real
@@ -76,15 +93,21 @@ def discriminator_loss_terms(disc: Discriminator, cfg: ASTTrainConfig,
         mark("r1")
     else:
         r1 = torch.zeros((), dtype=pred_real.dtype, device=real.device)
+    # Three batch means (the two BCEs, R1's mean over the images): each
+    # rank's share.
+    true_loss, fake_loss, r1 = (shared(t, share)
+                                for t in (true_loss, fake_loss, r1))
     total = true_loss + fake_loss + r1
     aux = {"dis_loss": total, "true_loss": true_loss, "fake_loss": fake_loss,
            "r1_loss": r1}
-    return total, {k: v.detach() for k, v in aux.items()}
+    return total, all_reduce_values(mesh, {k: v.detach()
+                                           for k, v in aux.items()})
 
 
 def discriminator_step(disc: Discriminator, opt: Adam, cfg: ASTTrainConfig,
                        real, fake, gen_t, gen_f, step: int,
-                       mark: Callable[[str], None] = _no_mark):
+                       mark: Callable[[str], None] = _no_mark,
+                       mesh: Mesh | None = None):
     """One update of ``disc`` by ``opt`` (an ``Adam`` over its parameters,
     in order); returns (aux, ok) with "dis_grad_norm" in aux.  A step whose
     gradient norm is not finite changes nothing: the parameters, the
@@ -92,8 +115,8 @@ def discriminator_step(disc: Discriminator, opt: Adam, cfg: ASTTrainConfig,
     buffers = list(disc.buffers())
     before = torch.cat([t.reshape(-1) for t in buffers])
     total, aux = discriminator_loss_terms(disc, cfg, real, fake, gen_t, gen_f,
-                                          step, mark)
-    grads = torch.autograd.grad(total, opt.params)
+                                          step, mark, mesh)
+    grads = all_reduce_grads(mesh, torch.autograd.grad(total, opt.params))
     mark("dis_backward")
     norm, ok = opt.apply_if_finite(grads)
     keep_if(ok, buffers, before)

@@ -10,8 +10,10 @@ augmentation; the ``--val_dir`` loader augments.  Differences:
 
 - ``--device`` defaults to ``cuda`` and fails when CUDA is absent: the CLI
   never falls back to the CPU by itself (``--device cpu`` asks for it).
-- One device: there is no mesh.  ``--dw_impl`` is accepted and changes
-  nothing (one depthwise).
+- Under ``torchrun --nproc_per_node N`` it trains data-parallel, one
+  process per card, as the train CLI does (``--batch_size`` the global
+  batch, ``--dist_backend`` nccl or gloo; rank 0 reads the data and
+  writes).  ``--dw_impl`` is accepted and changes nothing (one depthwise).
 - The checkpoint is ``<save_dir>/ae.pt``, which the AST trainer's
   ``--ae_model <save_dir>/ae`` warm-starts from.
 """
@@ -25,6 +27,7 @@ import torch
 
 from .config import AETrainConfig, ModelConfig
 from .data.pipeline import ContentBatchLoader, FlatFolderDatasetAE
+from .parallel.mesh import create_mesh, destroy_mesh
 from .train.ae_trainer import AutoencoderTrainer
 
 
@@ -33,16 +36,28 @@ def main(args) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_autoencoder: --device cuda, but CUDA is not "
                          "available (pass --device cpu to train on the CPU)")
-    # The reference trains the AE over content + style directories combined.
-    dataset = FlatFolderDatasetAE(args.content_dir + args.style_dir,
-                                  seed=args.seed)
-    content_iter = ContentBatchLoader(
-        dataset, batch_size=args.batch_size, imsize=args.imsize,
-        num_workers=args.num_workers, seed=args.seed, augment=False,
-        worker_mode=args.worker_mode)
-    val_loader = None
+    mesh = create_mesh(device, args.dist_backend)
     try:
-        if args.val_dir:
+        _train(args, mesh)
+    finally:
+        destroy_mesh(mesh)
+
+
+def _train(args, mesh) -> None:
+    content_iter = val_loader = None
+    if mesh.rank == 0:
+        # The reference trains the AE over content + style directories
+        # combined.
+        dataset = FlatFolderDatasetAE(args.content_dir + args.style_dir,
+                                      seed=args.seed)
+        content_iter = ContentBatchLoader(
+            dataset, batch_size=args.batch_size, imsize=args.imsize,
+            num_workers=args.num_workers, seed=args.seed, augment=False,
+            worker_mode=args.worker_mode)
+    elif args.val_dir:
+        val_loader = iter(())  # validates; rank 0's batches are read
+    try:
+        if args.val_dir and mesh.rank == 0:
             val_loader = ContentBatchLoader(
                 FlatFolderDatasetAE(args.val_dir, seed=args.seed + 1),
                 batch_size=args.batch_size, imsize=args.imsize,
@@ -57,12 +72,13 @@ def main(args) -> None:
                                 depthwise_impl=args.dw_impl)
         trainer = AutoencoderTrainer(
             cfg, content_iter, val_loader, model_cfg=model_cfg,
-            seed=args.seed, vgg_weights=args.vgg_weights, device=device)
+            seed=args.seed, vgg_weights=args.vgg_weights, device=mesh.device,
+            mesh=mesh)
         trainer.train()
     finally:
-        content_iter.close()
-        if val_loader is not None:
-            val_loader.close()
+        for loader in (content_iter, val_loader):
+            if hasattr(loader, "close"):
+                loader.close()
 
 
 def parse_args(argv=None):
@@ -99,6 +115,9 @@ def parse_args(argv=None):
                    help="Accepted for parity; one depthwise either way.")
     p.add_argument("--device", default="cuda",
                    help="Torch device (default cuda; never falls back).")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend under torchrun (default "
+                        "nccl on cuda, gloo on cpu).")
     return p.parse_args(argv)
 
 

@@ -103,7 +103,32 @@
    engine at f32 over the same state at the bf16 image gate), printing the
    drift (and the reference initialization's), whether the call warned or
    needed ``allow_unstable`` and the seconds it took.
-7. Prints each phase's seconds, one JSON line per the kernels (with each
+7. Data parallelism (``dp``): 2 ranks (``parallel.launch.run_ranks``; NCCL
+   with two cards, else gloo with both on the one card, where the times
+   test the sharded path, not its speed) train ``ASTTrainer(mesh=)`` at
+   global batch 8 (4 per rank), f32, TF32 off: the first step at 160px
+   held against the one-process step on the same global batch (the loss,
+   every gradient, the state after the step: within the larger of the
+   train gate's fixed tolerance and twice the larger of the twins' step's
+   distance to the float64 AdaAttN stage's and the one-process step's own
+   spread over eight orders of the batch's rows, ``dp_gates``), a
+   warm-up step at 96 and 128px, then 3 timed steps at 160px, each
+   launching 2/2/2 of rows 2, 6, 7 per rank, the state equal bit for bit
+   across the ranks after them; a GAN step (dropout 0.2, an R1 step) and
+   an autoencoder step at 128px, each against one process the same way;
+   2 "auto" requests (bf16, 512px batch 8) with rows 1, 2, 4, 5 at 10 / 1
+   / 5 / 1 per rank and no ``torch.distributed`` call inside the engine,
+   the gathered batch against the one-process request (bit for bit, or
+   within the routes phase's bf16 gate); 2 graph-engine requests (f32,
+   batch-statistics BatchNorm over the ranks) at the larger of the f32
+   image gate and twice the one-process engine's spread over the batch's
+   orders; then
+   ``torchrun --nproc_per_node 2 -m arbitrarystyletransfer_tpu_torch.train``
+   for 2 steps at 64px over the lifecycle's synthetic PNGs and a 2-rank
+   ``--load`` resume (one ``ast.pt``, from rank 0).  Prints ``{"dp":
+   {...}}``: backend, devices, launches per rank, each gate's distance and
+   limit, ms per step and per request per rank beside one process's.
+8. Prints each phase's seconds, one JSON line per the kernels (with each
    kernel's bound: the larger of its bytes over the HBM rate and its
    operations over the peak of their type), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.  Any failure raises: exit code != 0.
@@ -116,6 +141,7 @@ then emits a constant image that would hide any difference.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -214,6 +240,31 @@ AE_LOSS_TOL = 1e-4
 FOLD_F64_TOL = 1e-6
 # Launches per graph-engine request: one adaattn_fwd per AdaAttN module.
 GRAPH_LAUNCHES = counts(adaattn_fwd=2)
+# Data parallelism: DP_RANKS ranks (``dp_plan``: NCCL on two
+# cards, gloo on one) train at the train phase's shapes with the global
+# batch DP_BATCH (DP_BATCH / DP_RANKS per rank): the first step on the
+# global batch held against the one-process step, a warm-up step per other
+# bucket, then DP_STEPS timed steps, each launching TRAIN_LAUNCHES per
+# rank; a GAN step at the discriminator's step DP_GAN_DIS_STEP (an R1 step)
+# and an AE step at DP_AE_SIZE, each against one process; DP_REQUESTS
+# "auto" requests (bf16) and DP_GRAPH_REQUESTS graph-engine requests with
+# batch-statistics BatchNorm (f32) at 512px batch 8 against one process;
+# then the train CLI under torchrun, DP_CLI_STEPS steps at DP_CLI_SIZE and
+# a resumed step.
+DP_RANKS, DP_BATCH, DP_STEPS, DP_GAN_DIS_STEP = 2, 8, 3, 7
+DP_AE_SIZE, DP_REQUESTS, DP_GRAPH_REQUESTS = 128, 2, 2
+DP_CLI_SIZE, DP_CLI_STEPS, DP_TIMEOUT = 64, 2, 600.0
+# A gradient's max in the dp gates is floored at this share of the largest
+# gradient (tests/test_torch_train_step.py's floor): below it lie the
+# gradients that are rounding noise (the BatchNorm biases that another
+# BatchNorm follows), and over ranks each rank's share of that cancelling
+# sum is larger than the sum.
+DP_GRAD_FLOOR = 1e-4
+DP_COLLECTIVES = ("all_reduce", "broadcast", "all_gather",
+                  "all_gather_into_tensor", "reduce_scatter",
+                  "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+                  "reduce", "gather", "scatter", "barrier", "send", "recv",
+                  "isend", "irecv")
 # AdaAttN backward cases: name, B, Nc, Ns, dtype of q/k/v, dtype of dm,
 # launches of each kernel per 160px training step.  The three training
 # buckets (Nc = Ns = (size / 8)^2), a ragged case, bf16 inputs, and the
@@ -3453,6 +3504,783 @@ def lifecycle_phase(gen, card):
     return launches
 
 
+def dp_plan():
+    """(backend, device, the sentence printed about it): 2 ranks over NCCL
+    on two cards where there are two, else over gloo on one card (NCCL
+    refuses two ranks on one GPU)."""
+    import torch
+
+    if torch.cuda.device_count() >= DP_RANKS:
+        return "nccl", "cuda", (f"{DP_RANKS} ranks over nccl, rank r on "
+                                "cuda:r")
+    return "gloo", "cuda:0", (
+        f"{DP_RANKS} ranks over gloo, both on cuda:0 (one card: the times "
+        "test the sharded path, not its speed)")
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """{name: calls} of the ``torch.distributed`` calls made in the
+    block."""
+    import torch.distributed as dist
+
+    calls = {}
+    saved = {name: getattr(dist, name) for name in DP_COLLECTIVES
+             if hasattr(dist, name)}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def recorded_step(trainer, batch, dis_step=None, patch=None, restore=True,
+                  order=None):
+    """One ``trainer.train_step`` on ``batch`` (rows on the trainer's
+    device), the AdaAttN stage's functions replaced by ``patch`` ({name:
+    function} of ``adaattn_fwd``/``adaattn_bwd``) and the discriminator at
+    step ``dis_step``: the values the dp gates compare ("loss",
+    "gen_adv_loss", "dis_loss", the gradients the optimizers were given,
+    the state after: parameters, running buffers).  With ``restore`` the
+    trainer is put back as it was.  ``order`` (a permutation of the
+    batch's rows) reorders the batch and with it the rows of the dropout
+    masks: the same step with its batch sums in another order."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch import weights
+    from arbitrarystyletransfer_tpu_torch.models import mobilenetv2
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        adaattn_bwd as bwd_mod,
+        adaattn_fwd as fwd_mod,
+    )
+
+    patch = patch or {}
+    mods = {name: fwd_mod if hasattr(fwd_mod, name) else bwd_mod
+            for name in patch}
+    saved_fns = {name: getattr(mods[name], name) for name in patch}
+    opts = [("grads", trainer, "opt")] + (
+        [("dis_grads", trainer, "dis_opt")] if trainer.disc is not None
+        else [])
+    models = [("state", trainer.ast)] + (
+        [("dis_state", trainer.disc)] if trainer.disc is not None else [])
+    snap = {key: {k: v.clone() for k, v in weights.flatten(
+        weights.module_state(m)).items()} for key, m in models}
+    opt_snap = [(getattr(t, a).mu, getattr(t, a).nu, getattr(t, a).count)
+                for _, t, a in opts]
+    counters = [trainer.step.clone()] + (
+        [trainer.dis_step.clone()] if trainer.disc is not None else [])
+    hosts = (trainer.host_step, trainer.host_dis_step)
+    out = {}
+    real_apply = []
+    for key, t, a in opts:
+        opt = getattr(t, a)
+        real_apply.append((opt, opt.apply_if_finite))
+
+        def apply(grads, key=key, opt=opt, real=opt.apply_if_finite):
+            out[key] = dict(zip(opt.names, (g.detach().clone()
+                                            for g in grads)))
+            return real(grads)
+
+        opt.apply_if_finite = apply
+    if dis_step is not None:
+        trainer.host_dis_step = dis_step
+    for name, fn in patch.items():
+        setattr(mods[name], name, fn)
+    dropout = mobilenetv2.dropout
+    if order is not None:
+        order = torch.as_tensor(order, device=batch[0].device)
+        back = torch.argsort(order)
+        batch = tuple(t[order] for t in batch)
+        mobilenetv2.dropout = lambda x, *a, **k: dropout(
+            x[back], *a, **k)[order]
+    try:
+        aux = trainer.train_step(*batch)
+    finally:
+        mobilenetv2.dropout = dropout
+        for name, fn in saved_fns.items():
+            setattr(mods[name], name, fn)
+        for opt, real in real_apply:
+            opt.apply_if_finite = real
+    out.update({k: float(aux[k]) for k in ("loss", "gen_adv_loss",
+                                           "dis_loss") if k in aux})
+    out["finite"] = bool(aux["finite"])
+    for key, m in models:
+        out[key] = {k: v.clone() for k, v in weights.flatten(
+            weights.module_state(m)).items()}
+    if trainer.disc is not None:
+        # The discriminator's parameters and running buffers are held
+        # apart (``dp_gates``): the parameters floored at the largest.
+        state = out.pop("dis_state")
+        out["dis_params"] = {k: v for k, v in state.items()
+                             if k.startswith("params/")}
+        out["dis_stats"] = {k: v for k, v in state.items()
+                            if k.startswith("batch_stats/")}
+    if restore:
+        for key, m in models:
+            weights.load_state(m, weights.unflatten(snap[key]))
+        for (_, t, a), (mu, nu, count) in zip(opts, opt_snap):
+            opt = getattr(t, a)
+            opt.mu, opt.nu, opt.count = mu, nu, count
+        trainer.step.copy_(counters[0])
+        if trainer.disc is not None:
+            trainer.dis_step.copy_(counters[1])
+        trainer.host_step, trainer.host_dis_step = hosts
+    return out
+
+
+def dp_orders(n):
+    """The batch orders of the dp gates' yardstick: the rows rolled by 1,
+    2, 3, n - 3 and n / 2 (the halves swapped), reversed, the even rows
+    first, the odd rows first.  Over seeds (scripts/dp_gate_spread.py)
+    the worst share of a limit was 0.926 with all eight; with the first
+    five, 1.148 (the AE's gradients)."""
+    rows = list(range(n))
+    rolled = [rows[k:] + rows[:k] for k in (1, 2, 3, n - 3, n // 2)]
+    return (*rolled, rows[::-1], rows[0::2] + rows[1::2],
+            rows[1::2] + rows[0::2])
+
+
+def dp_variants(trainer, batch, dis_step=None):
+    """``recorded_step`` through the kernels (A), on the batch in each of
+    ``dp_orders`` (P0, P1, ...), through the twins (B) and with the AdaAttN
+    stage in float64 (D), each from the trainer's state."""
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        adaattn_bwd as bwd_mod,
+        adaattn_fwd as fwd_mod,
+    )
+
+    twins = dict(adaattn_fwd=fwd_mod.adaattn_fwd_reference,
+                 adaattn_dq=bwd_mod.adaattn_dq_reference,
+                 adaattn_dkv=bwd_mod.adaattn_dkv_reference)
+    return {"A": recorded_step(trainer, batch, dis_step),
+            **{f"P{i}": recorded_step(trainer, batch, dis_step, order=order)
+               for i, order in enumerate(dp_orders(batch[0].shape[0]))},
+            "B": recorded_step(trainer, batch, dis_step, twins),
+            "D": recorded_step(trainer, batch, dis_step,
+                               dict(adaattn_statistics=adaattn_statistics_f64))}
+
+
+def dp_scale(tensors, name, floor):
+    """The scale of ``tensors[name]`` in the dp gates: its max, floored at
+    ``floor``; for a running mean at least BatchNorm's momentum (0.1) times
+    the running std: the running mean of zero-centred activations is a sum
+    that cancels, known to a share of their spread, not of itself (the
+    CPU tests' rule)."""
+    scale = max(float(tensors[name].abs().max()), floor, 1e-30)
+    if name.startswith("batch_stats/") and name.endswith("/mean"):
+        var = tensors[name[:-len("mean")] + "var"]
+        scale = max(scale, 0.1 * float(var.sqrt().max()))
+    return scale
+
+
+def dp_distances(out, ref, floors):
+    """{kind: worst relative distance of ``out`` to ``ref``}: each loss
+    relative to itself, each tensor to its ``dp_scale`` (``floors``: {kind:
+    floor}; the gradients' at ``DP_GRAD_FLOOR`` of the largest, the
+    discriminator's parameters at the largest)."""
+    dist = {}
+    for key in ("loss", "gen_adv_loss", "dis_loss"):
+        if key in ref:
+            dist[key] = abs(out[key] - ref[key]) / max(abs(ref[key]), 1e-30)
+    for kind in ("grads", "dis_grads", "state", "dis_params", "dis_stats",
+                 "stats"):
+        if kind in ref:
+            dist[kind], dist[kind + "_at"] = max(
+                (max_err(out[kind][n].to(r.device), r)
+                 / dp_scale(ref[kind], n, floors.get(kind, 0.0)), n)
+                for n, r in ref[kind].items())
+    return dist
+
+
+def dp_gates(label, dp, refs, own, hold=True):
+    """The dp step ``dp`` against the one-process step ``refs["A"]`` on the
+    same global batch, kind by kind (the losses; the gradients, the state
+    after the step, the running buffers, each as the worst tensor relative
+    to its ``dp_scale``): within the larger of the train gate's fixed tolerance
+    (``STEP_LOSS_TOL``, ``STEP_GRAD_TOL``) and ``STEP_OWN_FACTOR`` times
+    the larger of two one-process distances of the same step: ``own`` (the
+    twins' step to the float64 AdaAttN stage's, the train gate's yardstick;
+    for the AE the f32 step to the float64 one) and the spread of the step
+    over the order of the batch's rows: the farthest pair among "A" and the
+    steps on the global batch in the orders of ``dp_orders`` (the dropout
+    masks reordered with it), which differ only in the order of the
+    batch's sums, as the dp step differs from "A".  Returns {kind:
+    [distance, limit]}; with ``hold`` raises past a limit."""
+    ref = refs["A"]
+    floors = {kind: DP_GRAD_FLOOR * max(float(g.abs().max())
+                                        for g in ref[kind].values())
+              for kind in ("grads", "dis_grads") if kind in ref}
+    if "dis_params" in ref:
+        # The discriminator's BatchNorm biases that another BatchNorm
+        # follows get rounding noise for a gradient, which Adam's first
+        # step turns into updates of +-dis_lr on biases that start at 0:
+        # each parameter is held relative to the largest one.
+        floors["dis_params"] = max(float(p.abs().max())
+                                   for p in ref["dis_params"].values())
+    d_dp = dp_distances(dp, ref, floors)
+    ordered = [ref] + [v for k, v in refs.items() if k.startswith("P")]
+    pairs = [dp_distances(a, b, floors) for i, b in enumerate(ordered)
+             for a in ordered[i + 1:]]
+    d_perm = {k: max(p[k] for p in pairs) for k in d_dp
+              if not k.endswith("_at")}
+    d_own = dp_distances(refs[own[0]], refs[own[1]], floors)
+    gates = {}
+    for kind, d in d_dp.items():
+        if kind.endswith("_at"):
+            continue
+        fixed = STEP_LOSS_TOL if kind.endswith("loss") else STEP_GRAD_TOL
+        gates[kind] = [d, max(fixed, STEP_OWN_FACTOR * max(d_perm[kind],
+                                                           d_own[kind]))]
+    log(f"dp gate {label}: " + "; ".join(
+        f"{k} {v[0]:.4g}" + (f" at {d_dp[k + '_at']}" if k + "_at" in d_dp
+                             else "")
+        + f" (limit {v[1]:.4g}; reordered batch {d_perm[k]:.4g}, {own[0]} "
+        f"vs {own[1]} {d_own[k]:.4g})" for k, v in gates.items()))
+    failed = [k for k, v in gates.items() if v[0] > v[1]]
+    check(not (hold and failed), f"dp {label}: {failed} past their limits")
+    return gates
+
+
+def ae_step_f64(trainer, batch):
+    """``recorded_step``'s values of the autoencoder's step on ``batch``
+    through float64 copies of the model and VGG (no update)."""
+    import copy
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch import weights
+    from arbitrarystyletransfer_tpu_torch.train.ae_trainer import ae_loss
+
+    model = copy.deepcopy(trainer.model).double()
+    vgg = copy.deepcopy(trainer.vgg).double()
+    total, _ = ae_loss(model, vgg, trainer.cfg,
+                       batch.to(DEVICE, torch.float64))
+    grads = torch.autograd.grad(total, list(model.parameters()),
+                                allow_unused=True)
+    names = [n.replace(".", "/") for n, _ in model.named_parameters()]
+    return {"loss": float(total.detach()),
+            "grads": {n: g.float() for n, g in zip(names, grads)},
+            "stats": {k: v.float() for k, v in weights.flatten(
+                weights.module_state(model)).items()
+                if k.startswith("batch_stats/")}}
+
+
+def ae_recorded(trainer, batch):
+    """The autoencoder's step on ``batch``: loss, the gradients Adam was
+    given, the running buffers after."""
+    from arbitrarystyletransfer_tpu_torch import weights
+
+    out, real = {}, trainer.opt.apply_if_finite
+
+    def apply(grads):
+        out["grads"] = dict(zip(trainer.opt.names,
+                                (g.detach().clone() for g in grads)))
+        return real(grads)
+
+    trainer.opt.apply_if_finite = apply
+    try:
+        aux = trainer.train_step(batch)
+    finally:
+        trainer.opt.apply_if_finite = real
+    out["loss"], out["finite"] = float(aux["loss"]), bool(aux["finite"])
+    out["stats"] = {k: v.clone() for k, v in weights.flatten(
+        weights.module_state(trainer.model)).items()
+        if k.startswith("batch_stats/")}
+    return out
+
+
+def dp_trainer(tmp, mesh, seed, use_dis=False):
+    """The dp phase's ``ASTTrainer`` (on ``mesh`` when given, else one
+    process on the card) with the phase's initial AST state; ``seed`` draws
+    the discriminator."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, weights
+    from arbitrarystyletransfer_tpu_torch.config import ASTTrainConfig
+    from arbitrarystyletransfer_tpu_torch.train.ast_trainer import ASTTrainer
+
+    tcfg = ASTTrainConfig(batch_size=DP_BATCH, save_dir=f"{tmp}/ckpt",
+                          ae_model="", use_dis=use_dis)
+    trainer = ASTTrainer(tcfg, None, ModelConfig(use_pallas_adaattn=True),
+                         seed=seed, preview_dir=None,
+                         device=DEVICE if mesh is None else mesh.device,
+                         log_fn=lambda *a: None, mesh=mesh)
+    weights.load_state(trainer.ast, weights.unflatten(
+        torch.load(f"{tmp}/ast_init.pt")))
+    return trainer
+
+
+def dp_rank(mesh, tmp):
+    """One rank of the dp phase (the spec and the batches in ``tmp``):
+    the training gate step, the GAN and AE steps, then (once the CLI's
+    resume has ended: ``dp_cli_resume``) warm-up and timed steps and the
+    fused and graph engines' requests.  Returns what the parent checks."""
+    import os
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, infer, weights
+    from arbitrarystyletransfer_tpu_torch.infer import StylePipeline
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        _build,
+        reset_launches,
+    )
+    from arbitrarystyletransfer_tpu_torch.parallel import shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(f"{tmp}/spec.pt")
+
+    def rows(batch):
+        return tuple(shard_batch(mesh, t if mesh.rank == 0 else None)
+                     for t in batch)
+
+    out = {"device": str(mesh.device)}
+    if torch.cuda.device_count() >= 2 and mesh.device.index == 1:
+        # The launch device check: a tensor on another card than the
+        # current one must raise, not launch there.
+        try:
+            _build.launch_stream(torch.empty(1, device="cuda:0"))
+            out["launch_check"] = "no error"
+        except RuntimeError:
+            out["launch_check"] = "raised"
+
+    # The gate steps (all with ``spec["light"]``): training, GAN, AE.
+    trainer = dp_trainer(tmp, mesh, spec["seed"])
+    with counted_collectives() as calls:
+        out["gate"] = recorded_step(trainer, rows(spec["gate"]),
+                                    restore=False)
+    out["collectives_per_step"] = dict(calls)
+    gan = dp_trainer(tmp, mesh, spec["seed"], use_dis=True)
+    out["gan"] = recorded_step(gan, rows(spec["gan"]), DP_GAN_DIS_STEP,
+                               restore=False)
+    del gan
+    out["ae"] = dp_ae_step(tmp, mesh, spec)
+    if spec["light"]:
+        return out
+    # The CLI's resume ran beside the steps above, which are not timed.
+    deadline = time.monotonic() + DP_TIMEOUT
+    while not os.path.exists(f"{tmp}/cli_done"):
+        check(time.monotonic() < deadline, "dp: the CLI's resume never ended")
+        time.sleep(0.1)
+    torch.cuda.empty_cache()
+    # Training goes on from the gate step: one warm-up step per other
+    # bucket, then the timed steps.
+    for batch in spec["warmup"]:
+        trainer.train_step(*rows(batch))
+    reset_launches()
+    out["step_ms"], out["step_launches"], out["losses"] = [], [], []
+    for batch in spec["timed"]:
+        batch = rows(batch)
+        before = dict(LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        aux = trainer.train_step(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        out["step_ms"].append(start.elapsed_time(end))
+        out["step_launches"].append({k: LAUNCHES[k] - before[k]
+                                     for k in LAUNCHES})
+        out["losses"].append(float(aux["loss"]))
+        check(bool(aux["finite"]), "dp train step: not finite")
+    out["train_launches"] = dict(LAUNCHES)
+    out["final"] = {k: v.clone() for k, v in weights.flatten(
+        weights.module_state(trainer.ast)).items()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Serving: the fused engine's "auto" route (bf16), then the graph
+    # engine with batch-statistics BatchNorm (f32).
+    cfg = ModelConfig(encoder_eval_stats=True, use_pallas_adaattn=True,
+                      compute_dtype="bfloat16")
+    state = torch.load(f"{tmp}/serve_state.pt")
+    pipe = StylePipeline(cfg, engine="fused", device=mesh.device,
+                         state=state, encoder_impl="auto",
+                         decoder_impl="auto", mesh=mesh)
+    engine_calls = []
+    sharded = infer.stylize_fused_sharded
+
+    def counted_engine(*args, **kwargs):
+        with counted_collectives() as calls:
+            result = sharded(*args, **kwargs)
+        engine_calls.append(dict(calls))
+        return result
+
+    infer.stylize_fused_sharded = counted_engine
+    label = f"dp rank {mesh.rank}"
+    try:
+        with torch.inference_mode():
+            outs, ms, total = run_requests(pipe, spec["serve"],
+                                           ROUTES[2][2], f"{label} auto")
+    finally:
+        infer.stylize_fused_sharded = sharded
+    out["serve"] = {"outs": [o.cpu() for o in outs], "ms": ms,
+                    "total": total}
+    out["engine_collectives"] = engine_calls
+    del pipe
+    gcfg = dataclasses.replace(cfg, encoder_eval_stats=False,
+                               compute_dtype="float32")
+    graph = StylePipeline(gcfg, engine="flax", device=mesh.device,
+                          state=torch.load(f"{tmp}/graph_state.pt"),
+                          mesh=mesh)
+    with torch.inference_mode():
+        outs, ms, total = run_requests(graph, spec["graph"], GRAPH_LAUNCHES,
+                                       f"{label} graph")
+    out["graph"] = {"outs": [o.cpu() for o in outs], "ms": ms,
+                    "total": total}
+    return out
+
+
+def dp_ae_step(tmp, mesh, spec):
+    """The dp phase's autoencoder step on this rank's rows."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch import weights
+    from arbitrarystyletransfer_tpu_torch.config import AETrainConfig
+    from arbitrarystyletransfer_tpu_torch.parallel import shard_batch
+    from arbitrarystyletransfer_tpu_torch.train.ae_trainer import (
+        AutoencoderTrainer,
+    )
+
+    ae = AutoencoderTrainer(
+        AETrainConfig(batch_size=DP_BATCH, save_dir=f"{tmp}/ae_ckpt"), None,
+        seed=spec["seed"], device=mesh.device, log_fn=lambda *a: None,
+        mesh=mesh)
+    weights.load_state(ae.model, weights.unflatten(
+        torch.load(f"{tmp}/ae_init.pt")))
+    return ae_recorded(ae, shard_batch(mesh, spec["ae"] if mesh.rank == 0
+                                       else None))
+
+
+def dp_cli(tmp, backend, resume=False):
+    """``torchrun --nproc_per_node 2 -m arbitrarystyletransfer_tpu_torch
+    .train`` for DP_CLI_STEPS steps at DP_CLI_SIZE over the lifecycle's
+    synthetic PNGs, or with ``resume`` a 2-rank ``--load`` resume of one
+    step from that run's checkpoint: (the checkpoint's step after it,
+    seconds)."""
+    import os
+
+    from arbitrarystyletransfer_tpu_torch.train import checkpoint as ckpt
+
+    t = time.perf_counter()
+    dirs = ([f"{tmp}/pngs/content", f"{tmp}/pngs/style"] if resume
+            else write_images(f"{tmp}/pngs", SEED + 15))
+    save = f"{tmp}/cli"
+    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={DP_RANKS}", "-m",
+            "arbitrarystyletransfer_tpu_torch.train", "--pallas",
+            "--device", DEVICE, "--dist_backend", backend, "--img_sizes", str(DP_CLI_SIZE),
+            "--batch_size", str(DP_BATCH), "--content_dir", dirs[0],
+            "--style_dir", dirs[1], "--save_dir", save, "--ae_model",
+            f"{tmp}/none", "--num_workers", "1", "--worker_mode", "thread",
+            "--preview_dir", f"{tmp}/previews"]
+    extra = (["--train_iter", "1", "--load"] if resume
+             else ["--train_iter", str(DP_CLI_STEPS)])
+    proc = subprocess.run(base + extra, capture_output=True, text=True,
+                          timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"dp CLI {extra}: {proc.stderr[-3000:]}")
+    check(proc.stdout.count("NUM AST PARAMETERS") == 1,
+          f"dp CLI: the ranks' log\n{proc.stdout[-2000:]}")
+    step = int(ckpt.restore_checkpoint(f"{save}/ast.pt")["step"])
+    check(step == DP_CLI_STEPS + resume, f"dp CLI {extra}: checkpoint step "
+          f"{step}")
+    return step, round(time.perf_counter() - t, 1)
+
+
+def dp_cli_resume(tmp, backend):
+    """``dp_cli``'s resume, then the file that lets the ranks' timed steps
+    start (``dp_rank`` waits for it), also when the resume failed."""
+    try:
+        return dp_cli(tmp, backend, resume=True)
+    finally:
+        open(f"{tmp}/cli_done", "w").close()
+
+
+def dp_graph_spread(graph, requests, refs):
+    """The graph engine's own spread over the order of the batch's rows:
+    the farthest pair (max abs, mean abs) among each request's output and
+    its outputs on the batch in the orders of ``dp_orders``, put back in
+    order."""
+    import torch
+
+    worst = (0.0, 0.0)
+    for (content, style, alpha), ref in zip(requests, refs):
+        outs = [ref]
+        for order in dp_orders(content.shape[0]):
+            order = torch.as_tensor(order, device=content.device)
+            outs.append(graph.stylize(content[order], style[order],
+                                      alpha)[torch.argsort(order)])
+        for i, a in enumerate(outs):
+            for b in outs[i + 1:]:
+                e = image_errs(a, b)
+                worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+    return worst
+
+
+def dp_all_gates(ranks, ref, gan_ref, ae_ref, hold=True):
+    """``dp_gates`` of the train, GAN and AE steps on every rank."""
+    gates = {}
+    for name, dp_key, refs, own in (
+            ("train", "gate", ref, ("B", "D")),
+            ("gan", "gan", gan_ref, ("B", "D")),
+            ("ae", "ae", ae_ref, ("A", "D"))):
+        for r, rank in zip(ranks, range(DP_RANKS)):
+            check(r[dp_key]["finite"], f"dp {name} step on rank {rank}: not "
+                  "finite")
+            gates[f"{name}/rank{rank}"] = dp_gates(
+                f"{name}, rank {rank}", r[dp_key], refs, own, hold)
+    return gates
+
+
+def dp_phase(gen, card, train_ms, light=False):
+    """Data parallelism on the card: 2 ranks (``dp_plan``) train (the
+    first step held against the one-process step on the same global
+    batch, then warm-up and timed steps with their launches), take a GAN
+    step and an AE step against one process, serve "auto" requests (no
+    collective inside the engine) and graph-engine requests against one
+    process, and the train CLI under torchrun.  Returns the launches by
+    path ("dp-train", "dp-serve", "dp-graph": summed over the ranks).  With
+    ``light`` only the three gate steps run, none held: returns their
+    gates (``scripts/dp_gate_spread.py``)."""
+    import concurrent.futures
+    import os
+    import tempfile
+
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, engine, weights
+    from arbitrarystyletransfer_tpu_torch.config import AETrainConfig
+    from arbitrarystyletransfer_tpu_torch.infer import StylePipeline
+    from arbitrarystyletransfer_tpu_torch.parallel.launch import run_ranks
+    from arbitrarystyletransfer_tpu_torch.train.ae_trainer import (
+        AutoencoderTrainer,
+    )
+
+    backend, device, sentence = dp_plan()
+    log(f"dp: {sentence}")
+
+    def batch(size, n=DP_BATCH):
+        shape = (n, size, size, 3)
+        return (torch.rand(shape, generator=gen, device=DEVICE),
+                torch.rand(shape, generator=gen, device=DEVICE))
+
+    def cpu(b):
+        return tuple(t.cpu() for t in b)
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # The torchrun CLI runs in processes of its own beside what is not
+        # timed: its first run beside the one-process references, its
+        # resume beside the ranks' gate steps.
+        cli_run = None if light else pool.submit(dp_cli, tmp, backend)
+        t = time.perf_counter()
+        # The initial states, the batches and the one-process references.
+        first = batch(TRAIN_SIZES[-1])
+        trainer = make_trainer(tmp, iter([first]))
+        torch.save({k: v.cpu() for k, v in weights.flatten(
+            weights.module_state(trainer.ast)).items()}, f"{tmp}/ast_init.pt")
+        ref = dp_variants(trainer, first)
+        del trainer
+        gan_batch = batch(TRAIN_SIZES[-1])
+        gan = dp_trainer(tmp, None, SEED, use_dis=True)
+        gan_ref = dp_variants(gan, gan_batch, DP_GAN_DIS_STEP)
+        del gan
+        ae = AutoencoderTrainer(
+            AETrainConfig(batch_size=DP_BATCH, save_dir=f"{tmp}/ae1"),
+            None, seed=SEED, device=DEVICE, log_fn=lambda *a: None)
+        weights.load_state(ae.model, ae_state(random_state(
+            ModelConfig(), SEED + 15)))
+        torch.save({k: v.cpu() for k, v in weights.flatten(
+            weights.module_state(ae.model)).items()}, f"{tmp}/ae_init.pt")
+        ae_batch = torch.rand((DP_BATCH, DP_AE_SIZE, DP_AE_SIZE, 3),
+                              generator=gen, device=DEVICE)
+        ae_ref = {"D": ae_step_f64(ae, ae_batch)}
+        for key, b in [("A", ae_batch)] + [
+                (f"P{i}", ae_batch[order]) for i, order in
+                enumerate(dp_orders(DP_BATCH))]:
+            ae_ref[key] = ae_recorded(ae, b)
+            weights.load_state(ae.model, weights.unflatten(torch.load(
+                f"{tmp}/ae_init.pt")))
+            ae.opt = type(ae.opt)(
+                [(n.replace(".", "/"), p) for n, p in
+                 ae.model.named_parameters()], ae.cfg.lr, ae.cfg.adam_b1,
+                ae.cfg.adam_b2, ae.cfg.adam_eps, ae.cfg.grad_clip_norm)
+            ae.step.zero_()
+        del ae
+
+        log(f"dp: the one-process gate steps took "
+            f"{time.perf_counter() - t:.1f} s")
+        spec = {"seed": SEED, "light": light, "gate": cpu(first),
+                "gan": cpu(gan_batch), "ae": ae_batch.cpu()}
+        if light:
+            torch.save(spec, f"{tmp}/spec.pt")
+            ranks = run_ranks(dp_rank, DP_RANKS, tmp, backend=backend,
+                              device=device, timeout=DP_TIMEOUT)
+            return dp_all_gates(ranks, ref, gan_ref, ae_ref, hold=False)
+
+        # Serving: the routes phase's state with its head normalized on
+        # request 1 ("auto", bf16), and the graph engine at f32.
+        cfg = ModelConfig(encoder_eval_stats=True, use_pallas_adaattn=True,
+                          compute_dtype="bfloat16")
+        shape = (BATCH, SIZE, SIZE, 3)
+        serve = [(torch.rand(shape, generator=gen, device=DEVICE),
+                  torch.rand(shape, generator=gen, device=DEVICE), a)
+                 for a in ALPHAS[:DP_REQUESTS]]
+        pipe = StylePipeline(cfg, engine="fused", device=DEVICE,
+                             state=random_state(cfg, SEED),
+                             encoder_impl="auto", decoder_impl="auto")
+        with torch.inference_mode():
+            pre = engine.stylize_fused(
+                pipe.state, *serve[0][:2], serve[0][2], cfg=cfg,
+                dtype=pipe.dtype, exporting=False).double()
+        head = pipe.state["params"]["dec"]["img_out"]
+        scale = 0.05 / pre.std(dim=(1, 2)).mean(dim=0)
+        head["kernel"].mul_(scale.float())
+        head["bias"].copy_(0.5 - scale * (pre.mean(dim=(0, 1, 2))
+                                          - head["bias"]))
+        del pre
+        state = weights.to_device(pipe.state, "cpu")
+        torch.save(state, f"{tmp}/serve_state.pt")
+        with torch.inference_mode():
+            serve_ref = [pipe.stylize(*r) for r in serve]
+            plain, _ = run_plain(pipe, *serve[0], repeats=1)
+            pipe32 = StylePipeline(
+                dataclasses.replace(cfg, compute_dtype="float32"),
+                engine="fused", device=DEVICE, state=pipe.state,
+                encoder_impl="auto", decoder_impl="auto")
+            plain32, _ = run_plain(pipe32, *serve[0], repeats=1)
+            floor16 = image_errs(plain, plain32)
+            del plain, plain32, pipe32
+            gcfg = dataclasses.replace(cfg, encoder_eval_stats=False,
+                                       compute_dtype="float32")
+            graph = StylePipeline(gcfg, engine="flax", device=DEVICE,
+                                  state=state)
+            graph_req = serve[:DP_GRAPH_REQUESTS]
+            # The graph normalizes with batch statistics: its head is
+            # normalized on request 1 as the lifecycle's graph engine's is.
+            normalize_train_head(graph, graph_req[0][:2])
+            torch.save(weights.to_device(graph.state, "cpu"),
+                       f"{tmp}/graph_state.pt")
+            graph_ref = [graph.stylize(*r) for r in graph_req]
+            graph_spread = dp_graph_spread(graph, graph_req, graph_ref)
+        log(f"dp: the one-process references took "
+            f"{time.perf_counter() - t:.1f} s")
+        cli_first = cli_run.result()
+        log(f"dp: the CLI's first run (step, s): {cli_first}; the CLI and "
+            f"the references {time.perf_counter() - t:.1f} s")
+        with torch.inference_mode():
+            # Timed alone on the card, the CLI done.
+            one_auto_ms = timed_ms(lambda: pipe.stylize(*serve[0]), iters=3,
+                                   warmup=1)
+        del pipe, graph
+        torch.cuda.empty_cache()
+
+        spec.update({
+            "warmup": [cpu(batch(s)) for s in TRAIN_SIZES[:-1]],
+            "timed": [cpu(batch(TRAIN_SIZES[-1])) for _ in range(DP_STEPS)],
+            "serve": [(c.cpu(), s.cpu(), a) for c, s, a in serve],
+            "graph": [(c.cpu(), s.cpu(), a) for c, s, a in graph_req]})
+        torch.save(spec, f"{tmp}/spec.pt")
+        t = time.perf_counter()
+        resume_run = pool.submit(dp_cli_resume, tmp, backend)
+        ranks = run_ranks(dp_rank, DP_RANKS, tmp, backend=backend,
+                          device=device, timeout=DP_TIMEOUT)
+        rank_s = round(time.perf_counter() - t, 1)
+        cli = {"steps": [cli_first, resume_run.result()],
+               "files": sorted(os.listdir(f"{tmp}/cli")),
+               "previews": len(os.listdir(f"{tmp}/previews"))}
+        log(f"dp: the ranks' run took {rank_s} s; the CLI's resume (step, "
+            f"s) {cli['steps'][1]}")
+        check(cli["files"] == ["ast.pt", "ast_train_dict.json"],
+              f"dp CLI files {cli['files']}")
+
+    result = {"backend": backend, "ranks": DP_RANKS,
+              "devices": [r["device"] for r in ranks], "card": card,
+              "ranks_seconds": rank_s, "cli": cli}
+    if "launch_check" in ranks[-1]:
+        result["launch_check"] = ranks[-1]["launch_check"]
+        check(ranks[-1]["launch_check"] == "raised",
+              "a launch on another card than the current one did not raise")
+    result["gates"] = dp_all_gates(ranks, ref, gan_ref, ae_ref)
+    for key in ("state", "grads"):
+        check(all(torch.equal(ranks[0]["gate"][key][k], ranks[1]["gate"][key][k])
+                  for k in ranks[0]["gate"][key]), f"dp train gate: {key} differ "
+              "across the ranks")
+    unequal = [k for k in ranks[0]["final"]
+               if not torch.equal(ranks[0]["final"][k], ranks[1]["final"][k])]
+    check(not unequal, f"dp: parameters or buffers differ across the ranks "
+          f"after the timed steps: {unequal[:5]}")
+    for r in ranks:
+        for i, n in enumerate(r["step_launches"]):
+            check(n == TRAIN_LAUNCHES, f"dp step {i + 1} on {r['device']} "
+                  f"launched {n}, expected {TRAIN_LAUNCHES}")
+        check(all(math.isfinite(x) for x in r["losses"]), f"dp losses "
+              f"{r['losses']}")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "dp: the ranks' losses "
+          "differ")
+
+    serve_err, bit_equal = [], True
+    for r in ranks:
+        check(all(not any(c.values()) for c in r["engine_collectives"]),
+              f"dp: collectives inside the engine {r['engine_collectives']}")
+        for out, ref_out in zip(r["serve"]["outs"], serve_ref):
+            ref_out = ref_out.cpu()
+            bit_equal &= torch.equal(out, ref_out)
+            serve_err.append(image_errs(out, ref_out))
+    # Each rank's rows through the same kernels at half the batch: equal
+    # where every op of the route computes an image independently of the
+    # batch (cuDNN may pick another algorithm for the plain convs at
+    # batch 4); else within the routes phase's bf16 gate.
+    worst = (max(e[0] for e in serve_err), max(e[1] for e in serve_err))
+    check(bit_equal or (worst[0] <= IMAGE_BF16_FACTOR * floor16[0]
+                        and worst[1] <= IMAGE_BF16_FACTOR * floor16[1]),
+          f"dp serving: {worst} past the bf16 gate ({floor16})")
+    # The graph engine's BatchNorm statistics are the global batch's sums,
+    # whose order the ranks change: held to the f32 image gate or twice
+    # the one-process engine's own spread over the batch's order.
+    graph_err = [image_errs(out, ref_out.cpu()) for r in ranks
+                 for out, ref_out in zip(r["graph"]["outs"], graph_ref)]
+    g_worst = (max(e[0] for e in graph_err), max(e[1] for e in graph_err))
+    g_limit = [max(tol, STEP_OWN_FACTOR * spread)
+               for tol, spread in zip(IMAGE_F32_TOL, graph_spread)]
+    log(f"dp graph engine against one process: max abs {g_worst[0]:.4g}, "
+        f"mean abs {g_worst[1]:.4g} (limits {g_limit}; one process over "
+        f"the batch's order: {graph_spread})")
+    check(g_worst[0] <= g_limit[0] and g_worst[1] <= g_limit[1],
+          f"dp graph engine: {g_worst} past its limits {g_limit}")
+    result["serve"] = {"bit_equal": bool(bit_equal), "max_abs": worst[0],
+                       "mean_abs": worst[1],
+                       "bf16_limit": [IMAGE_BF16_FACTOR * f for f in floor16]}
+    result["graph"] = {"max_abs": g_worst[0], "mean_abs": g_worst[1],
+                       "limit": g_limit, "order_spread": list(graph_spread)}
+    result["launches_per_rank"] = {
+        "train_step": ranks[0]["step_launches"][0],
+        "request": dict(ROUTES[2][2]), "graph_request": GRAPH_LAUNCHES}
+    result["collectives_per_step"] = ranks[0]["collectives_per_step"]
+    result["ms"] = {
+        "train_step_per_rank": [statistics.median(r["step_ms"])
+                                for r in ranks],
+        "train_step_one_process": train_ms,
+        "request_per_rank": [statistics.median(r["serve"]["ms"][1:])
+                             for r in ranks],
+        "request_one_process": one_auto_ms,
+        "graph_request_per_rank": [statistics.median(r["graph"]["ms"][1:])
+                                   for r in ranks]}
+    log(json.dumps({"dp": result}))
+    return {"dp-train": {k: sum(r["train_launches"][k] for r in ranks)
+                         for k in KERNELS},
+            "dp-serve": {k: sum(r["serve"]["total"][k] for r in ranks)
+                         for k in KERNELS},
+            "dp-graph": {k: sum(r["graph"]["total"][k] for r in ranks)
+                         for k in KERNELS}}
+
+
 def main() -> int:
     import torch
 
@@ -3535,6 +4363,10 @@ def main() -> int:
     # The lifecycle phase draws from a generator of its own.
     gen13 = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
     launches.update(phase("lifecycle", lifecycle_phase, gen13, card))
+    # The dp phase draws from a generator of its own.
+    gen15 = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    torch.cuda.empty_cache()
+    launches.update(phase("dp", dp_phase, gen15, card, train_ms))
     launches.update(probe_launches)
     log(f"phase seconds: {seconds}")
 
@@ -3576,7 +4408,10 @@ def main() -> int:
         "train steps, the GAN phase's timed steps (gan), the lifecycle "
         "phase's runs (warm-started-ast: its AST "
         "steps; flax: the graph engine's requests; recalibrated-auto: the "
-        "recalibrated fused engine's requests) and the two probe drivers' "
+        "recalibrated fused engine's requests), the dp phase's runs summed "
+        "over its 2 ranks (dp-train: the timed steps; dp-serve: the \"auto\" "
+        "requests; dp-graph: the graph engine's requests) and the two probe "
+        "drivers' "
         "runs (counted per route, path or driver); for the stylize kernels "
         "max_abs_err is the worst output error over their 512px bf16 cases "
         "(hidden for expand_dw, mean/std of the AdaAttN taps case) and ms, "
