@@ -457,6 +457,11 @@ class _PrefetchLoader:
             p.join(timeout=2.0)
             if p.is_alive():
                 p.terminate()
+        # Wait for the thread workers to finish their batch: a worker still
+        # drawing once its files are gone (a temporary folder the caller
+        # removes after close) would retry the unreadable paths forever.
+        for t in self._threads:
+            t.join(timeout=30.0)
 
 
 class PairedBatchLoader(_PrefetchLoader):

@@ -8,9 +8,11 @@ the flat kernel, the stride-2 kernel, the fused route or the plain route.
 The JAX package's flat NCHW layout, its transposes, halo chaining and row
 planning are TPU layout machinery and have no counterpart here.
 
-"auto" in the JAX package consults a table measured on a TPU and, without
-one, falls back to the "tail" heuristic.  The port has no H100 table yet, so
-its "auto" is that table-less plan.
+"auto" plans from the table measured on the card (``ops/policy.py``, written
+by ``scripts/autotune_blocks.py``), as JAX's plans from its TPU table: the
+whole chain by ``policy.plan_chain``, else block by block by
+``policy.best_impl``, else by the "tail" heuristic.  Without a table for
+the card it is JAX's table-less plan.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from .blocks import (
     upsample_smooth_apply,
 )
 from .flatblock_s2 import LANE, flat_s2_block_apply, round_up, s2_eligible
-from .fused_block import MIN_FUSED_SIZE, block_apply
+from .fused_block import MIN_FUSED_SIZE, block_apply, takes_kernel
 from .kernels.flat_block import flat_block
+from .policy import best_impl, block_key, plan_chain
 
 # engine impl name -> chain mode, as ``engine._FLAT_MODE`` of the JAX package.
 FLAT_MODE = {"flat": "tail", "flat-all": "all", "auto": "auto"}
@@ -55,12 +58,31 @@ def stride_ok(w: int, lane: int = LANE) -> bool:
     return 3 * (ws - w) <= ws
 
 
-def plan_impls(descs, mode: str, lane: int = LANE) -> list[str]:
+def chain_rows(descs, lane: int = LANE) -> list[dict]:
+    """``policy.plan_chain``'s block rows for a chain of
+    ``encoder_descs``/``decoder_descs`` rows (``flatblock._plan_impls``'s)."""
+    return [{
+        "key": block_key(d["c_in"], d["c_out"], d.get("stride", 1), d["k"],
+                         d["t"], d["h"], d["w"]),
+        "flat_ok": stride_ok(d["w"], lane),
+        "stride2": d.get("stride", 1) == 2,
+        "force_nhwc": d.get("force_nhwc", False),
+        "nhwc_out": d.get("nhwc_out", False),
+        "est_bytes": 8 * d["c_in"] * d["h"] * d["w"] * 2,
+    } for d in descs]
+
+
+def plan_impls(descs, mode: str, lane: int = LANE, device=None) -> list[str]:
     """One impl per block ("flat" | "flat2" | "fused" | "xla") for a chain
     of ``encoder_descs``/``decoder_descs`` rows, in mode "tail", "all" or
-    "auto" (``flatblock._plan_impls`` with no tuned table)."""
+    "auto" (``flatblock._plan_impls``); "auto" reads the table for
+    ``device`` (``policy.load_policy``)."""
     if mode not in ("tail", "all", "auto"):
         raise ValueError(f"unknown flat chain mode {mode!r}")
+    if mode == "auto":
+        planned = plan_chain(chain_rows(descs, lane), device)
+        if planned is not None:
+            return planned
 
     def choose(d):
         if d.get("force_nhwc"):
@@ -70,6 +92,11 @@ def plan_impls(descs, mode: str, lane: int = LANE) -> list[str]:
         ok = stride_ok(d["w"], lane)
         if mode == "all":
             return "flat" if ok else "fused"
+        if mode == "auto":  # ``flatblock._choose_impl``
+            best = best_impl(d["c_in"], d["c_out"], 1, d["k"], d["t"],
+                             d["h"], d["w"], device)
+            if best is not None and (best != "flat" or ok):
+                return best
         return "flat" if ok and d["k"] == 3 and d["c_in"] <= 24 else "fused"
 
     return [choose(d) for d in descs]
@@ -118,23 +145,49 @@ def encoder_descs(enc_conv_shapes, h: int, w: int, out_layers,
 
 
 def planned_chains(cfg, size: int, enc_mode: str, dec_mode: str,
-                   lane: int = LANE) -> dict:
-    """The plan the engine executes at ``size`` for engine impl names
-    (``flatblock.planned_chains``); "fused"/"mega" bypass the planner."""
+                   lane: int = LANE, device=None) -> dict:
+    """The plan the engine executes at ``size`` for engine impl names, for
+    a request on ``device`` (``flatblock.planned_chains``); "fused"/"mega"
+    bypass the planner."""
     out = {}
     if enc_mode in FLAT_MODE:
         out["enc"] = plan_impls(
             encoder_descs(cfg.enc_conv_shapes, size, size, cfg.enc_out_layers,
                           cfg.expand_ratio, lane),
-            FLAT_MODE[enc_mode], lane)
+            FLAT_MODE[enc_mode], lane, device)
     else:
         out["enc"] = [enc_mode] * (len(cfg.enc_conv_shapes) - 1)
     if dec_mode in FLAT_MODE:
         out["dec"] = plan_impls(
             decoder_descs(cfg.decoder_conv_shapes, size // 8, size // 8),
-            FLAT_MODE[dec_mode], lane)
+            FLAT_MODE[dec_mode], lane, device)
     else:
         out["dec"] = [dec_mode] * (len(cfg.decoder_conv_shapes) - 1)
+    return out
+
+
+def planned_launches(cfg, size: int, enc_mode: str, dec_mode: str,
+                     lane: int = LANE, min_fused_size: int = MIN_FUSED_SIZE,
+                     device=None) -> dict:
+    """{kernel: launches} of the block kernels in one ``stylize_fused`` call
+    at ``size`` on flat routes: the encoder's and decoder's planned blocks
+    and the ``ada_out`` block ("fused" takes ``expand_dw`` where
+    ``block_apply`` does)."""
+    if enc_mode not in FLAT_MODE or dec_mode not in FLAT_MODE:
+        raise ValueError(f"not a flat route: {enc_mode!r}, {dec_mode!r}")
+    plan = planned_chains(cfg, size, enc_mode, dec_mode, lane, device)
+    descs = (encoder_descs(cfg.enc_conv_shapes, size, size,
+                           cfg.enc_out_layers, cfg.expand_ratio, lane)
+             + decoder_descs(cfg.decoder_conv_shapes, size // 8, size // 8)
+             + [dict(t=cfg.expand_ratio, h=size // 8)])
+    out = {"expand_dw": 0, "flat_block": 0, "flat_s2_block": 0}
+    for d, impl in zip(descs, plan["enc"] + plan["dec"] + ["fused"]):
+        if impl == "flat":
+            out["flat_block"] += 1
+        elif impl == "flat2":
+            out["flat_s2_block"] += 1
+        elif impl == "fused" and d.get("stride", 1) == 1:
+            out["expand_dw"] += takes_kernel(d["t"], d["h"], min_fused_size)
     return out
 
 
@@ -146,7 +199,7 @@ def decode_flat(dec_params, z, decoder_conv_shapes, exporting: bool = True,
     ``fused_block.block_apply`` and upsamples the flax math."""
     shapes = decoder_conv_shapes
     impls = plan_impls(decoder_descs(shapes, z.shape[1], z.shape[2]),
-                       flat_blocks, lane)
+                       flat_blocks, lane, z.device)
     x = z
     for i, shape in enumerate(shapes[:-1]):
         blk = dec_params[f"decoder_blocks_{i}"]
@@ -179,7 +232,7 @@ def encode_flat(enc_params, enc_stats, x, enc_conv_shapes, out_layers,
     impls = plan_impls(
         encoder_descs(shapes, h.shape[1], h.shape[2], out_layers,
                       expand_ratio, lane),
-        flat_blocks, lane)
+        flat_blocks, lane, h.device)
     for i in range(1, len(shapes)):
         stride, k, t = encoder_block_kt(shapes, i, expand_ratio)
         blk, st = enc_params[f"mob_net_{i}"], enc_stats[f"mob_net_{i}"]

@@ -80,14 +80,20 @@ def fused_block_apply_2pass(params, x, kernel_size: int, expand_ratio: int,
     return y
 
 
+def takes_kernel(expand_ratio: int, h: int,
+                 min_fused_size: int = MIN_FUSED_SIZE) -> bool:
+    """Whether ``block_apply`` sends a block of height ``h`` to the
+    ``expand_dw`` kernel: expand blocks at ``h >= min_fused_size``, every
+    block with ``min_fused_size=0``."""
+    return (expand_ratio != 1 or min_fused_size == 0) and h >= min_fused_size
+
+
 def block_apply(params, x, kernel_size: int, expand_ratio: int,
                 use_identity: bool = True, stats=None, dtype=torch.bfloat16,
                 min_fused_size: int = MIN_FUSED_SIZE):
-    """The kernel route for expand blocks at ``H >= min_fused_size``
-    (``min_fused_size=0`` sends every block there), the plain route
+    """The kernel route where ``takes_kernel`` says so, the plain route
     elsewhere (``fused_block.block_apply``)."""
-    if (expand_ratio != 1 or min_fused_size == 0) and (
-            x.shape[1] >= min_fused_size):
+    if takes_kernel(expand_ratio, x.shape[1], min_fused_size):
         return fused_block_apply(params, x, kernel_size, expand_ratio,
                                  use_identity=use_identity, stats=stats,
                                  dtype=dtype)

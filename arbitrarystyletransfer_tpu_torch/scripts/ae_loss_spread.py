@@ -10,9 +10,11 @@ helpers).  Builds the lifecycle phase's ``AutoencoderTrainer`` (256px batch
 the phase's synthetic PNGs, and for each of the loader's first
 ``--batches`` batches prints one JSON object: the loss's parts (recon,
 perceptual, total) in float32 and their relative distance to the same
-parts through float64 copies of the model.  The phase holds batch 1's
-total at ``AE_LOSS_TOL``; this shows how far the other batches' lie.
-Needs CUDA.
+parts through float64 copies of the model, and the largest distance of
+the float32 total over ``dp_orders``' row orders of the batch
+(``orders``) with the phase's limit from it.  The phase holds batch 1's
+total within ``AE_ORDER_FACTOR`` times that spread, floored at
+``AE_LOSS_TOL``; this shows how the other batches' lie.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -70,19 +72,25 @@ def main(argv=None) -> int:
     weights.load_state(trainer.model,
                        c.ae_state(c.random_state(ModelConfig(), c.SEED)))
 
-    def parts(batch, dtype):
+    def parts(batch, dtype, rows=None):
         model = copy.deepcopy(trainer.model).to(dtype)
         vgg = copy.deepcopy(trainer.vgg).to(dtype)
+        x = torch.as_tensor(batch, dtype=dtype, device=c.DEVICE)
         with torch.no_grad():
-            _, aux = ae_loss(model, vgg, cfg, torch.as_tensor(
-                batch, dtype=dtype, device=c.DEVICE))
+            _, aux = ae_loss(model, vgg, cfg,
+                             x if rows is None else x[list(rows)])
         return {k: float(v) for k, v in aux.items()}
 
     for i, batch in enumerate(batches):
         f32, f64 = parts(batch, torch.float32), parts(batch, torch.float64)
+        orders = max(abs(parts(batch, torch.float32, rows)["loss"]
+                         - f64["loss"]) / abs(f64["loss"])
+                     for rows in c.dp_orders(len(batch)))
         print(json.dumps({
             "batch": i + 1, "f32": f32,
-            "relative": {k: (f32[k] - f64[k]) / abs(f64[k]) for k in f64}}),
+            "relative": {k: (f32[k] - f64[k]) / abs(f64[k]) for k in f64},
+            "orders": orders,
+            "limit": max(c.AE_LOSS_TOL, c.AE_ORDER_FACTOR * orders)}),
             flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -218,7 +218,7 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
             x, *args, pre_act=True, identity=residual, **kw))
         del x
         emit(name, "flat_block", ms,
-             sweep_costs(n, hw, c_in, e, c_out, k, residual), case[-2],
+             sweep_costs(n, hw, c_in, e, c_out, k, residual), case[-1],
              occupancy("flat_block", k, c_in, e, c_out, residual))
     for case in mega_cases:
         name, n, h, w, c_in, e, c_out, k, bn, residual = case[:10]
@@ -239,7 +239,7 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
         ms = profile_sweeps(lambda: flat_s2_block(x, *args, **kw))
         del x
         emit(name, "flat_s2_block", ms,
-             s2_sweep_costs(n, hw, c_in, e, c_out, k), case[-2],
+             s2_sweep_costs(n, hw, c_in, e, c_out, k), case[-1],
              occupancy("flat_s2_block", k, c_in, e, c_out),
              last_staging("flat_s2_block"))
     return records
@@ -287,10 +287,9 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     expand_cases = [c for c in chip_smoke.EXPAND_DW_CASES if c[-1]]
-    flat_cases = [c for c in chip_smoke.FLAT_BLOCK_CASES
-                  if c[-2] or c[-1]]
+    flat_cases = [c for c in chip_smoke.FLAT_BLOCK_CASES if c[-1]]
     mega_cases = [c for c in chip_smoke.MEGA_CASES if c[-1]]
-    s2_cases = [c for c in chip_smoke.FLAT_S2_CASES if c[-2] or c[-1]]
+    s2_cases = [c for c in chip_smoke.FLAT_S2_CASES if c[-1]]
     with torch.inference_mode():
         records = time_sweeps(gen, expand_cases, flat_cases,
                               mega_cases=mega_cases, s2_cases=s2_cases)

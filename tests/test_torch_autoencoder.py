@@ -48,7 +48,12 @@ from test_torch_ops import (
     assert_close,
     fill_variables,
 )
-from test_torch_train_step import _grab_gradients
+from test_torch_train_step import (
+    _grab_gradients,
+    check_bf16_step,
+    jax_step_bf16,
+    port_grads,
+)
 
 AUX_KEYS = ("train_loss", "perp_loss", "loss")
 
@@ -190,11 +195,19 @@ def _jax_step_f64(v, vgg_params, x):
     return aux, grads, stats
 
 
-def test_ae_train_step_matches_jax():
+@functools.lru_cache(maxsize=None)
+def _reference():
+    """(variables, VGG params, batch, the JAX float64 step's (aux,
+    gradients, batch_stats)): the inputs and the yardstick of the float32
+    and the bf16 step tests (computed once)."""
     v = ae_variables(94, proj_gain=1.0)
     vgg_params = init_vgg_params(generator=torch.Generator().manual_seed(95))
     x = _images(96)
-    ref_aux, ref_grads, ref_stats = _jax_step_f64(v, vgg_params, x)
+    return v, vgg_params, x, _jax_step_f64(v, vgg_params, x)
+
+
+def test_ae_train_step_matches_jax():
+    v, vgg_params, x, (ref_aux, ref_grads, ref_stats) = _reference()
     assert bool(ref_aux["finite"])
 
     ae, aux, grads = _port_step(v, vgg_params, x)
@@ -225,6 +238,21 @@ def test_ae_train_step_matches_jax():
     for key, ref in ref_stats.items():
         assert_close(flat64[key].numpy(), ref, 1e-11, key)
         assert_close(flat[key], ref, 1e-4, key)
+
+
+def test_bf16_ae_train_step_matches_jax():
+    """The bf16 step (compute_dtype "bfloat16") against JAX's bf16 step,
+    both against JAX's float64 step (``check_bf16_step``)."""
+    v, vgg_params, x, (ref_aux, ref_grads, _) = _reference()
+    ae = _port(v, ModelConfig(compute_dtype="bfloat16"))
+    vgg = VGG19Features()
+    vgg.load_params(vgg_params)
+    total, aux = ae_loss(ae, vgg, AETrainConfig(), torch.from_numpy(x))
+    assert total.dtype == torch.float32 and bool(torch.isfinite(total))
+    port = ({k: float(a) for k, a in aux.items()}, port_grads(ae, total))
+    jax_bf16 = jax_step_bf16(make_ae_train_step, JaxAE,
+                             jax_config.AETrainConfig(), v, vgg_params, x)
+    check_bf16_step(port, jax_bf16, (ref_aux, ref_grads), AUX_KEYS)
 
 
 # -- the trainer -------------------------------------------------------------
@@ -351,3 +379,18 @@ def test_content_dataset_refuses_an_empty_folder(tmp_path):
     (tmp_path / "empty").mkdir()
     with pytest.raises(ValueError, match="empty"):
         pipeline.FlatFolderDatasetAE([str(tmp_path / "empty")])
+
+
+def test_close_stops_the_thread_workers(tmp_path):
+    """After ``close`` no worker thread is left: one still drawing when
+    its folder is removed would retry the missing files forever, at full
+    speed (it held a core of every later test and phase)."""
+    dirs = _write_images(tmp_path / "content", n=3)
+    loader = pipeline.ContentBatchLoader(
+        pipeline.FlatFolderDatasetAE(dirs), batch_size=2, imsize=32,
+        num_workers=2, worker_mode="thread")
+    next(loader)
+    threads = list(loader._threads)
+    assert len(threads) == 2 and all(t.is_alive() for t in threads)
+    loader.close()
+    assert not any(t.is_alive() for t in threads)

@@ -33,6 +33,7 @@ from arbitrarystyletransfer_tpu_torch.infer import StylePipeline
 from arbitrarystyletransfer_tpu_torch.ops import flatblock as pflat
 from arbitrarystyletransfer_tpu_torch.ops import flatblock_s2 as ps2
 from arbitrarystyletransfer_tpu_torch.ops import fused_block as pfb
+from arbitrarystyletransfer_tpu_torch.ops import policy as ppolicy
 from arbitrarystyletransfer_tpu_torch.ops.kernels import LAUNCHES
 
 from test_torch_ops import assert_close, ast_variables, to_jax
@@ -320,9 +321,11 @@ def test_decode_flat_matches_jax_unfolded_decoder(mode):
     ("flat-all", 15, 2, 0),   # e1 e3 e5 e6 d3-d13; e2 e4
     ("auto", 5, 1, 10),       # e1 e3 d11-d13; e4; e5 e6 d3-d10
 ])
-def test_flat_route_kernel_calls(monkeypatch, impl, flat, flat_s2, fused):
+def test_flat_route_kernel_calls(jax_without_table, monkeypatch, impl, flat,
+                                 flat_s2, fused):
     """At 1/8 of the 512px size, lane and threshold, each route calls each
-    kernel wrapper as often as a 512px request does."""
+    kernel wrapper as often as a 512px request does (without a table: the
+    table's keys carry the size)."""
     calls = {"flat": 0, "flat_s2": 0, "fused": 0}
 
     def counted(name, fn):
@@ -342,30 +345,36 @@ def test_flat_route_kernel_calls(monkeypatch, impl, flat, flat_s2, fused):
                          min_fused_size=MIN_FUSED, encoder_impl=impl,
                          decoder_impl=impl, lane=LANE)
     assert calls == {"flat": flat, "flat_s2": flat_s2, "fused": fused}
+    assert pflat.planned_launches(CFG, 64, impl, impl, lane=LANE,
+                                  min_fused_size=MIN_FUSED) == {
+        "flat_block": flat, "flat_s2_block": flat_s2, "expand_dw": fused}
 
 
 @pytest.fixture
 def jax_without_table(monkeypatch, tmp_path):
-    """The JAX planner with no tuned table (its "auto" falls back to the
-    "tail" heuristic), as the port has none for the H100."""
+    """Both planners with no tuned table (their "auto" falls back to the
+    "tail" heuristic): ``AST_TUNED_POLICY`` names a missing file."""
     monkeypatch.setenv("AST_TUNED_POLICY", str(tmp_path / "missing.json"))
     jpolicy.load_policy.cache_clear()
+    ppolicy.clear_cache()
     yield
     jpolicy.load_policy.cache_clear()
+    ppolicy.clear_cache()
 
 
 @pytest.mark.parametrize("size", [512, 320, 256])
 @pytest.mark.parametrize("impl", FLAT_IMPLS)
 def test_planned_chains_match_jax_without_table(jax_without_table, impl,
                                                 size):
-    assert jpolicy.load_policy() == {}
+    assert jpolicy.load_policy() == {} == ppolicy.load_policy()
     ours = pflat.planned_chains(CFG, size, impl, impl)
     assert ours == jflat.planned_chains(JCFG, size, impl, impl)
     assert "flat" in ours["enc"] and "flat" in ours["dec"]
 
 
 @pytest.mark.parametrize("impl", FLAT_IMPLS)
-def test_planned_chains_at_64px_with_lane_16_equal_512px(impl):
+def test_planned_chains_at_64px_with_lane_16_equal_512px(jax_without_table,
+                                                        impl):
     assert (pflat.planned_chains(CFG, 64, impl, impl, lane=LANE)
             == pflat.planned_chains(CFG, 512, impl, impl))
 
@@ -379,7 +388,8 @@ def test_pipeline_routes_match_engine(monkeypatch, encoder_impl,
     modes = []
     real = pflat.plan_impls
     monkeypatch.setattr(pflat, "plan_impls",
-                        lambda d, m, lane: modes.append(m) or real(d, m, lane))
+                        lambda d, m, lane, device=None: modes.append(m)
+                        or real(d, m, lane, device))
     v = ast_variables(seed=9)
     state = weights.from_jax_tree(v["params"], v["batch_stats"])
     pipe = StylePipeline(CFG, engine="fused", state=state,

@@ -24,6 +24,8 @@ network the JAX float32 CPU step is ~2e-3 of a tensor's max away from
 float64 in the worst tensor, the port's ~1e-4.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,7 +122,11 @@ def _jax_step_f64(v, vgg_params, content, style):
     return aux, grads, stats
 
 
-def test_train_step_matches_jax(monkeypatch):
+@functools.lru_cache(maxsize=None)
+def _reference():
+    """(variables with the head normalized, VGG params, content, style, the
+    JAX float64 step's (aux, gradients, batch_stats)): the inputs and the
+    yardstick of the float32 and the bf16 step tests (computed once)."""
     v = ast_variables(seed=31, proj_gain=1.0)
     vgg_params = init_vgg_params(generator=torch.Generator().manual_seed(32))
     rng = np.random.default_rng(33)
@@ -131,8 +137,13 @@ def test_train_step_matches_jax(monkeypatch):
     weights.load_state(ast, weights.from_jax_tree(v["params"],
                                                   v["batch_stats"]))
     _normalize_head(v, ast, content, style)
-    ref_aux, ref_grads, ref_stats = _jax_step_f64(v, vgg_params, content,
-                                                  style)
+    return (v, vgg_params, content, style,
+            _jax_step_f64(v, vgg_params, content, style))
+
+
+def test_train_step_matches_jax(monkeypatch):
+    v, vgg_params, content, style, ref = _reference()
+    ref_aux, ref_grads, ref_stats = ref
     assert bool(ref_aux["finite"])
 
     ast, aux, grads = _port_step(v, vgg_params, content, style)
@@ -181,3 +192,109 @@ def test_train_step_matches_jax(monkeypatch):
         # The running variance averages a batch variance of ~35 blocks'
         # activations in f32: measured <= 5.2e-5.
         assert_close(flat[key], ref, 1e-4, key)
+
+
+# -- bfloat16 ----------------------------------------------------------------
+
+# The bf16 steps (compute_dtype "bfloat16": convs and products in bf16,
+# parameters, statistics and losses f32) lie far from float64: each of ~35
+# blocks rounds to 8 bits.  On this network (32px, batch 2) the AST
+# step's gradients lie a median 0.30 of their floored scale from the
+# float64 step's for both the port and JAX
+# (port 0.304, JAX 0.305; the worst tensor 0.83 and 1.34), its loss terms
+# 1.5e-3 to 4.2e-2 (JAX 7.5e-4 to 4.5e-2; per term the port up to 2.1x
+# JAX); the autoencoder's a median 0.010 (JAX 0.009), the worst 0.49 (JAX
+# 0.58), its losses 6.7e-5 to 1.4e-4 (0.95x JAX).  The port's distance to
+# JAX's bf16 step is as large as either's to float64 (AST median 0.32, AE
+# 0.011): two independent roundings.  So the gates hold the port to JAX's
+# own bf16 error, with the stated headroom over what was measured:
+BF16_TERM_FACTOR = 3.0     # a loss term: 3x JAX's distance (measured 2.1x),
+BF16_TERM_FLOOR = 2.0 ** -7  # floored at two bf16 ulps (relative)
+BF16_GRAD_FACTOR = 1.5     # gradients: the median and the worst tensor
+                           # (measured <= 1.08x and <= 0.85x), and the
+                           # median distance to JAX's bf16 step against
+                           # JAX's to float64 (measured <= 1.18x)
+
+
+def _grad_distances(grads, other, ref_grads):
+    """{name: max |g - other| over the float64 gradient's scale, floored at
+    1e-4 of the largest float64 gradient} (the float32 test's scale)."""
+    largest = max(float(np.abs(r).max()) for r in ref_grads.values())
+    return {n: float(np.abs(np.asarray(grads[n], np.float64)
+                            - np.asarray(other[n], np.float64)).max())
+            / max(float(np.abs(r).max()), 1e-4 * largest)
+            for n, r in ref_grads.items()}
+
+
+def check_bf16_step(port, jax_bf16, ref, keys):
+    """Holds the port's bf16 step (aux, {name: gradient}) to JAX's bf16 step
+    and both to the float64 step ``ref`` (aux, gradients): each loss term
+    within ``BF16_TERM_FACTOR`` times JAX's distance to float64 (floored at
+    ``BF16_TERM_FLOOR``; a term that is 0 in float64 stays 0); the median
+    and the worst gradient distance within ``BF16_GRAD_FACTOR`` times
+    JAX's; the median gradient distance to JAX's bf16 step within
+    ``BF16_GRAD_FACTOR`` times JAX's median distance to float64."""
+    (aux, grads), (jaux, jgrads), (raux, rgrads) = port, jax_bf16, ref
+    for key in keys:
+        if raux[key] == 0:
+            assert aux[key] == 0 == jaux[key], key
+            continue
+        ours = abs(aux[key] - raux[key]) / abs(raux[key])
+        theirs = abs(jaux[key] - raux[key]) / abs(raux[key])
+        assert ours <= max(BF16_TERM_FACTOR * theirs, BF16_TERM_FLOOR), (
+            key, ours, theirs)
+    ours = _grad_distances(grads, rgrads, rgrads)
+    theirs = _grad_distances(jgrads, rgrads, rgrads)
+    apart = _grad_distances(grads, jgrads, rgrads)
+    assert sorted(ours) == sorted(grads)
+    med, jmed = np.median(list(ours.values())), np.median(
+        list(theirs.values()))
+    assert med <= BF16_GRAD_FACTOR * jmed, (med, jmed)
+    assert max(ours.values()) <= BF16_GRAD_FACTOR * max(theirs.values()), (
+        max(ours.values()), max(theirs.values()))
+    assert np.median(list(apart.values())) <= BF16_GRAD_FACTOR * jmed, (
+        np.median(list(apart.values())), jmed)
+
+
+def jax_step_bf16(make_step, model_cls, train_cfg, v, vgg_params, *batch):
+    """(aux, gradients) of a JAX train step with compute_dtype "bfloat16"
+    (``make_step(model, vgg, cfg)``), as float64 numpy."""
+    step = make_step(model_cls(jax_config.ModelConfig(
+        compute_dtype="bfloat16")), JaxVGG(), train_cfg)
+    state = create_train_state(jax.tree.map(jnp.asarray, v["params"]),
+                               jax.tree.map(jnp.asarray, v["batch_stats"]),
+                               _grab_gradients())
+    new_state, aux = step(state, jax.tree.map(jnp.asarray, vgg_params),
+                          *map(jnp.asarray, batch))[:2]
+    grads = weights.flatten({"params": jax.tree.map(
+        lambda a: np.asarray(a, np.float64), new_state.opt_state),
+        "batch_stats": {}})
+    return {k: float(a) for k, a in aux.items()}, grads
+
+
+def port_grads(model, total):
+    """{name: gradient} of ``total`` over ``model``'s parameters."""
+    names = [f"params/{n.replace('.', '/')}"
+             for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(total, list(model.parameters()))
+    return {n: g.double().numpy() for n, g in zip(names, grads)}
+
+
+def test_bf16_train_step_matches_jax():
+    """The bf16 step (compute_dtype "bfloat16", the AdaAttN kernels' twins)
+    against JAX's bf16 step (dense AdaAttN), both against JAX's float64
+    step (``check_bf16_step``)."""
+    v, vgg_params, content, style, (ref_aux, ref_grads, _) = _reference()
+    ast = AST(ModelConfig(use_pallas_adaattn=True, compute_dtype="bfloat16"))
+    weights.load_state(ast, weights.from_jax_tree(v["params"],
+                                                  v["batch_stats"]))
+    vgg = VGG19Features()
+    vgg.load_params(vgg_params)
+    total, aux = ast_loss(ast, vgg, ASTTrainConfig(),
+                          torch.from_numpy(content), torch.from_numpy(style))
+    assert total.dtype == torch.float32 and bool(torch.isfinite(total))
+    port = ({k: float(a) for k, a in aux.items()}, port_grads(ast, total))
+    jax_bf16 = jax_step_bf16(make_ast_train_step, JaxAST,
+                             jax_config.ASTTrainConfig(), v, vgg_params,
+                             content, style)
+    check_bf16_step(port, jax_bf16, (ref_aux, ref_grads), AUX_KEYS)
