@@ -38,3 +38,14 @@ extern "C" int expand_dw_occupancy(int k, int cin, int* out) {
   using namespace ast_kernels;
   return (int)edw::occupancy<edw::kFused>(k, cin, out);
 }
+
+// The dynamic shared memory a CTA may have on the current device, the
+// limit every kernel of the library is launched within (edw::max_smem).
+extern "C" int max_smem_optin() { return ast_kernels::edw::max_smem(); }
+
+// The boxes per halo of the last expand_dw_launch's x staging: 1 the whole
+// box (or plain loads), C_in16 / 64 its channel chunks (kCSplit); -1 before
+// any launch.
+extern "C" int expand_dw_last_boxes() {
+  return ast_kernels::edw::last_boxes();
+}

@@ -94,6 +94,16 @@
 //     (stored as f32 partial sums in the halo buffer): 90.9 KB at k3 C_in
 //     80, 105.2 KB at k5 C_in 96, two CTAs.  The launcher sizes the grid
 //     from the occupancy the runtime reports for the shape, never above it.
+//   * kCSplit (NHWC x where the whole box cannot be one: its C_in16 + 8
+//     channels wider than a TMA box may be, 256, or the kernel's shared
+//     memory above the opt-in; ada_out's C_in 256 at 1024px and up): the
+//     box comes in chunks of CCH = 64 channels ([pixel][72]), chunk 0
+//     prefetched as above, the others each loaded after the previous
+//     chunk's products, which are kept as f32 partial sums in the halo
+//     buffer (as kXSplit's halves); the weights' K is padded to whole
+//     chunks, zero past C_in.  k3 C_in 256: 108.0 KB, two CTAs (the whole
+//     box would be 264 channels wide and take 237 KB).  Every other NHWC
+//     shape of the model takes the whole box, as before.
 #pragma once
 
 #include <algorithm>
@@ -126,6 +136,9 @@ constexpr int kXT = 4;
 constexpr int kNoHidden = 8;
 constexpr int kXBox = 16;  // with kXT: x's halo as a TMA box (see stage_x)
 constexpr int kXSplit = 32;  // with kXBox: the box in two channel halves
+constexpr int kCSplit = 64;  // NHWC: the box in chunks of CCH channels
+constexpr int CCH = 64;      // kCSplit's channels per box
+constexpr int kMaxBox = 256;  // elements along one dim of a TMA box
 constexpr int kFused = 0;                      // _fused_kernel "hidden"
 constexpr int kFlat = kRoundEx | kSumRounded;  // _flat_kernel
 constexpr int kMega = kSumRounded | kXT;       // _mega_kernel_t
@@ -164,20 +177,24 @@ __host__ __device__ constexpr int swz(int p) { return (p & 3) << 3; }
 // from a 128-byte aligned base (smem_base), which `total` leaves room for.
 //   (XB 1: xs holds the (N, H, C, W) box, bf16 [HH][bch][BW], bch = cin16;
 //   XB 2, kXSplit: one channel half of it at a time, bch = cin16 / 2 and
-//   cin16 padded to 2 bch, the weights' K zero past C_in.)
+//   cin16 padded to 2 bch, the weights' K zero past C_in; XB 3, kCSplit:
+//   xs holds one NHWC chunk, [pixel][ldxs = CCH + 8], bch = CCH and cin16
+//   padded to whole chunks.  Otherwise ldxs = ldx.)
 template <int K, bool EXPAND, bool MMA, int XB = 0>
 struct Smem {
-  int cin16, bch, ldx, xs, ws, red, bes, bar, total;
+  int cin16, bch, ldx, ldxs, xs, ws, red, bes, bar, total;
   __host__ __device__ explicit Smem(int cin) {
     using G = Halo<K>;
     cin16 = (cin + 15) / 16 * 16;
-    bch = XB == 2 ? (cin16 / 2 + 15) / 16 * 16 : cin16;
+    bch = XB == 2 ? (cin16 / 2 + 15) / 16 * 16 : XB == 3 ? CCH : cin16;
     if (XB == 2) cin16 = 2 * bch;
+    if (XB == 3) cin16 = (cin + CCH - 1) / CCH * CCH;
     ldx = cin16 + 8;  // 16-byte multiple; rows 4 banks apart: conflict-free
+    ldxs = XB == 3 ? bch + 8 : ldx;
     xs = G::HP * CE * 4;
     ws = xs + (!MMA ? 0
-                    : XB ? G::HH * bch * G::BW * 2
-                         : G::MT * 16 * ldx * 2);
+                    : XB == 1 || XB == 2 ? G::HH * bch * G::BW * 2
+                                         : G::MT * 16 * ldxs * 2);
     const int wbytes = MMA ? CE * ldx * 2
                            : (EXPAND ? (cin + 3) / 4 * 4 * CE * 4 : 0);
     red = ws + (wbytes + 15) / 16 * 16;
@@ -198,7 +215,9 @@ constexpr int XSHIFT = (MODE & kXBox) != 0 ? Halo<K>::P - 8 : 0;
 // The layout of a kernel of this MODE.
 template <int K, bool EXPAND, bool MMA, int MODE>
 using SmemM = Smem<K, EXPAND, MMA,
-                   !MMA || (MODE & kXBox) == 0 ? 0
+                   !MMA                        ? 0
+                   : (MODE & kCSplit) != 0     ? 3
+                   : (MODE & kXBox) == 0       ? 0
                    : (MODE & kXSplit) != 0     ? 2
                                                : 1>;
 
@@ -237,10 +256,11 @@ inline bool make_map_4d(CUtensorMap* map, const void* x,
 }
 
 // x (n, h, w, cin) bf16 as the map of NHWC halo boxes (ldx channels, bw
-// columns, bh rows, 1 image); cin % 8 == 0.
+// columns, bh rows, 1 image); cin % 8 == 0.  ldx: C_in16 + 8 (the whole
+// box, the default) or kCSplit's CCH + 8.
 inline bool make_x_map(CUtensorMap* map, const void* x, int n, int h, int w,
-                       int cin, int bw, int bh) {
-  const int ldx = (cin + 15) / 16 * 16 + 8;
+                       int cin, int bw, int bh, int ldx = 0) {
+  if (ldx == 0) ldx = (cin + 15) / 16 * 16 + 8;
   return make_map_4d(map, x,
                      {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h,
                       (cuuint64_t)n},
@@ -306,7 +326,8 @@ __device__ __forceinline__ void stage_weights(
 
 // The bf16 x halo of output tile (ty0, tx0) of image n into xs (MMA only),
 // channels past C_in zero.  NHWC x: [pixel][ldx], one TMA box of (ldx
-// channels, halo columns, halo rows) from xmap, zeros outside the image,
+// channels from ch0, halo columns, halo rows) from xmap (kCSplit: one
+// chunk, ldx = ldxs), zeros outside the image,
 // completing on bar (wait_x then reflects the image's edges); rows past
 // the halo are not written (they feed only dropped outputs).  (N, H, C, W)
 // x with kXBox: [halo row][cin16][BW], one TMA box of (BW columns, cin16
@@ -328,7 +349,7 @@ __device__ __forceinline__ void stage_x(const CUtensorMap* xmap,
     if (threadIdx.x == 0) {
       fence_proxy_async();  // this thread's earlier writes of xs come first
       mbar_expect_tx(bar, HP * ldx * 2);
-      tma_load_4d(xs, xmap, 0, tx0 - P, ty0 - P, n, bar);
+      tma_load_4d(xs, xmap, ch0, tx0 - P, ty0 - P, n, bar);
     }
   } else if constexpr ((MODE & kXBox) != 0) {
     if (threadIdx.x == 0) {
@@ -547,16 +568,42 @@ __device__ __forceinline__ void store_ex(float* buf, const float* bes,
       make_float2(v0, v1);
 }
 
+// One pass of an expand whose K comes in parts (kXSplit's halves,
+// kCSplit's chunks): PASS 1 (the first part) stores its f32 sums v0, v1 in
+// buf as the partial sums of pixel p, channels col, col + 1; PASS 3 (a
+// middle part) adds them to the partial sums; PASS 2 (the last) adds the
+// partial sums and runs the epilogue (store_ex); PASS 0 (the whole K) the
+// epilogue alone.
+template <typename T, bool ROUND_EX, int PASS>
+__device__ __forceinline__ void store_pass(float* buf, const float* bes,
+                                           int pre_act, int p, int col,
+                                           float v0, float v1) {
+  float2* part = reinterpret_cast<float2*>(&buf[p * CE + (col ^ swz(p))]);
+  if constexpr (PASS == 2 || PASS == 3) {
+    const float2 a = *part;
+    v0 += a.x;
+    v1 += a.y;
+  }
+  if constexpr (PASS == 1 || PASS == 3)
+    *part = make_float2(v0, v1);
+  else
+    store_ex<T, ROUND_EX>(buf, bes, pre_act, p, col, v0, v1);
+}
+
 // One warp's expand of 16-row tile mt of the halo, 8-channel columns
 // [nt0, nt0 + NTN) of the chunk, on the tensor cores: the bias, hswish and
 // (ROUND_EX) the rounding, then 8-byte stores into buf at the swizzled
 // channel (conflict-free: within a half-warp the four rows g % 4 land 8
-// banks apart).  Rows past the halo's hp pixels are dropped.
-template <typename T, int NTN, bool ROUND_EX>
+// banks apart).  Rows past the halo's hp pixels are dropped.  xs's rows
+// are ldxa apart and hold the K columns [0, kext) of wsT, whose rows are
+// ldx apart (the whole K: ldxa = ldx, kext = C_in16; kCSplit's chunk:
+// the caller offsets wsT to the chunk's first channel; PASS: store_pass).
+template <typename T, int NTN, bool ROUND_EX, int PASS = 0>
 __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
+                                             int ldxa,
                                              const __nv_bfloat16* wsT,
                                              const float* bes, float* buf,
-                                             int ldx, int cin16, int mt,
+                                             int ldx, int kext, int mt,
                                              int nt0, int pre_act, int hp) {
   static_assert(NTN == 1 || NTN % 2 == 0, "B columns come in pairs");
   const int lane = threadIdx.x & 31;
@@ -572,11 +619,11 @@ __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
   // Rows ldx * 2 bytes apart (an odd multiple of 16 modulo 128 for every
   // C_in) meet no bank conflict.
   const __nv_bfloat16* ap =
-      xs + (mt * 16 + (lane & 15)) * ldx + (lane >> 4) * 8;
+      xs + (mt * 16 + (lane & 15)) * ldxa + (lane >> 4) * 8;
   const __nv_bfloat16* bp =
       wsT + (nt0 * 8 + (lane >> 4) * 8 + (lane & 7)) * ldx +
       ((lane >> 3) & 1) * 8;
-  for (int ks = 0; ks < cin16; ks += 16) {
+  for (int ks = 0; ks < kext; ks += 16) {
     uint32_t a[4];
     ldmatrix_x4(a, ap + ks);
     if constexpr (NTN == 1) {
@@ -593,6 +640,20 @@ __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
         mma_bf16(acc[i + 1], a, b1);
       }
     }
+  }
+  if constexpr (PASS != 0) {
+#pragma unroll
+    for (int i = 0; i < NTN; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = mt * 16 + g + half * 8;
+        if (row < hp)
+          store_pass<T, ROUND_EX, PASS>(buf, bes, pre_act, row,
+                                        (nt0 + i) * 8 + tig * 2,
+                                        acc[i][2 * half],
+                                        acc[i][2 * half + 1]);
+      }
+    return;
   }
 #pragma unroll
   for (int i = 0; i < NTN; ++i) {
@@ -624,9 +685,8 @@ __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
 // fragments by ldmatrix.trans from the channel rows (BW * 2 = 48 bytes
 // apart: conflict-free): lane l gives group 2 mt + (l / 8) % 2, channel
 // 8 * (l / 16) + l % 8, so matrices 0-3 are the fragment's (rows 0-7 |
-// 8-15) x (k 0-7 | 8-15).  PASS 0: the whole K, its epilogue (store_ex);
-// kXSplit's PASS 1 stores the f32 partial sums in buf, PASS 2 adds them to
-// the second half's and runs the epilogue.
+// 8-15) x (k 0-7 | 8-15).  PASS 0: the whole K; kXSplit's halves PASS 1
+// and 2 (store_pass).
 template <typename T, int K, int NTN, bool ROUND_EX, int PASS>
 __device__ __forceinline__ void expand_mtile_t(const __nv_bfloat16* xs,
                                                const __nv_bfloat16* wsT,
@@ -647,17 +707,7 @@ __device__ __forceinline__ void expand_mtile_t(const __nv_bfloat16* xs,
         const int hc = (grp % G::GPR) * 8 + (r & 7);
         if (hc >= G::HW) return;
         const int p = (grp / G::GPR) * G::HW + hc;
-        float2* part =
-            reinterpret_cast<float2*>(&buf[p * CE + (col ^ swz(p))]);
-        if constexpr (PASS == 1) {
-          *part = make_float2(v0, v1);
-          return;
-        } else if constexpr (PASS == 2) {
-          const float2 a = *part;
-          v0 += a.x;
-          v1 += a.y;
-        }
-        store_ex<T, ROUND_EX>(buf, bes, pre_act, p, col, v0, v1);
+        store_pass<T, ROUND_EX, PASS>(buf, bes, pre_act, p, col, v0, v1);
       });
 }
 
@@ -666,7 +716,8 @@ __device__ __forceinline__ void expand_mtile_t(const __nv_bfloat16* xs,
 // with kRoundEx).  MMA: the x halo is in xs (stage_x; the caller has waited
 // for its copies); otherwise x is read here.  Starts and ends with a
 // barrier (sweep_sync<BAR>).  EXPAND: a 1x1 expand precedes the depthwise;
-// MMA: it runs on the tensor cores (bf16 only).
+// MMA: it runs on the tensor cores (bf16 only).  PASS (store_pass): the
+// part of K in xs, from the weights' channel kofs (kXSplit, kCSplit).
 template <typename T, int K, bool EXPAND, bool MMA, int MODE, int PASS = 0,
           int BAR = 0>
 __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
@@ -674,7 +725,8 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
                                             const SmemM<K, EXPAND, MMA,
                                                         MODE>& L,
                                             int H, int W, int cin,
-                                            int pre_act, int ty0, int tx0) {
+                                            int pre_act, int ty0, int tx0,
+                                            int kofs = 0) {
   using G = Halo<K>;
   constexpr int P = G::P, HW = G::HW, HP = G::HP;
   constexpr bool XT = (MODE & kXT) != 0;
@@ -703,11 +755,11 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
       constexpr int NTN = decltype(ntn)::value;
       if constexpr (XBOX)
         expand_mtile_t<T, K, NTN, ROUND_EX, PASS>(
-            xs, wsT, bes, buf, L.ldx, L.bch, PASS == 2 ? L.bch : 0, mt, nt0,
-            pre_act);
+            xs, wsT, bes, buf, L.ldx, L.bch, kofs, mt, nt0, pre_act);
       else
-        expand_mtile<T, NTN, ROUND_EX>(xs, wsT, bes, buf, L.ldx, L.cin16,
-                                       mt, nt0, pre_act, HP);
+        expand_mtile<T, NTN, ROUND_EX, PASS>(xs, L.ldxs, wsT + kofs, bes,
+                                             buf, L.ldx, L.bch, mt, nt0,
+                                             pre_act, HP);
     };
     for (int i = 0; i < ROUNDS; ++i)
       tile(std::integral_constant<int, CE / 8>{}, warp + i * NWARPS, 0);
@@ -932,7 +984,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     __syncthreads();
     int ty0, tx0;
     tile_origin(item, ty0, tx0);
-    stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.bch, H, W, cin,
+    stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
                         image_of(item), ty0, tx0);
   }
   const bool vec_out = E % VEC == 0 &&
@@ -961,10 +1013,10 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
         if constexpr ((MODE & kXBox) != 0)
           wait_xt<K>(xbar, xphase, xs, L.bch, H, W, ty0, tx0);
         else
-          wait_x<K>(xbar, xphase, xs, L.ldx, H, W, ty0, tx0);
+          wait_x<K>(xbar, xphase, xs, L.ldxs, H, W, ty0, tx0);
         xphase ^= 1;
       } else if constexpr (MMA) {
-        stage_x<T, K, MODE>(&xmap, xbar, xn, xs, L.ldx, L.bch, H, W, cin,
+        stage_x<T, K, MODE>(&xmap, xbar, xn, xs, L.ldxs, L.bch, H, W, cin,
                             n, ty0, tx0);
       }
       if constexpr (MMA && (MODE & kXSplit) != 0) {
@@ -972,12 +1024,29 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
         // (its load not hidden: the price of two CTAs per SM at C_in >= 80).
         expand_halo<T, K, EXPAND, MMA, MODE, 1>(xn, smem, L, H, W, cin,
                                                 pre_act, ty0, tx0);
-        stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.bch, H, W, cin, n,
+        stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin, n,
                             ty0, tx0, L.bch);
         wait_xt<K>(xbar, xphase, xs, L.bch, H, W, ty0, tx0);
         xphase ^= 1;
         expand_halo<T, K, EXPAND, MMA, MODE, 2>(xn, smem, L, H, W, cin,
+                                                pre_act, ty0, tx0, L.bch);
+      } else if constexpr (MMA && (MODE & kCSplit) != 0) {
+        // Chunk 0's partial sums, then each further chunk's box (its load
+        // not hidden), its products added; the last one's epilogue.
+        expand_halo<T, K, EXPAND, MMA, MODE, 1>(xn, smem, L, H, W, cin,
                                                 pre_act, ty0, tx0);
+        for (int ch0 = L.bch; ch0 < L.cin16; ch0 += L.bch) {
+          stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
+                              n, ty0, tx0, ch0);
+          wait_x<K>(xbar, xphase, xs, L.ldxs, H, W, ty0, tx0);
+          xphase ^= 1;
+          if (ch0 + L.bch < L.cin16)
+            expand_halo<T, K, EXPAND, MMA, MODE, 3>(xn, smem, L, H, W, cin,
+                                                    pre_act, ty0, tx0, ch0);
+          else
+            expand_halo<T, K, EXPAND, MMA, MODE, 2>(xn, smem, L, H, W, cin,
+                                                    pre_act, ty0, tx0, ch0);
+        }
       } else {
         expand_halo<T, K, EXPAND, MMA, MODE>(xn, smem, L, H, W, cin, pre_act,
                                              ty0, tx0);
@@ -988,14 +1057,16 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
         if (next < end) {
           int ny0, nx0;
           tile_origin(next, ny0, nx0);
-          stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldx, L.bch, H, W, cin,
+          stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
                               image_of(next), ny0, nx0);
         }
       }
     }
     // kXSplit (k5 C_in 96 spilled 12 B with them live through both
-    // passes): the depthwise weights come back from L1 for each tile.
-    if constexpr ((MODE & kXSplit) != 0) load_dw<K>(wd, bd, E, c, wk, bdv);
+    // passes) and kCSplit: the depthwise weights come back from L1 for
+    // each tile.
+    if constexpr ((MODE & (kXSplit | kCSplit)) != 0)
+      load_dw<K>(wd, bd, E, c, wk, bdv);
     float o[DW_ROWS][DW_COLS];
     depthwise_tile<K>(buf, wk, bdv, o);
     // The SE sums (only a tile at the image's lower or right edge masks)
@@ -1040,9 +1111,39 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
              c);
 }
 
+// The dynamic shared memory a CTA may have on this device (an H100:
+// 232,448 bytes), the one limit every launcher here and in flat_s2.cu and
+// fused_2pass.cu checks against.
+inline int max_smem() {
+  static int v = 0;
+  if (v == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return v;
+}
+
+// Whether a sweep-1 x box of `ldx` elements per pixel, in a kernel of
+// `total` bytes of shared memory, must come in channel chunks: it is wider
+// than a TMA box may be, or the kernel with it would not fit in a CTA.
+// c_split (here), flat_s2.cu's s2_split and fused_2pass.cu's tile_split
+// pass their own layouts' sizes; ops/kernels/limits.py mirrors the rule.
+inline bool box_split(int ldx, int total) {
+  return ldx > kMaxBox || total > max_smem();
+}
+
 // 1 if the last launch of this source's kernels staged x as a TMA box
 // (asynchronously), 0 if with plain loads, -1 before any launch.
 inline int& last_async() {
+  static int v = -1;
+  return v;
+}
+
+// The boxes per halo of the last launch of this source's kernels: 1 (the
+// whole box, or none), 2 (kXSplit's halves) or C_in16 / CCH (kCSplit);
+// -1 before any launch.
+inline int& last_boxes() {
   static int v = -1;
   return v;
 }
@@ -1059,8 +1160,9 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
   if (ASYNC && !((MODE & kXT) != 0
                      ? make_xt_map<K>(&xmap, x, n, h, w, cin, L.bch)
                      : make_x_map(&xmap, x, n, h, w, cin, Halo<K>::HW,
-                                  Halo<K>::HH)))
+                                  Halo<K>::HH, L.ldxs)))
     return cudaErrorInvalidValue;
+  if (L.total > max_smem()) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return err;
@@ -1089,14 +1191,21 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
       static_cast<float*>(sums), n, h, w, cin, e, pre_act, tiles_x,
       tiles_per_image);
   last_async() = ASYNC ? 1 : 0;
+  last_boxes() = (MODE & kXSplit) != 0   ? 2
+                 : (MODE & kCSplit) != 0 ? L.cin16 / L.bch
+                                         : 1;
   return cudaGetLastError();
 }
 
 // Registers, dynamic shared memory (bytes) and resident CTAs per SM of a
 // kernel launched with `smem` bytes, into out[0..2].  Launches nothing.
+// Past max_smem() it returns cudaErrorInvalidValue with out[1] = smem, and
+// leaves the runtime's last error as it was.
 template <typename Kernel>
 cudaError_t query(Kernel kernel, int threads, int smem, int* out) {
   cudaFuncAttributes a;
+  out[1] = smem;
+  if (smem > max_smem()) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
@@ -1105,7 +1214,6 @@ cudaError_t query(Kernel kernel, int threads, int smem, int* out) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
                                                         threads, smem);
   out[0] = a.numRegs;
-  out[1] = smem;
   return err;
 }
 
@@ -1113,6 +1221,16 @@ cudaError_t query(Kernel kernel, int threads, int smem, int* out) {
 // model's 80 and 96) the whole box would leave one CTA per SM (k3 C_in 80:
 // 117.5 KB; two need at most 115,712 B each), the halves two.
 inline bool xt_split(int cin) { return (cin + 15) / 16 * 16 >= 64; }
+
+// Whether NHWC x's box comes in chunks (kCSplit): where the whole box
+// would be wider than a TMA box may be, or the kernel with it would need
+// more shared memory than a CTA may have (k3: C_in above 240; k5: above
+// 192).  ops/kernels/limits.py mirrors this rule and the Smem arithmetic.
+template <int K>
+bool c_split(int cin) {
+  const Smem<K, true, true> whole(cin);
+  return box_split(whole.ldx, whole.total);
+}
 
 // query() of the kernel a bf16 block with this k and C_in launches (the
 // tensor-core expand; for kMega the kXBox staging).
@@ -1133,8 +1251,11 @@ cudaError_t occupancy(int k, int cin, int* out) {
   if constexpr ((MODE & kXT) != 0) {
     if (xt_split(cin)) return query_k<MODE | kXBox | kXSplit>(k, cin, out);
     return query_k<MODE | kXBox>(k, cin, out);
+  } else {
+    if (k == 3 ? c_split<3>(cin) : c_split<5>(cin))
+      return query_k<MODE | kCSplit>(k, cin, out);
+    return query_k<MODE>(k, cin, out);
   }
-  return query_k<MODE>(k, cin, out);
 }
 
 // Whether the expand runs on the tensor cores: bf16, and for NHWC x the
@@ -1170,6 +1291,11 @@ cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
           x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s);
     if (xt_box(x, w))
       return launch<T, K, true, true, MODE | kXBox>(
+          x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s);
+  }
+  if constexpr (BF16 && (MODE & kXT) == 0) {
+    if (c_split<K>(cin))
+      return launch<T, K, true, true, MODE | kCSplit>(
           x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s);
   }
   return launch<T, K, true, BF16, MODE>(x, we, wd, be, bd, hidden, sums, n,

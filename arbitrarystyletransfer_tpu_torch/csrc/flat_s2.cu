@@ -54,6 +54,11 @@
 //     compile-time constant.
 //   * The hidden is staged [pixel][32] in the expanded halo's space and
 //     written with 16-byte stores.
+//   * A box the sweep cannot stage whole (wider than a TMA box may be, or
+//     past the shared memory: C_in above 144 at k3, 112 at k5; none in the
+//     model) comes in chunks of 32 channels, the expand's partial sums kept
+//     in f32 in shared memory (prt) as expand_dw.cuh's kCSplit does; one
+//     CTA per SM.
 //   * f32, or C_in % 8 != 0 (off the path): the same walk with the x halo
 //     read synchronously (reflect-indexed loads) and expanded on the CUDA
 //     cores in passes of 128 pixels, the halo kept in the I/O dtype.
@@ -74,6 +79,7 @@ constexpr int CK = 32;                        // input channels per step (CC)
 constexpr int NPW = 16;                       // pixels per warp and pass (CC)
 constexpr int PASS_CC = NWARPS * NPW;
 constexpr int OH = 8, OW = 16;                // output tile
+constexpr int CCH2 = 32;                      // channels per split box
 constexpr int BR = 4, BC = 4;                 // a thread's depthwise block
 static_assert((OH / BR) * (OW / BC) == NWARPS, "the warps cover the tile");
 
@@ -95,20 +101,28 @@ __host__ __device__ constexpr int up(int v, int m) {
 // Byte offsets of the shared memory from a 128-byte aligned base:
 //   exs  T [HP][32]: the expanded halo (bf16 swizzled, see ex_at), then the
 //        tile's hidden [OH * OW][32] before its stores;
-//   xs   MMA: bf16 [MT * 16][ldx], the x box; else the CUDA-core expand's
+//   xs   MMA: bf16 [MT * 16][ldxs], the x box; else the CUDA-core expand's
 //        f32 staging [PASS_CC][CK] and weights [CK][32];
 //   ws   MMA: bf16 [32][ldx], the chunk's expand weights;
+//   prt  SPLIT: f32 [HP][32] (edw::swz), the expand's partial sums;
 //   red  f32 [NWARPS][32]; bes f32 [32]; bar the box's mbarrier.
-template <typename T, int K, bool MMA>
+// SPLIT (the whole box cannot be one, s2_split): xs holds one chunk of
+// CCH2 channels of the box ([pixel][ldxs = CCH2 + 8]) and cin16 is padded
+// to whole chunks, the weights' K zero past C_in; otherwise ldxs = ldx and
+// bch = cin16.
+template <typename T, int K, bool MMA, bool SPLIT = false>
 struct Smem {
-  int cin16, ldx, xs, ws, red, bes, bar, total;
+  int cin16, bch, ldx, ldxs, xs, ws, prt, red, bes, bar, total;
   __host__ __device__ explicit Smem(int cin) {
     using G = Geo<K>;
-    cin16 = up(cin, 16);
+    cin16 = SPLIT ? up(cin, CCH2) : up(cin, 16);
+    bch = SPLIT ? CCH2 : cin16;
     ldx = cin16 + 8;
+    ldxs = bch + 8;
     xs = up(G::HP * CE * (int)sizeof(T), 128);
-    ws = xs + (MMA ? G::MT * 16 * ldx * 2 : (PASS_CC * CK + CK * CE) * 4);
-    red = ws + (MMA ? up(CE * ldx * 2, 16) : 0);
+    ws = xs + (MMA ? G::MT * 16 * ldxs * 2 : (PASS_CC * CK + CK * CE) * 4);
+    prt = ws + (MMA ? up(CE * ldx * 2, 16) : 0);
+    red = prt + (SPLIT ? G::HP * CE * 4 : 0);
     bes = red + NWARPS * 32 * 4;
     bar = bes + CE * 4;
     total = bar + 8 + 128;
@@ -129,13 +143,17 @@ __device__ __forceinline__ int ex_at(int p, int c) {
 // The expanded halo of output tile (oy0, ox0) into exs, rounded to T.
 // MMA: from the x box in xs (waited for and reflected); otherwise from x,
 // reflect-indexed, on the CUDA cores.  Starts and ends with a barrier.
-template <typename T, int K, bool MMA>
+// PASS (SPLIT, edw::store_pass's passes): xs holds the weights' K columns
+// [kofs, kofs + bch); 1 stores the products as partial sums in prt, 3 adds
+// them, 2 adds them and runs the epilogue.
+template <typename T, int K, bool MMA, bool SPLIT, int PASS = 0>
 __device__ __forceinline__ void expand_tile(const T* __restrict__ xn,
                                             const T* __restrict__ we,
                                             char* smem,
-                                            const Smem<T, K, MMA>& L, int H,
-                                            int W, int cin, int E, int c0,
-                                            int iy0, int ix0) {
+                                            const Smem<T, K, MMA, SPLIT>& L,
+                                            int H, int W, int cin, int E,
+                                            int c0, int iy0, int ix0,
+                                            int kofs = 0) {
   using G = Geo<K>;
   constexpr int HP = G::HP, HSW = G::HSW;
   T* exs = reinterpret_cast<T*>(smem);
@@ -148,19 +166,33 @@ __device__ __forceinline__ void expand_tile(const T* __restrict__ xn,
     const __nv_bfloat16* wsT =
         reinterpret_cast<const __nv_bfloat16*>(smem + L.ws);
     __nv_bfloat16* exb = reinterpret_cast<__nv_bfloat16*>(smem);
+    [[maybe_unused]] float* prt = reinterpret_cast<float*>(smem + L.prt);
     auto tile = [&](auto ntn, int mt, int nt0) {
       constexpr int NTN = decltype(ntn)::value;
       const __nv_bfloat16* ap =
-          xs + (mt * 16 + (lane & 15)) * L.ldx + (lane >> 4) * 8;
+          xs + (mt * 16 + (lane & 15)) * L.ldxs + (lane >> 4) * 8;
       edw::mma_tile<NTN>(
-          wsT, L.ldx, L.cin16, nt0,
+          wsT + kofs, L.ldx, L.bch, nt0,
           [&](uint32_t(&a)[4], int ks) { ldmatrix_x4(a, ap + ks); },
           [&](int r, int col, float v0, float v1) {
             const int p = mt * 16 + r;
-            if (p < HP)
-              *reinterpret_cast<__nv_bfloat162*>(&exb[ex_at<T>(p, col)]) =
-                  __floats2bfloat162_rn(hswish(v0 + bes[col]),
-                                        hswish(v1 + bes[col + 1]));
+            if (p >= HP) return;
+            if constexpr (PASS != 0) {
+              float2* part = reinterpret_cast<float2*>(
+                  &prt[p * CE + (col ^ edw::swz(p))]);
+              if constexpr (PASS != 1) {
+                const float2 a = *part;
+                v0 += a.x;
+                v1 += a.y;
+              }
+              if constexpr (PASS != 2) {
+                *part = make_float2(v0, v1);
+                return;
+              }
+            }
+            *reinterpret_cast<__nv_bfloat162*>(&exb[ex_at<T>(p, col)]) =
+                __floats2bfloat162_rn(hswish(v0 + bes[col]),
+                                      hswish(v1 + bes[col + 1]));
           });
     };
     constexpr int ROUNDS = G::MT / NWARPS;
@@ -275,8 +307,10 @@ __device__ __forceinline__ void depthwise_s2(const T* exs,
     for (int j = 0; j < BC; ++j) o[r][j] = hswish(o[r][j] + bdv);
 }
 
-// xmap: x as edw::make_x_map's map with this tile's box (MMA only).
-template <typename T, int K, bool MMA>
+// xmap: x as edw::make_x_map's map with this tile's box (MMA only; SPLIT:
+// boxes of one chunk of channels, the first prefetched, the others loaded
+// after the previous chunk's products).
+template <typename T, int K, bool MMA, bool SPLIT = false>
 __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     s2_expand_dw_kernel(const __grid_constant__ CUtensorMap xmap,
                         const T* __restrict__ x, const T* __restrict__ we,
@@ -288,7 +322,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   using G = Geo<K>;
   constexpr int P = G::P, VEC = 16 / (int)sizeof(T);
   char* smem = edw::smem_base();
-  const Smem<T, K, MMA> L(cin);
+  const Smem<T, K, MMA, SPLIT> L(cin);
   T* exs = reinterpret_cast<T*>(smem);
   T* hs = exs;  // the tile's hidden, [OH * OW][32]
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.xs);
@@ -326,13 +360,14 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     oy0 = (t / tiles_x) * OH;
     ox0 = (t % tiles_x) * OW;
   };
-  // One thread issues the box of the input halo of item it.
-  auto issue = [&](int it) {
+  // One thread issues the box of the input halo of item it (channels from
+  // ch0).
+  auto issue = [&](int it, int ch0) {
     int n, oy0, ox0;
     origin(it, n, oy0, ox0);
     fence_proxy_async();  // this thread's earlier accesses of xs come first
-    mbar_expect_tx(xbar, G::HP * L.ldx * 2);
-    tma_load_4d(xs, &xmap, 0, 2 * ox0 - P, 2 * oy0 - P, n, xbar);
+    mbar_expect_tx(xbar, G::HP * L.ldxs * 2);
+    tma_load_4d(xs, &xmap, ch0, 2 * ox0 - P, 2 * oy0 - P, n, xbar);
   };
   uint32_t xphase = 0;
   if constexpr (MMA) {
@@ -341,7 +376,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
       mbar_fence_init();
     }
     __syncthreads();
-    if (threadIdx.x == 0) issue(item);
+    if (threadIdx.x == 0) issue(item, 0);
   }
   const bool vec_out = E % VEC == 0 &&
                        (reinterpret_cast<uintptr_t>(hidden) & 15) == 0;
@@ -358,17 +393,38 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
       n_cur = n;
     }
     const int iy0 = 2 * oy0 - P, ix0 = 2 * ox0 - P;
+    const T* xn = x + (size_t)n * H * W * cin;
     if constexpr (MMA) {
       mbar_wait(xbar, xphase);
       xphase ^= 1;
-      edw::reflect_box<P, G::HSH, G::HSW>(xs, L.ldx, H, W, iy0, ix0);
+      edw::reflect_box<P, G::HSH, G::HSW>(xs, L.ldxs, H, W, iy0, ix0);
     }
-    expand_tile<T, K, MMA>(x + (size_t)n * H * W * cin, we, smem, L, H, W,
-                           cin, E, c0, iy0, ix0);
+    if constexpr (SPLIT) {
+      // Chunk 0's partial sums, then each further chunk's box (xs is free
+      // after the last expand's barrier), its products added; the last
+      // one's epilogue.
+      expand_tile<T, K, MMA, SPLIT, 1>(xn, we, smem, L, H, W, cin, E, c0,
+                                       iy0, ix0, 0);
+      for (int ch0 = L.bch; ch0 < L.cin16; ch0 += L.bch) {
+        if (threadIdx.x == 0) issue(item, ch0);
+        mbar_wait(xbar, xphase);
+        xphase ^= 1;
+        edw::reflect_box<P, G::HSH, G::HSW>(xs, L.ldxs, H, W, iy0, ix0);
+        if (ch0 + L.bch < L.cin16)
+          expand_tile<T, K, MMA, SPLIT, 3>(xn, we, smem, L, H, W, cin, E, c0,
+                                           iy0, ix0, ch0);
+        else
+          expand_tile<T, K, MMA, SPLIT, 2>(xn, we, smem, L, H, W, cin, E, c0,
+                                           iy0, ix0, ch0);
+      }
+    } else {
+      expand_tile<T, K, MMA, SPLIT>(xn, we, smem, L, H, W, cin, E, c0, iy0,
+                                    ix0);
+    }
     if constexpr (MMA) {
       // The next tile's box comes in while this one's depthwise runs.
       if (threadIdx.x == 0 && item + (int)gridDim.x < total)
-        issue(item + gridDim.x);
+        issue(item + gridDim.x, 0);
     }
     float o[BR][BC];
     depthwise_s2<T, K>(exs, wk, bdv, o);
@@ -401,16 +457,18 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   edw::flush_sums(csum, red, sums, n_cur, E, c);
 }
 
-template <typename T, int K, bool MMA>
+template <typename T, int K, bool MMA, bool SPLIT = false>
 cudaError_t launch(const void* x, const void* we, const void* wd,
                    const void* be, const void* bd, void* hidden, void* sums,
                    int n, int h, int w, int cin, int e, cudaStream_t stream) {
   using G = Geo<K>;
-  const Smem<T, K, MMA> L(cin);
-  auto kernel = s2_expand_dw_kernel<T, K, MMA>;
+  const Smem<T, K, MMA, SPLIT> L(cin);
+  auto kernel = s2_expand_dw_kernel<T, K, MMA, SPLIT>;
   CUtensorMap xmap{};
-  if (MMA && !edw::make_x_map(&xmap, x, n, h, w, cin, G::HSW, G::HSH))
+  if (MMA &&
+      !edw::make_x_map(&xmap, x, n, h, w, cin, G::HSW, G::HSH, L.ldxs))
     return cudaErrorInvalidValue;
+  if (L.total > edw::max_smem()) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   int dev = 0, sms = 0, per_sm = 0;
@@ -435,7 +493,19 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
       static_cast<const float*>(bd), static_cast<T*>(hidden),
       static_cast<float*>(sums), n, h, w, cin, e, tiles_x, tiles_per_image);
   edw::last_async() = MMA ? 1 : 0;
+  edw::last_boxes() = L.cin16 / L.bch;
   return cudaGetLastError();
+}
+
+// Whether the bf16 sweep stages x's box in chunks of CCH2 channels: where
+// the whole box would be wider than a TMA box may be, or the kernel with it
+// would need more shared memory than a CTA may have (C_in above 144 at k3,
+// 112 at k5; the model's stride-2 blocks have 16-40).
+// ops/kernels/limits.py mirrors this rule and the Smem arithmetic.
+template <int K>
+bool s2_split(int cin) {
+  const Smem<__nv_bfloat16, K, true> whole(cin);
+  return edw::box_split(whole.ldx, whole.total);
 }
 
 template <typename T, int K>
@@ -445,6 +515,11 @@ cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
                        cudaStream_t s) {
   // The tensor-core expand with the TMA box: bf16, C_in % 8 == 0 (16-byte
   // box rows), an aligned x.
+  if constexpr (sizeof(T) == 2) {
+    if (edw::use_mma<T, edw::kFlat>(x, cin) && s2_split<K>(cin))
+      return launch<T, K, true, true>(x, we, wd, be, bd, hidden, sums, n, h,
+                                      w, cin, e, s);
+  }
   if (edw::use_mma<T, edw::kFlat>(x, cin))
     return launch<T, K, sizeof(T) == 2>(x, we, wd, be, bd, hidden, sums, n,
                                         h, w, cin, e, s);
@@ -457,11 +532,17 @@ cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
 cudaError_t occupancy(int k, int cin, int* out) {
   using B = __nv_bfloat16;
   if (k == 3)
-    return edw::query(s2_expand_dw_kernel<B, 3, true>, NTHREADS,
-                      Smem<B, 3, true>(cin).total, out);
+    return s2_split<3>(cin)
+               ? edw::query(s2_expand_dw_kernel<B, 3, true, true>, NTHREADS,
+                            Smem<B, 3, true, true>(cin).total, out)
+               : edw::query(s2_expand_dw_kernel<B, 3, true>, NTHREADS,
+                            Smem<B, 3, true>(cin).total, out);
   if (k == 5)
-    return edw::query(s2_expand_dw_kernel<B, 5, true>, NTHREADS,
-                      Smem<B, 5, true>(cin).total, out);
+    return s2_split<5>(cin)
+               ? edw::query(s2_expand_dw_kernel<B, 5, true, true>, NTHREADS,
+                            Smem<B, 5, true, true>(cin).total, out)
+               : edw::query(s2_expand_dw_kernel<B, 5, true>, NTHREADS,
+                            Smem<B, 5, true>(cin).total, out);
   return cudaErrorInvalidValue;
 }
 
@@ -531,4 +612,10 @@ extern "C" int flat_s2_occupancy(int k, int cin, int e, int cout, int* out) {
 // (asynchronous), 0 with plain loads, -1 before any launch.
 extern "C" int flat_s2_block_last_staging() {
   return ast_kernels::edw::last_async();
+}
+
+// The x boxes per halo of the last flat_s2_launch's sweep 1: 1 the whole box
+// (or plain loads), more its channel chunks; -1 before any launch.
+extern "C" int flat_s2_block_last_boxes() {
+  return ast_kernels::edw::last_boxes();
 }

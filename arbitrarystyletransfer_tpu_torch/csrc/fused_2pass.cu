@@ -77,7 +77,10 @@
 // design (`fused_project_tile`): one CTA per (image, 16x16 tile), looping
 // over E in chunks of 32, the hidden chunk in shared memory, the projection
 // by mma.sync (bf16, even C_out) or by one pixel per thread on the CUDA
-// cores (f32, odd C_out), accumulated across the chunks.
+// cores (f32, odd C_out), accumulated across the chunks.  Its x halo is
+// staged once per tile, or, where the whole box cannot be one (C_in above
+// 240 at k3, 192 at k5: expand_dw.cuh's c_split), in 64-channel chunks
+// for each chunk of E, their products added in f32 (kCSplit).
 //
 // Both designs take cuts for the ablation (`fused_project_cut_launch`,
 // timing only, results wrong): the projection's products, the depthwise's
@@ -98,6 +101,7 @@ using edw::NTHREADS;
 using edw::NWARPS;
 using edw::TH;
 using edw::TW;
+using edw::max_smem;
 using bf16 = __nv_bfloat16;
 
 constexpr int TP = TH * TW;        // pixels per tile
@@ -491,16 +495,6 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-int max_smem() {
-  static int v = 0;
-  if (v == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  return v;
-}
-
 // Whether the persistent design keeps every chunk's expand weights: where
 // they fit, and not under the kSyncStage cut.
 template <int K>
@@ -551,11 +545,12 @@ cudaError_t launch_ws(const void* x, const void* we, const void* wd,
 // The tile design: one CTA per (image, 16x16 tile).
 
 // Shared memory of the tile kernel (byte offsets): expand_dw.cuh's (the halo
-// buffers and the chunk's expand weights), then the gated hidden chunk, the
+// buffers and the chunk's expand weights; SPLIT: its kCSplit layout, one
+// 64-channel chunk of the x box at a time), then the gated hidden chunk, the
 // projection weights' chunk and (f32) the outputs.
-template <int K, bool EXPAND, bool MMA, bool PMMA>
+template <int K, bool EXPAND, bool MMA, bool PMMA, bool SPLIT = false>
 struct Smem {
-  edw::Smem<K, EXPAND, MMA> ex;
+  edw::Smem<K, EXPAND, MMA, SPLIT ? 3 : 0> ex;
   int hs, ws, ys, total;
   __host__ __device__ explicit Smem(int cin) : ex(cin) {
     hs = ex.total;
@@ -567,8 +562,12 @@ struct Smem {
 
 // y (n, h, w, cout); gate (n, e) f32 from the sums pass; wp the projection,
 // (e, cout); xmap: x as edw::make_x_map's map (MMA only).  PMMA: the
-// projection runs on the tensor cores.
-template <typename T, int K, bool EXPAND, bool MMA, bool PMMA, int CUT>
+// projection runs on the tensor cores.  SPLIT (bf16 x whose whole box
+// cannot be one, edw::c_split): each chunk of E restages the x box in
+// 64-channel chunks and adds their products in f32 (expand_dw.cuh's
+// kCSplit), instead of staging the whole box once per tile.
+template <typename T, int K, bool EXPAND, bool MMA, bool PMMA, int CUT,
+          bool SPLIT = false>
 __global__ void __launch_bounds__(NTHREADS)
     fused_project_tile(const __grid_constant__ CUtensorMap xmap,
                        const T* __restrict__ x, const T* __restrict__ we,
@@ -580,7 +579,7 @@ __global__ void __launch_bounds__(NTHREADS)
                        int W, int cin, int E, int cout, int pre_act,
                        int identity, int tiles_x) {
   char* base = edw::smem_base();
-  const Smem<K, EXPAND, MMA, PMMA> L(cin);
+  const Smem<K, EXPAND, MMA, PMMA, SPLIT> L(cin);
   float* buf = reinterpret_cast<float*>(base);
   char* hs_b = base + L.hs;
   char* ws_b = base + L.ws;
@@ -608,25 +607,50 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 
   // The tile's x halo is staged once for every chunk of E (the expand's
-  // first barrier publishes it).
+  // first barrier publishes it); SPLIT: chunk by chunk for each.
+  [[maybe_unused]] uint64_t* xbar =
+      reinterpret_cast<uint64_t*>(base + L.ex.bar);
+  [[maybe_unused]] __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(base + L.ex.xs);
+  [[maybe_unused]] uint32_t xphase = 0;
   if constexpr (MMA) {
-    uint64_t* xbar = reinterpret_cast<uint64_t*>(base + L.ex.bar);
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base + L.ex.xs);
     if (threadIdx.x == 0) {
       mbar_init(xbar, 1);
       mbar_fence_init();
     }
     __syncthreads();
-    edw::stage_x<T, K, edw::kFused>(&xmap, xbar, x, xs, L.ex.ldx,
-                                    L.ex.cin16, H, W, cin, n, ty0, tx0);
-    edw::wait_x<K>(xbar, 0, xs, L.ex.ldx, H, W, ty0, tx0);
+    if constexpr (!SPLIT) {
+      edw::stage_x<T, K, edw::kFused>(&xmap, xbar, x, xs, L.ex.ldx,
+                                      L.ex.cin16, H, W, cin, n, ty0, tx0);
+      edw::wait_x<K>(xbar, 0, xs, L.ex.ldx, H, W, ty0, tx0);
+    }
   }
   const int oy0 = edw::dw_row0(), ox0 = edw::dw_col0();
   for (int c0 = 0; c0 < E; c0 += CE) {
     // The previous chunk's expand is done with the expand weights (its last
     // barrier), its projection with the hidden chunk (this expand's first).
     edw::stage_weights<T, K, EXPAND, MMA>(we, be, base, L.ex, cin, E, c0);
-    if constexpr (EXPAND)
+    if constexpr (SPLIT) {
+      // Each x chunk once the last expand is done with xs (its last
+      // barrier): the first's products as partial sums, the middle ones'
+      // added, the last one's with the epilogue.
+      constexpr int MODE = edw::kFused | edw::kCSplit;
+      for (int ch0 = 0; ch0 < L.ex.cin16; ch0 += L.ex.bch) {
+        edw::stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ex.ldxs, L.ex.bch, H,
+                                 W, cin, n, ty0, tx0, ch0);
+        edw::wait_x<K>(xbar, xphase, xs, L.ex.ldxs, H, W, ty0, tx0);
+        xphase ^= 1;
+        if (ch0 == 0)
+          edw::expand_halo<T, K, EXPAND, MMA, MODE, 1>(
+              xn, base, L.ex, H, W, cin, pre_act, ty0, tx0, ch0);
+        else if (ch0 + L.ex.bch < L.ex.cin16)
+          edw::expand_halo<T, K, EXPAND, MMA, MODE, 3>(
+              xn, base, L.ex, H, W, cin, pre_act, ty0, tx0, ch0);
+        else
+          edw::expand_halo<T, K, EXPAND, MMA, MODE, 2>(
+              xn, base, L.ex, H, W, cin, pre_act, ty0, tx0, ch0);
+      }
+    } else if constexpr (EXPAND)
       edw::expand_halo<T, K, EXPAND, MMA, edw::kFused>(
           xn, base, L.ex, H, W, cin, pre_act, ty0, tx0);
     else
@@ -715,18 +739,21 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T, int K, bool EXPAND, bool MMA, bool PMMA, int CUT>
+template <typename T, int K, bool EXPAND, bool MMA, bool PMMA, int CUT,
+          bool SPLIT = false>
 cudaError_t launch_tile(const void* x, const void* we, const void* wd,
                         const void* be, const void* bd, const void* gate,
                         const void* wp, void* y, int n, int h, int w, int cin,
                         int e, int cout, int pre_act, int identity,
                         cudaStream_t stream) {
-  const int smem = Smem<K, EXPAND, MMA, PMMA>(cin).total;
-  auto kernel = fused_project_tile<T, K, EXPAND, MMA, PMMA, CUT>;
+  const Smem<K, EXPAND, MMA, PMMA, SPLIT> L(cin);
+  const int smem = L.total;
+  auto kernel = fused_project_tile<T, K, EXPAND, MMA, PMMA, CUT, SPLIT>;
   CUtensorMap xmap{};
-  if (MMA && !edw::make_x_map(&xmap, x, n, h, w, cin,
-                                     edw::Halo<K>::HW, edw::Halo<K>::HH))
+  if (MMA && !edw::make_x_map(&xmap, x, n, h, w, cin, edw::Halo<K>::HW,
+                              edw::Halo<K>::HH, L.ex.ldxs))
     return cudaErrorInvalidValue;
+  if (smem > max_smem()) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -742,6 +769,16 @@ cudaError_t launch_tile(const void* x, const void* we, const void* wd,
   return cudaGetLastError();
 }
 
+// Whether the tile design stages a bf16 tensor-core expand's x box in
+// chunks: where it cannot be one (edw::c_split), or where the whole box
+// leaves no room for the hidden chunk and W_p's rows (PMMA's bf16 ones,
+// else the CUDA-core projection's f32 hidden, weights and outputs).
+template <int K, bool PMMA>
+bool tile_split(int cin) {
+  const Smem<K, true, true, PMMA> whole(cin);
+  return edw::c_split<K>(cin) || edw::box_split(whole.ex.ldx, whole.total);
+}
+
 // The tile design for this shape (its PMMA chosen by the caller).
 template <typename T, int K, bool PMMA>
 cudaError_t tile_k(const void* x, const void* we, const void* wd,
@@ -753,6 +790,12 @@ cudaError_t tile_k(const void* x, const void* we, const void* wd,
     return launch_tile<T, K, false, false, PMMA, kNone>(
         x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout, pre_act,
         identity, s);
+  if constexpr (sizeof(T) == 2) {
+    if (edw::use_mma<T, edw::kFused>(x, cin) && tile_split<K, PMMA>(cin))
+      return launch_tile<T, K, true, true, PMMA, kNone, true>(
+          x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout, pre_act,
+          identity, s);
+  }
   if (edw::use_mma<T, edw::kFused>(x, cin))
     return launch_tile<T, K, true, sizeof(T) == 2, PMMA, kNone>(
         x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout, pre_act,
@@ -765,15 +808,20 @@ cudaError_t tile_k(const void* x, const void* we, const void* wd,
 // =============================================================================
 
 // Design 1 (persistent) takes bf16 NHWC x with the tensor-core expand
-// (C_in % 8 == 0, x 16-byte aligned), C_out % 8 == 0 (W_p's rows are
-// 16-byte bulk copies), a 16-byte aligned W_p and a 4-byte aligned y;
-// design 0 (tile) any shape.
+// (C_in % 8 == 0, x 16-byte aligned) whose whole box is one (not
+// edw::c_split: it stages the box once per item) and fits beside its
+// slots, C_out % 8 == 0 (W_p's rows are 16-byte bulk copies), a 16-byte
+// aligned W_p and a 4-byte aligned y; design 0 (tile) any shape.
 template <typename T>
 bool persistent_ok(const void* x, const void* we, const void* wp,
-                   const void* y, int cin, int cout) {
+                   const void* y, int cin, int cout, int k) {
   return sizeof(T) == 2 && we != nullptr &&
          edw::use_mma<T, edw::kFused>(x, cin) && cout % 8 == 0 &&
-         aligned(wp, 16) && aligned(y, 4);
+         aligned(wp, 16) && aligned(y, 4) &&
+         (k == 3 ? !edw::c_split<3>(cin) &&
+                       WsSmem<3>(cin, 0, cout, false).total <= max_smem()
+                 : !edw::c_split<5>(cin) &&
+                       WsSmem<5>(cin, 0, cout, false).total <= max_smem());
 }
 
 bool shape_ok(const void* we, int cin, int e, int cout, int k,
@@ -824,7 +872,7 @@ cudaError_t project_cut(int design, const void* x, const void* we,
                         int pre_act, int identity, cudaStream_t s) {
   using B = __nv_bfloat16;
   if (!shape_ok(we, cin, e, cout, k, identity) ||
-      !persistent_ok<B>(x, we, wp, y, cin, cout))
+      !persistent_ok<B>(x, we, wp, y, cin, cout, k))
     return cudaErrorInvalidValue;
   if (design == 1)
     return k == 3 ? launch_ws<3, CUT>(x, we, wd, be, bd, gate, wp, y, n, h,
@@ -880,7 +928,8 @@ extern "C" int fused_project_launch(const void* x, const void* we,
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int design =
-      is_bf16 && f2p::persistent_ok<__nv_bfloat16>(x, we, wp, y, cin, cout);
+      is_bf16 &&
+      f2p::persistent_ok<__nv_bfloat16>(x, we, wp, y, cin, cout, k);
   f2p::last_design = design;
   if (is_bf16)
     return (int)f2p::project<__nv_bfloat16>(design, x, we, wd, be, bd, gate,
@@ -926,31 +975,50 @@ extern "C" int fused_project_cut_launch(int design, int cut, const void* x,
 #undef AST_PROJECT
 }
 
+namespace ast_kernels {
+namespace f2p {
+namespace {
+
+template <int K, bool PMMA>
+cudaError_t tile_query(int cin, int* out) {
+  using B = __nv_bfloat16;
+  if (tile_split<K, PMMA>(cin))
+    return edw::query(fused_project_tile<B, K, true, true, PMMA, kNone, true>,
+                      NTHREADS, Smem<K, true, true, PMMA, true>(cin).total,
+                      out);
+  return edw::query(fused_project_tile<B, K, true, true, PMMA, kNone>,
+                    NTHREADS, Smem<K, true, true, PMMA>(cin).total, out);
+}
+
+// query() of the persistent design's kernel (1) or of the tile design's
+// variant (0) that fused_project_launch takes for a bf16 block of
+// contiguous tensors with the tensor-core expand: PMMA at an even C_out,
+// its x box whole or in chunks (tile_split).
+template <int K>
+cudaError_t occupancy(int design, int cin, int e, int cout, int* out) {
+  if (design == 1) {
+    out[3] = ws_resident<K>(cin, e, cout, kNone);
+    return edw::query(fused_project_ws<K, kNone>, WS_THREADS,
+                      WsSmem<K>(cin, e, cout, out[3]).total, out);
+  }
+  if (cout % 2 == 0) return tile_query<K, true>(cin, out);
+  return tile_query<K, false>(cin, out);
+}
+
+}  // namespace
+}  // namespace f2p
+}  // namespace ast_kernels
+
 // Registers per thread, dynamic shared memory per CTA, resident CTAs per SM
 // and (persistent design) whether every chunk's expand weights stay
 // resident, of the bf16 tensor-core kernel of one design (0 tile, 1
-// persistent) for this shape, into out[4].  Launches nothing.
+// persistent) that a block of this shape launches, into out[4].  Launches
+// nothing.
 extern "C" int fused_project_occupancy(int design, int k, int cin, int e,
                                        int cout, int* out) {
   using namespace ast_kernels;
-  using namespace ast_kernels::f2p;
-  using B = __nv_bfloat16;
-  if (k != 3 && k != 5) return (int)cudaErrorInvalidValue;
   out[3] = 0;
-  if (design == 1) {
-    if (k == 3) {
-      out[3] = ws_resident<3>(cin, e, cout, kNone);
-      return (int)edw::query(fused_project_ws<3, kNone>, WS_THREADS,
-                             WsSmem<3>(cin, e, cout, out[3]).total, out);
-    }
-    out[3] = ws_resident<5>(cin, e, cout, kNone);
-    return (int)edw::query(fused_project_ws<5, kNone>, WS_THREADS,
-                           WsSmem<5>(cin, e, cout, out[3]).total, out);
-  }
-  if (k == 3)
-    return (int)edw::query(fused_project_tile<B, 3, true, true, true, kNone>,
-                           NTHREADS, Smem<3, true, true, true>(cin).total,
-                           out);
-  return (int)edw::query(fused_project_tile<B, 5, true, true, true, kNone>,
-                         NTHREADS, Smem<5, true, true, true>(cin).total, out);
+  if (k == 3) return (int)f2p::occupancy<3>(design, cin, e, cout, out);
+  if (k == 5) return (int)f2p::occupancy<5>(design, cin, e, cout, out);
+  return (int)cudaErrorInvalidValue;
 }

@@ -38,6 +38,35 @@ def _check_impl(name: str, value: str) -> None:
         raise ValueError(f"unknown {name} {value!r}")
 
 
+def adaattn_apply(att_params, content_map, style_map,
+                  use_kernel: bool = True, dtype=torch.bfloat16):
+    """One AdaAttN module (``engine.adaattn_apply``): the 1x1 q, k, v
+    projections in ``dtype``, the attention-weighted style mean and std
+    (the ``adaattn_fwd`` kernel, or the plain statistics), and the
+    renormalized content map in float32.  The style map may have another
+    size than the content map."""
+    b, h, w, c = content_map.shape
+    _, sh, sw, _ = style_map.shape
+    normed_content = instance_norm(content_map)
+    normed_style = instance_norm(style_map)
+
+    def project(x, name, n):
+        wk = att_params[name]["kernel"][0, 0].to(dtype)
+        return (x.to(dtype) @ wk).reshape(b, n, c)
+
+    q = project(normed_content, "W_q", h * w)
+    k = project(normed_style, "W_k", sh * sw)
+    v = project(style_map, "W_v", sh * sw)
+    if use_kernel:
+        from .ops.kernels.adaattn_fwd import adaattn_statistics
+    else:
+        from .models.adaattn import adaattn_statistics
+    mean, std = adaattn_statistics(q, k, v)
+    mean = at_least_f32(mean.reshape(b, h, w, c))
+    std = at_least_f32(std.reshape(b, h, w, c))
+    return std * normed_content + mean
+
+
 def adaattn_apply_pair(att1_params, att2_params, content_maps, style_maps,
                        use_kernel: bool = True, dtype=torch.bfloat16):
     """Both AdaAttN modules in one attention call over the stacked 2B
@@ -97,7 +126,7 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
         both_maps = encode_mega(
             params["enc"], stats["enc"], both, cfg.enc_conv_shapes,
             cfg.enc_out_layers, expand_ratio=cfg.expand_ratio, dtype=dtype,
-            min_mega_size=2 * lane, lane=lane, min_fused_size=min_fused_size,
+            lane=lane, min_fused_size=min_fused_size,
         )
     else:
         both_maps = encode_fused(
@@ -127,8 +156,7 @@ def stylize_fused(state, content_img, style_img, alpha: float = 1.0,
                            min_fused_size=min_fused_size)
     if decoder_impl == "mega":
         return decode_mega(params["dec"], t, cfg.decoder_conv_shapes,
-                           exporting=exporting, dtype=dtype, min_mega_w=lane,
-                           lane=lane)
+                           exporting=exporting, dtype=dtype, lane=lane)
     return decode_fused(params["dec"], t, cfg.decoder_conv_shapes,
                         exporting=exporting, dtype=dtype,
                         min_fused_size=min_fused_size)

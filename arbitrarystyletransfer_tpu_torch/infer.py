@@ -10,7 +10,8 @@ into the convs and so serves only ``encoder_eval_stats=True``.  The weights
 live once, in the pipeline's ``AST`` module: ``state`` is a weights.py view
 of the module's own tensors, so ``load_state`` moves both engines at once.
 
-``from_checkpoint`` serves a trainer checkpoint (``<path>.pt``); with
+``from_checkpoint`` serves a trainer checkpoint (``<path>.pt``, or the
+JAX trainer's orbax directory ``<path>``); with
 ``recalibrate_with`` it rebuilds the encoder's BatchNorm statistics from
 data first (``train/recalibrate.py``), JAX's route from a checkpoint trained
 with the default batch statistics to the fused engine.
@@ -131,7 +132,7 @@ class StylePipeline:
                         allow_unstable: bool = False, device="cuda",
                         mesh: Mesh | None = None):
         """A pipeline over the params and batch_stats of the trainer
-        checkpoint ``<path>.pt``.
+        checkpoint ``<path>.pt`` (else the orbax directory ``<path>``).
 
         ``recalibrate_with``: NHWC image batches.  With them (and the
         batch-stats training default in ``model_cfg``) the encoder's BN
@@ -192,9 +193,11 @@ class StylePipeline:
 
     @staticmethod
     def _restore(path: str):
-        """(params, batch_stats) of the trainer checkpoint ``<path>.pt``
-        (tensors on the CPU); its optimizer state is skipped."""
-        tree = ckpt.restore_checkpoint(path + ".pt")
+        """(params, batch_stats) of the trainer checkpoint ``<path>.pt``,
+        else of the JAX trainer's orbax directory ``<path>`` (tensors on
+        the CPU); the optimizer state is not used, as JAX's
+        ``with_opt_state=False``."""
+        tree = ckpt.restore_checkpoint(ckpt.require_checkpoint(path))
         return tree["params"], tree["batch_stats"]
 
     def load_state(self, params, batch_stats) -> None:

@@ -128,6 +128,38 @@ def encoder_block_kt(enc_conv_shapes, i: int, expand_ratio: int):
     return stride, k, t
 
 
+def halved(n: int, stride: int) -> int:
+    """The size after a block of ``stride``: ``ceil(n / stride)``, what
+    the plain stride-2 conv gives an odd size (the flat stride-2 kernel
+    takes even sizes only).  JAX's planner divides by the stride, rounding
+    down, so at an odd-sized stride-2 input behind another (345px: e4's
+    173) it plans the stride-2 kernel on the odd map; the port plans what
+    the engine runs.  At every multiple of 8 (720, 1024) both agree."""
+    return -(-n // stride)
+
+
+def mega_encoder_takes(stride: int, h: int, lane: int = LANE,
+                       min_mega_size: int | None = None) -> bool:
+    """Whether the "mega" encoder sends a block of input height ``h`` to
+    ``mega_block`` (``megablock.encode_mega``): stride 1, at a height that
+    is a multiple of ``lane`` and at least ``min_mega_size`` (``2 *
+    lane`` unless given: JAX's 256 at the 128-pixel lane)."""
+    if min_mega_size is None:
+        min_mega_size = 2 * lane
+    return stride == 1 and h % lane == 0 and h >= min_mega_size
+
+
+def mega_decoder_starts(h: int, w: int, lane: int = LANE,
+                        min_mega_w: int | None = None) -> bool:
+    """Whether the "mega" decoder turns to ``mega_block`` at a block of
+    input (h, w) (``megablock.decode_mega``; it stays there after): a
+    width that is a multiple of ``min_mega_w`` (``lane`` unless given:
+    JAX's 128) and a height of at least ``lane``."""
+    if min_mega_w is None:
+        min_mega_w = lane
+    return w % min_mega_w == 0 and h >= lane
+
+
 def encoder_descs(enc_conv_shapes, h: int, w: int, out_layers,
                   expand_ratio: int, lane: int = LANE) -> list[dict]:
     """Per-block rows of encoder blocks 1.. at post-stem resolution."""
@@ -140,7 +172,7 @@ def encoder_descs(enc_conv_shapes, h: int, w: int, out_layers,
             force_nhwc=stride != 1 and not s2_eligible(h, w, lane),
             nhwc_out=i in out_layers,
         ))
-        h, w = h // stride, w // stride
+        h, w = halved(h, stride), halved(w, stride)
     return descs
 
 
@@ -159,7 +191,8 @@ def planned_chains(cfg, size: int, enc_mode: str, dec_mode: str,
         out["enc"] = [enc_mode] * (len(cfg.enc_conv_shapes) - 1)
     if dec_mode in FLAT_MODE:
         out["dec"] = plan_impls(
-            decoder_descs(cfg.decoder_conv_shapes, size // 8, size // 8),
+            decoder_descs(cfg.decoder_conv_shapes, halved(size, 8),
+                          halved(size, 8)),
             FLAT_MODE[dec_mode], lane, device)
     else:
         out["dec"] = [dec_mode] * (len(cfg.decoder_conv_shapes) - 1)
@@ -170,22 +203,49 @@ def planned_launches(cfg, size: int, enc_mode: str, dec_mode: str,
                      lane: int = LANE, min_fused_size: int = MIN_FUSED_SIZE,
                      device=None) -> dict:
     """{kernel: launches} of the block kernels in one ``stylize_fused`` call
-    at ``size`` on flat routes: the encoder's and decoder's planned blocks
-    and the ``ada_out`` block ("fused" takes ``expand_dw`` where
-    ``block_apply`` does)."""
-    if enc_mode not in FLAT_MODE or dec_mode not in FLAT_MODE:
-        raise ValueError(f"not a flat route: {enc_mode!r}, {dec_mode!r}")
+    at ``size`` on any pair of engine routes: the encoder's and decoder's
+    blocks as their routes send them and the ``ada_out`` block ("fused"
+    takes ``expand_dw`` where ``block_apply`` does).  Flat routes count
+    their planned blocks; "fused" sends every stride-1 block through
+    ``block_apply``; "mega" sends the encoder's blocks that
+    ``mega_encoder_takes`` to ``mega_block`` (the other stride-1 ones to
+    ``block_apply``) and the decoder's from the first that
+    ``mega_decoder_starts`` (the earlier ones to the plain route), as
+    ``megablock.encode_mega`` and ``decode_mega`` do at the engine's
+    thresholds.  The ``mega_block`` key is there when a chain is
+    "mega"."""
+    for mode in (enc_mode, dec_mode):
+        if mode not in FLAT_MODE and mode not in ("fused", "mega"):
+            raise ValueError(f"unknown route {mode!r}")
     plan = planned_chains(cfg, size, enc_mode, dec_mode, lane, device)
-    descs = (encoder_descs(cfg.enc_conv_shapes, size, size,
-                           cfg.enc_out_layers, cfg.expand_ratio, lane)
-             + decoder_descs(cfg.decoder_conv_shapes, size // 8, size // 8)
-             + [dict(t=cfg.expand_ratio, h=size // 8)])
+    enc = encoder_descs(cfg.enc_conv_shapes, size, size, cfg.enc_out_layers,
+                        cfg.expand_ratio, lane)
+    dec = decoder_descs(cfg.decoder_conv_shapes, halved(size, 8),
+                        halved(size, 8))
+    routed = []
+    for d, impl in zip(enc, plan["enc"]):
+        if impl == "mega":
+            impl = ("mega" if mega_encoder_takes(d["stride"], d["h"], lane)
+                    else "fused")
+        routed.append((d, impl))
+    mega_from_here = False
+    for d, impl in zip(dec, plan["dec"]):
+        if impl == "mega":
+            mega_from_here = (mega_from_here
+                              or mega_decoder_starts(d["h"], d["w"], lane))
+            impl = "mega" if mega_from_here else "xla"
+        routed.append((d, impl))
+    routed.append((dict(t=cfg.expand_ratio, h=halved(size, 8)), "fused"))
     out = {"expand_dw": 0, "flat_block": 0, "flat_s2_block": 0}
-    for d, impl in zip(descs, plan["enc"] + plan["dec"] + ["fused"]):
+    if "mega" in (enc_mode, dec_mode):
+        out["mega_block"] = 0
+    for d, impl in routed:
         if impl == "flat":
             out["flat_block"] += 1
         elif impl == "flat2":
             out["flat_s2_block"] += 1
+        elif impl == "mega":
+            out["mega_block"] += 1
         elif impl == "fused" and d.get("stride", 1) == 1:
             out["expand_dw"] += takes_kernel(d["t"], d["h"], min_fused_size)
     return out

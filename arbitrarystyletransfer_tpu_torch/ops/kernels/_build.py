@@ -75,6 +75,11 @@ _SIGNATURES = {
     "adaattn_bwd_occupancy": [_I, _P],
     # k, c_in, out[3]: registers, shared memory, CTAs per SM (no launch)
     "expand_dw_occupancy": [_I, _I, _P],
+    # no arguments: the dynamic shared memory a CTA may have on the device
+    "max_smem_optin": [],
+    # no arguments: the x boxes per halo of the last expand_dw launch (1
+    # the whole box, more its channel chunks, -1 none yet)
+    "expand_dw_last_boxes": [],
     # k, c_in, e, c_out, identity, out[6]: the same of both sweeps
     "flat_block_occupancy": [_I] * 5 + [_P],
     "mega_block_occupancy": [_I] * 5 + [_P],
@@ -84,6 +89,9 @@ _SIGNATURES = {
     # 0 plain loads, -1 none yet)
     "mega_block_last_staging": [],
     "flat_s2_block_last_staging": [],
+    # no arguments: the x boxes per halo of the last flat_s2 launch (1 the
+    # whole box, more its channel chunks, -1 none yet)
+    "flat_s2_block_last_boxes": [],
     # x, y, nbytes, stream
     "probe_copy_launch": [_P, _P, ctypes.c_longlong, _P],
     # x, w, y, r, c, e, width, stream (both schedules)

@@ -23,6 +23,7 @@ import torch
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
 from .expand_dw import depthwise_reference, expand_reference
+from .limits import check_flat_s2, tensor_core_expand
 from .flat_block import (
     check_input,
     gate_project_reference,
@@ -68,6 +69,8 @@ def flat_s2_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
     ops, (e, s, c_out) = kernel_operands(
         x, w_expand, w_dw, se_params, w_proj, kernel_size, b_expand, b_dw,
         proj_bias, "flat_s2_block")
+    if tensor_core_expand(x.dtype == torch.bfloat16, c_in):
+        check_flat_s2(kernel_size, c_in)
     ho, wo = h // 2, w // 2
     hidden = torch.empty((n, ho, wo, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)

@@ -25,6 +25,7 @@ from . import LAUNCHES
 from ._build import check, launch_stream, load_library
 from .expand_dw import _vec, depthwise_reference, expand_reference
 from .flat_block import check_input, ptr, round_to
+from .limits import check_fused_project, check_sweep1, tensor_core_expand
 
 # fused_project keeps the whole projection of a 256-pixel tile on chip.
 MAX_COUT = 96
@@ -91,6 +92,10 @@ def fused_sums(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
                        b_expand, b_dw)
     n, h, w, c_in = x.shape
     e = w_dw.shape[-1]
+    check_sweep1("fused_sums", kernel_size, c_in,
+                 mma=tensor_core_expand(x.dtype == torch.bfloat16, c_in,
+                                        w_expand is not None),
+                 expand=w_expand is not None)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
     rc = load_library().fused_sums_launch(
         x.data_ptr(), *map(ptr, ops), sums.data_ptr(), n, h, w, c_in, e,
@@ -126,6 +131,11 @@ def fused_project(x, w_expand, w_dw, kernel_size: int, gate, w_proj,
     c_out = w_proj.shape[1]
     if c_out > MAX_COUT:
         raise ValueError(f"fused_project: C_out {c_out} > {MAX_COUT}")
+    check_fused_project(kernel_size, c_in, c_out,
+                        bf16=x.dtype == torch.bfloat16,
+                        mma=tensor_core_expand(x.dtype == torch.bfloat16,
+                                               c_in, w_expand is not None),
+                        expand=w_expand is not None)
     if identity and c_in != c_out:
         raise ValueError("fused_project: identity needs C_in == C_out")
     if (gate.shape != (n, e) or gate.dtype != torch.float32

@@ -1,0 +1,222 @@
+"""The block shapes the kernels' x staging takes, checked before a launch.
+
+A pure mirror (no torch, no CUDA) of the shared-memory arithmetic of the
+bf16 first sweeps: ``Smem`` and ``c_split`` of ``csrc/expand_dw.cuh``
+(``expand_dw``, ``flat_block``'s and ``fused_sums``' sweep 1, NHWC x;
+``mega_block``'s, (N, H, C, W) x), ``Smem`` and ``s2_split`` of
+``csrc/flat_s2.cu``, and the two designs of ``csrc/fused_2pass.cu``'s
+``fused_project`` (``WsSmem``, the tile ``Smem``).  Each stages its x box
+whole where it can and in channel chunks where it cannot (wider than a
+TMA box, or past shared memory).  A wrapper calls ``check_*`` before it
+launches, so a shape that a kernel cannot take raises ``ValueError``
+naming the shape and the limit, not a CUDA error.  The limits are an
+H100's: a TMA box has at most 256 elements along each dimension, and a
+CTA at most 232,448 bytes of dynamic shared memory (the kernels read it
+from the device, ``expand_dw.cuh`` ``max_smem``).  f32 x, C_in % 8 != 0
+and the expand==1 form take the CUDA-core expand (``mma=False``), which
+stages x in steps of 32 channels without a box and keeps the expand
+weights in f32.  ``chip_smoke.py``'s split phase holds these numbers to
+what the kernels' ``*_occupancy`` entry points report on the card.
+"""
+
+from __future__ import annotations
+
+MAX_BOX = 256          # elements along one dimension of a TMA box
+SMEM_OPT_IN = 232448   # dynamic shared memory a CTA may have on an H100
+CE = 32                # hidden channels per CTA
+NWARPS = 8
+CCH = 64               # expand_dw.cuh kCSplit's channels per box
+CCH2 = 32              # flat_s2.cu's channels per split box
+TH = TW = 16           # expand_dw.cuh's output tile
+S2_OH, S2_OW = 8, 16   # flat_s2.cu's output tile
+MAX_COUT = 96          # fused_2pass.cu's MAX_NT * 8
+TP, HS_LD = 256, 40    # fused_2pass.cu's tile pixels, hidden row (bf16)
+HS_F32_LD = 33         # fused_2pass.cu's f32 hidden row (CUDA-core projection)
+
+
+def _up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _halo(k: int):
+    p = (k - 1) // 2
+    hh, hw = TH + 2 * p, TW + 2 * p
+    return hh, hw, hh * hw
+
+
+def _edw_smem(k: int, c_in: int, xb: int, mma: bool = True,
+              expand: bool = True) -> dict:
+    """``expand_dw.cuh`` ``Smem<K, expand, mma, XB>(c_in)``: its bytes and
+    the x box (innermost dimension first; none without ``mma``)."""
+    hh, hw, hp = _halo(k)
+    if not mma:  # f32 staging in the halo buffer, f32 weights [cin4][32]
+        wbytes = _up(c_in, 4) * CE * 4 if expand else 0
+        total = hp * CE * 4 + _up(wbytes, 16) + NWARPS * 32 * 4 + CE * 4 \
+            + 8 + 128
+        return {"smem": total, "box": (), "boxes": 0}
+    mt = (hp + 15) // 16
+    bw = _up(hw, 8)
+    cin16 = _up(c_in, 16)
+    bch = (_up(cin16 // 2, 16) if xb == 2 else CCH if xb == 3 else cin16)
+    if xb == 2:
+        cin16 = 2 * bch
+    if xb == 3:
+        cin16 = _up(c_in, CCH)
+    ldx = cin16 + 8
+    ldxs = bch + 8 if xb == 3 else ldx
+    xs = hp * CE * 4
+    ws = xs + (hh * bch * bw * 2 if xb in (1, 2) else mt * 16 * ldxs * 2)
+    red = ws + _up(CE * ldx * 2, 16)
+    total = red + NWARPS * 32 * 4 + CE * 4 + 8 + 128
+    box = (bw, bch, hh) if xb in (1, 2) else (ldxs, hw, hh)
+    boxes = 2 if xb == 2 else cin16 // bch if xb == 3 else 1
+    return {"smem": total, "box": box, "boxes": boxes}
+
+
+def sweep1_staging(k: int, c_in: int, layout: str = "nhwc",
+                   mma: bool = True, expand: bool = True) -> dict:
+    """How a sweep 1 of ``expand_dw.cuh`` stages x for a block of kernel
+    ``k`` and ``c_in`` channels: {"smem": bytes per CTA, "box": the TMA
+    box's dims, innermost first, "boxes": boxes per halo}.  ``mma``: the
+    bf16 tensor-core expand (``tensor_core_expand``); without it, no box,
+    any layout.  ``layout`` "nhwc" (expand_dw, flat_block, fused_sums; the
+    whole box unless it is wider than a box may be or would not fit, then
+    kCSplit's chunks) or "xt" ((N, H, C, W) x at W % 8 == 0: mega_block's
+    kXBox, halves from C_in16 64) or "xt_rows" (W % 8 != 0: plain loads
+    into the NHWC layout's buffer, no box)."""
+    if k not in (3, 5):
+        raise ValueError(f"kernel_size must be 3 or 5, got {k}")
+    if layout not in ("nhwc", "xt", "xt_rows"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if not mma:
+        return _edw_smem(k, c_in, 0, False, expand)
+    if layout == "xt":
+        return _edw_smem(k, c_in, 2 if _up(c_in, 16) >= 64 else 1)
+    if layout == "xt_rows":
+        return dict(_edw_smem(k, c_in, 0), box=(), boxes=0)
+    whole = _edw_smem(k, c_in, 0)
+    if whole["box"][0] > MAX_BOX or whole["smem"] > SMEM_OPT_IN:
+        return _edw_smem(k, c_in, 3)
+    return whole
+
+
+def _s2_smem(k: int, c_in: int, split: bool) -> dict:
+    p = (k - 1) // 2
+    hsh, hsw = 2 * S2_OH - 1 + 2 * p, 2 * S2_OW - 1 + 2 * p
+    hp = hsh * hsw
+    mt = (hp + 15) // 16
+    cin16 = _up(c_in, CCH2) if split else _up(c_in, 16)
+    bch = CCH2 if split else cin16
+    ldx, ldxs = cin16 + 8, bch + 8
+    xs = _up(hp * CE * 2, 128)
+    ws = xs + mt * 16 * ldxs * 2
+    prt = ws + _up(CE * ldx * 2, 16)
+    red = prt + (hp * CE * 4 if split else 0)
+    total = red + NWARPS * 32 * 4 + CE * 4 + 8 + 128
+    return {"smem": total, "box": (ldxs, hsw, hsh), "boxes": cin16 // bch}
+
+
+def flat_s2_staging(k: int, c_in: int) -> dict:
+    """``flat_s2.cu`` ``Smem<bf16, K, true, SPLIT>(c_in)``: its bytes and
+    its x box per tile (8 x 16 outputs, the input halo at stride 2): the
+    whole box, or (``s2_split``) chunks of 32 channels with f32 partial
+    sums."""
+    if k not in (3, 5):
+        raise ValueError(f"kernel_size must be 3 or 5, got {k}")
+    whole = _s2_smem(k, c_in, False)
+    if whole["box"][0] > MAX_BOX or whole["smem"] > SMEM_OPT_IN:
+        return _s2_smem(k, c_in, True)
+    return whole
+
+
+def fused_project_staging(k: int, c_in: int, c_out: int, bf16: bool = True,
+                          mma: bool = True, expand: bool = True,
+                          e: int | None = None) -> dict:
+    """The design ``fused_project`` takes for a block and its shared
+    memory: the persistent one (bf16 with the tensor-core expand, C_out a
+    multiple of 8, the whole box, and room beside it for the hidden and
+    weight slots; without ``e`` its least, else with every chunk's expand
+    weights where they fit, ``ws_resident``), else the tile design
+    (``fused_2pass.cu`` ``persistent_ok``, ``tile_k``).
+    The tile design projects on the tensor cores (PMMA: bf16 and an even
+    C_out; a bf16 hidden chunk and W_p's rows) or on the CUDA cores (f32
+    hidden chunk, weights and outputs), and stages the tensor-core
+    expand's box in chunks where the whole box cannot be one or leaves no
+    room for those (``tile_split``)."""
+    pmma = bf16 and c_out % 2 == 0
+    extra = (TP * HS_LD * 2 + MAX_COUT * HS_LD * 2 if pmma else
+             TP * HS_F32_LD * 4 + CE * MAX_COUT * 4
+             + TP * (MAX_COUT + 1) * 4)  # the tile's own
+    if not mma:
+        st = _edw_smem(k, c_in, 0, False, expand)
+        return dict(st, smem=st["smem"] + extra, design="tile")
+    whole = _edw_smem(k, c_in, 0)
+    fits = whole["box"][0] <= MAX_BOX and whole["smem"] <= SMEM_OPT_IN
+    bar = whole["smem"] - 136  # Smem's bar offset
+    persistent = (_up(bar + 8, 128) + 2 * TP * HS_LD * 2
+                  + 2 * CE * c_out * 2 + 3 * 2 * 8 + 128)
+    if fits and c_out % 8 == 0 and persistent <= SMEM_OPT_IN:
+        e32 = _up(e or 0, CE)
+        resident = persistent + e32 * (_up(c_in, 16) + 8) * 2 + e32 * 4
+        if e is not None and resident <= SMEM_OPT_IN:
+            persistent = resident
+        return dict(whole, smem=persistent, design="persistent")
+    st = whole if fits and whole["smem"] + extra <= SMEM_OPT_IN else \
+        _edw_smem(k, c_in, 3)
+    return dict(st, smem=st["smem"] + extra, design="tile")
+
+
+def tensor_core_expand(dtype_is_bf16: bool, c_in: int,
+                       expand: bool = True) -> bool:
+    """Whether a bf16 NHWC sweep 1 expands on the tensor cores from a TMA
+    box (``expand_dw.cuh`` ``use_mma``, for the contiguous tensors the
+    wrappers pass): bf16, an expand, C_in % 8 == 0."""
+    return dtype_is_bf16 and expand and c_in % 8 == 0
+
+
+def _refuse(name: str, shape: str, st: dict) -> None:
+    if max(st["box"], default=0) > MAX_BOX:
+        raise ValueError(
+            f"{name}: {shape} needs an x box of {st['box']} elements, more "
+            f"than a TMA box's {MAX_BOX} along one dimension")
+    if st["smem"] > SMEM_OPT_IN:
+        raise ValueError(
+            f"{name}: {shape} needs {st['smem']} bytes of shared memory per "
+            f"CTA, more than the {SMEM_OPT_IN} a CTA may have")
+
+
+def check_sweep1(name: str, k: int, c_in: int, layout: str = "nhwc",
+                 mma: bool = True, expand: bool = True) -> dict:
+    """``sweep1_staging`` or ``ValueError`` where the kernel cannot take
+    the shape (NHWC x past C_in 1856 at k5 and 2176 at k3, where the expand
+    weights beside the chunks outgrow shared memory; (N, H, C, W) x past
+    C_in 512; the CUDA-core expand past C_in 1404 at k5 and 1480 at k3,
+    its f32 weights)."""
+    st = sweep1_staging(k, c_in, layout, mma, expand)
+    kind = f"{layout} x" if mma else "CUDA-core expand"
+    _refuse(name, f"k {k}, C_in {c_in} ({kind})", st)
+    return st
+
+
+def check_flat_s2(k: int, c_in: int) -> dict:
+    """``flat_s2_staging`` or ``ValueError`` (C_in past 736 at k5 and 1184
+    at k3, where the expand weights beside the chunks outgrow shared
+    memory)."""
+    st = flat_s2_staging(k, c_in)
+    _refuse("flat_s2_block", f"k {k}, C_in {c_in}", st)
+    return st
+
+
+def check_fused_project(k: int, c_in: int, c_out: int, bf16: bool = True,
+                        mma: bool = True, expand: bool = True,
+                        e: int | None = None) -> dict:
+    """``fused_project_staging`` or ``ValueError``: C_out at most 96 (its
+    projection tiles), and the design's shared memory within a CTA's (an
+    odd C_out's CUDA-core projection past C_in 48 at k3 and 16 at k5 with
+    the tensor-core expand)."""
+    if c_out > MAX_COUT:
+        raise ValueError(f"fused_project: C_out {c_out} > {MAX_COUT}")
+    st = fused_project_staging(k, c_in, c_out, bf16, mma, expand, e)
+    _refuse("fused_project", f"k {k}, C_in {c_in}, C_out {c_out} "
+            f"({st['design']} design)", st)
+    return st

@@ -28,6 +28,7 @@ import torch
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
 from .expand_dw import depthwise_reference, expand_reference
+from .limits import check_sweep1
 from .flat_block import (
     check_input,
     gate_project_reference,
@@ -85,6 +86,10 @@ def mega_block(xt, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         proj_bias, "mega_block", channel_dim=2)
     if identity and c_in != c_out:
         raise ValueError("mega_block: identity needs C_in == C_out")
+    check_sweep1("mega_block", kernel_size, c_in,
+                 "xt" if w % 8 == 0 else "xt_rows",
+                 mma=x.dtype == torch.bfloat16 and w_expand is not None,
+                 expand=w_expand is not None)
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
     gate = torch.empty((n, e), dtype=torch.float32, device=x.device)

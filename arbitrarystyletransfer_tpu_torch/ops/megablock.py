@@ -30,15 +30,15 @@ from .blocks import (
     stem_apply,
     upsample_smooth_apply,
 )
-from .flatblock import encoder_block_kt, upsample_after
+from .flatblock import (
+    encoder_block_kt,
+    mega_decoder_starts,
+    mega_encoder_takes,
+    upsample_after,
+)
 from .flatblock_s2 import LANE
 from .fused_block import MIN_FUSED_SIZE, block_apply
 from .kernels.mega_block import mega_block
-
-# encode_mega's smallest eligible resolution and decode_mega's width rule,
-# the JAX package's defaults (megablock.py:660, :738).
-MIN_MEGA_SIZE = 256
-MIN_MEGA_W = 128
 
 
 def to_t(x):
@@ -130,12 +130,14 @@ def upsample_smooth_apply_t(params, xt, dtype=torch.bfloat16):
 
 def encode_mega(enc_params, enc_stats, x, enc_conv_shapes, out_layers,
                 expand_ratio: int = 3, dtype=torch.bfloat16,
-                min_mega_size: int = MIN_MEGA_SIZE, lane: int = LANE,
+                min_mega_size: int | None = None, lane: int = LANE,
                 min_fused_size: int = MIN_FUSED_SIZE):
     """The encoder with folded BatchNorm, its stride-1 blocks at a height
-    that is a multiple of ``lane`` and at least ``min_mega_size`` through the
-    ``mega_block`` kernel (``megablock.encode_mega``); the other stride-1
-    blocks take ``block_apply``, the stride-2 blocks the plain route.
+    that is a multiple of ``lane`` and at least ``min_mega_size`` (``2 *
+    lane`` unless given: JAX's default 256, megablock.py:660) through the
+    ``mega_block`` kernel (``megablock.encode_mega``,
+    ``flatblock.mega_encoder_takes``); the other stride-1 blocks take
+    ``block_apply``, the stride-2 blocks the plain route.
     Returns the feature maps (NHWC) at the ``out_layers`` block indices."""
     shapes = enc_conv_shapes
     h = stem_apply(enc_params["mob_net_0"]["Conv_0"], x, stride=shapes[0][2],
@@ -146,7 +148,7 @@ def encode_mega(enc_params, enc_stats, x, enc_conv_shapes, out_layers,
         stride, k, t = encoder_block_kt(shapes, i, expand_ratio)
         blk, st = enc_params[f"mob_net_{i}"], enc_stats[f"mob_net_{i}"]
         size = (h if h is not None else ht).shape[1]
-        if stride == 1 and size % lane == 0 and size >= min_mega_size:
+        if mega_encoder_takes(stride, size, lane, min_mega_size):
             if ht is None:
                 ht, h = to_t(h.to(dtype)), None
             ht = mega_block_apply_t(blk, ht, k, t, stats=st)
@@ -165,11 +167,13 @@ def encode_mega(enc_params, enc_stats, x, enc_conv_shapes, out_layers,
 
 
 def decode_mega(dec_params, z, decoder_conv_shapes, exporting: bool = True,
-                dtype=torch.bfloat16, min_mega_w: int = MIN_MEGA_W,
+                dtype=torch.bfloat16, min_mega_w: int | None = None,
                 lane: int = LANE):
     """The decoder (``megablock.decode_mega``): plain blocks and
     upsample+smooth blocks (NHWC) until the first block whose input width is
-    a multiple of ``min_mega_w`` and height at least ``lane``; from there
+    a multiple of ``min_mega_w`` (``lane`` unless given: JAX's default 128,
+    megablock.py:738) and height at least ``lane``
+    (``flatblock.mega_decoder_starts``); from there
     every block through the ``mega_block`` kernel and every upsample+smooth
     block on (B, H, C, W); then the head (clamped when ``exporting``)."""
     shapes = decoder_conv_shapes
@@ -177,7 +181,8 @@ def decode_mega(dec_params, z, decoder_conv_shapes, exporting: bool = True,
     for i, shape in enumerate(shapes[:-1]):
         blk = dec_params[f"decoder_blocks_{i}"]
         k, t = shape[3], shape[4]
-        if xt is None and x.shape[2] % min_mega_w == 0 and x.shape[1] >= lane:
+        if xt is None and mega_decoder_starts(x.shape[1], x.shape[2], lane,
+                                              min_mega_w):
             xt, x = to_t(x.to(dtype)), None
         if xt is not None:
             xt = mega_block_apply_t(blk["DepthWiseConv_0"], xt, k, t)

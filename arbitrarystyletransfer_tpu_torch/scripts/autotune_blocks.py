@@ -46,7 +46,7 @@ import torch
 from ..config import ModelConfig
 from ..ops import policy
 from ..ops.blocks import plain_block_apply
-from ..ops.flatblock import flat_block_apply, stride_ok
+from ..ops.flatblock import flat_block_apply, halved, stride_ok
 from ..ops.flatblock_s2 import flat_s2_block_apply, s2_eligible
 from ..ops.fused_block import fused_block_apply
 from ..weights import _block, to_device
@@ -74,10 +74,10 @@ def enumerate_blocks(cfg, size: int):
         if i == len(shapes) - 1:
             k, t = 3, cfg.expand_ratio
         add(c_in, c_out, stride, k, t, res, res)
-        res //= stride
+        res = halved(res, stride)
 
     # The ada_out fuse block: two 128-channel maps at 1/8 resolution.
-    r8 = size // 8
+    r8 = halved(size, 8)
     add(2 * cfg.enc_out_channels, cfg.enc_out_channels, 1, 3,
         cfg.expand_ratio, r8, r8)
 

@@ -9,8 +9,11 @@ It keeps the JAX CLI's flags and defaults (``--model models/ast/ast``,
 differences:
 
 - ``--model <path>`` reads the trainer checkpoint ``<path>.pt`` (the port's
-  trainers write ``<save_dir>/ast.pt``).  ``--weights <npz>`` (a
-  ``weights.save_npz`` state) takes its place when given.
+  trainers write ``<save_dir>/ast.pt``), else the JAX trainer's orbax
+  directory ``<path>`` (where ``tensorstore`` is installed; elsewhere
+  convert it first: ``python -m arbitrarystyletransfer_tpu_torch.
+  convert_orbax SAVE_DIR``).  ``--weights <npz>`` (a ``weights.save_npz``
+  state) takes its place when given.
 - ``--device`` defaults to ``cuda`` and fails, before any file is read,
   when CUDA is absent: the CLI never falls back to the CPU by itself
   (``--device cpu`` asks for it).
@@ -103,7 +106,8 @@ def parse_args(argv=None):
     parser.add_argument("--style", required=True, help="Style image path.")
     parser.add_argument("--output", default="stylized.png")
     parser.add_argument("--model", default="models/ast/ast",
-                        help="AST trainer checkpoint: <model>.pt is read.")
+                        help="AST trainer checkpoint: <model>.pt, else "
+                             "the JAX trainer's orbax directory <model>.")
     parser.add_argument("--weights", default=None,
                         help="A weights.save_npz state, read in place of "
                              "--model.")

@@ -23,8 +23,10 @@ It keeps the JAX CLI's flags and defaults, with these differences:
   64px or more, where the discriminator's head map is larger than 1x1.
   ``--dw_impl`` is accepted and changes nothing (one depthwise).
 - ``--ae_model <path>`` warm-starts from ``<path>.pt``, a Stage-1 AE
-  checkpoint in the port's format, when that file exists; checkpoints are
-  written to ``<save_dir>/ast.pt``.
+  checkpoint in the port's format, else from the JAX trainer's orbax
+  directory ``<path>``, when either exists; checkpoints are written to
+  ``<save_dir>/ast.pt``, and ``--load`` resumes from it or from the JAX
+  trainer's ``<save_dir>/ast`` (and ``ast_dis``) orbax directories.
 - ``--pallas`` runs AdaAttN through the hand-written CUDA kernels (forward
   and backward; their plain twins on the CPU).
 """
@@ -108,10 +110,11 @@ def parse_args(argv=None):
                         "discriminator (R1 penalty every 8 of its steps).")
     p.add_argument("--save_dir", default="models/ast/")
     p.add_argument("--ae_model", default="models/auto_encoder/ae",
-                   help="Stage-1 AE checkpoint; <ae_model>.pt is read if it "
-                        "exists.")
+                   help="Stage-1 AE checkpoint; <ae_model>.pt, else the "
+                        "orbax directory <ae_model>, is read if it exists.")
     p.add_argument("--load", action="store_true",
-                   help="Resume from <save_dir>/ast.pt.")
+                   help="Resume from <save_dir>/ast.pt, else from the JAX "
+                        "trainer's orbax directory <save_dir>/ast.")
     p.add_argument("--recon_lam", type=float, default=100.0)
     p.add_argument("--perp_lam", type=float, default=0.01)
     p.add_argument("--content_dir", nargs="+",

@@ -174,7 +174,10 @@ class AutoencoderTrainer:
         barrier(self.mesh)
 
     def load(self):
-        tree = ckpt.restore_checkpoint(self.save_file, self.device)
+        """Resume from ``ae.pt``, or the JAX trainer's orbax directory
+        ``ae`` in the same ``save_dir``, and the history."""
+        tree = ckpt.restore_checkpoint(
+            ckpt.require_checkpoint(self.save_file), self.device)
         weights.load_state(self.model, tree)
         self.opt.load_state_dict(tree["opt_state"])
         self.step = tree["step"].to(self.device, torch.int64)

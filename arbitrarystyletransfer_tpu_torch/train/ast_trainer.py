@@ -289,8 +289,8 @@ class ASTTrainer:
         self.train_dict = {k: [] for k in self.history_keys}
         if cfg.load:
             self.load()
-        elif cfg.ae_model and ckpt.checkpoint_exists(cfg.ae_model + ".pt"):
-            self.load_ae(cfg.ae_model + ".pt")
+        elif cfg.ae_model and ckpt.find_checkpoint(cfg.ae_model):
+            self.load_ae(ckpt.find_checkpoint(cfg.ae_model))
         self.num_params = sum(p.numel() for p in self.params)
         if self.mesh is not None:
             self._replicate()
@@ -402,15 +402,17 @@ class ASTTrainer:
         barrier(self.mesh)
 
     def load(self):
-        """Resume from ``ast.pt`` (and ``ast_dis.pt`` when it exists) and
-        the history."""
-        tree = ckpt.restore_checkpoint(self.save_file, self.device)
+        """Resume from ``ast.pt`` (and ``ast_dis.pt`` when it exists), or
+        the JAX trainer's orbax directories ``ast`` (and ``ast_dis``) in
+        the same ``save_dir``, and the history."""
+        tree = ckpt.restore_checkpoint(
+            ckpt.require_checkpoint(self.save_file), self.device)
         weights.load_state(self.ast, tree)
         self.opt.load_state_dict(tree["opt_state"])
         self.step = tree["step"].to(self.device, torch.int64)
-        if self.disc is not None and ckpt.checkpoint_exists(
-                self.dis_save_file):
-            tree = ckpt.restore_checkpoint(self.dis_save_file, self.device)
+        dis_file = ckpt.find_checkpoint(self.dis_save_file)
+        if self.disc is not None and dis_file is not None:
+            tree = ckpt.restore_checkpoint(dis_file, self.device)
             weights.load_state(self.disc, tree)
             self.dis_opt.load_state_dict(tree["opt_state"])
             self.dis_step = tree["step"].to(self.device, torch.int64)
@@ -426,9 +428,9 @@ class ASTTrainer:
             self.host_dis_step = int(self.dis_step)
 
     def load_ae(self, ae_path: str):
-        """Warm-start enc, ada_out and dec from a Stage-1 AE checkpoint in
-        the port's format (trees "encoder", "ada_out", "decoder"), with a
-        fresh optimizer."""
+        """Warm-start enc, ada_out and dec from a Stage-1 AE checkpoint
+        (trees "encoder", "ada_out", "decoder": the port's ``ae.pt`` or the
+        JAX trainer's orbax directory), with a fresh optimizer."""
         ae = ckpt.restore_checkpoint(ae_path, self.device)
         cur = weights.module_state(self.ast)
         params, stats = ckpt.transplant_ae_to_ast(

@@ -7,8 +7,11 @@ A checkpoint is one ``torch.save`` file holding {"params", "batch_stats"}
 "step".  It is written to a temporary file beside the target and moved
 into place with ``os.replace``, so a reader never sees half a checkpoint,
 and read back with ``weights_only=True`` (tensors and containers only).
-Reading an orbax checkpoint of the JAX trainer is not ported (ROADMAP
-queue 1 item 9).
+The readers also take the JAX trainers' orbax checkpoint directories, in
+the same format, through ``train/orbax.read_orbax`` (``tensorstore``, no
+JAX); ``find_checkpoint`` looks for ``<path>.pt`` first, then an orbax
+directory at ``path``, so a JAX trainer's ``save_dir`` serves and resumes
+as it is.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import os
 import tempfile
 
 import torch
+
+from .orbax import is_orbax_checkpoint, read_orbax
 
 
 def save_checkpoint(path: str, state, opt_state, step) -> None:
@@ -38,9 +43,13 @@ def save_checkpoint(path: str, state, opt_state, step) -> None:
 
 
 def restore_checkpoint(path: str, device="cpu"):
-    """{"params", "batch_stats", "opt_state", "step"} of a checkpoint, with
-    every tensor on ``device``."""
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    """{"params", "batch_stats", "opt_state", "step"} of a checkpoint (a
+    ``.pt`` file, or the JAX trainer's orbax directory: ``read_orbax``),
+    with every tensor on ``device``."""
+    if os.path.isdir(path):
+        tree = read_orbax(path)
+    else:
+        tree = torch.load(path, map_location="cpu", weights_only=True)
     return _map(lambda t: t.to(device), tree)
 
 
@@ -48,10 +57,33 @@ def checkpoint_exists(path: str) -> bool:
     return os.path.isfile(path)
 
 
+def find_checkpoint(path: str) -> str | None:
+    """The checkpoint saved as ``path`` (with or without ``.pt``): the
+    port's ``<path>.pt``, else the JAX trainer's orbax directory
+    ``<path>``, else None."""
+    stem = path[:-3] if path.endswith(".pt") else path
+    if os.path.isfile(stem + ".pt"):
+        return stem + ".pt"
+    if is_orbax_checkpoint(stem):
+        return stem
+    return None
+
+
+def require_checkpoint(path: str) -> str:
+    """``find_checkpoint(path)``, or ``FileNotFoundError`` naming both
+    places it looked."""
+    found = find_checkpoint(path)
+    if found is None:
+        stem = path[:-3] if path.endswith(".pt") else path
+        raise FileNotFoundError(f"no checkpoint at {stem}.pt or {stem} "
+                                "(an orbax directory)")
+    return found
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+    return None if tree is None else fn(tree)
 
 
 def save_history(path: str, history: dict) -> None:

@@ -15,7 +15,8 @@ augmentation; the ``--val_dir`` loader augments.  Differences:
   batch, ``--dist_backend`` nccl or gloo; rank 0 reads the data and
   writes).  ``--dw_impl`` is accepted and changes nothing (one depthwise).
 - The checkpoint is ``<save_dir>/ae.pt``, which the AST trainer's
-  ``--ae_model <save_dir>/ae`` warm-starts from.
+  ``--ae_model <save_dir>/ae`` warm-starts from; ``--load`` resumes from it
+  or from the JAX trainer's orbax directory ``<save_dir>/ae``.
 """
 
 from __future__ import annotations
@@ -90,7 +91,8 @@ def parse_args(argv=None):
     p.add_argument("--save_dir", default="models/auto_encoder/",
                    help="Directory of ae.pt and train_dict.json.")
     p.add_argument("--load", action="store_true",
-                   help="Resume from <save_dir>/ae.pt.")
+                   help="Resume from <save_dir>/ae.pt, else from the JAX "
+                        "trainer's orbax directory <save_dir>/ae.")
     p.add_argument("--recon_lam", type=float, default=100.0,
                    help="Reconstruction loss weight.")
     p.add_argument("--perp_lam", type=float, default=0.01,

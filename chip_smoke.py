@@ -8,7 +8,13 @@
 3. Kernel phase: each kernel's wrapper against its plain PyTorch twin on the
    card, at every shape the 512px batch-8 stylize routes and the training
    step give it (and a few off-path shapes that take the kernels' other
-   code paths), with the max error against a stated tolerance and the
+   code paths; ``expand_dw`` also at ada_out's 1024px shape, (16, 128,
+   128, 256) -> E 768, whose x box comes in 4 channel chunks while every
+   other shape's comes whole, ``expand_dw_last_boxes``; and the blocks
+   that first leave the plain route at 1024px, e7-e14 and d0-d2 at 128px
+   (C_in up to 128, C_out 128), on ``expand_dw``, ``flat_block``,
+   ``flat_s2_block`` and ``mega_block``), with the max
+   error against a stated tolerance and the
    device times (CUDA events) of the kernel, the twin and, where one
    PyTorch call computes the same function, that call (the SDPA yardstick
    of the AdaAttN kernels; never on the port's path).  The bf16
@@ -37,7 +43,14 @@
    (``sweeps_phase``: each sweep's device ms, bound, share of it, rates,
    registers and CTAs per SM), after ragged shapes off the path through
    every sweep-1 mode and both sweep-2 layouts (H, W, E not multiples of
-   the sweeps' tiles and channel chunks), held to the same gates.  Then
+   the sweeps' tiles and channel chunks), held to the same gates, and the
+   shapes whose x box comes in channel chunks (``split_phase``: C_in 256
+   at k3 and k5 through ``expand_dw``, ``flat_block``, ``flat_s2_block``,
+   ``fused_sums`` and ``fused_project``, each with the staging it must
+   take, after ``smem_mirror_check``: the shared memory that
+   ``ops/kernels/limits.py`` computes for every sweep-1 launcher, on a
+   grid of k, C_in and C_out, must be what the kernels' occupancy queries
+   report, or both must refuse).  Then
    the AdaAttN backward kernels (``adaattn_bwd_phase``) at the training
    buckets, ragged, bf16 and 512px shapes, an "offset" case (v = 30 +
    0.1 N(0, 1), also held to float64 autograd) and an "offset-1e8" case
@@ -50,12 +63,13 @@
    logits or dkv's f64 dv products cut out).
 4. Policy: the dispatch table that ships with the port
    (``ops/tuned_policy.json``) must have been measured on this card and be
-   the one "auto" reads, covering every block at 512, 320 and 256px;
+   the one "auto" reads, covering every block at 1024, 512, 320 and 256px;
    "auto"'s plan at each size is printed beside the table-less plan; then
    the port's tuner runs as a user runs it (``python -m
    arbitrarystyletransfer_tpu_torch.scripts.autotune_blocks --size 256
    --iters 3`` into a temporary file), every row must hold each route's time
-   and a verdict, and how many verdicts equal the table's is printed.
+   and a verdict (ada_out's "fused" too: ``expand_dw`` takes C_in 256),
+   and how many verdicts equal the table's is printed.
    Routes: ``StylePipeline`` in bfloat16 with the AdaAttN kernel answers
    requests of 8 content/style pairs at 512x512 through four block routes:
    "fused"/"fused" (3 requests), "flat-all" (4; every block the flat kernels
@@ -70,6 +84,16 @@
    kernel it replaced (in turns, on one request) and a profiler breakdown
    of one request per route, with its layout copies and pads; then every
    route's ms per request and img/s of this run side by side.
+   Sizes: the same model at 1024px and 720px, batch 8 bf16, on
+   "fused", "flat", "flat-all", "auto" and "mega" (6 requests each, the
+   first a warm-up): each request's launches must equal
+   ``flatblock.planned_launches`` (1024px: ada_out on ``expand_dw`` at
+   128px; 720px: the width and evenness rules' other branches, "mega"
+   without a ``mega_block``), the image finite, unsaturated and within the
+   routes' bf16 gate of the same route through the plain twins (run two
+   images at a time: the AdaAttN twin materializes its logits); prints ms
+   per request (median and range of the five timed), img/s, peak GiB and
+   the plain twins' ms.
 5. Training: ``ASTTrainer`` (full-width ``ModelConfig`` with the AdaAttN
    kernels, f32, batch 8, the seeded random VGG, in-memory uniform batches,
    no previews).  The step through the kernels is held against the step
@@ -142,6 +166,12 @@
    kernel's bound: the larger of its bytes over the HBM rate and its
    operations over the peak of their type), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.  Any failure raises: exit code != 0.
+
+The JAX trainers' orbax checkpoints are not read here: the reader
+(``train/orbax.read_orbax``) needs ``tensorstore``, which the card's machine
+lacks; ``python -m arbitrarystyletransfer_tpu_torch.convert_orbax SAVE_DIR``
+converts them to ``.pt`` files where the trainer ran (the CPU tests cover
+both).
 
 ``python3 chip_smoke.py --phase NAME`` runs one phase alone after the build
 (``ALONE``), from a fresh generator of the seed it draws from in the whole
@@ -224,10 +254,22 @@ ROUTES = (
     ("auto", 2, None),
     ("mega", 3, counts(expand_dw=2, adaattn_fwd=1, mega_block=13)),
 )
+# The sizes phase: the full-width model at sizes the other
+# phases do not run, batch 8 bf16, on each route: 1024px (ada_out at 128px
+# on expand_dw, e7-e14 and d0-d2 on the kernels) and 720px (feature maps
+# 360, 180, 90: the width and evenness rules' other branches; "mega" runs
+# no mega_block there).  SIZES_REQUESTS per route, the first a warm-up,
+# the others timed (their median and range are printed); the plain twins
+# run SIZES_PLAIN_CHUNK images at a time, once (the twin of
+# adaattn_fwd materializes the (2B, N, N) logits: 17 GB at 1024px batch 8).
+# Its inputs come from a generator of its own (seed + SIZES_SEED).
+SIZES, SIZES_ROUTES = (1024, 720), ("fused", "flat", "flat-all", "auto",
+                                    "mega")
+SIZES_BATCH, SIZES_REQUESTS, SIZES_PLAIN_CHUNK, SIZES_SEED = 8, 6, 2, 18
 # The sizes the shipped dispatch table covers; the policy phase prints
 # "auto"'s plan at each and runs the tuner at the last, POLICY_TUNE_ITERS
 # calls a window.
-POLICY_SIZES, POLICY_TUNE_ITERS = (512, 320, 256), 3
+POLICY_SIZES, POLICY_TUNE_ITERS = (1024, 512, 320, 256), 3
 MAIN_ROUTE = "flat-all"  # the stylize routes' main path (slice 2)
 
 # Training (slice 3's main path): ASTTrainer, full-width ModelConfig with the
@@ -378,9 +420,25 @@ STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_OWN_FACTOR = 1e-5, 1e-4, 2.0
 PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 PEAK_TF32, PEAK_F64 = 495e12, 67e12
 
+# The blocks that first leave the plain route at 1024px, on 128px maps
+# (e8-e14 on the encoder's 16 stacked images, d0-d2 on the decoder's 8;
+# e7's stride-2 input at 256px, and at 180px on a 720px request): the
+# tables' rows labelled "@1024" (or "@720"), off the 512px request (0
+# launches), each kernel held to its twin at the usual gates as the 512px
+# shapes are.  They draw from a generator of their own (seed +
+# SIZE_CASES_SEED), so the 512px cases keep their inputs.
+SIZE_CASES_SEED, SIZE_CASE_TAGS = 20, ("@1024", "@720")
+
+
+def size_case(label):
+    """Whether a case is one of the 1024px or 720px rows."""
+    return label.endswith(SIZE_CASE_TAGS)
+
+
 # Every distinct expand_dw shape of the 512px batch-8 request: name, batch
 # (the encoder runs content and style stacked: 16), H=W, C_in, E, k,
-# folded-BN biases, launches per request on the fused route.
+# folded-BN biases, launches per request on the fused route; then the
+# 1024px rows.
 EXPAND_DW_CASES = (
     ("e1", 16, 512, 16, 96, 3, True, 1),
     ("e3", 16, 256, 24, 144, 3, True, 1),
@@ -392,13 +450,27 @@ EXPAND_DW_CASES = (
     ("d10", 8, 512, 40, 240, 5, False, 1),
     ("d11-d12", 8, 512, 24, 144, 3, False, 2),
     ("d13", 8, 512, 16, 96, 3, False, 1),
+    ("e8-e9@1024", 16, 128, 80, 320, 3, True, 0),
+    ("e10@1024", 16, 128, 80, 320, 5, True, 0),
+    ("e11@1024", 16, 128, 96, 288, 5, True, 0),
+    ("e12@1024", 16, 128, 96, 288, 3, True, 0),
+    ("e13-e14@1024", 16, 128, 128, 384, 3, True, 0),
+    ("d0-d2@1024", 8, 128, 128, 384, 3, False, 0),
 )
+# ada_out at 1024px: the stacked [stylized; content] maps, 2B =
+# 16 at 128px, C_in 256 (2 x 128), E 768, k3, no folded BN; on no 512px
+# request.  Its x box comes in 4 channel chunks (expand_dw_last_boxes),
+# every other case's as one box.  It draws from a generator of its own
+# (seed + ADA_OUT_SEED), so the other cases and phases keep their inputs.
+ADA_OUT_CASE = ("ada_out", 16, 128, 256, 768, 3, False, 0)
+ADA_OUT_SEED, ADA_OUT_BOXES = 17, 4
 # flat_block shapes: name (the blocks of the 512px path it is), batch, H=W,
 # C_in, E, C_out, k, folded-BN biases, residual, dtype, launches per request
 # on "flat-all" ("auto"'s come from its plan, ``auto_case_launches``).  The
 # last four are off the 512px path: the CLI's 320px width, the f32 path,
 # the expand==1 form, and a C_in that is not a multiple of 8 with an odd
-# C_out and size (the CUDA-core expand and projection, partial tiles).
+# C_out and size (the CUDA-core expand and projection, partial tiles); then
+# the 1024px rows (C_out 128: sweep 2's CUDA-core gate_project_generic).
 FLAT_BLOCK_CASES = (
     ("e1", 16, 512, 16, 96, 16, 3, True, True, "bfloat16", 1),
     ("e3", 16, 256, 24, 144, 24, 3, True, True, "bfloat16", 1),
@@ -416,18 +488,27 @@ FLAT_BLOCK_CASES = (
     ("e1-f32", 2, 128, 16, 96, 16, 3, True, True, "float32", 0),
     ("expand1", 2, 128, 40, 40, 40, 3, True, True, "bfloat16", 0),
     ("cin12", 2, 37, 12, 48, 13, 5, True, False, "bfloat16", 0),
+    ("e8-e9@1024", 16, 128, 80, 320, 80, 3, True, True, "bfloat16", 0),
+    ("e10@1024", 16, 128, 80, 320, 96, 5, True, False, "bfloat16", 0),
+    ("e11@1024", 16, 128, 96, 288, 96, 5, True, True, "bfloat16", 0),
+    ("e12@1024", 16, 128, 96, 288, 128, 3, True, False, "bfloat16", 0),
+    ("e13-e14@1024", 16, 128, 128, 384, 128, 3, True, True, "bfloat16", 0),
+    ("d0-d1@1024", 8, 128, 128, 384, 128, 3, False, True, "bfloat16", 0),
+    ("d2@1024", 8, 128, 128, 384, 96, 3, False, False, "bfloat16", 0),
 )
 # flat_s2_block shapes: name, batch, input H=W, C_in, E, C_out, k, biases,
 # dtype, launches per request on "flat-all"; the last three
 # are off the path (the f32 path; the CUDA-core expand and projection with
 # partial tiles; partial 8x16 output tiles and a partial channel chunk on
-# the path's persistent, TMA-staged sweep 1).
+# the path's persistent, TMA-staged sweep 1); then e7 at 1024px and 720px.
 FLAT_S2_CASES = (
     ("e2", 16, 512, 16, 96, 24, 3, True, "bfloat16", 1),
     ("e4", 16, 256, 24, 144, 40, 5, True, "bfloat16", 1),
     ("e4-f32", 2, 64, 24, 144, 40, 5, True, "float32", 0),
     ("cin12", 2, 36, 12, 48, 13, 3, True, "bfloat16", 0),
     ("s2-rag-k5", 2, 74, 24, 48, 24, 5, True, "bfloat16", 0),
+    ("e7@1024", 16, 256, 40, 160, 80, 3, True, "bfloat16", 0),
+    ("e7@720", 16, 180, 40, 160, 80, 3, True, "bfloat16", 0),
 )
 # Cases added after the flat phases' first run draw from a generator of
 # their own (seed + 8), so that the other cases and every later phase get
@@ -438,7 +519,8 @@ FLAT_OWN_GEN = ("s2-rag-k5",)
 # The 11 rows of the 512px path, then off the path: the f32 path, the
 # expand==1 form, a C_out that is not a multiple of 16, an odd H, an H below
 # the 16-row tile, and a C_in that is not a multiple of 8 with an odd C_out
-# and a W whose last tile is partial (the scalar staging).
+# and a W whose last tile is partial (the scalar staging); then d0-d2 at
+# 1024px.
 MEGA_CASES = (
     ("e1", 16, 512, 512, 16, 96, 16, 3, True, True, "bfloat16", 1),
     ("e3", 16, 256, 256, 24, 144, 24, 3, True, True, "bfloat16", 1),
@@ -457,6 +539,9 @@ MEGA_CASES = (
     ("odd-h", 2, 33, 128, 24, 144, 24, 3, False, True, "bfloat16", 0),
     ("h9", 2, 9, 128, 8, 24, 16, 3, True, False, "bfloat16", 0),
     ("cin12", 2, 37, 40, 12, 48, 13, 5, True, False, "bfloat16", 0),
+    ("d0-d1@1024", 8, 128, 128, 128, 384, 128, 3, False, True, "bfloat16",
+     0),
+    ("d2@1024", 8, 128, 128, 128, 384, 96, 3, False, False, "bfloat16", 0),
 )
 # fused_sums + fused_project (the two-pass block, NHWC): name, batch, H=W,
 # C_in, E, C_out, k, folded-BN biases (with them the projection bias is
@@ -725,21 +810,35 @@ def expand_dw_phase(gen, cases=None):
     bound = Bound()
     # Off the main path: the expand==1 form, and a C_in that is not a
     # multiple of 8 (the CUDA-core expand instead of the tensor cores).
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
+        expand_dw_last_boxes,
+    )
+
     if cases is None:
         cases = EXPAND_DW_CASES + (("expand1", 2, 128, 40, 40, 3, True, 0),
-                                   ("cin12", 2, 37, 12, 40, 5, True, 0))
+                                   ("cin12", 2, 37, 12, 40, 5, True, 0),
+                                   ADA_OUT_CASE)
+    own = torch.Generator(device=DEVICE).manual_seed(SEED + ADA_OUT_SEED)
+    big = torch.Generator(device=DEVICE).manual_seed(SEED + SIZE_CASES_SEED)
     for name, n, hw, c_in, e, k, bn, per_req in cases:
         expand = name != "expand1"
         dev = dict(device=DEVICE)
-        x = torch.randn(n, hw, hw, c_in, generator=gen, **dev).bfloat16()
-        we = (torch.randn(c_in, e, generator=gen, **dev) / math.sqrt(c_in)
+        g = (own if name == ADA_OUT_CASE[0] else big if size_case(name)
+             else gen)
+        x = torch.randn(n, hw, hw, c_in, generator=g, **dev).bfloat16()
+        we = (torch.randn(c_in, e, generator=g, **dev) / math.sqrt(c_in)
               if expand else None)
-        wd = torch.randn(k, k, e, generator=gen, **dev) / k
-        be = 0.1 * torch.randn(e, generator=gen, **dev) if bn else None
-        bd = 0.1 * torch.randn(e, generator=gen, **dev) if bn else None
+        wd = torch.randn(k, k, e, generator=g, **dev) / k
+        be = 0.1 * torch.randn(e, generator=g, **dev) if bn else None
+        bd = 0.1 * torch.randn(e, generator=g, **dev) if bn else None
         args = (x, we, wd, k, expand, be, bd)
         hidden, sums = expand_dw(*args)
         torch.cuda.synchronize()
+        boxes = expand_dw_last_boxes()
+        want = (ADA_OUT_BOXES if name == ADA_OUT_CASE[0]
+                else 1 if expand and c_in % 8 == 0 else None)
+        check(want is None or boxes == want, f"expand_dw {name}: x staged in "
+              f"{boxes} boxes per halo, expected {want}")
         r_hidden, r_sums = expand_dw_reference(*args)
         err_h, err_s = max_err(hidden, r_hidden), max_err(sums, r_sums)
         tol_h = BF16_TOL * float(r_hidden.float().abs().max())
@@ -750,15 +849,21 @@ def expand_dw_phase(gen, cases=None):
         t_p = timed_ms(lambda: expand_dw_reference(*args), iters=3, warmup=1)
         ms += per_req * t_k
         plain_ms += per_req * t_p
-        bound.add_block(2 * n * hw * hw * (c_in + e) + 4 * n * e,
-                        2 * n * hw * hw * e * c_in * expand,
-                        2 * n * hw * hw * e * k * k, 2, per_req)
+        case_bound = Bound()
+        case_bound.add_block(2 * n * hw * hw * (c_in + e) + 4 * n * e,
+                             2 * n * hw * hw * e * c_in * expand,
+                             2 * n * hw * hw * e * k * k, 2)
+        bound.merge(case_bound, per_req)
         log(f"expand_dw {name:8s} x={tuple(x.shape)} E={e} k={k} bn={bn}: "
             f"hidden err {err_h:.4g} (tol {tol_h:.4g}), sums err "
             f"{err_s:.4g} (tol {tol_s:.4g}); kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms")
+            f"plain {t_p:.4f} ms, bound {case_bound.ms():.4f} ms "
+            f"({case_bound.by()}), x boxes per halo {boxes}")
         check(err_h <= tol_h and err_s <= tol_s, f"expand_dw {name} differs")
         torch.cuda.empty_cache()
+    if ms:  # the path's cases
+        log(f"expand_dw per fused request: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
     return worst, ms, plain_ms, bound
 
 
@@ -775,6 +880,166 @@ def ragged_phase(gen):
                       RAGGED["flat_block"], 1)
     mega_phase(gen, RAGGED["mega_block"])
     two_pass_phase(gen, RAGGED["fused_2pass"])
+
+
+# Shapes whose x box the first sweeps stage in channel chunks,
+# none of them on a route but ada_out's (``ADA_OUT_CASE``): name, batch,
+# H=W (not a multiple of the 16x16 tiles), C_in, E, C_out, k; bf16, no
+# folded BN.  expand_dw, flat_block and fused_sums take 4 chunks of 64
+# channels (kCSplit), flat_s2_block 8 of 32, fused_project the tile design
+# with kCSplit's chunks (its persistent design stages whole boxes).
+SPLIT_CASES = (("cin256-k3", 2, 48, 256, 288, 64, 3),
+               ("cin256-k5", 2, 48, 256, 288, 64, 5))
+SPLIT_SEED = 19
+# The grid on which the split phase holds ops/kernels/limits.py to the
+# kernels' own shared-memory arithmetic: k 3 and 5, every C_in from 8 to
+# 512 in steps of 8, each C_out of MIRROR_C_OUT (even and odd:
+# fused_project's two projections; the persistent design at 64 and 96,
+# with E = 4 C_in, whose resident expand weights it counts).  The flat
+# and mega blocks' sweep 2 is queried at E 64, C_out 64 (sweep 1's bytes
+# do not depend on them).
+MIRROR_C_IN, MIRROR_C_OUT = tuple(range(8, 520, 8)), (13, 64, 96)
+
+
+def smem_mirror_check():
+    """``ops/kernels/limits.py`` against the kernels on this card: the
+    shared memory a CTA may have (``max_smem_optin``) is the mirror's
+    ``SMEM_OPT_IN``, and at every shape of ``MIRROR_C_IN`` x
+    ``MIRROR_C_OUT`` the bytes of the bf16 sweep-1 kernel that each
+    launcher takes (``expand_dw_occupancy``, ``flat_block_occupancy``,
+    ``mega_block_occupancy``, ``flat_s2_occupancy`` and
+    ``fused_project_occupancy`` of the design the mirror names) are the
+    mirror's, or both refuse the shape.  Launches nothing; returns the
+    number of shapes compared."""
+    import ctypes
+
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import limits
+    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
+        load_library,
+    )
+
+    lib = load_library()
+    check(lib.max_smem_optin() == limits.SMEM_OPT_IN,
+          f"the card's shared memory per CTA is {lib.max_smem_optin()}, the "
+          f"mirror's {limits.SMEM_OPT_IN}")
+    out = (ctypes.c_int * 6)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+
+    def kernel_smem(name, *args):
+        return out[1] if getattr(lib, name)(*args, ptr) == 0 else None
+
+    def mirror_smem(fn, *args, **kw):
+        try:
+            return fn(*args, **kw)
+        except ValueError:
+            return None
+
+    compared = 0
+    for k in (3, 5):
+        for c_in in MIRROR_C_IN:
+            e = 4 * c_in
+            pairs = [
+                ("expand_dw", kernel_smem("expand_dw_occupancy", k, c_in),
+                 mirror_smem(limits.check_sweep1, "expand_dw", k, c_in)),
+                ("flat_block", kernel_smem("flat_block_occupancy", k, c_in,
+                                           64, 64, 0),
+                 mirror_smem(limits.check_sweep1, "flat_block", k, c_in)),
+                ("mega_block", kernel_smem("mega_block_occupancy", k, c_in,
+                                           64, 64, 0),
+                 mirror_smem(limits.check_sweep1, "mega_block", k, c_in,
+                             "xt")),
+                ("flat_s2_block", kernel_smem("flat_s2_occupancy", k, c_in,
+                                              64, 64),
+                 mirror_smem(limits.check_flat_s2, k, c_in))]
+            for c_out in MIRROR_C_OUT:
+                st = mirror_smem(limits.check_fused_project, k, c_in, c_out,
+                                 e=e)
+                design = int(st is not None and st["design"] == "persistent")
+                pairs.append((f"fused_project C_out {c_out} design {design}",
+                              kernel_smem("fused_project_occupancy", design,
+                                          k, c_in, e, c_out), st))
+            for name, got, st in pairs:
+                want = None if st is None else st["smem"]
+                check(got == want, f"{name} k {k} C_in {c_in}: the kernel "
+                      f"takes {got} bytes of shared memory, the mirror "
+                      f"{want} (None: refused)")
+                compared += 1
+    log(f"smem mirror: {compared} shapes (k 3, 5; C_in "
+        f"{MIRROR_C_IN[0]}-{MIRROR_C_IN[-1]}; C_out {MIRROR_C_OUT}) equal "
+        f"the kernels' own, the card's {lib.max_smem_optin()} bytes per CTA "
+        "the mirror's")
+    return compared
+
+
+def split_phase(gen):
+    """Every sweep-1 launcher at ``SPLIT_CASES``, against its twin at the
+    usual gates (one bf16 ulp of the largest output; ``SUMS_TOL`` for the
+    SE sums), with the staging each must take."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.basic import se_gate
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        expand_dw as edw_mod,
+        flat_block as flat_mod,
+        flat_s2 as s2_mod,
+        fused_2pass as f2p_mod,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
+        load_library,
+    )
+
+    lib = load_library()
+    smem_mirror_check()
+    for label, n, hw, c_in, e, c_out, k in SPLIT_CASES:
+        x = torch.randn(n, hw, hw, c_in, generator=gen,
+                        device=DEVICE).bfloat16()
+        (we, wd, se, wp), _ = random_block(gen, c_in, e, c_out, k, False)
+        runs = {
+            "expand_dw": (lambda: edw_mod.expand_dw(x, we, wd, k),
+                          lambda: edw_mod.expand_dw_reference(x, we, wd, k),
+                          lib.expand_dw_last_boxes, 4),
+            "flat_block": (lambda: flat_mod.flat_block(x, we, wd, se, wp, k),
+                           lambda: flat_mod.flat_block_reference(
+                               x, we, wd, se, wp, k), None, None),
+            "flat_s2_block": (
+                lambda: s2_mod.flat_s2_block(x, we, wd, se, wp, k),
+                lambda: s2_mod.flat_s2_block_reference(x, we, wd, se, wp, k),
+                lib.flat_s2_block_last_boxes, 8),
+            "fused_sums": (lambda: (f2p_mod.fused_sums(x, we, wd, k),),
+                           lambda: (f2p_mod.fused_sums_reference(
+                               x, we, wd, k),), None, None),
+        }
+        for name, (kernel, twin, boxes, want) in runs.items():
+            outs = kernel()
+            torch.cuda.synchronize()
+            got = boxes() if boxes else None
+            refs = twin()
+            errs = []
+            for o, r in zip(outs, refs):  # the output (bf16), the sums
+                tol = BF16_TOL if o.dtype == torch.bfloat16 else SUMS_TOL
+                err = max_err(o, r)
+                errs.append(err)
+                check(tuple(o.shape) == tuple(r.shape)
+                      and err <= tol * float(r.float().abs().max()),
+                      f"{name} {label}: err {err}")
+            log(f"split {name} {label} x={tuple(x.shape)} E={e} "
+                f"C_out={c_out} k={k}: errs {[f'{v:.4g}' for v in errs]}"
+                + (f", x boxes per halo {got}" if got is not None else ""))
+            check(want is None or got == want,
+                  f"{name} {label}: {got} boxes per halo, expected {want}")
+            del outs, refs
+        gate = se_gate(f2p_mod.fused_sums_reference(x, we, wd, k), hw * hw,
+                       se)
+        y = f2p_mod.fused_project(x, we, wd, k, gate, wp)
+        torch.cuda.synchronize()
+        design = lib.fused_project_last_design()
+        r_y = f2p_mod.fused_project_reference(x, we, wd, k, gate, wp)
+        err = max_err(y, r_y)
+        log(f"split fused_project {label}: err {err:.4g}, design "
+            f"{ {1: 'persistent', 0: 'tile'}.get(design) }")
+        check(design == 0, f"fused_project {label}: design {design}")
+        check(err <= BF16_TOL * float(r_y.float().abs().max()),
+              f"fused_project {label}: err {err}")
+        torch.cuda.empty_cache()
 
 
 def sweeps_phase(gen):
@@ -997,6 +1262,7 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
     bounds = {"flat-all": Bound(), "auto": Bound()}
     auto_total = 0
     gen_own = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    big = torch.Generator(device=DEVICE).manual_seed(SEED + SIZE_CASES_SEED)
     for case in cases:
         label, n, hw, c_in, e, c_out, k, bn = case[:8]
         residual = case[8] if stride == 1 else False
@@ -1006,7 +1272,8 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         auto_total += per_auto
         dt = getattr(torch, dtype)
         expand = label != "expand1"
-        g = gen_own if label in FLAT_OWN_GEN else gen
+        g = (gen_own if label in FLAT_OWN_GEN else big if size_case(label)
+             else gen)
         x = torch.randn(n, hw, hw, c_in, generator=g, device=DEVICE).to(dt)
         (we, wd, se, wp), (be, bd, pb) = random_block(g, c_in, e, c_out, k,
                                                       bn, expand)
@@ -1017,7 +1284,8 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         y, sums = fn(*args, **kw)
         torch.cuda.synchronize()
         staging = last_staging(name) if stride == 2 else None
-        if stride == 2 and (per_all or per_auto):  # the path's: TMA boxes
+        if stride == 2 and (per_all or per_auto or size_case(label)):
+            # the path's shapes stage x as TMA boxes
             check(staging == "async", f"{name} {label}: x staged {staging}")
         r_y, r_sums = ref_fn(*args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
@@ -1086,12 +1354,14 @@ def mega_phase(gen, cases=MEGA_CASES):
     )
 
     worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
+    big = torch.Generator(device=DEVICE).manual_seed(SEED + SIZE_CASES_SEED)
     for (label, n, h, w, c_in, e, c_out, k, bn, residual, dtype,
          per_req) in cases:
         dt = getattr(torch, dtype)
         expand = label != "expand1"
-        xt = torch.randn(n, h, c_in, w, generator=gen, device=DEVICE).to(dt)
-        (we, wd, se, wp), (be, bd, pb) = random_block(gen, c_in, e, c_out, k,
+        g = big if size_case(label) else gen
+        xt = torch.randn(n, h, c_in, w, generator=g, device=DEVICE).to(dt)
+        (we, wd, se, wp), (be, bd, pb) = random_block(g, c_in, e, c_out, k,
                                                       bn, expand)
         kw = dict(pre_act=expand, b_expand=be, b_dw=bd, proj_bias=pb,
                   identity=residual)
@@ -1101,7 +1371,8 @@ def mega_phase(gen, cases=MEGA_CASES):
         # Sweep 1 stages x as TMA boxes at every shape of the path and with
         # plain loads where the map cannot take W (W % 8 != 0).
         staging = last_staging("mega_block")
-        want = "async" if per_req else ("sync" if w % 8 else None)
+        want = ("async" if per_req or size_case(label)
+                else "sync" if w % 8 else None)
         check(want is None or staging == want,
               f"mega_block {label}: x staged {staging}, not {want}")
         r_y, r_sums = mega_block_reference(xt, *args, **kw)
@@ -1881,12 +2152,10 @@ def policy_phase():
                 ["xla", "fused"] + (["flat"] if flatblock.stride_ok(w)
                                     else []))
         if c_in == 2 * cfg.enc_out_channels:
-            # ada_out (no chain reads its row): expand_dw refuses C_in 256
-            # at launch, its x box wider than a TMA box may be (ROADMAP).
-            log(f"policy: the tuner's {key}: fused {row.get('fused_err')}")
-            check("expand_dw" in row.get("fused_err", ""),
-                  f"the tuner's row {key}: {row}")
-            need.remove("fused")
+            # ada_out (no chain reads its row): expand_dw takes C_in 256
+            # (its x box in channel chunks).
+            log(f"policy: the tuner's {key}: fused_ms "
+                f"{row.get('fused_ms')}")
         check(all(math.isfinite(row.get(f"{n}_ms", math.nan)) for n in need)
               and row.get("best") in need, f"the tuner's row {key}: {row}")
         rows += 1
@@ -2034,6 +2303,140 @@ def drive_route(pipe, impl, requests, expected):
     profile_request(pipe, impl, content, style, alpha,
                     top=15 if impl in (MAIN_ROUTE, "mega") else 8)
     return launches, ms
+
+
+def sizes_phase(gen):
+    """Every route at each of SIZES, batch SIZES_BATCH, bf16: each request
+    launches what ``planned_launches`` plans (the counters reset just
+    before each), its image finite, unsaturated and within the routes'
+    bf16 gate of the same route through the plain twins (IMAGE_BF16_FACTOR
+    times the plain bf16 path's distance to the plain f32 path); prints ms
+    per request (the median of the timed requests, and their range), img/s
+    and peak memory beside the plain twins' ms (one pass).
+    Returns {kernel: launches} over the phase."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch import ModelConfig, engine
+    from arbitrarystyletransfer_tpu_torch.infer import StylePipeline
+    from arbitrarystyletransfer_tpu_torch.ops.flatblock import (
+        planned_chains,
+        planned_launches,
+    )
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+
+    cfg = ModelConfig(encoder_eval_stats=True, use_pallas_adaattn=True,
+                      compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    pipe = StylePipeline(cfg, engine="fused", device=DEVICE,
+                         state=random_state(cfg, SEED))
+    total, table = counts(), []
+
+    def plain_chunks(route, content, style, alpha):
+        outs, ms = [], 0.0
+        for i in range(0, content.shape[0], SIZES_PLAIN_CHUNK):
+            out, times = run_plain(route, content[i:i + SIZES_PLAIN_CHUNK],
+                                   style[i:i + SIZES_PLAIN_CHUNK], alpha,
+                                   repeats=1)
+            outs.append(out)
+            ms += times[-1]
+        return torch.cat(outs), ms
+
+    def errs(a, b):
+        d = (a.float() - b.float()).abs()
+        return float(d.max()), float(d.mean())
+
+    for size in SIZES:
+        shape = (SIZES_BATCH, size, size, 3)
+        content = torch.rand(shape, generator=gen, device=DEVICE)
+        style = torch.rand(shape, generator=gen, device=DEVICE)
+        alpha = 1.0
+        # The head normalized on this size's request, as the routes phase
+        # does at 512px (pre-clamp mean 0.5, spatial std 0.05).
+        with torch.inference_mode():
+            pre = engine.stylize_fused(pipe.state, content, style, alpha,
+                                       cfg=cfg, dtype=pipe.dtype,
+                                       exporting=False).double()
+        head = pipe.state["params"]["dec"]["img_out"]
+        std = pre.std(dim=(1, 2)).mean(dim=0)
+        check(bool((std > 1e-3).all()), f"{size}px pre-clamp image: "
+              f"{std.tolist()}")
+        scale = 0.05 / std
+        head["kernel"] = (head["kernel"] * scale.float()).contiguous()
+        head["bias"] = (0.5 - scale * (pre.mean(dim=(0, 1, 2))
+                                       - head["bias"])).float()
+        del pre
+        for impl in SIZES_ROUTES:
+            route = StylePipeline(cfg, engine="fused", device=DEVICE,
+                                  state=pipe.state, encoder_impl=impl,
+                                  decoder_impl=impl)
+            expected = counts(adaattn_fwd=1, **planned_launches(
+                cfg, size, impl, impl, device=DEVICE))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(SIZES_REQUESTS):
+                reset_launches()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = route.stylize(content, style, alpha)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                launched = dict(LAUNCHES)
+                check(launched == expected, f"{size}px {impl}: launched "
+                      f"{launched}, planned {expected}")
+                total = {k: total[k] + launched[k] for k in total}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            sat = float(((out == 0) | (out == 1)).float().mean())
+            check(tuple(out.shape) == shape, f"{size}px {impl}: output "
+                  f"shape {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()),
+                  f"{size}px {impl}: non-finite output")
+            check(sat < 0.5, f"{size}px {impl}: {sat:.1%} of the output is "
+                  "0 or 1")
+            plain, plain_ms = plain_chunks(route, content, style, alpha)
+            route32 = StylePipeline(cfg32, engine="fused", device=DEVICE,
+                                    state=pipe.state, encoder_impl=impl,
+                                    decoder_impl=impl)
+            plain32, _ = plain_chunks(route32, content, style, alpha)
+            check(dict(LAUNCHES) == launched, "the plain runs launched a "
+                  "kernel")
+            k16, floor16 = errs(out, plain), errs(plain, plain32)
+            del plain, plain32
+            timed = times[1:]
+            ms = statistics.median(timed)
+            log(f"sizes {size}px {impl}: plan "
+                f"{planned_chains(cfg, size, impl, impl, device=DEVICE)}, "
+                f"launches per request "
+                f"{ {k: n for k, n in launched.items() if n} }; "
+                f"{ms:.3f} ms/request, median of {len(timed)} "
+                f"({min(timed):.3f}-{max(timed):.3f}; "
+                f"{SIZES_BATCH * 1000 / ms:.2f} img/s; warm-up "
+                f"{times[0]:.3f} ms), plain twins "
+                f"{plain_ms:.3f} ms ({SIZES_BATCH * 1000 / plain_ms:.2f} "
+                f"img/s, {SIZES_PLAIN_CHUNK} images a call), peak "
+                f"{peak:.2f} GiB; bf16 kernels vs plain twins max abs "
+                f"{k16[0]:.4g} mean abs {k16[1]:.4g}, the plain bf16 path "
+                f"vs f32 max abs {floor16[0]:.4g} mean abs {floor16[1]:.4g} "
+                f"(tol {IMAGE_BF16_FACTOR}x that); saturated {sat:.4%}")
+            check(k16[0] <= IMAGE_BF16_FACTOR * floor16[0]
+                  and k16[1] <= IMAGE_BF16_FACTOR * floor16[1],
+                  f"{size}px {impl}: bf16 kernel path differs from the "
+                  "plain path by more than bf16 itself does")
+            table.append({"size": size, "route": impl, "ms": round(ms, 3),
+                          "ms_min": round(min(timed), 3),
+                          "ms_max": round(max(timed), 3),
+                          "img_s": round(SIZES_BATCH * 1000 / ms, 2),
+                          "plain_ms": round(plain_ms, 3),
+                          "peak_gib": round(peak, 2),
+                          "max_abs": k16[0], "floor_max_abs": floor16[0]})
+            del out, route, route32
+            torch.cuda.empty_cache()
+    log(json.dumps({"sizes": table}))
+    return total
 
 
 def adaattn_route_ab(pipe, request):
@@ -4566,8 +4969,10 @@ ALONE = {
     "flat_block": (0, True), "flat_s2_block": (0, True),
     "mega_block": (4, True), "fused_2pass": (4, True), "probes": (5, True),
     "plain_route": (6, True), "ragged": (7, True), "sweeps": (7, True),
+    "split": (SPLIT_SEED, True),
     "adaattn_bwd": (0, False), "policy": (None, False),
-    "routes": (0, False), "train": (0, False), "gan": (14, False),
+    "routes": (0, False), "sizes": (SIZES_SEED, False),
+    "train": (0, False), "gan": (14, False),
     "lifecycle": (13, False), "dp": (15, False),
 }
 
@@ -4602,10 +5007,12 @@ def run_alone(name, card):
         "probes": lambda: probes_phase(gen),
         "plain_route": lambda: plain_route_phase(gen),
         "ragged": lambda: ragged_phase(gen),
+        "split": lambda: split_phase(gen),
         "sweeps": lambda: sweeps_phase(gen),
         "adaattn_bwd": lambda: adaattn_bwd_phase(gen),
         "policy": policy_phase,
         "routes": lambda: routes_phase(gen),
+        "sizes": lambda: sizes_phase(gen),
         "train": lambda: train_phase(gen),
         "gan": lambda: gan_phase(gen, 0.0),
         "lifecycle": lambda: lifecycle_phase(gen, card),
@@ -4702,10 +5109,17 @@ def main(argv=None) -> int:
         # So do the ragged shapes and the per-sweep times.
         gen7 = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
         phase("ragged", ragged_phase, gen7)
+        # The chunked boxes draw from a generator of their own.
+        phase("split", split_phase, torch.Generator(
+            device=DEVICE).manual_seed(SEED + SPLIT_SEED))
         phase("sweeps", sweeps_phase, gen7)
     bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
     phase("policy", policy_phase)
     launches = phase("routes", routes_phase, gen)
+    # The sizes phase draws from a generator of its own.
+    gen18 = torch.Generator(device=DEVICE).manual_seed(SEED + SIZES_SEED)
+    launches["sizes"] = phase("sizes", sizes_phase, gen18)
+    torch.cuda.empty_cache()
     launches["train"], train_ms, train_peak = phase("train", train_phase, gen)
     # The GAN phase draws from a generator of its own.
     gen14 = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
@@ -4755,7 +5169,8 @@ def main(argv=None) -> int:
             *two_pass["fused_project"], None),
     ] + [row(name, source, "scripts/" + replaces, *probe_rows[name])
          for name, source, replaces in PROBE_ROWS]
-    log("kernels: launches = sum over the routes' requests, the timed "
+    log("kernels: launches = sum over the routes' requests, the sizes "
+        "phase's 1024px and 720px requests (sizes), the timed "
         "train steps, the GAN phase's timed steps (gan), the lifecycle "
         "phase's runs (warm-started-ast: its AST "
         "steps; flax: the graph engine's requests; recalibrated-auto: the "
