@@ -170,23 +170,7 @@ __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
 
 // -- 3xTF32 tensor-core products ----------------------------------------------
 
-// hi = x rounded to TF32 (to nearest, ties away, on the bits: an integer
-// add and a mask, where cvt.rna.tf32.f32 takes a longer sequence), lo =
-// x - hi, exact.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// split_tf32 and mma_tf32 are common.cuh's.
 
 // An m16n8k8 A fragment (a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
 // a3 = (g + 8, t + 4)) split into its TF32 parts.

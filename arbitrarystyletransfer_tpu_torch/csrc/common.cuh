@@ -54,6 +54,36 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// hi = x rounded to TF32 (to nearest, ties away, on the bits: an integer
+// add and a mask, where cvt.rna.tf32.f32 takes a longer sequence), lo =
+// x - hi, exact: the operands of a 3xTF32 product.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// split_tf32 with hi = x truncated to TF32 (one operation fewer): lo = x -
+// hi is exact and at most 2^-10 |x|, so the lo * lo term a 3xTF32 product
+// leaves out stays below 2^-20 of the product.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D(16x8) += A(16x8) B(8x8), TF32 in, f32 accumulate: a0 = A(g, t), a1 =
+// A(g + 8, t), a2 = A(g, t + 4), a3 = A(g + 8, t + 4); b0 = B(t, g), b1 =
+// B(t + 4, g) (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }

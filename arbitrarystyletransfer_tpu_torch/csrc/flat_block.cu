@@ -77,3 +77,53 @@ extern "C" int flat_block_occupancy(int k, int cin, int e, int cout,
   if (err != cudaSuccess) return (int)err;
   return (int)gp::occupancy(e, cout, identity != 0, out + 3);
 }
+
+// The design of the last sweep 2 that flat_block_launch or
+// gate_project_launch ran: 0 gate_project_generic, 1 gate_project_mma
+// (bf16), 2 gate_project_tf32 (f32); -1 before any.
+extern "C" int flat_block_last_sweep2() {
+  return ast_kernels::gp::last_design();
+}
+
+// Sweep 2 alone, for the A/B of its designs: gate_project.cuh's launch with
+// flat_block_launch's operands (hidden (n, hw, e) as sweep 1 writes it; res
+// may be null), y and res NHWC or, with yt, (n, hw / w, cout, w).  design 0
+// takes gate_project_generic at every shape, 1 the designed kernel of the
+// dtype where the shape takes one (flat_block_launch's choice).  Returns
+// the cudaError_t of the launches (0 on success).
+extern "C" int gate_project_launch(int design, const void* hidden,
+                                   const void* sums, const void* d0t,
+                                   const void* d0b, const void* d1k,
+                                   const void* d1b, const void* wpt,
+                                   const void* pb, const void* res,
+                                   void* gate, void* y, int n, int hw, int e,
+                                   int s, int cout, int w, int yt,
+                                   int is_bf16, void* stream) {
+  using namespace ast_kernels;
+  if (design < 0 || design > 1) return (int)cudaErrorInvalidValue;
+  if (n == 0 || hw == 0 || e == 0) return 0;
+  if (yt && (w <= 0 || hw % w != 0)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool d = design == 1;
+  using B = __nv_bfloat16;
+#define AST_GP(T, YT)                                                       \
+  return (int)gp::launch<T, YT>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, \
+                                res, gate, y, n, hw, e, s, cout, st,       \
+                                YT ? w : 1, d)
+  if (is_bf16 && yt) AST_GP(B, true);
+  if (is_bf16) AST_GP(B, false);
+  if (yt) AST_GP(float, true);
+  AST_GP(float, false);
+#undef AST_GP
+}
+
+// Registers, dynamic shared memory (bytes), resident CTAs per SM and ring
+// slots of the sweep-2 kernel of `design` (0 gate_project_generic, 1 the
+// designed kernel of the dtype) at this shape, into out[4]; an error where
+// the design does not take the shape.  Launches nothing.
+extern "C" int gate_project_occupancy(int design, int e, int cout, int res,
+                                      int yt, int is_bf16, int* out) {
+  using namespace ast_kernels;
+  if (yt) return (int)gp::occupancy<true>(design, is_bf16, e, cout, res, out);
+  return (int)gp::occupancy<false>(design, is_bf16, e, cout, res, out);
+}

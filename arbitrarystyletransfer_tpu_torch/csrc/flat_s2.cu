@@ -619,3 +619,9 @@ extern "C" int flat_s2_block_last_staging() {
 extern "C" int flat_s2_block_last_boxes() {
   return ast_kernels::edw::last_boxes();
 }
+
+// The design of the last flat_s2_launch's sweep 2: 0 gate_project_generic,
+// 1 gate_project_mma (bf16), 2 gate_project_tf32 (f32); -1 before any.
+extern "C" int flat_s2_block_last_sweep2() {
+  return ast_kernels::gp::last_design();
+}

@@ -28,7 +28,7 @@
 // unrounded hidden by atomics, no hidden stored.
 //
 // "project", the path's design (bf16 x with the tensor-core expand, C_out a
-// multiple of 8; `fused_project_ws`).  The first design (the tile design
+// multiple of 8 up to 96; `fused_project_ws`).  The first design (the tile design
 // below: one CTA per tile, every stage in series between CTA barriers, one
 // CTA per SM, each tile restaging every weight) took 2.2x the sums pass
 // for the same expand and depthwise.  So:
@@ -73,14 +73,19 @@
 // consumer warps (into two halos, beside the producers' depthwise): both
 // compete for the same issue slots.
 // Other dtypes and layouts (f32, the expand==1 form, C_in or C_out that the
-// tiles cannot take, unaligned tensors: none on the path) take the tile
-// design (`fused_project_tile`): one CTA per (image, 16x16 tile), looping
-// over E in chunks of 32, the hidden chunk in shared memory, the projection
-// by mma.sync (bf16, even C_out) or by one pixel per thread on the CUDA
-// cores (f32, odd C_out), accumulated across the chunks.  Its x halo is
-// staged once per tile, or, where the whole box cannot be one (C_in above
-// 240 at k3, 192 at k5: expand_dw.cuh's c_split), in 64-channel chunks
-// for each chunk of E, their products added in f32 (kCSplit).
+// persistent design cannot take, C_out above 96 up to 128, unaligned
+// tensors: none on the path) take the tile design (`fused_project_tile`):
+// one CTA per (image, 16x16 tile), looping over E in chunks of 32, the
+// hidden chunk in shared memory, the projection by mma.sync (bf16, even
+// C_out) or by one pixel per thread on the CUDA cores (f32, odd C_out),
+// accumulated in registers across the chunks (12 or 16 8-wide output
+// tiles: the CUDA-core path's 96 or 128 f32 per thread, written out 32
+// outputs at a time through the hidden chunk's buffer; with them in shared
+// memory, 99 KB at C_out 96, an odd C_out did not fit past C_in 48 at k3).
+// Its x halo is staged once per tile, or, where the whole box cannot be
+// one or leaves no room for the projection's buffers (C_in above 240 at
+// k3, 192 at k5: expand_dw.cuh's c_split), in 64-channel chunks for each
+// chunk of E, their products added in f32 (kCSplit).
 //
 // Both designs take cuts for the ablation (`fused_project_cut_launch`,
 // timing only, results wrong): the projection's products, the depthwise's
@@ -105,8 +110,9 @@ using edw::max_smem;
 using bf16 = __nv_bfloat16;
 
 constexpr int TP = TH * TW;        // pixels per tile
-constexpr int MAX_NT = 12;         // 8-wide output tiles: C_out <= 96
+constexpr int MAX_NT = 16;         // 8-wide output tiles: C_out <= 128
 constexpr int MAX_COUT = MAX_NT * 8;
+constexpr int WS_NT = 12;          // the persistent design's: C_out <= 96
 constexpr int HS_LD = CE + 8;      // bf16 hidden row: 80 B, conflict-free frags
 constexpr int HS_F32_LD = CE + 1;  // f32 hidden row (CUDA-core projection)
 static_assert(TP == NTHREADS, "one pixel per thread in the f32 projection");
@@ -134,10 +140,10 @@ __device__ __forceinline__ void depthwise_cut(const float* buf, float bdv,
 // The projection of one warp's 32 pixels (rows 32 w .. + 31 of the hidden
 // chunk hs, [TP][HS_LD] bf16) by the chunk's weights wsT ([C_out8][HS_LD],
 // transposed), mma.sync m16n8k16 into acc.
-template <int CUT>
+template <int CUT, int NT>
 __device__ __forceinline__ void project_chunk(const bf16* hs, const bf16* wsT,
                                               int w, int nt_count,
-                                              float (&acc)[2][MAX_NT][4]) {
+                                              float (&acc)[2][NT][4]) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -148,7 +154,7 @@ __device__ __forceinline__ void project_chunk(const bf16* hs, const bf16* wsT,
       const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * HS_LD), lds32(ap + 8),
                              lds32(ap + 8 * HS_LD + 8)};
 #pragma unroll
-      for (int nt = 0; nt < MAX_NT; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
         if (nt < nt_count) {
           const bf16* bp = wsT + (nt * 8 + g) * HS_LD + ks + tig * 2;
           const uint32_t b[2] = {lds32(bp), lds32(bp + 8)};
@@ -173,7 +179,7 @@ template <int CUT>
 __device__ __forceinline__ void project_chunk_rm(const bf16* hs,
                                                  const bf16* wr, int cout,
                                                  int w, int nt_count,
-                                                 float (&acc)[2][MAX_NT][4]) {
+                                                 float (&acc)[2][WS_NT][4]) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const bf16* bp = wr + ((lane >> 3) & 1) * 8 * cout + (lane & 7) * cout +
@@ -190,7 +196,7 @@ __device__ __forceinline__ void project_chunk_rm(const bf16* hs,
       a[i][3] = lds32(ap + 8 * HS_LD + 8);
     }
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; nt += 2) {
+    for (int nt = 0; nt < WS_NT; nt += 2) {
       if (nt >= nt_count) continue;
       uint32_t b[4];
       const bf16* bq = bp + ks * cout + nt * 8;
@@ -221,7 +227,8 @@ __device__ __forceinline__ void project_chunk_rm(const bf16* hs,
 
 // y of one warp's 32 pixels from acc (rounded, plus x with identity); cout
 // even.
-__device__ __forceinline__ void store_y(const float (&acc)[2][MAX_NT][4],
+template <int NT>
+__device__ __forceinline__ void store_y(const float (&acc)[2][NT][4],
                                         const bf16* __restrict__ xn,
                                         bf16* __restrict__ yn, int w,
                                         int nt_count, int H, int W, int cin,
@@ -232,7 +239,7 @@ __device__ __forceinline__ void store_y(const float (&acc)[2][MAX_NT][4],
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       const int col = nt * 8 + tig * 2;
       if (nt >= nt_count || col >= cout) continue;
 #pragma unroll
@@ -468,11 +475,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int i = 0; i < items; ++i) {
       int n, ty0, tx0;
       origin(i, n, ty0, tx0);
-      float acc[2][MAX_NT][4];
+      float acc[2][WS_NT][4];
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int nt = 0; nt < MAX_NT; ++nt)
+        for (int nt = 0; nt < WS_NT; ++nt)
 #pragma unroll
           for (int r = 0; r < 4; ++r) acc[a][nt][r] = 0.f;
       for (int c = 0; c < nch; ++c, ++q) {
@@ -546,28 +553,34 @@ cudaError_t launch_ws(const void* x, const void* we, const void* wd,
 
 // Shared memory of the tile kernel (byte offsets): expand_dw.cuh's (the halo
 // buffers and the chunk's expand weights; SPLIT: its kCSplit layout, one
-// 64-channel chunk of the x box at a time), then the gated hidden chunk, the
-// projection weights' chunk and (f32) the outputs.
-template <int K, bool EXPAND, bool MMA, bool PMMA, bool SPLIT = false>
+// 64-channel chunk of the x box at a time), then the gated hidden chunk and
+// the projection weights' chunk: PMMA bf16 [TP][HS_LD] and [NT * 8][HS_LD]
+// (transposed); else f32 [TP][HS_F32_LD] and, 16-byte aligned,
+// [CE][NT * 8] (zeros past C_out).  The CUDA-core projection's outputs
+// stay in registers (one pixel per thread), as PMMA's do.
+template <int K, bool EXPAND, bool MMA, bool PMMA, int NT, bool SPLIT = false>
 struct Smem {
   edw::Smem<K, EXPAND, MMA, SPLIT ? 3 : 0> ex;
-  int hs, ws, ys, total;
+  int hs, ws, total;
   __host__ __device__ explicit Smem(int cin) : ex(cin) {
     hs = ex.total;
-    ws = hs + (PMMA ? TP * HS_LD * 2 : TP * HS_F32_LD * 4);
-    ys = ws + (PMMA ? MAX_COUT * HS_LD * 2 : CE * MAX_COUT * 4);
-    total = ys + (PMMA ? 0 : TP * (MAX_COUT + 1) * 4);
+    ws = PMMA ? hs + TP * HS_LD * 2 : (hs + TP * HS_F32_LD * 4 + 15) / 16 * 16;
+    total = ws + (PMMA ? NT * 8 * HS_LD * 2 : CE * NT * 8 * 4);
   }
 };
 
 // y (n, h, w, cout); gate (n, e) f32 from the sums pass; wp the projection,
 // (e, cout); xmap: x as edw::make_x_map's map (MMA only).  PMMA: the
-// projection runs on the tensor cores.  SPLIT (bf16 x whose whole box
-// cannot be one, edw::c_split): each chunk of E restages the x box in
-// 64-channel chunks and adds their products in f32 (expand_dw.cuh's
-// kCSplit), instead of staging the whole box once per tile.
+// projection runs on the tensor cores (acc, per warp 32 pixels x NT * 8
+// outputs); else on the CUDA cores, each thread one pixel's NT * 8 outputs
+// in registers (accp; f32 fmaf chains over the chunks in order, as the
+// twin's f32 sums).  Both accumulate across the chunks of E.  SPLIT (bf16
+// x whose whole box cannot be one, edw::c_split): each chunk of E restages
+// the x box in 64-channel chunks and adds their products in f32
+// (expand_dw.cuh's kCSplit), instead of staging the whole box once per
+// tile.  NT: 12 (C_out <= 96) or 16.
 template <typename T, int K, bool EXPAND, bool MMA, bool PMMA, int CUT,
-          bool SPLIT = false>
+          int NT, bool SPLIT = false>
 __global__ void __launch_bounds__(NTHREADS)
     fused_project_tile(const __grid_constant__ CUtensorMap xmap,
                        const T* __restrict__ x, const T* __restrict__ we,
@@ -578,12 +591,12 @@ __global__ void __launch_bounds__(NTHREADS)
                        const T* __restrict__ wp, T* __restrict__ y, int H,
                        int W, int cin, int E, int cout, int pre_act,
                        int identity, int tiles_x) {
+  constexpr int CO = NT * 8;  // outputs per pixel the kernel holds
   char* base = edw::smem_base();
-  const Smem<K, EXPAND, MMA, PMMA, SPLIT> L(cin);
+  const Smem<K, EXPAND, MMA, PMMA, NT, SPLIT> L(cin);
   float* buf = reinterpret_cast<float*>(base);
   char* hs_b = base + L.hs;
   char* ws_b = base + L.ws;
-  float* ys = reinterpret_cast<float*>(base + L.ys);  // [TP][cout | 1]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -592,18 +605,19 @@ __global__ void __launch_bounds__(NTHREADS)
   const int tx0 = (blockIdx.x % tiles_x) * TW;
   const T* xn = x + (size_t)n * H * W * cin;
   const int nt_count = (cout + 7) / 8;
-  const int ldy = cout | 1;
 
-  float acc[2][MAX_NT][4];
+  [[maybe_unused]] float acc[2][NT][4];  // PMMA
+  [[maybe_unused]] float accp[CO];       // the CUDA-core projection
   if constexpr (PMMA) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int nt = 0; nt < MAX_NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[i][nt][r] = 0.f;
   } else {
-    for (int idx = threadIdx.x; idx < TP * ldy; idx += NTHREADS) ys[idx] = 0.f;
+#pragma unroll
+    for (int co = 0; co < CO; ++co) accp[co] = 0.f;
   }
 
   // The tile's x halo is staged once for every chunk of E (the expand's
@@ -691,64 +705,86 @@ __global__ void __launch_bounds__(NTHREADS)
                                    : __float2bfloat16_rn(0.f);
       }
     } else {
-      float* wsf = reinterpret_cast<float*>(ws_b);  // [CE][cout]
-      for (int idx = threadIdx.x; idx < CE * cout; idx += NTHREADS)
-        wsf[idx] = c0 + idx / cout < E ? to_f32(wp[(size_t)c0 * cout + idx])
-                                       : 0.f;
+      float* wsf = reinterpret_cast<float*>(ws_b);  // [CE][CO]
+      for (int idx = threadIdx.x; idx < CE * CO; idx += NTHREADS) {
+        const int kk = idx / CO, co = idx % CO;
+        wsf[idx] = co < cout && c0 + kk < E
+                       ? to_f32(wp[(size_t)(c0 + kk) * cout + co])
+                       : 0.f;
+      }
     }
     __syncthreads();
 
     if constexpr (PMMA) {
-      project_chunk<CUT>(reinterpret_cast<const bf16*>(hs_b),
-                         reinterpret_cast<const bf16*>(ws_b), warp, nt_count,
-                         acc);
+      project_chunk<CUT, NT>(reinterpret_cast<const bf16*>(hs_b),
+                             reinterpret_cast<const bf16*>(ws_b), warp,
+                             nt_count, acc);
     } else {
-      const float* hs = reinterpret_cast<const float*>(hs_b);
-      const float* wsf = reinterpret_cast<const float*>(ws_b);
-      const int p = threadIdx.x;
-      for (int co = 0; co < cout; ++co) {
-        float a = ys[p * ldy + co];
-        if (CUT == kNoProj) {
-          a += 0.f * hs[p * HS_F32_LD + co % CE] * wsf[co];
-        } else {
-#pragma unroll 8
-          for (int kk = 0; kk < CE; ++kk)
-            a = fmaf(hs[p * HS_F32_LD + kk], wsf[kk * cout + co], a);
+      const float* hp = reinterpret_cast<const float*>(hs_b) +
+                        threadIdx.x * HS_F32_LD;
+      const float4* w4 = reinterpret_cast<const float4*>(ws_b);
+      if (CUT == kNoProj) {
+        accp[0] += 0.f * hp[0] * w4[0].x;
+      } else {
+        // Every thread reads the same weights: broadcasts.
+#pragma unroll 2
+        for (int kk = 0; kk < CE; ++kk) {
+          const float h = hp[kk];
+#pragma unroll
+          for (int q = 0; q < CO / 4; ++q) {
+            const float4 wv = w4[kk * (CO / 4) + q];
+            accp[4 * q] = fmaf(h, wv.x, accp[4 * q]);
+            accp[4 * q + 1] = fmaf(h, wv.y, accp[4 * q + 1]);
+            accp[4 * q + 2] = fmaf(h, wv.z, accp[4 * q + 2]);
+            accp[4 * q + 3] = fmaf(h, wv.w, accp[4 * q + 3]);
+          }
         }
-        ys[p * ldy + co] = a;
       }
     }
   }
 
   T* yn = y + (size_t)n * H * W * cout;
   if constexpr (PMMA) {
-    store_y(acc, reinterpret_cast<const bf16*>(xn),
-            reinterpret_cast<bf16*>(yn), warp, nt_count, H, W, cin, cout,
-            identity, ty0, tx0);
+    store_y<NT>(acc, reinterpret_cast<const bf16*>(xn),
+                reinterpret_cast<bf16*>(yn), warp, nt_count, H, W, cin, cout,
+                identity, ty0, tx0);
   } else {
-    __syncthreads();  // every pixel's outputs are summed
-    for (int idx = threadIdx.x; idx < TP * cout; idx += NTHREADS) {
-      const int p = idx / cout, co = idx % cout;
-      const int gy = ty0 + p / TW, gx = tx0 + p % TW;
-      if (gy >= H || gx >= W) continue;
-      const size_t px = (size_t)gy * W + gx;
-      T out = from_f32<T>(ys[p * ldy + co]);
-      if (identity) out = from_f32<T>(to_f32(out) + to_f32(xn[px * cin + co]));
-      yn[px * cout + co] = out;
+    // 32 outputs of every pixel at a time through the hidden chunk's rows
+    // (their last readers are past the barrier), then stored coalesced.
+    float* hs = reinterpret_cast<float*>(hs_b);
+#pragma unroll
+    for (int co0 = 0; co0 < CO; co0 += CE) {
+      if (co0 < cout) {  // the same for every thread
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < CE; ++j)
+          hs[threadIdx.x * HS_F32_LD + j] = accp[co0 + j];
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < TP * CE; idx += NTHREADS) {
+          const int p = idx / CE, j = idx % CE, co = co0 + j;
+          const int gy = ty0 + p / TW, gx = tx0 + p % TW;
+          if (co >= cout || gy >= H || gx >= W) continue;
+          const size_t px = (size_t)gy * W + gx;
+          T out = from_f32<T>(hs[p * HS_F32_LD + j]);
+          if (identity)
+            out = from_f32<T>(to_f32(out) + to_f32(xn[px * cin + co]));
+          yn[px * cout + co] = out;
+        }
+      }
     }
   }
 }
 
 template <typename T, int K, bool EXPAND, bool MMA, bool PMMA, int CUT,
-          bool SPLIT = false>
+          int NT, bool SPLIT = false>
 cudaError_t launch_tile(const void* x, const void* we, const void* wd,
                         const void* be, const void* bd, const void* gate,
                         const void* wp, void* y, int n, int h, int w, int cin,
                         int e, int cout, int pre_act, int identity,
                         cudaStream_t stream) {
-  const Smem<K, EXPAND, MMA, PMMA, SPLIT> L(cin);
+  const Smem<K, EXPAND, MMA, PMMA, NT, SPLIT> L(cin);
   const int smem = L.total;
-  auto kernel = fused_project_tile<T, K, EXPAND, MMA, PMMA, CUT, SPLIT>;
+  auto kernel = fused_project_tile<T, K, EXPAND, MMA, PMMA, CUT, NT, SPLIT>;
   CUtensorMap xmap{};
   if (MMA && !edw::make_x_map(&xmap, x, n, h, w, cin, edw::Halo<K>::HW,
                               edw::Halo<K>::HH, L.ex.ldxs))
@@ -772,37 +808,52 @@ cudaError_t launch_tile(const void* x, const void* we, const void* wd,
 // Whether the tile design stages a bf16 tensor-core expand's x box in
 // chunks: where it cannot be one (edw::c_split), or where the whole box
 // leaves no room for the hidden chunk and W_p's rows (PMMA's bf16 ones,
-// else the CUDA-core projection's f32 hidden, weights and outputs).
-template <int K, bool PMMA>
+// else the CUDA-core projection's f32 hidden and weights).
+template <int K, bool PMMA, int NT>
 bool tile_split(int cin) {
-  const Smem<K, true, true, PMMA> whole(cin);
+  const Smem<K, true, true, PMMA, NT> whole(cin);
   return edw::c_split<K>(cin) || edw::box_split(whole.ex.ldx, whole.total);
 }
 
-// The tile design for this shape (its PMMA chosen by the caller).
-template <typename T, int K, bool PMMA>
+// The tile design for this shape (its PMMA and NT chosen by the caller).
+template <typename T, int K, bool PMMA, int NT>
 cudaError_t tile_k(const void* x, const void* we, const void* wd,
                    const void* be, const void* bd, const void* gate,
                    const void* wp, void* y, int n, int h, int w, int cin,
                    int e, int cout, int pre_act, int identity,
                    cudaStream_t s) {
   if (we == nullptr)
-    return launch_tile<T, K, false, false, PMMA, kNone>(
+    return launch_tile<T, K, false, false, PMMA, kNone, NT>(
         x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout, pre_act,
         identity, s);
   if constexpr (sizeof(T) == 2) {
-    if (edw::use_mma<T, edw::kFused>(x, cin) && tile_split<K, PMMA>(cin))
-      return launch_tile<T, K, true, true, PMMA, kNone, true>(
+    if (edw::use_mma<T, edw::kFused>(x, cin) && tile_split<K, PMMA, NT>(cin))
+      return launch_tile<T, K, true, true, PMMA, kNone, NT, true>(
           x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout, pre_act,
           identity, s);
   }
   if (edw::use_mma<T, edw::kFused>(x, cin))
-    return launch_tile<T, K, true, sizeof(T) == 2, PMMA, kNone>(
+    return launch_tile<T, K, true, sizeof(T) == 2, PMMA, kNone, NT>(
         x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout, pre_act,
         identity, s);
-  return launch_tile<T, K, true, false, PMMA, kNone>(
+  return launch_tile<T, K, true, false, PMMA, kNone, NT>(
       x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout, pre_act,
       identity, s);
+}
+
+// tile_k at the NT of this C_out: 12 up to 96 (the instances before C_out
+// 128 was taken), else 16.
+template <typename T, int K, bool PMMA>
+cudaError_t tile_nt(const void* x, const void* we, const void* wd,
+                    const void* be, const void* bd, const void* gate,
+                    const void* wp, void* y, int n, int h, int w, int cin,
+                    int e, int cout, int pre_act, int identity,
+                    cudaStream_t s) {
+  if (cout <= WS_NT * 8)
+    return tile_k<T, K, PMMA, WS_NT>(x, we, wd, be, bd, gate, wp, y, n, h, w,
+                                     cin, e, cout, pre_act, identity, s);
+  return tile_k<T, K, PMMA, MAX_NT>(x, we, wd, be, bd, gate, wp, y, n, h, w,
+                                    cin, e, cout, pre_act, identity, s);
 }
 
 // =============================================================================
@@ -810,14 +861,15 @@ cudaError_t tile_k(const void* x, const void* we, const void* wd,
 // Design 1 (persistent) takes bf16 NHWC x with the tensor-core expand
 // (C_in % 8 == 0, x 16-byte aligned) whose whole box is one (not
 // edw::c_split: it stages the box once per item) and fits beside its
-// slots, C_out % 8 == 0 (W_p's rows are 16-byte bulk copies), a 16-byte
-// aligned W_p and a 4-byte aligned y; design 0 (tile) any shape.
+// slots, C_out % 8 == 0 (W_p's rows are 16-byte bulk copies) and <= 96 (its
+// consumers' 128 registers), a 16-byte aligned W_p and a 4-byte aligned y;
+// design 0 (tile) any shape, C_out <= 128.
 template <typename T>
 bool persistent_ok(const void* x, const void* we, const void* wp,
                    const void* y, int cin, int cout, int k) {
   return sizeof(T) == 2 && we != nullptr &&
          edw::use_mma<T, edw::kFused>(x, cin) && cout % 8 == 0 &&
-         aligned(wp, 16) && aligned(y, 4) &&
+         cout <= WS_NT * 8 && aligned(wp, 16) && aligned(y, 4) &&
          (k == 3 ? !edw::c_split<3>(cin) &&
                        WsSmem<3>(cin, 0, cout, false).total <= max_smem()
                  : !edw::c_split<5>(cin) &&
@@ -850,16 +902,16 @@ cudaError_t project(int design, const void* x, const void* we,
   const bool pmma = sizeof(T) == 2 && cout % 2 == 0 && aligned(y, 4) &&
                     (!identity || aligned(x, 4));
   if (k == 3)
-    return pmma ? tile_k<T, 3, sizeof(T) == 2>(x, we, wd, be, bd, gate, wp,
-                                               y, n, h, w, cin, e, cout,
-                                               pre_act, identity, s)
-                : tile_k<T, 3, false>(x, we, wd, be, bd, gate, wp, y, n, h,
-                                      w, cin, e, cout, pre_act, identity, s);
-  return pmma ? tile_k<T, 5, sizeof(T) == 2>(x, we, wd, be, bd, gate, wp, y,
-                                             n, h, w, cin, e, cout, pre_act,
-                                             identity, s)
-              : tile_k<T, 5, false>(x, we, wd, be, bd, gate, wp, y, n, h, w,
-                                    cin, e, cout, pre_act, identity, s);
+    return pmma ? tile_nt<T, 3, sizeof(T) == 2>(x, we, wd, be, bd, gate, wp,
+                                                y, n, h, w, cin, e, cout,
+                                                pre_act, identity, s)
+                : tile_nt<T, 3, false>(x, we, wd, be, bd, gate, wp, y, n, h,
+                                       w, cin, e, cout, pre_act, identity, s);
+  return pmma ? tile_nt<T, 5, sizeof(T) == 2>(x, we, wd, be, bd, gate, wp, y,
+                                              n, h, w, cin, e, cout, pre_act,
+                                              identity, s)
+              : tile_nt<T, 5, false>(x, we, wd, be, bd, gate, wp, y, n, h, w,
+                                     cin, e, cout, pre_act, identity, s);
 }
 
 // One design with one part cut out, at a bf16 shape of the persistent
@@ -879,10 +931,10 @@ cudaError_t project_cut(int design, const void* x, const void* we,
                                       w, cin, e, cout, pre_act, identity, s)
                   : launch_ws<5, CUT>(x, we, wd, be, bd, gate, wp, y, n, h,
                                       w, cin, e, cout, pre_act, identity, s);
-  return k == 3 ? launch_tile<B, 3, true, true, true, CUT>(
+  return k == 3 ? launch_tile<B, 3, true, true, true, CUT, WS_NT>(
                       x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout,
                       pre_act, identity, s)
-                : launch_tile<B, 5, true, true, true, CUT>(
+                : launch_tile<B, 5, true, true, true, CUT, WS_NT>(
                       x, we, wd, be, bd, gate, wp, y, n, h, w, cin, e, cout,
                       pre_act, identity, s);
 }
@@ -913,7 +965,7 @@ extern "C" int fused_sums_launch(const void* x, const void* we, const void* wd,
 }
 
 // Pass 2: y (n, h, w, cout), allocated by the caller, from x (n, h, w, cin),
-// the f32 SE gate (n, e) and the projection wp (e, cout), with cout <= 96;
+// the f32 SE gate (n, e) and the projection wp (e, cout), with cout <= 128;
 // identity adds x (cin == cout).  The persistent design where it takes the
 // shape, else the tile design.  Returns the cudaError_t of the launch (0 on
 // success).
@@ -979,30 +1031,38 @@ namespace ast_kernels {
 namespace f2p {
 namespace {
 
-template <int K, bool PMMA>
+template <int K, bool PMMA, int NT>
 cudaError_t tile_query(int cin, int* out) {
   using B = __nv_bfloat16;
-  if (tile_split<K, PMMA>(cin))
-    return edw::query(fused_project_tile<B, K, true, true, PMMA, kNone, true>,
-                      NTHREADS, Smem<K, true, true, PMMA, true>(cin).total,
-                      out);
-  return edw::query(fused_project_tile<B, K, true, true, PMMA, kNone>,
-                    NTHREADS, Smem<K, true, true, PMMA>(cin).total, out);
+  if (tile_split<K, PMMA, NT>(cin))
+    return edw::query(
+        fused_project_tile<B, K, true, true, PMMA, kNone, NT, true>, NTHREADS,
+        Smem<K, true, true, PMMA, NT, true>(cin).total, out);
+  return edw::query(fused_project_tile<B, K, true, true, PMMA, kNone, NT>,
+                    NTHREADS, Smem<K, true, true, PMMA, NT>(cin).total, out);
 }
 
 // query() of the persistent design's kernel (1) or of the tile design's
 // variant (0) that fused_project_launch takes for a bf16 block of
 // contiguous tensors with the tensor-core expand: PMMA at an even C_out,
-// its x box whole or in chunks (tile_split).
+// NT 12 up to C_out 96, else 16, its x box whole or in chunks
+// (tile_split).  Past C_out 128, or the persistent design past 96 (neither
+// takes it): cudaErrorInvalidValue.
 template <int K>
 cudaError_t occupancy(int design, int cin, int e, int cout, int* out) {
+  if (cout > (design == 1 ? WS_NT * 8 : MAX_COUT))
+    return cudaErrorInvalidValue;
   if (design == 1) {
     out[3] = ws_resident<K>(cin, e, cout, kNone);
     return edw::query(fused_project_ws<K, kNone>, WS_THREADS,
                       WsSmem<K>(cin, e, cout, out[3]).total, out);
   }
-  if (cout % 2 == 0) return tile_query<K, true>(cin, out);
-  return tile_query<K, false>(cin, out);
+  const bool small = cout <= WS_NT * 8;
+  if (cout % 2 == 0)
+    return small ? tile_query<K, true, WS_NT>(cin, out)
+                 : tile_query<K, true, MAX_NT>(cin, out);
+  return small ? tile_query<K, false, WS_NT>(cin, out)
+               : tile_query<K, false, MAX_NT>(cin, out);
 }
 
 }  // namespace

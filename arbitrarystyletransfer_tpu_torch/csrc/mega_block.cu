@@ -107,3 +107,10 @@ extern "C" int mega_block_occupancy(int k, int cin, int e, int cout,
 extern "C" int mega_block_last_staging() {
   return ast_kernels::edw::last_async();
 }
+
+// The design of the last mega_block_launch's sweep 2: 0
+// gate_project_generic, 1 gate_project_mma (bf16), 2 gate_project_tf32
+// (f32); -1 before any.
+extern "C" int mega_block_last_sweep2() {
+  return ast_kernels::gp::last_design();
+}

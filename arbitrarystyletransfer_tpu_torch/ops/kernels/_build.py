@@ -44,6 +44,19 @@ _SIGNATURES = {
     "flat_s2_launch": [_P] * 15 + [_I] * 9 + [_P],
     # flat_block_launch's arguments, with x and y in (N, H, C, W)
     "mega_block_launch": [_P] * 15 + [_I] * 11 + [_P],
+    # design (0 gate_project_generic, 1 the dtype's designed kernel),
+    # hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res, gate (scratch), y, n,
+    # hw, e, s, c_out, w, yt, is_bf16, stream: sweep 2 alone (A/B timing)
+    "gate_project_launch": [_I] + [_P] * 11 + [_I] * 8 + [_P],
+    # design, e, c_out, res, yt, is_bf16, out[4]: registers, shared
+    # memory, CTAs per SM, ring slots of that sweep-2 kernel (no launch)
+    "gate_project_occupancy": [_I] * 6 + [_P],
+    # no arguments: the sweep-2 design of the last launch of each source
+    # (0 generic, 1 gate_project_mma, 2 gate_project_tf32, -1 none yet;
+    # flat_block's also covers gate_project_launch)
+    "flat_block_last_sweep2": [],
+    "mega_block_last_sweep2": [],
+    "flat_s2_block_last_sweep2": [],
     # x, w_expand, w_dw, b_expand, b_dw, sums, n, h, w, c_in, e, k, pre_act,
     # is_bf16, stream
     "fused_sums_launch": [_P] * 6 + [_I] * 8 + [_P],

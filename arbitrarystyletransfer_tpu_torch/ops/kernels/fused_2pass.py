@@ -27,9 +27,6 @@ from .expand_dw import _vec, depthwise_reference, expand_reference
 from .flat_block import check_input, ptr, round_to
 from .limits import check_fused_project, check_sweep1, tensor_core_expand
 
-# fused_project keeps the whole projection of a 256-pixel tile on chip.
-MAX_COUT = 96
-
 
 def _hidden_f32(x, w_expand, w_dw, kernel_size, pre_act, b_expand, b_dw):
     return depthwise_reference(expand_reference(x, w_expand, b_expand,
@@ -112,7 +109,8 @@ def fused_project(x, w_expand, w_dw, kernel_size: int, gate, w_proj,
                   identity: bool = False):
     """y (N, H, W, C_out) in x's dtype: the block's hidden recomputed,
     gated by ``gate`` (N, E) float32, projected by ``w_proj`` (E, C_out),
-    C_out <= 96, plus x with ``identity``.  The other arguments are
+    C_out <= 128 (the whole projection of a 256-pixel tile stays on
+    chip), plus x with ``identity``.  The other arguments are
     ``expand_dw``'s.
 
     A CPU tensor takes ``fused_project_reference``; a CUDA tensor launches
@@ -129,8 +127,6 @@ def fused_project(x, w_expand, w_dw, kernel_size: int, gate, w_proj,
     if w_proj.dim() != 2 or w_proj.shape[0] != e:
         raise ValueError(f"fused_project: w_proj must be ({e}, C_out)")
     c_out = w_proj.shape[1]
-    if c_out > MAX_COUT:
-        raise ValueError(f"fused_project: C_out {c_out} > {MAX_COUT}")
     check_fused_project(kernel_size, c_in, c_out,
                         bf16=x.dtype == torch.bfloat16,
                         mma=tensor_core_expand(x.dtype == torch.bfloat16,

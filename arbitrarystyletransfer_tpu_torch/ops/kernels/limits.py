@@ -7,7 +7,11 @@ bf16 first sweeps: ``Smem`` and ``c_split`` of ``csrc/expand_dw.cuh``
 ``csrc/flat_s2.cu``, and the two designs of ``csrc/fused_2pass.cu``'s
 ``fused_project`` (``WsSmem``, the tile ``Smem``).  Each stages its x box
 whole where it can and in channel chunks where it cannot (wider than a
-TMA box, or past shared memory).  A wrapper calls ``check_*`` before it
+TMA box, or past shared memory).  Beside them, the design that sweep 2
+(``csrc/gate_project.cuh``) takes for a shape and its shared memory
+(``sweep2_staging``): ``gate_project_mma`` (bf16), ``gate_project_tf32``
+(f32, its ring slots from ``tf32_slots``) or the CUDA-core
+``gate_project_generic``.  A wrapper calls ``check_*`` before it
 launches, so a shape that a kernel cannot take raises ``ValueError``
 naming the shape and the limit, not a CUDA error.  The limits are an
 H100's: a TMA box has at most 256 elements along each dimension, and a
@@ -29,9 +33,16 @@ CCH = 64               # expand_dw.cuh kCSplit's channels per box
 CCH2 = 32              # flat_s2.cu's channels per split box
 TH = TW = 16           # expand_dw.cuh's output tile
 S2_OH, S2_OW = 8, 16   # flat_s2.cu's output tile
-MAX_COUT = 96          # fused_2pass.cu's MAX_NT * 8
+MAX_COUT = 128         # fused_2pass.cu's MAX_NT * 8 (the tile design)
+WS_MAX_COUT = 96       # its WS_NT * 8 (the persistent design)
 TP, HS_LD = 256, 40    # fused_2pass.cu's tile pixels, hidden row (bf16)
 HS_F32_LD = 33         # fused_2pass.cu's f32 hidden row (CUDA-core projection)
+SM_SMEM = 233472       # shared memory of an H100 SM ...
+CTA_RESERVED = 1024    # ... of which the runtime keeps this much per CTA
+GP_TP, GP_BOX = 128, 16384   # gate_project.cuh's TP, BOX_BYTES
+GP_SLOTS, GP_YS_LD = 4, 40   # its SLOTS, YS_LD
+GP_MAX_COUT = 128            # its MAX_NT * 8
+GP_GTP, GP_GKC = 32, 32      # gate_project_generic's pixels, channels
 
 
 def _up(v: int, m: int) -> int:
@@ -129,41 +140,105 @@ def flat_s2_staging(k: int, c_in: int) -> dict:
     return whole
 
 
+def _tile_smem(st: dict, c_out: int, pmma: bool) -> int:
+    """The tile design's bytes (``fused_2pass.cu``'s tile ``Smem``) on top
+    of its sweep 1's ``st``: the hidden chunk and the projection weights'
+    chunk for NT * 8 outputs (NT 12 up to C_out 96, else 16), bf16 for
+    PMMA, else f32 (the weights 16-byte aligned)."""
+    co = WS_MAX_COUT if c_out <= WS_MAX_COUT else MAX_COUT
+    if pmma:
+        return st["smem"] + TP * HS_LD * 2 + co * HS_LD * 2
+    return _up(st["smem"] + TP * HS_F32_LD * 4, 16) + CE * co * 4
+
+
 def fused_project_staging(k: int, c_in: int, c_out: int, bf16: bool = True,
                           mma: bool = True, expand: bool = True,
                           e: int | None = None) -> dict:
     """The design ``fused_project`` takes for a block and its shared
     memory: the persistent one (bf16 with the tensor-core expand, C_out a
-    multiple of 8, the whole box, and room beside it for the hidden and
-    weight slots; without ``e`` its least, else with every chunk's expand
-    weights where they fit, ``ws_resident``), else the tile design
-    (``fused_2pass.cu`` ``persistent_ok``, ``tile_k``).
+    multiple of 8 up to 96, the whole box, and room beside it for the
+    hidden and weight slots; without ``e`` its least, else with every
+    chunk's expand weights where they fit, ``ws_resident``), else the tile
+    design (``fused_2pass.cu`` ``persistent_ok``, ``tile_k``).
     The tile design projects on the tensor cores (PMMA: bf16 and an even
     C_out; a bf16 hidden chunk and W_p's rows) or on the CUDA cores (f32
-    hidden chunk, weights and outputs), and stages the tensor-core
-    expand's box in chunks where the whole box cannot be one or leaves no
-    room for those (``tile_split``)."""
+    hidden chunk and weights, each pixel's outputs in registers), and
+    stages the tensor-core expand's box in chunks where the whole box
+    cannot be one or leaves no room for those (``tile_split``)."""
     pmma = bf16 and c_out % 2 == 0
-    extra = (TP * HS_LD * 2 + MAX_COUT * HS_LD * 2 if pmma else
-             TP * HS_F32_LD * 4 + CE * MAX_COUT * 4
-             + TP * (MAX_COUT + 1) * 4)  # the tile's own
     if not mma:
         st = _edw_smem(k, c_in, 0, False, expand)
-        return dict(st, smem=st["smem"] + extra, design="tile")
+        return dict(st, smem=_tile_smem(st, c_out, pmma), design="tile")
     whole = _edw_smem(k, c_in, 0)
     fits = whole["box"][0] <= MAX_BOX and whole["smem"] <= SMEM_OPT_IN
     bar = whole["smem"] - 136  # Smem's bar offset
     persistent = (_up(bar + 8, 128) + 2 * TP * HS_LD * 2
                   + 2 * CE * c_out * 2 + 3 * 2 * 8 + 128)
-    if fits and c_out % 8 == 0 and persistent <= SMEM_OPT_IN:
+    if (fits and c_out % 8 == 0 and c_out <= WS_MAX_COUT
+            and persistent <= SMEM_OPT_IN):
         e32 = _up(e or 0, CE)
         resident = persistent + e32 * (_up(c_in, 16) + 8) * 2 + e32 * 4
         if e is not None and resident <= SMEM_OPT_IN:
             persistent = resident
         return dict(whole, smem=persistent, design="persistent")
-    st = whole if fits and whole["smem"] + extra <= SMEM_OPT_IN else \
-        _edw_smem(k, c_in, 3)
-    return dict(st, smem=st["smem"] + extra, design="tile")
+    st = whole if fits and _tile_smem(whole, c_out, pmma) <= SMEM_OPT_IN \
+        else _edw_smem(k, c_in, 3)
+    return dict(st, smem=_tile_smem(st, c_out, pmma), design="tile")
+
+
+def _tf32_smem(e: int, c_out: int, slots: int) -> int:
+    """``gate_project.cuh`` ``TfSmem(e, c_out, slots).total``."""
+    ep = _up(e, 32)
+    return 1024 + slots * GP_BOX + _up(c_out, 8) * ep * 4 + ep * 4 \
+        + 2 * GP_SLOTS * 8
+
+
+def tf32_slots(e: int, c_out: int) -> int:
+    """``gate_project.cuh`` ``tf32_slots`` on an H100: up to C_out 48 the
+    most ring slots of 4, 3, 2 with which two CTAs share an SM, else the
+    most with which one fits, else 0."""
+    for slots in range(GP_SLOTS, 1, -1):
+        t = _tf32_smem(e, c_out, slots)
+        if (c_out <= 48 and t <= SMEM_OPT_IN
+                and 2 * (t + CTA_RESERVED) <= SM_SMEM):
+            return slots
+    for slots in range(GP_SLOTS, 1, -1):
+        if _tf32_smem(e, c_out, slots) <= SMEM_OPT_IN:
+            return slots
+    return 0
+
+
+def mma_warps(c_out: int) -> int:
+    """``gate_project.cuh`` ``mma_warps``: gate_project_mma's consumer
+    warps, 8 of 16 pixels past C_out 96, else 4 of 32."""
+    return 8 if c_out > WS_MAX_COUT else 4
+
+
+def sweep2_staging(e: int, c_out: int, bf16: bool = True,
+                   yt: bool = False) -> dict:
+    """The kernel that sweep 2 (``gate_project.cuh`` ``launch``) takes for
+    a hidden of E channels and C_out outputs, contiguous tensors, and its
+    shared memory: {"design": "mma" (bf16, E % 8 == 0, within a CTA's
+    shared memory), "tf32" (f32, E % 4 == 0, ring slots that fit) or
+    "generic", "smem": bytes per CTA,
+    "slots": ring slots (0 for the generic kernel)}.  The designs take an
+    even C_out up to 128; ``yt``: y in (N, H, C, W) (the mega route)."""
+    if c_out % 2 == 0 and c_out <= GP_MAX_COUT:
+        ep = _up(e, 64)
+        wbytes = (ep // 64 * 128 * 128 if c_out > WS_MAX_COUT  # wgmma's B
+                  else _up(c_out, 8) * (ep + 8) * 2)
+        smem = (1024 + GP_SLOTS * GP_BOX + wbytes + ep * 2
+                + (mma_warps(c_out) * 8 * GP_YS_LD * 2 if yt else 0)
+                + 2 * GP_SLOTS * 8)
+        if bf16 and e % 8 == 0 and smem <= SMEM_OPT_IN:
+            return {"design": "mma", "smem": smem, "slots": GP_SLOTS}
+        slots = tf32_slots(e, c_out) if not bf16 and e % 4 == 0 else 0
+        if slots:
+            return {"design": "tf32", "smem": _tf32_smem(e, c_out, slots),
+                    "slots": slots}
+    return {"design": "generic",
+            "smem": (_up(e, 4) + GP_GTP * (GP_GKC + 1) + GP_GKC * c_out) * 4,
+            "slots": 0}
 
 
 def tensor_core_expand(dtype_is_bf16: bool, c_in: int,
@@ -210,10 +285,9 @@ def check_flat_s2(k: int, c_in: int) -> dict:
 def check_fused_project(k: int, c_in: int, c_out: int, bf16: bool = True,
                         mma: bool = True, expand: bool = True,
                         e: int | None = None) -> dict:
-    """``fused_project_staging`` or ``ValueError``: C_out at most 96 (its
-    projection tiles), and the design's shared memory within a CTA's (an
-    odd C_out's CUDA-core projection past C_in 48 at k3 and 16 at k5 with
-    the tensor-core expand)."""
+    """``fused_project_staging`` or ``ValueError``: C_out at most 128 (its
+    projection tiles), and the design's shared memory within a CTA's (past
+    the C_in that sweep 1's chunks take: ``check_sweep1``)."""
     if c_out > MAX_COUT:
         raise ValueError(f"fused_project: C_out {c_out} > {MAX_COUT}")
     st = fused_project_staging(k, c_in, c_out, bf16, mma, expand, e)

@@ -8,8 +8,9 @@ the kernel library with the compiler's register report, then for every
 shape of the 512px batch-8 path: ``expand_dw`` (sweep 1 in the fused mode)
 and ``flat_block`` (sweep 1 in the flat mode, then sweep 2), each sweep's
 device ms from a ``torch.profiler`` trace (kernels ``expand_dw_kernel``;
-``se_gate_kernel`` and ``gate_project``), its own bound, its share of that
-bound, its achieved rates and (where the library answers the query) the
+``se_gate_kernel`` or ``se_gate_staged`` and ``gate_project``), its own
+bound, its share of that bound, its achieved rates and (where the library
+answers the query) the
 registers, shared memory and resident CTAs per SM of its kernel at that
 shape.  Then the registers and spills of each sweep's kernels from the
 compiler's report and their opcode counts (``sass_ops``).  Prints one JSON
@@ -27,10 +28,18 @@ from pathlib import Path
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W), as chip_smoke.py.
 PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+PEAK_TF32 = 495e12
+# Sweep 2's designs by gate_project_launch's `design` (0, 1) and by the
+# value of *_last_sweep2 (0, 1, 2); each one's peak for its own bound: the
+# generic kernel's f32 FMAs, gate_project_mma's bf16 products,
+# gate_project_tf32's three TF32 products per f32 one.
+SWEEP2_NAMES = {0: "generic", 1: "mma", 2: "tf32"}
+SWEEP2_PEAK = {"generic": (PEAK_F32, 1), "mma": (PEAK_BF16, 1),
+               "tf32": (PEAK_TF32, 3)}
 # The kernels of each sweep, by name: sweep 2 is the gate kernel and the
 # projection.
 SWEEPS = {"sweep1": ("expand_dw_kernel",),
-          "sweep2": ("se_gate_kernel", "gate_project")}
+          "sweep2": ("se_gate", "gate_project")}
 
 
 def sweep_costs(n, hw, c_in, e, c_out, k, residual, size=2):
@@ -242,6 +251,114 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
              s2_sweep_costs(n, hw, c_in, e, c_out, k), case[-1],
              occupancy("flat_s2_block", k, c_in, e, c_out),
              last_staging("flat_s2_block"))
+    return records
+
+
+def sweep2_ab(gen, cases, device="cuda", log=print, turns=2, iters=10):
+    """Sweep 2 alone (``gate_project_launch``) at each case, its CUDA-core
+    ``gate_project_generic`` (design 0) against the designed kernel of the
+    dtype (design 1) on the same inputs, in turns (generic, new, generic,
+    new), each held to ``gate_project_reference`` (one bf16 ulp of the
+    largest output; f32 1e-5).  ``cases``: (label, n, h, w, e, c_out,
+    residual, dtype, yt, launches per request).  One JSON line per case:
+    each design's ms (every turn), its own bound (the bytes at HBM against
+    its products at its peak, ``SWEEP2_PEAK``) and share of it, the byte
+    bound's share, registers, shared memory, CTAs per SM and ring slots
+    (``gate_project_occupancy``).  Returns the records."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import _build
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
+        gate_project_reference,
+    )
+
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    records = []
+    for label, n, h, w, e, c_out, residual, dtype, yt, per_req in cases:
+        dt = getattr(torch, dtype)
+        hidden = rand(n, h, w, e).to(dt)
+        sums = hidden.float().sum(dim=(1, 2))
+        se = random_se(rand, e)
+        wp, pb = rand(e, c_out) / math.sqrt(e), 0.1 * rand(c_out)
+        res = rand(n, h, w, c_out).to(dt) if residual else None
+        ref = gate_project_reference(hidden, sums, se, wp, pb, res)
+        d0t = se["Dense_0"]["kernel"].t().contiguous()
+        d0b, d1b = se["Dense_0"]["bias"], se["Dense_1"]["bias"]
+        d1k = se["Dense_1"]["kernel"].contiguous()
+        wpt = wp.to(dt).t().contiguous()
+        if yt:  # y and the residual (N, H, C, W)
+            res = None if res is None else res.permute(0, 1, 3, 2).contiguous()
+            ref = ref.permute(0, 1, 3, 2)
+        gate = torch.empty(n, e, device=device)
+        y = torch.empty(ref.shape, dtype=dt, device=device)
+        s_ = d0t.shape[0]
+
+        def run(design):
+            rc = lib.gate_project_launch(
+                design, hidden.data_ptr(), sums.data_ptr(), d0t.data_ptr(),
+                d0b.data_ptr(), d1k.data_ptr(), d1b.data_ptr(),
+                wpt.data_ptr(), pb.data_ptr(),
+                None if res is None else res.data_ptr(), gate.data_ptr(),
+                y.data_ptr(), n, h * w, e, s_, c_out, w, int(yt),
+                int(dt == torch.bfloat16), stream)
+            _build.check(rc, f"gate_project {label} design {design}")
+
+        names, errs = {}, {}
+        for design in (0, 1):
+            run(design)
+            torch.cuda.synchronize()
+            names[design] = SWEEP2_NAMES[lib.flat_block_last_sweep2()]
+            errs[design] = float((y.float() - ref.float()).abs().max())
+        times = {0: [], 1: []}
+        for _ in range(turns):
+            for design in (0, 1):
+                for _ in range(2):
+                    run(design)  # warm-up
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    run(design)
+                end.record()
+                torch.cuda.synchronize()
+                times[design].append(start.elapsed_time(end) / iters)
+        size = hidden.element_size()
+        nbytes = size * n * h * w * (e + c_out * (1 + residual)) + 4 * n * e
+        flops = 2 * n * h * w * e * c_out
+        t_bytes = 1e3 * nbytes / HBM_BYTES_S
+        tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-5) * float(
+            ref.float().abs().max())
+        rec = {"sweep2_ab": label, "dtype": dtype, "yt": yt,
+               "x": [n, h, w, e], "c_out": c_out, "residual": residual,
+               "per_request": per_req, "tol": tol, "bytes_bound_ms": t_bytes}
+        out = (ctypes.c_int * 4)()
+        for design in (0, 1):
+            name = names[design]
+            peak, factor = SWEEP2_PEAK[name]
+            bound = max(t_bytes, 1e3 * factor * flops / peak)
+            ms = statistics.median(times[design])
+            rc = lib.gate_project_occupancy(
+                design, e, c_out, int(residual), int(yt),
+                int(dt == torch.bfloat16), ctypes.cast(out, ctypes.c_void_p))
+            rec[name] = {
+                "ms": times[design], "ms_median": ms, "bound_ms": bound,
+                "share": bound / ms, "bytes_share": t_bytes / ms,
+                "err": errs[design], "registers": out[0] if rc == 0 else None,
+                "smem": out[1] if rc == 0 else None,
+                "ctas_per_sm": out[2] if rc == 0 else None,
+                "slots": out[3] if rc == 0 else None}
+        records.append(rec)
+        log(json.dumps(rec))
+        del hidden, res, ref, y
+        torch.cuda.empty_cache()
     return records
 
 

@@ -13,7 +13,10 @@
    other shape's comes whole, ``expand_dw_last_boxes``; and the blocks
    that first leave the plain route at 1024px, e7-e14 and d0-d2 at 128px
    (C_in up to 128, C_out 128), on ``expand_dw``, ``flat_block``,
-   ``flat_s2_block`` and ``mega_block``), with the max
+   ``flat_s2_block`` and ``mega_block``; and every block of the 512px
+   path again at f32, the stylize CLI's dtype, summed per f32 request, the
+   block kernels' sweep 2 of every path row on the designed kernel of its
+   dtype, ``*_last_sweep2``), with the max
    error against a stated tolerance and the
    device times (CUDA events) of the kernel, the twin and, where one
    PyTorch call computes the same function, that call (the SDPA yardstick
@@ -41,7 +44,11 @@
    as it is and with its two repairs undone (bf16 products before the
    bias, the NCHW pad).  Then rows 1 and 4 by sweep at every path shape
    (``sweeps_phase``: each sweep's device ms, bound, share of it, rates,
-   registers and CTAs per SM), after ragged shapes off the path through
+   registers and CTAs per SM; then sweep 2 alone in turns, the CUDA-core
+   ``gate_project_generic`` against the designed kernel at the C_out-128
+   and f32 shapes, ``sweep2_phase``: each one's ms, share of its own bound,
+   registers, CTAs per SM and ring slots, the new one held to the twin and
+   faster in every turn), after ragged shapes off the path through
    every sweep-1 mode and both sweep-2 layouts (H, W, E not multiples of
    the sweeps' tiles and channel chunks), held to the same gates, and the
    shapes whose x box comes in channel chunks (``split_phase``: C_in 256
@@ -49,8 +56,9 @@
    ``fused_sums`` and ``fused_project``, each with the staging it must
    take, after ``smem_mirror_check``: the shared memory that
    ``ops/kernels/limits.py`` computes for every sweep-1 launcher, on a
-   grid of k, C_in and C_out, must be what the kernels' occupancy queries
-   report, or both must refuse).  Then
+   grid of k, C_in and C_out up to 128, must be what the kernels'
+   occupancy queries report, or both must refuse; so must sweep 2's
+   design, bytes and ring slots, ``sweep2_staging``).  Then
    the AdaAttN backward kernels (``adaattn_bwd_phase``) at the training
    buckets, ragged, bf16 and 512px shapes, an "offset" case (v = 30 +
    0.1 N(0, 1), also held to float64 autograd) and an "offset-1e8" case
@@ -79,7 +87,9 @@
    counters are reset just before its requests and read just after, and
    each request must launch exactly the route's kernels; outputs must be
    finite and unsaturated; request 1 is held against the same pipeline
-   forced through the plain twins (bf16, and f32 through both).  Prints ms
+   forced through the plain twins (bf16, and f32 through both); the f32
+   requests (ROUTE_F32_REQUESTS, "flat" too) are timed, their launches
+   held to the route's.  Prints ms
    per request, img/s, the A/B of ``adaattn_fwd`` against the CUDA-core
    kernel it replaced (in turns, on one request) and a profiler breakdown
    of one request per route, with its layout copies and pads; then every
@@ -271,6 +281,11 @@ SIZES_BATCH, SIZES_REQUESTS, SIZES_PLAIN_CHUNK, SIZES_SEED = 8, 6, 2, 18
 # calls a window.
 POLICY_SIZES, POLICY_TUNE_ITERS = (1024, 512, 320, 256), 3
 MAIN_ROUTE = "flat-all"  # the stylize routes' main path (slice 2)
+# The routes phase also serves each route's request 1 and the next ones at
+# f32 (the stylize CLI's dtype), ROUTE_F32_REQUESTS in all, the first held
+# to the plain twins and a warm-up, the others timed (median); and "flat"
+# (F32_ONLY_ROUTES), which serves at bf16 in the sizes phase, at f32 here.
+ROUTE_F32_REQUESTS, F32_ONLY_ROUTES = 4, ("flat",)
 
 # Training (slice 3's main path): ASTTrainer, full-width ModelConfig with the
 # AdaAttN kernels, f32, batch 8, one warm-up step per bucket, then timed
@@ -543,6 +558,34 @@ MEGA_CASES = (
      0),
     ("d2@1024", 8, 128, 128, 128, 384, 96, 3, False, False, "bfloat16", 0),
 )
+# The 512px path's blocks at f32, the stylize CLI's dtype (``ModelConfig``'s
+# default): each bf16 path row of FLAT_BLOCK_CASES, FLAT_S2_CASES and
+# MEGA_CASES again as label + F32_TAG in float32, its launches those of
+# one 512px batch-8 f32 request (the plan does not depend on the dtype),
+# held at F32_TOL and summed per f32 request beside the bf16 sums; plus
+# d0-d1 at 1024px (C_out 128 x E 384: sweep 2's f32 design at two ring
+# slots, 0 launches).  Sweep 2 of every one must take gate_project_tf32.
+# They draw from a generator of their own (seed + F32_SEED).
+F32_TAG, F32_SEED = ":f32", 21
+
+
+def f32_rows(cases, extra=()):
+    """The f32 twins of the path rows of ``cases`` and of ``extra``."""
+    return tuple((c[0] + F32_TAG,) + c[1:-2] + ("float32", c[-1])
+                 for c in cases if c[-1] or c[0] in extra)
+
+
+def f32_row(label):
+    """Whether a case is one of the f32 path rows."""
+    return label.endswith(F32_TAG)
+
+
+FLAT_BLOCK_F32 = f32_rows(FLAT_BLOCK_CASES, ("d0-d1@1024",))
+FLAT_S2_F32 = f32_rows(FLAT_S2_CASES)
+MEGA_F32 = f32_rows(MEGA_CASES, ("d0-d1@1024",))
+# sweep 2's design by the value of ``*_last_sweep2``.
+SWEEP2_DESIGNS = {0: "generic", 1: "mma", 2: "tf32"}
+
 # fused_sums + fused_project (the two-pass block, NHWC): name, batch, H=W,
 # C_in, E, C_out, k, folded-BN biases (with them the projection bias is
 # added after the kernel), residual, dtype, blocks of that shape on the
@@ -563,7 +606,17 @@ TWO_PASS_CASES = (
     ("d13", 8, 512, 16, 96, 16, 3, False, True, "bfloat16", 1),
     ("e1-f32", 2, 128, 16, 96, 16, 3, True, True, "float32", 0),
     ("expand1", 2, 128, 40, 40, 40, 3, True, True, "bfloat16", 0),
+    # C_out 128 (the tile design's 16 output tiles) and an odd C_out at
+    # C_in 256 (its CUDA-core projection with the chunked x box), k3 and
+    # k5, f32 too: shapes the kernel refused before; they draw from a
+    # generator of their own (TWO_PASS_OWN_GEN).
+    ("c128", 2, 48, 128, 384, 128, 3, False, False, "bfloat16", 0),
+    ("odd-cin256-k3", 2, 48, 256, 288, 127, 3, False, False, "bfloat16", 0),
+    ("odd-cin256-k5", 2, 48, 256, 288, 13, 5, False, False, "bfloat16", 0),
+    ("c128-f32-k5", 2, 48, 256, 288, 128, 5, False, False, "float32", 0),
 )
+TWO_PASS_OWN_GEN, TWO_PASS_SEED = ("c128", "odd-cin256-k3", "odd-cin256-k5",
+                                   "c128-f32-k5"), 22
 # Ragged shapes off the path (0 launches per request), in each table's
 # layout, one per k: H and W not multiples of the sweeps' 16x16 and
 # 128-pixel tiles, E not a multiple of sweep 1's 32-channel chunk or sweep
@@ -723,11 +776,13 @@ class Bound:
         self.ops_s += times * flops / peak
 
     def add_block(self, nbytes, mm_flops, dw_flops, size, times=1):
-        """A block kernel's launches: its 1x1 products at the peak of the
-        I/O dtype of ``size`` bytes (bf16 tensor cores, or f32), its
-        depthwise at the f32 peak (it runs in f32 at every dtype, as the
-        TPU kernels' semantics ask)."""
-        self.add(nbytes, mm_flops, PEAK_BF16 if size == 2 else PEAK_F32,
+        """A block kernel's launches: its 1x1 products at the fastest rate
+        the card reaches at the I/O dtype's accuracy (``size`` 2: the bf16
+        tensor cores; 4: three TF32 products per f32 one, as sweep 2's
+        3xTF32 design and ``adaattn_bwd`` run them), its depthwise at the
+        f32 peak (it runs in f32 at every dtype, as the TPU kernels'
+        semantics ask)."""
+        self.add(nbytes, mm_flops, PEAK_BF16 if size == 2 else PEAK_TF32 / 3,
                  times)
         self.add(0, dw_flops, PEAK_F32, times)
 
@@ -895,10 +950,16 @@ SPLIT_SEED = 19
 # kernels' own shared-memory arithmetic: k 3 and 5, every C_in from 8 to
 # 512 in steps of 8, each C_out of MIRROR_C_OUT (even and odd:
 # fused_project's two projections; the persistent design at 64 and 96,
-# with E = 4 C_in, whose resident expand weights it counts).  The flat
-# and mega blocks' sweep 2 is queried at E 64, C_out 64 (sweep 1's bytes
-# do not depend on them).
-MIRROR_C_IN, MIRROR_C_OUT = tuple(range(8, 520, 8)), (13, 64, 96)
+# with E = 4 C_in, whose resident expand weights it counts; the tile
+# design's 16 output tiles at 127 and 128).  The flat and mega blocks'
+# sweep 2 is queried at E 64, C_out 64 (sweep 1's bytes do not depend on
+# them).  Then sweep 2 itself (``sweep2_staging`` against
+# ``gate_project_occupancy``): every E of MIRROR_E at each C_out of
+# MIRROR_SWEEP2_C_OUT, bf16 and f32, NHWC and (N, H, C, W), the design's
+# bytes and ring slots, or both refuse it.
+MIRROR_C_IN, MIRROR_C_OUT = tuple(range(8, 520, 8)), (13, 64, 96, 127, 128)
+MIRROR_E = tuple(range(4, 780, 4))
+MIRROR_SWEEP2_C_OUT = (13, 16, 24, 40, 80, 96, 104, 128, 130)
 
 
 def smem_mirror_check():
@@ -968,6 +1029,28 @@ def smem_mirror_check():
         f"{MIRROR_C_IN[0]}-{MIRROR_C_IN[-1]}; C_out {MIRROR_C_OUT}) equal "
         f"the kernels' own, the card's {lib.max_smem_optin()} bytes per CTA "
         "the mirror's")
+    out4 = (ctypes.c_int * 4)()
+    ptr4 = ctypes.cast(out4, ctypes.c_void_p)
+    designs = {"mma": 0, "tf32": 0, "generic": 0}
+    for e in MIRROR_E:
+        for c_out in MIRROR_SWEEP2_C_OUT:
+            for bf16 in (True, False):
+                for yt in (False, True):
+                    st = limits.sweep2_staging(e, c_out, bf16, yt)
+                    designs[st["design"]] += 1
+                    rc = lib.gate_project_occupancy(1, e, c_out, 1, int(yt),
+                                                    int(bf16), ptr4)
+                    got = (None if rc else (out4[1], out4[3]))
+                    want = (None if st["design"] == "generic"
+                            else (st["smem"], st["slots"]))
+                    check(got == want, f"sweep 2 E {e} C_out {c_out} bf16 "
+                          f"{bf16} yt {yt}: the kernel takes {got} (bytes, "
+                          f"slots), the mirror {want} (None: generic)")
+                    compared += 1
+    log(f"sweep-2 mirror: {sum(designs.values())} shapes (E "
+        f"{MIRROR_E[0]}-{MIRROR_E[-1]}, C_out {MIRROR_SWEEP2_C_OUT}, bf16 "
+        f"and f32, both layouts) equal the kernel's design, bytes and ring "
+        f"slots ({designs})")
     return compared
 
 
@@ -1050,7 +1133,11 @@ def sweeps_phase(gen):
     the residual at HBM against the projection at the bf16 peak), its
     share of it, its TFLOP/s and TB/s, its kernel's registers, shared
     memory and CTAs per SM (``scripts/sweep_times.py``, one JSON line per
-    shape and sweep); then each sweep's ms per request."""
+    shape and sweep); then each sweep's ms per request; then, on a
+    generator of their own, the 1024px blocks of sweep 2's C_out-128 bucket
+    and ``mega_block``'s C_out-96 d2 beside them (``SWEEP_1024``, on no
+    512px request), split by sweep."""
+    import torch
     from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import (
         time_sweeps,
     )
@@ -1071,7 +1158,77 @@ def sweeps_phase(gen):
     log("sweeps per request (expand_dw on \"fused\", flat_block and "
         "flat_s2_block on \"flat-all\", mega_block on \"mega\"): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in per_req.items()))
+    gen_1024 = torch.Generator(device=DEVICE).manual_seed(SEED + SWEEP_1024[1])
+    big = time_sweeps(
+        gen_1024, [], [c for c in FLAT_BLOCK_CASES if c[0] in SWEEP_1024[0]],
+        DEVICE, log,
+        mega_cases=[c for c in MEGA_CASES if c[0] in SWEEP_1024[0]])
+    log("sweeps at 1024px (ms per launch): " + ", ".join(
+        f"{r['kernel']} {r['shape']} {r['sweep']} {r['ms']:.4f}"
+        for r in big))
+    sweep2_phase(gen)
     return per_req
+
+
+# The 1024px rows the sweeps phase splits by sweep (0 launches per 512px
+# request), and their generator's seed offset.
+SWEEP_1024 = (("e12@1024", "e13-e14@1024", "d0-d1@1024", "d2@1024"), 23)
+
+
+def sweep2_cases():
+    """Sweep 2 alone at the shapes whose design this slice added: the
+    C_out-128 blocks at bf16 (flat_block's NHWC y, mega_block's (N, H, C,
+    W) y) and every f32 path block (the f32 rows), as ``sweep2_ab`` takes
+    them: (label, n, h, w, e, c_out, residual, dtype, yt, launches per
+    request on "flat-all" ("mega" for the mega rows))."""
+    cases = [(c[0], c[1], c[2], c[2], c[4], c[5], c[8], c[9], False, c[-1])
+             for c in FLAT_BLOCK_CASES + FLAT_BLOCK_F32
+             if c[5] > 96 or f32_row(c[0])]
+    cases += [(c[0], c[1], c[2] // 2, c[2] // 2, c[4], c[5], False, c[8],
+               False, c[-1]) for c in FLAT_S2_F32]
+    cases += [(c[0] + "/yt", c[1], c[2], c[3], c[5], c[6], c[9], c[10],
+               True, c[-1]) for c in MEGA_CASES + MEGA_F32
+              if c[6] > 96 or c[0] == "d5-d6" + F32_TAG]
+    return cases
+
+
+def sweep2_phase(gen):
+    """The A/B of sweep 2 (``sweep_times.sweep2_ab``) at ``sweep2_cases``
+    on a generator of its own: the designed kernel must take each shape,
+    hold to the twin, and beat the CUDA-core gate_project_generic in every
+    turn; then sweep 2's ms per 512px f32 request on "flat-all" by design
+    and the designed one's share of the byte bound at the decoder's
+    shapes."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import (
+        sweep2_ab,
+    )
+
+    gen2 = torch.Generator(device=DEVICE).manual_seed(SEED + F32_SEED + 2)
+    records = sweep2_ab(gen2, sweep2_cases(), DEVICE, log)
+    per_req = {"generic": 0.0, "tf32": 0.0}
+    for r in records:
+        new = "mma" if r["dtype"] == "bfloat16" else "tf32"
+        ran = sorted(set(r) & set(SWEEP2_DESIGNS.values()))
+        check(new in r and "generic" in r,
+              f"sweep 2 {r['sweep2_ab']}: the designs that ran: {ran}")
+        for design in ("generic", new):
+            check(r[design]["err"] <= r["tol"], f"sweep 2 {r['sweep2_ab']} "
+                  f"{design}: err {r[design]['err']} > {r['tol']}")
+        check(max(r[new]["ms"]) < min(r["generic"]["ms"]),
+              f"sweep 2 {r['sweep2_ab']}: {new} {r[new]['ms']} ms is not "
+              f"faster than generic {r['generic']['ms']}")
+        if new == "tf32" and not r["yt"]:  # the flat-all request's blocks
+            for design in per_req:
+                per_req[design] += r["per_request"] * r[design]["ms_median"]
+    log("sweep 2 per 512px batch-8 f32 request on flat-all (15 flat_block, 2 "
+        "flat_s2_block): " + ", ".join(f"{k} {v:.4f} ms"
+                                       for k, v in per_req.items()))
+    log("sweep 2 tf32 share of the byte bound at the 512px decoder shapes: "
+        + ", ".join(f"{r['sweep2_ab']} {r['tf32']['bytes_share']:.3f}"
+                    for r in records if "tf32" in r and r["per_request"]
+                    and r["sweep2_ab"].startswith("d") and not r["yt"]))
+    return records
 
 
 def adaattn_simt(is_bf16):
@@ -1248,10 +1405,33 @@ def random_block(gen, c_in, e, c_out, k, bn, expand=True):
     return weights, biases
 
 
+def sweep2_design(kernel):
+    """The sweep-2 design ("generic", "mma", "tf32") of ``kernel``'s last
+    launch ("flat_block", "flat_s2_block" or "mega_block")."""
+    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
+        load_library,
+    )
+
+    return SWEEP2_DESIGNS.get(
+        getattr(load_library(), f"{kernel}_last_sweep2")())
+
+
+def check_sweep2(kernel, label, dtype, per_req):
+    """The path's rows (the 512px and 1024px/720px blocks, bf16 and f32)
+    take sweep 2's designed kernel of their dtype; returns the design."""
+    design = sweep2_design(kernel)
+    if per_req or size_case(label) or f32_row(label):
+        want = "mma" if dtype == "bfloat16" else "tf32"
+        check(design == want, f"{kernel} {label}: sweep 2 took {design}, "
+              f"not {want}")
+    return design
+
+
 def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
     """One flat kernel against its twin at each case; returns the worst y
     error of the path's cases and the device ms per request of "flat-all"
-    (kernel, twin) and of "auto" (kernel, twin)."""
+    (kernel, twin) and of "auto" (kernel, twin).  The f32 path rows
+    (``f32_row``) are summed per f32 request apart, and logged."""
     import torch
     from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import (
         last_staging,
@@ -1260,20 +1440,25 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
     worst = 0.0
     per_route = {"flat-all": [0.0, 0.0], "auto": [0.0, 0.0]}
     bounds = {"flat-all": Bound(), "auto": Bound()}
+    per_f32 = {"flat-all": [0.0, 0.0], "auto": [0.0, 0.0]}
+    bounds_f32 = {"flat-all": Bound(), "auto": Bound()}
     auto_total = 0
     gen_own = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     big = torch.Generator(device=DEVICE).manual_seed(SEED + SIZE_CASES_SEED)
+    gen32 = torch.Generator(device=DEVICE).manual_seed(SEED + F32_SEED)
     for case in cases:
         label, n, hw, c_in, e, c_out, k, bn = case[:8]
         residual = case[8] if stride == 1 else False
         dtype, per_all = case[-2:]
-        per_auto = (auto_case_launches(label, "flat" if stride == 1
-                                       else "flat2") if per_all else 0)
-        auto_total += per_auto
+        per_auto = (auto_case_launches(label.removesuffix(F32_TAG),
+                                       "flat" if stride == 1 else "flat2")
+                    if per_all else 0)
+        if not f32_row(label):
+            auto_total += per_auto
         dt = getattr(torch, dtype)
         expand = label != "expand1"
-        g = (gen_own if label in FLAT_OWN_GEN else big if size_case(label)
-             else gen)
+        g = (gen32 if f32_row(label) else gen_own if label in FLAT_OWN_GEN
+             else big if size_case(label) else gen)
         x = torch.randn(n, hw, hw, c_in, generator=g, device=DEVICE).to(dt)
         (we, wd, se, wp), (be, bd, pb) = random_block(g, c_in, e, c_out, k,
                                                       bn, expand)
@@ -1284,15 +1469,17 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         y, sums = fn(*args, **kw)
         torch.cuda.synchronize()
         staging = last_staging(name) if stride == 2 else None
-        if stride == 2 and (per_all or per_auto or size_case(label)):
-            # the path's shapes stage x as TMA boxes
+        design = check_sweep2(name, label, dtype, per_all or per_auto)
+        if stride == 2 and (per_all or per_auto or size_case(label)) \
+                and not f32_row(label):
+            # the path's bf16 shapes stage x as TMA boxes
             check(staging == "async", f"{name} {label}: x staged {staging}")
         r_y, r_sums = ref_fn(*args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
         rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         tol_y = rel * float(r_y.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
-        if per_all or per_auto:
+        if (per_all or per_auto) and not f32_row(label):
             worst = max(worst, err_y)
         check(tuple(y.shape) == tuple(r_y.shape) and y.dtype == dt,
               f"{name} {label}: output {tuple(y.shape)} {y.dtype}")
@@ -1304,14 +1491,16 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         nbytes = size * n * (hw * hw * c_in + ho * ho * c_out) + 4 * n * e
         mm = 2 * n * (hw * hw * c_in * e * expand + ho * ho * e * c_out)
         dw = 2 * n * ho * ho * e * k * k
+        sums_by, bounds_by = ((per_f32, bounds_f32) if f32_row(label)
+                              else (per_route, bounds))
         for route, per_req in (("flat-all", per_all), ("auto", per_auto)):
-            per_route[route][0] += per_req * t_k
-            per_route[route][1] += per_req * t_p
-            bounds[route].add_block(nbytes, mm, dw, size, per_req)
+            sums_by[route][0] += per_req * t_k
+            sums_by[route][1] += per_req * t_p
+            bounds_by[route].add_block(nbytes, mm, dw, size, per_req)
         log(f"{name} {label:8s} x={tuple(x.shape)} E={e} C_out={c_out} "
             f"k={k} bn={bn} res={residual} {dtype}: y err {err_y:.4g} (tol "
             f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms"
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms; sweep 2 {design}"
             + (f", x staged {staging}" if staging else ""))
         check(err_y <= tol_y and err_s <= tol_s, f"{name} {label} differs")
         torch.cuda.empty_cache()
@@ -1320,6 +1509,11 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
             log(f"{name} per {route} request: kernel {t_k:.4f} ms, plain "
                 f"{t_p:.4f} ms, bound {bounds[route].ms():.4f} ms "
                 f"({bounds[route].by()})")
+    for route, (t_k, t_p) in per_f32.items():
+        if t_k:
+            log(f"{name} per {route} f32 request: kernel {t_k:.4f} ms, "
+                f"plain {t_p:.4f} ms, bound {bounds_f32[route].ms():.4f} ms "
+                f"({bounds_f32[route].by()})")
     if any(case[-1] for case in cases):  # the path's cases: every block
         planned = route_launches("auto")[name]
         check(auto_total == planned, f"{name}: the cases hold {auto_total} "
@@ -1336,11 +1530,11 @@ def block_cost(n, h, w, c_in, e, c_out, k, size, expand=True):
             2 * n * h * w * e * k * k)
 
 
-def mega_phase(gen, cases=MEGA_CASES):
+def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
     """mega_block against its twin at every case, with flat_block timed on
     the same block (NHWC) beside it; returns the worst y error of the
     path's cases, (kernel, twin) device ms per "mega" request and the
-    bound."""
+    bound (bf16; the f32 path rows' per-request sums are logged)."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
         flat_block,
@@ -1354,12 +1548,14 @@ def mega_phase(gen, cases=MEGA_CASES):
     )
 
     worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
+    ms32, plain32, bound32 = 0.0, 0.0, Bound()
     big = torch.Generator(device=DEVICE).manual_seed(SEED + SIZE_CASES_SEED)
+    gen32 = torch.Generator(device=DEVICE).manual_seed(SEED + F32_SEED)
     for (label, n, h, w, c_in, e, c_out, k, bn, residual, dtype,
          per_req) in cases:
         dt = getattr(torch, dtype)
         expand = label != "expand1"
-        g = big if size_case(label) else gen
+        g = gen32 if f32_row(label) else big if size_case(label) else gen
         xt = torch.randn(n, h, c_in, w, generator=g, device=DEVICE).to(dt)
         (we, wd, se, wp), (be, bd, pb) = random_block(g, c_in, e, c_out, k,
                                                       bn, expand)
@@ -1371,7 +1567,9 @@ def mega_phase(gen, cases=MEGA_CASES):
         # Sweep 1 stages x as TMA boxes at every shape of the path and with
         # plain loads where the map cannot take W (W % 8 != 0).
         staging = last_staging("mega_block")
-        want = ("async" if per_req or size_case(label)
+        design = check_sweep2("mega_block", label, dtype, per_req)
+        want = (None if f32_row(label)  # the CUDA-core expand: no box
+                else "async" if per_req or size_case(label)
                 else "sync" if w % 8 else None)
         check(want is None or staging == want,
               f"mega_block {label}: x staged {staging}, not {want}")
@@ -1382,7 +1580,7 @@ def mega_phase(gen, cases=MEGA_CASES):
         tol_s = SUMS_TOL * float(r_sums.abs().max())
         check(tuple(y.shape) == (n, h, c_out, w) and y.dtype == dt,
               f"mega_block {label}: output {tuple(y.shape)} {y.dtype}")
-        if per_req:
+        if per_req and not f32_row(label):
             worst = max(worst, err_y)
         del y, sums, r_y, r_sums
         t_k = timed_ms(lambda: mega_block(xt, *args, **kw))
@@ -1393,11 +1591,16 @@ def mega_phase(gen, cases=MEGA_CASES):
         x = xt.permute(0, 1, 3, 2).contiguous()
         t_f = timed_ms(lambda: flat_block(x, *args, **kw))
         del x
-        ms += per_req * t_k
-        plain_ms += per_req * t_p
         size = xt.element_size()
         cost = block_cost(n, h, w, c_in, e, c_out, k, size, expand)
-        bound.add_block(*cost, size, per_req)
+        if f32_row(label):
+            ms32 += per_req * t_k
+            plain32 += per_req * t_p
+            bound32.add_block(*cost, size, per_req)
+        else:
+            ms += per_req * t_k
+            plain_ms += per_req * t_p
+            bound.add_block(*cost, size, per_req)
         one = Bound()
         one.add_block(*cost, size)
         log(f"mega_block {label:8s} x={tuple(xt.shape)} E={e} C_out={c_out} "
@@ -1405,13 +1608,17 @@ def mega_phase(gen, cases=MEGA_CASES):
             f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {one.ms():.4f} ms "
             f"({one.by()}); A/B flat_block on NHWC {t_f:.4f} ms (mega/flat "
-            f"{t_k / t_f:.3f}); x staged {staging}")
+            f"{t_k / t_f:.3f}); x staged {staging}; sweep 2 {design}")
         check(err_y <= tol_y and err_s <= tol_s, f"mega_block {label} differs")
         del xt
         torch.cuda.empty_cache()
     if any(case[-1] for case in cases):
         log(f"mega_block per mega request: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
+    if ms32:
+        log(f"mega_block per mega f32 request: kernel {ms32:.4f} ms, plain "
+            f"{plain32:.4f} ms, bound {bound32.ms():.4f} ms "
+            f"({bound32.by()})")
     return worst, ms, plain_ms, bound
 
 
@@ -1492,15 +1699,19 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
         fused_sums_reference,
     )
 
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import limits
+
     out = {name: [0.0, 0.0, 0.0, Bound()]
            for name in ("fused_sums", "fused_project")}
     ab = [0.0, 0.0]  # per request: two-pass block, fused route's block
+    gen_own = torch.Generator(device=DEVICE).manual_seed(SEED + TWO_PASS_SEED)
     for (label, n, hw, c_in, e, c_out, k, bn, residual, dtype,
          per_req) in cases:
         dt = getattr(torch, dtype)
         expand = label != "expand1"
-        x = torch.randn(n, hw, hw, c_in, generator=gen, device=DEVICE).to(dt)
-        (we, wd, se, wp), (be, bd, pb) = random_block(gen, c_in, e, c_out, k,
+        g = gen_own if label in TWO_PASS_OWN_GEN else gen
+        x = torch.randn(n, hw, hw, c_in, generator=g, device=DEVICE).to(dt)
+        (we, wd, se, wp), (be, bd, pb) = random_block(g, c_in, e, c_out, k,
                                                       bn, expand)
         common = dict(pre_act=expand, b_expand=be, b_dw=bd)
         # With a projection bias the residual is added after the kernel.
@@ -1513,11 +1724,16 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
                           **common)
         torch.cuda.synchronize()
         # Every bf16 shape of the path and the ragged ones take the
-        # persistent design.
+        # persistent design, the others the one the mirror names.
         design = {1: "persistent", 0: "tile"}.get(
             load_library().fused_project_last_design())
-        check(dt != torch.bfloat16 or not expand or design == "persistent",
-              f"fused_project {label}: the {design} design ran")
+        bf16 = dt == torch.bfloat16
+        want = limits.check_fused_project(
+            k, c_in, c_out, bf16, limits.tensor_core_expand(bf16, c_in,
+                                                            expand),
+            expand)["design"]
+        check(design == want and (not per_req or design == "persistent"),
+              f"fused_project {label}: the {design} design ran, not {want}")
         r_y = fused_project_reference(x, we, wd, k, gate, wp,
                                       identity=in_kernel, **common)
         err_s, err_y = max_err(sums, r_sums), max_err(y, r_y)
@@ -2199,19 +2415,70 @@ def routes_phase(gen):
                     ).float()
     del pre
 
-    launches, ms = {}, {}
+    launches, ms, ms32 = {}, {}, {}
     for impl, n_requests, _ in ROUTES:
         route = StylePipeline(cfg, engine="fused", device=DEVICE,
                               state=pipe.state, encoder_impl=impl,
                               decoder_impl=impl)
-        launches[impl], ms[impl] = drive_route(
-            route, impl, requests[:n_requests], route_launches(impl))
+        launches[impl], ms[impl], launches[f"{impl}-f32"], ms32[impl] = \
+            drive_route(route, impl, requests[:n_requests],
+                        route_launches(impl))
+        torch.cuda.empty_cache()
+    from arbitrarystyletransfer_tpu_torch.ops import flatblock
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    for impl in F32_ONLY_ROUTES:
+        pipe32 = StylePipeline(cfg32, engine="fused", device=DEVICE,
+                               state=pipe.state, encoder_impl=impl,
+                               decoder_impl=impl)
+        expected = counts(adaattn_fwd=1, **flatblock.planned_launches(
+            cfg, SIZE, impl, impl, device=DEVICE))
+        _, times32, launches[f"{impl}-f32"] = f32_requests(
+            pipe32, requests, expected, impl)
+        ms32[impl] = statistics.median(times32[1:])
         torch.cuda.empty_cache()
     log(f"auto's plan at {SIZE}px (the shipped table): {auto_plan()[0]}")
     log(f"routes at {SIZE}px batch {BATCH}, median ms per request (img/s), "
         "this run: " + ", ".join(f"{impl} {t:.3f} ({BATCH * 1000 / t:.2f})"
                                  for impl, t in ms.items()))
+    log(f"routes at {SIZE}px batch {BATCH} f32, median ms per request of "
+        f"requests 2-{ROUTE_F32_REQUESTS} (img/s), this run: "
+        + ", ".join(f"{impl} {t:.3f} ({BATCH * 1000 / t:.2f})"
+                    for impl, t in ms32.items()))
     return launches
+
+
+def f32_requests(pipe32, requests, expected, impl):
+    """ROUTE_F32_REQUESTS f32 requests on ``pipe32``, cycling through
+    ``requests``: each one's device ms (CUDA events) and launches, held to
+    ``expected``.  Returns (request 1's image, the ms, the launches)."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+
+    reset_launches()
+    first, times = None, []
+    for i in range(ROUTE_F32_REQUESTS):
+        content, style, alpha = requests[i % len(requests)]
+        before = dict(LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pipe32.stylize(content, style, alpha)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        n = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        check(n == expected, f"{impl} f32 request {i + 1} launched {n}, "
+              f"expected {expected}")
+        check(bool(torch.isfinite(out).all()), f"{impl} f32: non-finite")
+        if first is None:
+            first = out
+    log(f"{impl} f32 requests: {[round(t, 3) for t in times]} ms (the "
+        "first a warm-up)")
+    return first, times, dict(LAUNCHES)
 
 
 def drive_route(pipe, impl, requests, expected):
@@ -2264,7 +2531,8 @@ def drive_route(pipe, impl, requests, expected):
         dataclasses.replace(pipe.cfg, compute_dtype="float32"),
         engine="fused", device=DEVICE, state=pipe.state,
         encoder_impl=impl, decoder_impl=impl)
-    out32 = pipe32.stylize(content, style, alpha)
+    out32, times32, launches32 = f32_requests(pipe32, requests, expected,
+                                              impl)
     plain32, _ = run_plain(pipe32, content, style, alpha, repeats=1)
 
     def errs(a, b):
@@ -2290,6 +2558,7 @@ def drive_route(pipe, impl, requests, expected):
           "than bf16 itself does")
 
     ms = statistics.median(times[1:])
+    ms32 = statistics.median(times32[1:])
     plain_ms = statistics.median(plain_times[1:])
     ab = adaattn_route_ab(pipe, requests[-1])
     log(f"route {impl} A/B, ms per request in turns (earlier, now, earlier, "
@@ -2299,10 +2568,11 @@ def drive_route(pipe, impl, requests, expected):
         f"2-{len(requests)} ({BATCH * 1000 / ms:.2f} img/s at {SIZE}px "
         f"batch {BATCH}); plain twins {plain_ms:.3f} ms/request "
         f"({BATCH * 1000 / plain_ms:.2f} img/s); peak memory "
-        f"{peak_gib:.2f} GiB")
+        f"{peak_gib:.2f} GiB; f32 median {ms32:.3f} ms/request over "
+        f"requests 2-{ROUTE_F32_REQUESTS} ({BATCH * 1000 / ms32:.2f} img/s)")
     profile_request(pipe, impl, content, style, alpha,
                     top=15 if impl in (MAIN_ROUTE, "mega") else 8)
-    return launches, ms
+    return launches, ms, launches32, ms32
 
 
 def sizes_phase(gen):
@@ -4998,10 +5268,10 @@ def run_alone(name, card):
             device=DEVICE).manual_seed(SEED + 6)),
         "flat_block": lambda: flat_kernel_phase(
             gen, "flat_block", flat_block, flat_block_reference,
-            FLAT_BLOCK_CASES, 1),
+            FLAT_BLOCK_CASES + FLAT_BLOCK_F32, 1),
         "flat_s2_block": lambda: flat_kernel_phase(
             gen, "flat_s2_block", flat_s2_block, flat_s2_block_reference,
-            FLAT_S2_CASES, 2),
+            FLAT_S2_CASES + FLAT_S2_F32, 2),
         "mega_block": lambda: mega_phase(gen),
         "fused_2pass": lambda: two_pass_phase(gen),
         "probes": lambda: probes_phase(gen),
@@ -5092,10 +5362,11 @@ def main(argv=None) -> int:
             "adaattn_fwd", adaattn_phase, gen, gen6)
         f_worst, f_ms, f_bound = phase(
             "flat_block", flat_kernel_phase, gen, "flat_block", flat_block,
-            flat_block_reference, FLAT_BLOCK_CASES, 1)
+            flat_block_reference, FLAT_BLOCK_CASES + FLAT_BLOCK_F32, 1)
         s_worst, s_ms, s_bound = phase(
             "flat_s2_block", flat_kernel_phase, gen, "flat_s2_block",
-            flat_s2_block, flat_s2_block_reference, FLAT_S2_CASES, 2)
+            flat_s2_block, flat_s2_block_reference,
+            FLAT_S2_CASES + FLAT_S2_F32, 2)
         # Slice 4's kernel phases draw from a generator of their own, so
         # that every other phase gets the inputs it got before them.
         gen4 = torch.Generator(device=DEVICE).manual_seed(SEED + 4)

@@ -48,6 +48,10 @@ def _np(a):
     (16, 16, 3, 1, True, True, "float32"),     # expand==1
     (16, 16, 3, 6, True, True, "bfloat16"),
     (40, 24, 5, 6, False, True, "bfloat16"),
+    # d0-d1 from 1024px: C_out 128, E 384 (sweep 2's wgmma bucket, and
+    # its f32 design, on the card)
+    (128, 128, 3, 3, False, True, "float32"),
+    (128, 128, 3, 3, False, True, "bfloat16"),
 ])
 def test_flat_block_matches_pallas_kernel(c_in, c_out, k, t, use_norm,
                                           identity, dtype):

@@ -58,6 +58,9 @@ def _x(c_in, seed, h=12, w=12):
     (16, 16, 3, 6, True, True, "bfloat16"),    # bias added after rounding
     (16, 16, 3, 6, False, True, "bfloat16"),   # residual in the kernel
     (40, 24, 5, 6, False, True, "bfloat16"),
+    # an odd C_out past C_in 48 (the tile design's CUDA-core projection,
+    # its outputs in registers, on the card)
+    (56, 13, 3, 6, False, False, "bfloat16"),
 ])
 def test_two_pass_block_matches_jax(c_in, c_out, k, t, use_norm, identity,
                                     dtype):

@@ -8,7 +8,10 @@ and the one-tap AdaAttN of the engine.
 - ``ops/kernels/limits.py`` mirrors the kernels' shared-memory arithmetic:
   every block of the full-width model that a route sends to a kernel
   passes its check at 256-2048px, and the shapes past the limits raise
-  ``ValueError`` naming them, before any launch.
+  ``ValueError`` naming them, before any launch.  Its mirror of sweep 2's
+  choice (``sweep2_staging``) sends every block of the model, bf16 and
+  f32, to a designed kernel, and only off-model shapes to the CUDA-core
+  ``gate_project_generic``.
 - ``planned_chains`` at 720px and 1024px against JAX's, plans only, and
   ``planned_launches`` of "fused" and "mega" against the engine's calls
   (the card's ``chip_smoke.py`` ``sizes`` phase checks each request's
@@ -91,9 +94,9 @@ def test_every_block_passes_the_kernel_checks(size):
     (N, H, C, W) one (mega_block, at widths that are multiples of 8 and
     not; every block but ada_out, which no mega chain runs); ada_out alone
     takes the channel chunks; every stride-2 block passes flat_s2_block's
-    with its whole box; every block of C_out up to 96 (the two-pass
-    block's projection tiles; it is on no route) passes fused_project's,
-    on the persistent design."""
+    with its whole box; every block passes fused_project's (the two-pass
+    block, on no route): up to C_out 96 on the persistent design, C_out
+    128 on the tile design."""
     for c_in, c_out, k, t in _kernel_blocks(CFG, size):
         st = limits.check_sweep1("expand_dw", k, c_in)
         assert st["smem"] <= limits.SMEM_OPT_IN
@@ -102,9 +105,9 @@ def test_every_block_passes_the_kernel_checks(size):
         if (c_in, c_out) != ADA_OUT[:2]:  # no mega chain has ada_out
             limits.check_sweep1("mega_block", k, c_in, "xt")
             limits.check_sweep1("mega_block", k, c_in, "xt_rows")
-        if c_out <= limits.MAX_COUT:
-            st = limits.check_fused_project(k, c_in, c_out)
-            assert st["design"] == "persistent", (c_in, c_out, k)
+        st = limits.check_fused_project(k, c_in, c_out)
+        want = "persistent" if c_out <= limits.WS_MAX_COUT else "tile"
+        assert st["design"] == want, (c_in, c_out, k)
     for c_in, _, stride, k, _, _, _ in enumerate_blocks(CFG, size):
         if stride == 2:
             assert limits.check_flat_s2(k, c_in)["boxes"] == 1
@@ -139,10 +142,12 @@ def test_the_smem_mirror_matches_the_header_comments():
     (lambda: limits.check_sweep1("mega_block", 3, 520, "xt"), "TMA box"),
     (lambda: limits.check_flat_s2(5, 744), "shared memory"),
     (lambda: limits.check_fused_project(3, 1736, 64), "shared memory"),
-    (lambda: limits.check_fused_project(3, 128, 128), "C_out 128 > 96"),
-    # An odd C_out's CUDA-core projection beside ada_out's C_in: 253,448
-    # bytes with the chunked box, past a CTA's shared memory.
-    (lambda: limits.check_fused_project(3, 256, 13), "shared memory"),
+    (lambda: limits.check_fused_project(3, 128, 129), "C_out 129 > 128"),
+    # An odd C_out's CUDA-core projection beside the f32 CUDA-core expand
+    # of C_in 1024 at k5: 233,744 bytes, past a CTA's shared memory (at
+    # ada_out's C_in 256 it now fits: the outputs stay in registers).
+    (lambda: limits.check_fused_project(5, 1024, 127, bf16=False,
+                                        mma=False), "shared memory"),
     (lambda: limits.check_sweep1("expand_dw", 3, 1488, mma=False),
      "CUDA-core expand"),
 ])
@@ -154,19 +159,28 @@ def test_shapes_past_the_limits_raise(call, match):
 def test_the_mirror_counts_each_projection_and_expand():
     """``fused_project``'s tile design counts the projection it takes: a
     bf16 hidden chunk and W_p's rows at an even C_out (PMMA), the f32
-    hidden, weights and outputs at an odd one or in f32 (fused_2pass.cu's
-    ``Smem``); the CUDA-core expand (f32, C_in % 8 != 0, expand==1) keeps
-    no x box and its expand weights in f32 (expand_dw.cuh's ``Smem``); the
-    persistent design with ``e`` counts every chunk's expand weights where
-    they fit (``ws_resident``)."""
+    hidden and weights at an odd one or in f32, the weights 16-byte
+    aligned and the outputs in registers (fused_2pass.cu's ``Smem``), for
+    96 outputs up to C_out 96, else 128; the CUDA-core expand (f32, C_in %
+    8 != 0, expand==1) keeps no x box and its expand weights in f32
+    (expand_dw.cuh's ``Smem``); the persistent design with ``e`` counts
+    every chunk's expand weights where they fit (``ws_resident``)."""
     whole = limits._edw_smem(3, 16, 0)["smem"]
     assert whole == 60424
     pmma = 256 * 40 * 2 + 96 * 40 * 2
-    f32 = 256 * 33 * 4 + 32 * 96 * 4 + 256 * 97 * 4
+
+    def f32(base, co=96):
+        return -(-(base + 256 * 33 * 4) // 16) * 16 + 32 * co * 4
+
     st = limits.fused_project_staging(3, 16, 14)  # even, not % 8
     assert st["design"] == "tile" and st["smem"] == whole + pmma
     st = limits.fused_project_staging(3, 16, 13)
-    assert st["design"] == "tile" and st["smem"] == whole + f32
+    assert st["design"] == "tile" and st["smem"] == f32(whole)
+    st = limits.fused_project_staging(3, 16, 128)  # past the persistent's
+    assert st["design"] == "tile"
+    assert st["smem"] == whole + 256 * 40 * 2 + 128 * 40 * 2
+    assert limits.fused_project_staging(3, 16, 127)["smem"] == \
+        f32(whole, 128)
     assert limits.fused_project_staging(3, 48, 13)["smem"] <= 232448
     core = limits.sweep1_staging(3, 12, mma=False)
     assert core == {"smem": 324 * 128 + 12 * 128 + 1024 + 128 + 8 + 128,
@@ -174,8 +188,7 @@ def test_the_mirror_counts_each_projection_and_expand():
     assert limits.sweep1_staging(3, 40, mma=False, expand=False)["smem"] \
         == 324 * 128 + 1288
     st = limits.fused_project_staging(3, 40, 40, bf16=False, mma=False)
-    assert st["smem"] == limits.sweep1_staging(3, 40, mma=False)["smem"] \
-        + f32
+    assert st["smem"] == f32(limits.sweep1_staging(3, 40, mma=False)["smem"])
     least = limits.fused_project_staging(3, 40, 40)
     full = limits.fused_project_staging(3, 40, 40, e=160)
     assert least["design"] == full["design"] == "persistent"
@@ -183,6 +196,86 @@ def test_the_mirror_counts_each_projection_and_expand():
     # d3's weights (E 288) do not fit beside its slots: the least.
     assert limits.fused_project_staging(3, 96, 96, e=288) == \
         limits.fused_project_staging(3, 96, 96)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("c_out", [127, 128, 13, 96])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_project_takes_c_out_128_and_odd_at_c_in_256(k, c_out, dtype):
+    """The two-pass block's projection at C_in 256 (ada_out's width, the
+    widest of the model) with k3 and k5: C_out 128 and odd C_out on the
+    tile design, within a CTA's shared memory, in both dtypes."""
+    bf16 = dtype == "bfloat16"
+    st = limits.check_fused_project(
+        k, 256, c_out, bf16=bf16, mma=limits.tensor_core_expand(bf16, 256))
+    assert st["design"] == "tile"
+    assert st["smem"] <= limits.SMEM_OPT_IN
+
+
+def _sweep2_blocks(cfg, size):
+    """(E, C_out) of every block whose sweep 2 a flat, flat_s2 or mega
+    kernel may run at ``size``: every block of the tuner's walk but
+    ada_out (which every route sends to ``expand_dw`` at every size)."""
+    return sorted({(round(c_in * t), c_out)
+                   for c_in, c_out, _, _, t, _, _ in enumerate_blocks(cfg,
+                                                                      size)
+                   if (c_in, c_out) != ADA_OUT[:2]})
+
+
+@pytest.mark.parametrize("size", [256, 320, 512, 720, 1024])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_every_block_takes_a_designed_sweep_2(size, dtype):
+    """``sweep2_staging`` (the mirror of ``gate_project.cuh``'s choice)
+    sends every block of the model to a designed kernel in both layouts:
+    ``gate_project_mma`` in bf16 (its C_out-128 bucket from 1024px, the
+    128px stage), ``gate_project_tf32`` in f32 (the stylize CLI's dtype),
+    each within a CTA's shared memory with at least two ring slots."""
+    bf16 = dtype == "bfloat16"
+    blocks = _sweep2_blocks(CFG, size)
+    assert blocks
+    for e, c_out in blocks:
+        for yt in (False, True):
+            st = limits.sweep2_staging(e, c_out, bf16, yt)
+            assert st["design"] == ("mma" if bf16 else "tf32"), (e, c_out)
+            assert st["smem"] <= limits.SMEM_OPT_IN
+            assert st["slots"] >= 2
+    if size == 1024:
+        assert any(c_out == 128 for _, c_out in blocks)
+
+
+@pytest.mark.parametrize("e,c_out,bf16", [
+    (48, 13, True),    # cin12: odd C_out
+    (48, 13, False),
+    (44, 16, True),    # E % 8 != 0 in bf16
+    (42, 16, False),   # E % 4 != 0 in f32
+    (384, 130, True),  # past C_out 128
+    (768, 128, True),  # ada_out's block: the matrix past shared memory
+])
+def test_off_model_shapes_take_the_generic_sweep_2(e, c_out, bf16):
+    """The shapes the designs do not take go to gate_project_generic."""
+    st = limits.sweep2_staging(e, c_out, bf16)
+    assert st["design"] == "generic" and st["slots"] == 0
+
+
+def test_the_sweep_2_mirror_matches_the_card():
+    """``sweep2_staging``'s bytes and slots at shapes whose
+    ``gate_project_occupancy`` the card reported (NVIDIA H100 80GB HBM3):
+    the C_out-128 wgmma bucket, f32 with two CTAs per SM (4 and 3 slots),
+    one CTA with 4 slots, and C_out 128 x E 384 with 2."""
+    assert limits.sweep2_staging(384, 128) == {
+        "design": "mma", "smem": 165696, "slots": 4}
+    assert limits.sweep2_staging(320, 80) == {
+        "design": "mma", "smem": 119744, "slots": 4}
+    assert limits.sweep2_staging(160, 40, False) == {
+        "design": "tf32", "smem": 92864, "slots": 4}
+    assert limits.sweep2_staging(320, 40, False) == {
+        "design": "tf32", "smem": 102720, "slots": 3}
+    assert limits.sweep2_staging(320, 80, False) == {
+        "design": "tf32", "smem": 170304, "slots": 4}
+    assert limits.sweep2_staging(384, 128, False) == {
+        "design": "tf32", "smem": 232000, "slots": 2}
+    assert limits.sweep2_staging(384, 128, True, True)["smem"] == \
+        165696 + 8 * 8 * 40 * 2
 
 
 def test_mega_rules_at_the_lane_are_jax_defaults():
