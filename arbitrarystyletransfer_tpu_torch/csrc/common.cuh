@@ -155,4 +155,33 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The device's shared memory (an H100's: 232,448 bytes per CTA opt-in,
+// 233,472 per SM, 1,024 of them reserved per CTA), queried once on the
+// host: the limits expand_dw.cuh's and gate_project.cuh's launchers size
+// their kernels against.
+inline cudaError_t smem_limits(int& max_smem, int& sm_smem, int& reserved) {
+  static int v[3] = {0, 0, 0};
+  if (v[0] == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &v[1], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &v[2], cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &v[0], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) {
+      v[0] = 0;
+      return err;
+    }
+  }
+  max_smem = v[0];
+  sm_smem = v[1];
+  reserved = v[2];
+  return cudaSuccess;
+}
+
 }  // namespace ast_kernels

@@ -44,8 +44,24 @@ extern "C" int expand_dw_occupancy(int k, int cin, int* out) {
 extern "C" int max_smem_optin() { return ast_kernels::edw::max_smem(); }
 
 // The boxes per halo of the last expand_dw_launch's x staging: 1 the whole
-// box (or plain loads), C_in16 / 64 its channel chunks (kCSplit); -1 before
-// any launch.
+// box (or plain loads), C_in16 / 64 its channel chunks (kCSplit), or
+// kTf32's chunks; -1 before any launch.
 extern "C" int expand_dw_last_boxes() {
   return ast_kernels::edw::last_boxes();
+}
+
+// The sweep-1 design of the last expand_dw_launch: 0 the CUDA-core expand
+// (or expand==1), 1 the bf16 tensor-core expand, 2 the f32 3xTF32 one;
+// -1 before any launch.
+extern "C" int expand_dw_last_sweep1() {
+  return ast_kernels::edw::last_design();
+}
+
+// Registers, dynamic shared memory (bytes), resident CTAs per SM, x boxes
+// per halo and channels per box of the f32 3xTF32 kernel (kTf32) that a
+// block with this k and C_in launches, into out[0..4], for measurement;
+// an error where f32 x takes the CUDA-core expand.  Launches nothing.
+extern "C" int expand_dw_f32_occupancy(int k, int cin, int* out) {
+  using namespace ast_kernels;
+  return (int)edw::occupancy_tf32<edw::kFused>(k, cin, out);
 }

@@ -19,7 +19,8 @@
 //   * kXT: x is (N, H, C, W) with W contiguous (_mega_kernel_t); otherwise
 //     NHWC.  The hidden is NHWC either way.  kXBox (with kXT): its halo
 //     comes as a TMA box (below);
-//   * kNoHidden: only the sums are written (_fused_kernel "sums").
+//   * kNoHidden: only the sums are written (_fused_kernel "sums");
+//   * kTf32: f32 NHWC x, the expand as 3xTF32 (below).
 // At f32 the rounding bits change nothing.
 //
 // What bounds it on an H100: at the 512px decoder tail (d8-d10: k5, C_in 40,
@@ -28,10 +29,13 @@
 // plus the 1x1 expand, ~1.5x the block's C_in*E MACs per pixel once the
 // halo is recomputed, on the tensor cores for bf16 (mma.sync m16n8k16, bf16
 // in, f32 accumulate: the products are exact in f32, as in the TPU's bf16
-// matmul with f32 accumulation); the only large memory traffic is the one
-// write of the hidden (d10: 1.0 GB, 0.30 ms at 3.35 TB/s).  So the design
-// aims at the f32 FMA rate of the depthwise, and keeps everything else
-// (the x halo's loads, the expand, the hidden's stores) off its way.
+// matmul with f32 accumulation) and for f32 (3xTF32, a third of the 495
+// TFLOP/s TF32 rate); the only large memory traffic is the one write of the
+// hidden (d10: 1.0 GB bf16, 0.30 ms at 3.35 TB/s; twice that at f32).  So
+// the design aims at the f32 FMA rate of the depthwise, and keeps
+// everything else (the x halo's loads, the expand, the hidden's stores) off
+// its way.  Both dtypes are served: f32 is ModelConfig's default, the
+// stylize CLI's.
 //
 // Design:
 //   * Persistent CTAs of 256 threads: grid (about two per SM, E / 32); a CTA
@@ -70,8 +74,25 @@
 //     buffer is [pixel][32 channels] with the channel index XOR-swizzled by
 //     8 * (pixel % 4), so those stores are conflict-free, and the
 //     depthwise's reads (lane = channel, 32 consecutive words of a pixel)
-//     stay so.  (f32 x, or other channel counts: a CUDA-core expand, x
-//     staged as f32 in 32-channel steps into the halo buffer.)
+//     stay so.  (Other channel counts, (N, H, C, W) f32 x, or f32 C_in past
+//     the kTf32 design's shared memory: a CUDA-core expand, x staged as
+//     f32 in 32-channel steps into the halo buffer, by design.)
+//   * kTf32 (f32 NHWC x, C_in % 8 == 0, 16-byte aligned: every NHWC block
+//     of the model): x comes as f32 TMA boxes ([pixel][bch + 4] words),
+//     reflected in shared memory as the bf16 box is (reflect_box), and the
+//     expand runs on the tensor cores as 3xTF32 (expand_mtile_tf32: x split
+//     into TF32 hi + lo as its fragments are loaded, the weights split once
+//     per CTA; lo hi + hi lo + hi hi on mma.sync m16n8k8, partials of
+//     TF_PAIR k8 steps added in f32 to nearest).  The warps divide the
+//     tiles as the bf16 expand does.  The split weights take 256 B per
+//     input channel, so the box comes in chunks of bch channels
+//     (tf32_chunk: the fewest with which two CTAs share an SM where that
+//     costs at most one more chunk than one CTA's fewest, else those of
+//     one CTA), kCSplit's machinery: chunk 0 prefetched while the previous
+//     tile's depthwise runs, the others loaded after the previous chunk's
+//     products, which are kept as f32 partial sums in the halo buffer.
+//     k5 C_in 40: two chunks of 24 channels, 108,552 B, two CTAs per SM
+//     (the whole box would take 134,152 B: one).
 //   * Depthwise (depthwise_tile): each thread owns one channel (lane) and a
 //     8-row x 4-column block of the tile (the 8 warps cover 16 x 16), 32
 //     independent accumulators; every value read from shared memory feeds
@@ -138,6 +159,8 @@ constexpr int kXBox = 16;  // with kXT: x's halo as a TMA box (see stage_x)
 constexpr int kXSplit = 32;  // with kXBox: the box in two channel halves
 constexpr int kCSplit = 64;  // NHWC: the box in chunks of CCH channels
 constexpr int CCH = 64;      // kCSplit's channels per box
+constexpr int kTf32 = 128;   // NHWC f32 x: the 3xTF32 expand (see the top)
+constexpr int TF_PAIR = 2;   // kTf32: k8 steps per partial sum
 constexpr int kMaxBox = 256;  // elements along one dim of a TMA box
 constexpr int kFused = 0;                      // _fused_kernel "hidden"
 constexpr int kFlat = kRoundEx | kSumRounded;  // _flat_kernel
@@ -179,12 +202,30 @@ __host__ __device__ constexpr int swz(int p) { return (p & 3) << 3; }
 //   XB 2, kXSplit: one channel half of it at a time, bch = cin16 / 2 and
 //   cin16 padded to 2 bch, the weights' K zero past C_in; XB 3, kCSplit:
 //   xs holds one NHWC chunk, [pixel][ldxs = CCH + 8], bch = CCH and cin16
-//   padded to whole chunks.  Otherwise ldxs = ldx.)
+//   padded to whole chunks.  Otherwise ldxs = ldx.  XB 4, kTf32: f32
+//   words, xs one NHWC chunk of `tbch` channels (tf32_chunk),
+//   [MT * 16][ldxs = bch + 4], cin16 = C_in padded to 8 (k8 steps), ws
+//   the TF32 hi then lo parts of the weights, f32 [32][ldx = cin16 + 4]
+//   each: rows an odd multiple of 16 bytes apart, so ldmatrix meets no
+//   bank conflict.)
 template <int K, bool EXPAND, bool MMA, int XB = 0>
 struct Smem {
   int cin16, bch, ldx, ldxs, xs, ws, red, bes, bar, total;
-  __host__ __device__ explicit Smem(int cin) {
+  __host__ __device__ explicit Smem(int cin, int tbch = 0) {
     using G = Halo<K>;
+    if (XB == 4) {
+      cin16 = (cin + 7) / 8 * 8;
+      bch = tbch;
+      ldx = cin16 + 4;
+      ldxs = bch + 4;
+      xs = G::HP * CE * 4;
+      ws = xs + G::MT * 16 * ldxs * 4;
+      red = ws + 2 * CE * ldx * 4;
+      bes = red + NWARPS * 32 * 4;
+      bar = bes + CE * 4;
+      total = bar + 8 + 128;
+      return;
+    }
     cin16 = (cin + 15) / 16 * 16;
     bch = XB == 2 ? (cin16 / 2 + 15) / 16 * 16 : XB == 3 ? CCH : cin16;
     if (XB == 2) cin16 = 2 * bch;
@@ -216,6 +257,7 @@ constexpr int XSHIFT = (MODE & kXBox) != 0 ? Halo<K>::P - 8 : 0;
 template <int K, bool EXPAND, bool MMA, int MODE>
 using SmemM = Smem<K, EXPAND, MMA,
                    !MMA                        ? 0
+                   : (MODE & kTf32) != 0       ? 4
                    : (MODE & kCSplit) != 0     ? 3
                    : (MODE & kXBox) == 0       ? 0
                    : (MODE & kXSplit) != 0     ? 2
@@ -239,16 +281,16 @@ __device__ __forceinline__ char* smem_base() {
   return raw + ((128 - (smem_addr(raw) & 127)) & 127);
 }
 
-// A 4-d bf16 tensor map over x (dims and byte strides innermost first),
-// boxes of `box`, zeros outside.
-inline bool make_map_4d(CUtensorMap* map, const void* x,
-                        const cuuint64_t (&dims)[4],
-                        const cuuint64_t (&strides)[3],
-                        const cuuint32_t (&box)[4]) {
+// A 4-d tensor map over x (dims and byte strides innermost first), boxes
+// of `box`, zeros outside; bf16 elements unless `type` says otherwise.
+inline bool make_map_4d(
+    CUtensorMap* map, const void* x, const cuuint64_t (&dims)[4],
+    const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encode(map, type, 4,
                 const_cast<void*>(x), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -257,16 +299,21 @@ inline bool make_map_4d(CUtensorMap* map, const void* x,
 
 // x (n, h, w, cin) bf16 as the map of NHWC halo boxes (ldx channels, bw
 // columns, bh rows, 1 image); cin % 8 == 0.  ldx: C_in16 + 8 (the whole
-// box, the default) or kCSplit's CCH + 8.
+// box, the default) or kCSplit's CCH + 8.  f32: x is float (kTf32's
+// chunks, ldx = bch + 4; cin % 4 == 0).
 inline bool make_x_map(CUtensorMap* map, const void* x, int n, int h, int w,
-                       int cin, int bw, int bh, int ldx = 0) {
+                       int cin, int bw, int bh, int ldx = 0,
+                       bool f32 = false) {
   if (ldx == 0) ldx = (cin + 15) / 16 * 16 + 8;
+  const cuuint64_t es = f32 ? 4 : 2;
   return make_map_4d(map, x,
                      {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h,
                       (cuuint64_t)n},
-                     {(cuuint64_t)cin * 2, (cuuint64_t)w * cin * 2,
-                      (cuuint64_t)h * w * cin * 2},
-                     {(cuuint32_t)ldx, (cuuint32_t)bw, (cuuint32_t)bh, 1});
+                     {(cuuint64_t)cin * es, (cuuint64_t)w * cin * es,
+                      (cuuint64_t)h * w * cin * es},
+                     {(cuuint32_t)ldx, (cuuint32_t)bw, (cuuint32_t)bh, 1},
+                     f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // x (n, h, cin, w) bf16 as the map of kXBox's boxes (BW columns, bch
@@ -298,7 +345,23 @@ template <typename T, int K, bool EXPAND, bool MMA, int XB>
 __device__ __forceinline__ void stage_weights(
     const T* __restrict__ we, const float* __restrict__ be, char* smem,
     const Smem<K, EXPAND, MMA, XB>& L, int cin, int E, int c0) {
-  if constexpr (MMA) {
+  if constexpr (XB == 4) {
+    // kTf32: each weight split once into its TF32 parts, hi and lo both
+    // rounded to nearest (split_tf32), so that the tensor cores, which
+    // read a TF32 operand's top 19 bits, take lo as it is.
+    uint32_t* wh = reinterpret_cast<uint32_t*>(smem + L.ws);
+    uint32_t* wl = wh + CE * L.ldx;
+    for (int idx = threadIdx.x; idx < CE * L.cin16; idx += NTHREADS) {
+      const int cc = idx % CE, ci = idx / CE;
+      float v = 0.f;
+      if (ci < cin && c0 + cc < E) v = to_f32(we[(size_t)ci * E + c0 + cc]);
+      uint32_t hi, lo, lo_hi, lo_lo;
+      split_tf32(v, hi, lo);
+      split_tf32(__uint_as_float(lo), lo_hi, lo_lo);
+      wh[cc * L.ldx + ci] = hi;
+      wl[cc * L.ldx + ci] = lo_hi;
+    }
+  } else if constexpr (MMA) {
     __nv_bfloat16* wsT = reinterpret_cast<__nv_bfloat16*>(smem + L.ws);
     // Lanes on consecutive output channels: coalesced 64-byte reads.
     for (int idx = threadIdx.x; idx < CE * L.cin16; idx += NTHREADS) {
@@ -410,19 +473,20 @@ __device__ __forceinline__ void stage_x(const CUtensorMap* xmap,
   }
 }
 
-// The reflected rows and columns of an NHWC halo box in xs ([pixel][ldx],
-// HH x HW pixels from image row y0, column x0) that lie outside the image
-// (torch ReflectionPad: -1 -> 1, H -> H - 2), copied from the rows and
-// columns inside it, rows first, so the corners follow.  Halo positions
-// further out feed only dropped outputs and stay zero.  The caller's next
-// barrier publishes xs.
-template <int P, int HH, int HW, int BAR = 0>
-__device__ __forceinline__ void reflect_box(__nv_bfloat16* xs, int ldx,
-                                            int H, int W, int y0, int x0) {
+// The reflected rows and columns of an NHWC halo box in xs ([pixel][ldx]
+// elements of type E, HH x HW pixels from image row y0, column x0) that
+// lie outside the image (torch ReflectionPad: -1 -> 1, H -> H - 2), copied
+// from the rows and columns inside it, rows first, so the corners follow.
+// Halo positions further out feed only dropped outputs and stay zero.  The
+// caller's next barrier publishes xs.
+template <int P, int HH, int HW, int BAR = 0, typename E = __nv_bfloat16>
+__device__ __forceinline__ void reflect_box(E* xs, int ldx, int H, int W,
+                                            int y0, int x0) {
+  constexpr int EPV = 16 / (int)sizeof(E);  // elements per 16 bytes
   const bool top = y0 < 0, bottom = y0 + HH > H;
   const bool left = x0 < 0, right = x0 + HW > W;
   if (!(top || bottom || left || right)) return;  // uniform over the CTA
-  const int vpp = ldx / 8;  // 16-byte vectors per pixel
+  const int vpp = ldx / EPV;  // 16-byte vectors per pixel
   uint4* v = reinterpret_cast<uint4*>(xs);
   // Halo row hr (image row y0 + hr) from its reflection, for the P rows
   // above row 0 and below row H - 1.
@@ -444,15 +508,32 @@ __device__ __forceinline__ void reflect_box(__nv_bfloat16* xs, int ldx,
   }
 }
 
-// Waits for stage_x's NHWC TMA box (the barrier's phase parity), then
-// reflects the image's edges into it (reflect_box).
-template <int K>
-__device__ __forceinline__ void wait_x(uint64_t* bar, uint32_t parity,
-                                       __nv_bfloat16* xs, int ldx, int H,
-                                       int W, int ty0, int tx0) {
+// Waits for stage_x's (or stage_x32's) NHWC TMA box (the barrier's phase
+// parity), then reflects the image's edges into it (reflect_box).
+template <int K, typename E = __nv_bfloat16>
+__device__ __forceinline__ void wait_x(uint64_t* bar, uint32_t parity, E* xs,
+                                       int ldx, int H, int W, int ty0,
+                                       int tx0) {
   using G = Halo<K>;
   mbar_wait(bar, parity);
   reflect_box<G::P, G::HH, G::HW>(xs, ldx, H, W, ty0 - G::P, tx0 - G::P);
+}
+
+// kTf32's x box: ldxs f32 channels from ch0 of the halo of output tile
+// (ty0, tx0) of image n into xs ([pixel][ldxs]), one TMA box from
+// make_x_map's f32 map, zeros outside the image and past C_in, completing
+// on bar (wait_x reflects); rows of the last MMA tile past the halo are
+// not written (they feed only dropped outputs).  xs must be free.
+template <int K>
+__device__ __forceinline__ void stage_x32(const CUtensorMap* xmap,
+                                          uint64_t* bar, float* xs, int ldxs,
+                                          int n, int ty0, int tx0, int ch0) {
+  using G = Halo<K>;
+  if (threadIdx.x == 0) {
+    fence_proxy_async();  // this thread's earlier writes of xs come first
+    mbar_expect_tx(bar, G::HP * ldxs * 4);
+    tma_load_4d(xs, xmap, ch0, tx0 - G::P, ty0 - G::P, n, bar);
+  }
 }
 
 // wait_x for kXBox's box ([halo row][cin16][BW]): whole channel planes for
@@ -590,57 +671,20 @@ __device__ __forceinline__ void store_pass(float* buf, const float* bes,
     store_ex<T, ROUND_EX>(buf, bes, pre_act, p, col, v0, v1);
 }
 
-// One warp's expand of 16-row tile mt of the halo, 8-channel columns
-// [nt0, nt0 + NTN) of the chunk, on the tensor cores: the bias, hswish and
+// The epilogue of one warp's expand of 16-row tile mt, 8-channel columns
+// [nt0, nt0 + NTN): acc in the mma fragment layout (rows g, g + 8;
+// channels 2t, 2t + 1 of each column).  PASS 0: the bias, hswish and
 // (ROUND_EX) the rounding, then 8-byte stores into buf at the swizzled
 // channel (conflict-free: within a half-warp the four rows g % 4 land 8
-// banks apart).  Rows past the halo's hp pixels are dropped.  xs's rows
-// are ldxa apart and hold the K columns [0, kext) of wsT, whose rows are
-// ldx apart (the whole K: ldxa = ldx, kext = C_in16; kCSplit's chunk:
-// the caller offsets wsT to the chunk's first channel; PASS: store_pass).
-template <typename T, int NTN, bool ROUND_EX, int PASS = 0>
-__device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
-                                             int ldxa,
-                                             const __nv_bfloat16* wsT,
-                                             const float* bes, float* buf,
-                                             int ldx, int kext, int mt,
-                                             int nt0, int pre_act, int hp) {
-  static_assert(NTN == 1 || NTN % 2 == 0, "B columns come in pairs");
+// banks apart); otherwise store_pass.  Rows past the halo's hp pixels are
+// dropped.
+template <typename T, int NTN, bool ROUND_EX, int PASS>
+__device__ __forceinline__ void store_mtile(const float (&acc)[NTN][4],
+                                            const float* bes, float* buf,
+                                            int mt, int nt0, int pre_act,
+                                            int hp) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  float acc[NTN][4];
-#pragma unroll
-  for (int i = 0; i < NTN; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
-  // ldmatrix addresses: lane l gives halo row l % 16 at k offset
-  // 8 * (l / 16) (A), and channel row 8 * (l / 16) + l % 8 at k offset
-  // 8 * ((l / 8) % 2) (B: two 8-channel columns; x2 takes lanes 0-15).
-  // Rows ldx * 2 bytes apart (an odd multiple of 16 modulo 128 for every
-  // C_in) meet no bank conflict.
-  const __nv_bfloat16* ap =
-      xs + (mt * 16 + (lane & 15)) * ldxa + (lane >> 4) * 8;
-  const __nv_bfloat16* bp =
-      wsT + (nt0 * 8 + (lane >> 4) * 8 + (lane & 7)) * ldx +
-      ((lane >> 3) & 1) * 8;
-  for (int ks = 0; ks < kext; ks += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, ap + ks);
-    if constexpr (NTN == 1) {
-      uint32_t b[2];
-      ldmatrix_x2(b, bp + ks);
-      mma_bf16(acc[0], a, b);
-    } else {
-#pragma unroll
-      for (int i = 0; i < NTN; i += 2) {
-        uint32_t b[4];  // columns i and i + 1, k 0-7 and 8-15 of each
-        ldmatrix_x4(b, bp + i * 8 * ldx + ks);
-        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-        mma_bf16(acc[i], a, b0);
-        mma_bf16(acc[i + 1], a, b1);
-      }
-    }
-  }
   if constexpr (PASS != 0) {
 #pragma unroll
     for (int i = 0; i < NTN; ++i)
@@ -678,6 +722,133 @@ __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
   }
 }
 
+// One warp's expand of 16-row tile mt of the halo, 8-channel columns
+// [nt0, nt0 + NTN) of the chunk, on the tensor cores, then its epilogue
+// (store_mtile).  xs's rows are ldxa apart and hold the K columns
+// [0, kext) of wsT, whose rows are ldx apart (the whole K: ldxa = ldx,
+// kext = C_in16; kCSplit's chunk: the caller offsets wsT to the chunk's
+// first channel; PASS: store_pass).
+template <typename T, int NTN, bool ROUND_EX, int PASS = 0>
+__device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
+                                             int ldxa,
+                                             const __nv_bfloat16* wsT,
+                                             const float* bes, float* buf,
+                                             int ldx, int kext, int mt,
+                                             int nt0, int pre_act, int hp) {
+  static_assert(NTN == 1 || NTN % 2 == 0, "B columns come in pairs");
+  const int lane = threadIdx.x & 31;
+  float acc[NTN][4];
+#pragma unroll
+  for (int i = 0; i < NTN; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+  // ldmatrix addresses: lane l gives halo row l % 16 at k offset
+  // 8 * (l / 16) (A), and channel row 8 * (l / 16) + l % 8 at k offset
+  // 8 * ((l / 8) % 2) (B: two 8-channel columns; x2 takes lanes 0-15).
+  // Rows ldx * 2 bytes apart (an odd multiple of 16 modulo 128 for every
+  // C_in) meet no bank conflict.
+  const __nv_bfloat16* ap =
+      xs + (mt * 16 + (lane & 15)) * ldxa + (lane >> 4) * 8;
+  const __nv_bfloat16* bp =
+      wsT + (nt0 * 8 + (lane >> 4) * 8 + (lane & 7)) * ldx +
+      ((lane >> 3) & 1) * 8;
+  for (int ks = 0; ks < kext; ks += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, ap + ks);
+    if constexpr (NTN == 1) {
+      uint32_t b[2];
+      ldmatrix_x2(b, bp + ks);
+      mma_bf16(acc[0], a, b);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NTN; i += 2) {
+        uint32_t b[4];  // columns i and i + 1, k 0-7 and 8-15 of each
+        ldmatrix_x4(b, bp + i * 8 * ldx + ks);
+        const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_bf16(acc[i], a, b0);
+        mma_bf16(acc[i + 1], a, b1);
+      }
+    }
+  }
+  store_mtile<T, NTN, ROUND_EX, PASS>(acc, bes, buf, mt, nt0, pre_act, hp);
+}
+
+// expand_mtile for kTf32: f32 x ([pixel][ldxa] words in xs) by the split
+// weights (wh, wl: the chunk's K columns, rows ldx apart; stage_weights)
+// as 3xTF32 on the tensor cores (mma.sync m16n8k8), over K columns
+// [0, kext).  Each x value is split as its fragment is loaded (split_tf32:
+// an integer add and a mask), and each k8 step takes three products, lo
+// hi, hi lo and hi hi (the small terms first), each over all NTN columns
+// before the next, so that no product waits on the one before it.  The
+// tensor cores add in f32 rounding toward zero, so the products go into
+// partials of TF_PAIR k8 steps from zero, each added to the accumulator in
+// f32 to nearest (as gate_project_tf32 does in sweep 2;
+// tests/test_torch_tf32_expand.py emulates this arithmetic).  A and B
+// fragments by ldmatrix, an 8 x 8 b16 matrix being 8 rows of 4 f32: lane l
+// gives halo row l % 16 at k offset 4 * (l / 16) (A: a0-a3 as mma_tf32
+// takes them), and channel row 8 * (l / 16) + l % 8 at k offset
+// 4 * ((l / 8) % 2) (B: b0, b1 of two columns; x2 takes lanes 0-15).  Rows
+// an odd multiple of 16 bytes apart meet no bank conflict.  (Two tiles at
+// a time, sharing the B fragments, spilled at k5 and ran slower there on
+// an H100, and gained little at k3.)  Then store_mtile.
+template <typename T, int NTN, bool ROUND_EX, int PASS = 0>
+__device__ __forceinline__ void expand_mtile_tf32(
+    const float* xs, int ldxa, const uint32_t* wh, const uint32_t* wl,
+    const float* bes, float* buf, int ldx, int kext, int mt, int nt0,
+    int pre_act, int hp) {
+  static_assert(NTN == 1 || NTN % 2 == 0, "B columns come in pairs");
+  const int lane = threadIdx.x & 31;
+  float acc[NTN][4], part[NTN][4];
+#pragma unroll
+  for (int i = 0; i < NTN; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+  const float* ap = xs + (mt * 16 + (lane & 15)) * ldxa + (lane >> 4) * 4;
+  const int bo =
+      (nt0 * 8 + (lane >> 4) * 8 + (lane & 7)) * ldx + ((lane >> 3) & 1) * 4;
+  for (int ks = 0, step = 0; ks < kext; ks += 8, ++step) {
+    if (step % TF_PAIR == 0) {
+#pragma unroll
+      for (int i = 0; i < NTN; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[i][r] = 0.f;
+    }
+    uint32_t a[4], ah[4], al[4];
+    ldmatrix_x4(a, ap + ks);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) split_tf32(__uint_as_float(a[m]), ah[m], al[m]);
+    uint32_t bh[NTN][2], bl[NTN][2];
+    if constexpr (NTN == 1) {
+      ldmatrix_x2(bh[0], wh + bo + ks);
+      ldmatrix_x2(bl[0], wl + bo + ks);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NTN; i += 2) {
+        uint32_t b[4];  // columns i and i + 1: k 0-3 (b0) and 4-7 (b1)
+        ldmatrix_x4(b, wh + bo + i * 8 * ldx + ks);
+        bh[i][0] = b[0], bh[i][1] = b[1], bh[i + 1][0] = b[2],
+        bh[i + 1][1] = b[3];
+        ldmatrix_x4(b, wl + bo + i * 8 * ldx + ks);
+        bl[i][0] = b[0], bl[i][1] = b[1], bl[i + 1][0] = b[2],
+        bl[i + 1][1] = b[3];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NTN; ++i) mma_tf32(part[i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+    for (int i = 0; i < NTN; ++i) mma_tf32(part[i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+    for (int i = 0; i < NTN; ++i) mma_tf32(part[i], ah, bh[i][0], bh[i][1]);
+    if (step % TF_PAIR == TF_PAIR - 1 || ks + 8 >= kext) {
+#pragma unroll
+      for (int i = 0; i < NTN; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][r] += part[i][r];
+    }
+  }
+  store_mtile<T, NTN, ROUND_EX, PASS>(acc, bes, buf, mt, nt0, pre_act, hp);
+}
+
 // expand_mtile for kXBox's box ([halo row][bch][BW]): tile mt is the 8-
 // pixel groups 2 mt and 2 mt + 1 (group gi: halo row gi / GPR, columns
 // 8 (gi % GPR) + 0..7; columns past the halo dropped), over the box's bch
@@ -713,11 +884,12 @@ __device__ __forceinline__ void expand_mtile_t(const __nv_bfloat16* xs,
 
 // The expanded halo of output tile (ty0, tx0) for the chunk whose weights
 // stage_weights put in shared memory, into buf (f32, swizzled; rounded to T
-// with kRoundEx).  MMA: the x halo is in xs (stage_x; the caller has waited
-// for its copies); otherwise x is read here.  Starts and ends with a
-// barrier (sweep_sync<BAR>).  EXPAND: a 1x1 expand precedes the depthwise;
-// MMA: it runs on the tensor cores (bf16 only).  PASS (store_pass): the
-// part of K in xs, from the weights' channel kofs (kXSplit, kCSplit).
+// with kRoundEx).  MMA: the x halo is in xs (stage_x, stage_x32; the
+// caller has waited for its copies); otherwise x is read here.  Starts and
+// ends with a barrier (sweep_sync<BAR>).  EXPAND: a 1x1 expand precedes
+// the depthwise; MMA: it runs on the tensor cores (bf16, or with kTf32
+// f32 as 3xTF32).  PASS (store_pass): the part of K in xs, from the
+// weights' channel kofs (kXSplit, kCSplit, kTf32's chunks).
 template <typename T, int K, bool EXPAND, bool MMA, int MODE, int PASS = 0,
           int BAR = 0>
 __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
@@ -738,7 +910,24 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
   const int warp = threadIdx.x >> 5;
 
   sweep_sync<BAR>();  // x and the weights are staged; buf's readers are done
-  if constexpr (MMA) {
+  if constexpr ((MODE & kTf32) != 0) {
+    // As the bf16 expand below divides its tiles among the warps; the
+    // chunk's K columns [kofs, kofs + kext).
+    const float* xs = reinterpret_cast<const float*>(smem + L.xs);
+    const uint32_t* wh = reinterpret_cast<const uint32_t*>(smem + L.ws);
+    const uint32_t* wl = wh + CE * L.ldx;
+    const int kext = min(L.bch, L.cin16 - kofs);
+    constexpr int ROUNDS = G::MT / NWARPS;
+    constexpr int LEFT = (G::MT - ROUNDS * NWARPS) * (CE / 8);
+    for (int i = 0; i < ROUNDS; ++i)
+      expand_mtile_tf32<T, CE / 8, ROUND_EX, PASS>(
+          xs, L.ldxs, wh + kofs, wl + kofs, bes, buf, L.ldx, kext,
+          warp + i * NWARPS, 0, pre_act, HP);
+    for (int u = warp; u < LEFT; u += NWARPS)
+      expand_mtile_tf32<T, 1, ROUND_EX, PASS>(
+          xs, L.ldxs, wh + kofs, wl + kofs, bes, buf, L.ldx, kext,
+          ROUNDS * NWARPS + u / (CE / 8), u % (CE / 8), pre_act, HP);
+  } else if constexpr (MMA) {
     const __nv_bfloat16* xs =
         reinterpret_cast<const __nv_bfloat16*>(smem + L.xs);
     const __nv_bfloat16* wsT =
@@ -927,8 +1116,9 @@ __device__ __forceinline__ void flush_sums(float csum, float* red,
   }
 }
 
-// xmap: x as make_x_map's map (NHWC bf16 x with the tensor-core expand)
-// or make_xt_map's (kXBox); unused otherwise.
+// xmap: x as make_x_map's map (NHWC x with the tensor-core expand) or
+// make_xt_map's (kXBox); unused otherwise.  tbch: kTf32's channels per box
+// (tf32_chunk); unused otherwise.
 template <typename T, int K, bool EXPAND, bool MMA, int MODE>
 __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     expand_dw_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -937,16 +1127,19 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
                      const float* __restrict__ be,
                      const float* __restrict__ bd, T* __restrict__ hidden,
                      float* __restrict__ sums, int N, int H, int W, int cin,
-                     int E, int pre_act, int tiles_x, int tiles_per_image) {
+                     int E, int pre_act, int tiles_x, int tiles_per_image,
+                     int tbch) {
   // The x halo as a TMA box, prefetched for the next tile.
   constexpr bool ASYNC = MMA && ((MODE & kXT) == 0 || (MODE & kXBox) != 0);
+  constexpr bool TF = (MODE & kTf32) != 0;
   constexpr int VEC = 16 / (int)sizeof(T);  // values per 16 bytes
   char* smem = smem_base();
-  const SmemM<K, EXPAND, MMA, MODE> L(cin);
+  const SmemM<K, EXPAND, MMA, MODE> L(cin, tbch);
   uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar);
   float* buf = reinterpret_cast<float*>(smem);
   T* hs = reinterpret_cast<T*>(smem);  // the tile's hidden, [256][32]
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.xs);
+  [[maybe_unused]] float* xs32 = reinterpret_cast<float*>(smem + L.xs);
 
   const int lane = threadIdx.x & 31;
   const int c0 = blockIdx.y * CE;
@@ -984,8 +1177,11 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     __syncthreads();
     int ty0, tx0;
     tile_origin(item, ty0, tx0);
-    stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
-                        image_of(item), ty0, tx0);
+    if constexpr (TF)
+      stage_x32<K>(&xmap, xbar, xs32, L.ldxs, image_of(item), ty0, tx0, 0);
+    else
+      stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
+                          image_of(item), ty0, tx0);
   }
   const bool vec_out = E % VEC == 0 &&
                        (reinterpret_cast<uintptr_t>(hidden) & 15) == 0;
@@ -1012,6 +1208,8 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
       if constexpr (ASYNC) {
         if constexpr ((MODE & kXBox) != 0)
           wait_xt<K>(xbar, xphase, xs, L.bch, H, W, ty0, tx0);
+        else if constexpr (TF)
+          wait_x<K>(xbar, xphase, xs32, L.ldxs, H, W, ty0, tx0);
         else
           wait_x<K>(xbar, xphase, xs, L.ldxs, H, W, ty0, tx0);
         xphase ^= 1;
@@ -1019,7 +1217,28 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
         stage_x<T, K, MODE>(&xmap, xbar, xn, xs, L.ldxs, L.bch, H, W, cin,
                             n, ty0, tx0);
       }
-      if constexpr (MMA && (MODE & kXSplit) != 0) {
+      if constexpr (TF) {
+        // As kCSplit below, in the chunks of tf32_chunk (one where the
+        // whole box fits beside two CTAs per SM).
+        if (L.bch >= L.cin16) {
+          expand_halo<T, K, EXPAND, MMA, MODE>(xn, smem, L, H, W, cin,
+                                               pre_act, ty0, tx0);
+        } else {
+          expand_halo<T, K, EXPAND, MMA, MODE, 1>(xn, smem, L, H, W, cin,
+                                                  pre_act, ty0, tx0);
+          for (int ch0 = L.bch; ch0 < L.cin16; ch0 += L.bch) {
+            stage_x32<K>(&xmap, xbar, xs32, L.ldxs, n, ty0, tx0, ch0);
+            wait_x<K>(xbar, xphase, xs32, L.ldxs, H, W, ty0, tx0);
+            xphase ^= 1;
+            if (ch0 + L.bch < L.cin16)
+              expand_halo<T, K, EXPAND, MMA, MODE, 3>(xn, smem, L, H, W, cin,
+                                                      pre_act, ty0, tx0, ch0);
+            else
+              expand_halo<T, K, EXPAND, MMA, MODE, 2>(xn, smem, L, H, W, cin,
+                                                      pre_act, ty0, tx0, ch0);
+          }
+        }
+      } else if constexpr (MMA && (MODE & kXSplit) != 0) {
         // The first channel half's partial sums, then the second half's box
         // (its load not hidden: the price of two CTAs per SM at C_in >= 80).
         expand_halo<T, K, EXPAND, MMA, MODE, 1>(xn, smem, L, H, W, cin,
@@ -1057,15 +1276,19 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
         if (next < end) {
           int ny0, nx0;
           tile_origin(next, ny0, nx0);
-          stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
-                              image_of(next), ny0, nx0);
+          if constexpr (TF)
+            stage_x32<K>(&xmap, xbar, xs32, L.ldxs, image_of(next), ny0, nx0,
+                         0);
+          else
+            stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
+                                image_of(next), ny0, nx0);
         }
       }
     }
     // kXSplit (k5 C_in 96 spilled 12 B with them live through both
-    // passes) and kCSplit: the depthwise weights come back from L1 for
-    // each tile.
-    if constexpr ((MODE & (kXSplit | kCSplit)) != 0)
+    // passes), kCSplit and kTf32: the depthwise weights come back from L1
+    // for each tile.
+    if constexpr ((MODE & (kXSplit | kCSplit | kTf32)) != 0)
       load_dw<K>(wd, bd, E, c, wk, bdv);
     float o[DW_ROWS][DW_COLS];
     depthwise_tile<K>(buf, wk, bdv, o);
@@ -1112,16 +1335,12 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
 }
 
 // The dynamic shared memory a CTA may have on this device (an H100:
-// 232,448 bytes), the one limit every launcher here and in flat_s2.cu and
-// fused_2pass.cu checks against.
+// 232,448 bytes; common.cuh smem_limits), the one limit every launcher
+// here and in flat_s2.cu and fused_2pass.cu checks against.
 inline int max_smem() {
-  static int v = 0;
-  if (v == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  return v;
+  int cta = 0, sm = 0, reserved = 0;
+  smem_limits(cta, sm, reserved);
+  return cta;
 }
 
 // Whether a sweep-1 x box of `ldx` elements per pixel, in a kernel of
@@ -1141,26 +1360,36 @@ inline int& last_async() {
 }
 
 // The boxes per halo of the last launch of this source's kernels: 1 (the
-// whole box, or none), 2 (kXSplit's halves) or C_in16 / CCH (kCSplit);
-// -1 before any launch.
+// whole box, or none), 2 (kXSplit's halves), C_in16 / CCH (kCSplit) or
+// kTf32's chunks; -1 before any launch.
 inline int& last_boxes() {
   static int v = -1;
   return v;
 }
 
+// The sweep-1 design of the last launch of this source's kernels: 0 the
+// CUDA-core expand (or none: expand==1), 1 the bf16 tensor-core expand, 2
+// the 3xTF32 one (kTf32); -1 before any launch.
+inline int& last_design() {
+  static int v = -1;
+  return v;
+}
+
+// tbch: kTf32's channels per box (tf32_chunk); unused otherwise.
 template <typename T, int K, bool EXPAND, bool MMA, int MODE>
 cudaError_t launch(const void* x, const void* we, const void* wd,
                    const void* be, const void* bd, void* hidden, void* sums,
                    int n, int h, int w, int cin, int e, int pre_act,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int tbch = 0) {
   constexpr bool ASYNC = MMA && ((MODE & kXT) == 0 || (MODE & kXBox) != 0);
-  const SmemM<K, EXPAND, MMA, MODE> L(cin);
+  constexpr bool TF = (MODE & kTf32) != 0;
+  const SmemM<K, EXPAND, MMA, MODE> L(cin, tbch);
   auto kernel = expand_dw_kernel<T, K, EXPAND, MMA, MODE>;
   CUtensorMap xmap{};
   if (ASYNC && !((MODE & kXT) != 0
                      ? make_xt_map<K>(&xmap, x, n, h, w, cin, L.bch)
                      : make_x_map(&xmap, x, n, h, w, cin, Halo<K>::HW,
-                                  Halo<K>::HH, L.ldxs)))
+                                  Halo<K>::HH, L.ldxs, TF)))
     return cudaErrorInvalidValue;
   if (L.total > max_smem()) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1189,11 +1418,13 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
       static_cast<const float*>(wd), static_cast<const float*>(be),
       static_cast<const float*>(bd), static_cast<T*>(hidden),
       static_cast<float*>(sums), n, h, w, cin, e, pre_act, tiles_x,
-      tiles_per_image);
+      tiles_per_image, tbch);
   last_async() = ASYNC ? 1 : 0;
   last_boxes() = (MODE & kXSplit) != 0   ? 2
                  : (MODE & kCSplit) != 0 ? L.cin16 / L.bch
+                 : TF                    ? (L.cin16 + L.bch - 1) / L.bch
                                          : 1;
+  last_design() = TF ? 2 : MMA ? 1 : 0;
   return cudaGetLastError();
 }
 
@@ -1230,6 +1461,68 @@ template <int K>
 bool c_split(int cin) {
   const Smem<K, true, true> whole(cin);
   return box_split(whole.ldx, whole.total);
+}
+
+// kTf32's channels per x box at this k and C_in for `want` CTAs per SM:
+// the fewest chunks (ceil(C_in8 / n) channels, a multiple of 8, the box's
+// inner extent bch + 4 <= 256) with which that many CTAs share an SM; 0
+// where none does.
+template <int K>
+int tf32_fit(int cin, int want) {
+  const int cin8 = (cin + 7) / 8 * 8;
+  int cta = 0, sm = 0, reserved = 0;
+  smem_limits(cta, sm, reserved);
+  for (int chunks = 1; chunks <= cin8 / 8; ++chunks) {
+    const int b = ((cin8 + chunks - 1) / chunks + 7) / 8 * 8;
+    const int t = Smem<K, true, true, 4>(cin, b).total;
+    if (!box_split(b + 4, t) && want * (t + reserved) <= sm) return b;
+  }
+  return 0;
+}
+
+// kTf32's channels per x box at this k and C_in: sized for two CTAs per
+// SM where that costs at most one chunk more than one CTA's fewest, else
+// for one.  On an H100 (scripts/sweep_ablation.py --f32, its cuts one_cta
+// and two_cta), at k5 C_in 96 two CTAs in 6 chunks took 0.789 ms per d4
+// launch against one CTA's 0.723 in 2, at k3 C_in 80 1.538 in 3 against
+// 1.452 in 1, while at k5 C_in 40 two in 2 chunks took 3.924 ms per d10
+// launch against one's 4.490 in 1.  0 where no chunk fits (the CUDA-core
+// expand takes the shape).  At the model's shapes: k3 C_in 16 and 24 the
+// whole box, two CTAs; 80 the whole box, 128 two chunks of 64, 256 four
+// of 64, one CTA; k5 C_in 40 two chunks of 24, two CTAs; 96 two of 48,
+// one.  ops/kernels/limits.py mirrors the rule.
+template <int K>
+int tf32_chunk(int cin) {
+  const int one = tf32_fit<K>(cin, 1), two = tf32_fit<K>(cin, 2);
+  const int cin8 = (cin + 7) / 8 * 8;
+  const auto chunks = [&](int b) { return (cin8 + b - 1) / b; };
+  return two > 0 && chunks(two) <= chunks(one) + 1 ? two : one;
+}
+
+// Whether f32 NHWC x takes kTf32 (given a chunk size): its 16-byte TMA
+// rows need C_in % 8 == 0 (as the bf16 design's, so that every k8 step is
+// whole) and an aligned x.  Every NHWC block of the model.
+template <typename T, int MODE>
+bool use_tf32(const void* x, int cin) {
+  return sizeof(T) == 4 && (MODE & kXT) == 0 && cin % 8 == 0 &&
+         aligned(x, 16);
+}
+
+// query() of kTf32's kernel for an f32 block with this k and C_in, its
+// boxes per halo and channels per box into out[3], out[4];
+// cudaErrorInvalidValue where the design does not take the shape.
+template <int M>
+cudaError_t occupancy_tf32(int k, int cin, int* out) {
+  const int b = cin % 8 != 0 ? 0 : k == 3 ? tf32_chunk<3>(cin)
+                                 : k == 5 ? tf32_chunk<5>(cin) : 0;
+  if (b == 0) return cudaErrorInvalidValue;
+  out[3] = ((cin + 7) / 8 * 8 + b - 1) / b;
+  out[4] = b;
+  if (k == 3)
+    return query(expand_dw_kernel<float, 3, true, true, M | kTf32>, NTHREADS,
+                 SmemM<3, true, true, M | kTf32>(cin, b).total, out);
+  return query(expand_dw_kernel<float, 5, true, true, M | kTf32>, NTHREADS,
+               SmemM<5, true, true, M | kTf32>(cin, b).total, out);
 }
 
 // query() of the kernel a bf16 block with this k and C_in launches (the
@@ -1282,6 +1575,12 @@ cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
   if (we == nullptr)
     return launch<T, K, false, false, MODE>(x, we, wd, be, bd, hidden, sums,
                                             n, h, w, cin, e, pre_act, s);
+  if constexpr (!BF16 && (MODE & kXT) == 0) {
+    const int b = use_tf32<T, MODE>(x, cin) ? tf32_chunk<K>(cin) : 0;
+    if (b > 0)
+      return launch<T, K, true, true, MODE | kTf32>(
+          x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s, b);
+  }
   if (!use_mma<T, MODE>(x, cin))
     return launch<T, K, true, false, MODE>(x, we, wd, be, bd, hidden, sums,
                                            n, h, w, cin, e, pre_act, s);

@@ -78,6 +78,27 @@ extern "C" int flat_block_occupancy(int k, int cin, int e, int cout,
   return (int)gp::occupancy(e, cout, identity != 0, out + 3);
 }
 
+// expand_dw_f32_occupancy for flat_block's sweep 1 (kFlat): the f32
+// 3xTF32 kernel's registers, shared memory, CTAs per SM, x boxes per halo
+// and channels per box into out[0..4].  Launches nothing.
+extern "C" int flat_block_f32_occupancy(int k, int cin, int* out) {
+  using namespace ast_kernels;
+  return (int)edw::occupancy_tf32<edw::kFlat>(k, cin, out);
+}
+
+// The sweep-1 design of the last flat_block_launch: 0 the CUDA-core expand
+// (or expand==1), 1 the bf16 tensor-core expand, 2 the f32 3xTF32 one;
+// -1 before any launch.
+extern "C" int flat_block_last_sweep1() {
+  return ast_kernels::edw::last_design();
+}
+
+// The x boxes per halo of the last flat_block_launch's sweep 1 (as
+// expand_dw_last_boxes); -1 before any launch.
+extern "C" int flat_block_last_boxes() {
+  return ast_kernels::edw::last_boxes();
+}
+
 // The design of the last sweep 2 that flat_block_launch or
 // gate_project_launch ran: 0 gate_project_generic, 1 gate_project_mma
 // (bf16), 2 gate_project_tf32 (f32); -1 before any.

@@ -1026,33 +1026,6 @@ auto tf32_kernel(bool res, int cout) {
                                : gate_project_tf32<false, YT, NT_BUCKETS[3]>;
 }
 
-// The device's shared memory (an H100's: 232,448 bytes per CTA opt-in,
-// 233,472 per SM, 1,024 of them reserved per CTA), queried once.
-inline cudaError_t smem_limits(int& max_smem, int& sm_smem, int& reserved) {
-  static int v[3] = {0, 0, 0};
-  if (v[0] == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &v[1], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &v[2], cudaDevAttrReservedSharedMemoryPerBlock, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &v[0], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) {
-      v[0] = 0;
-      return err;
-    }
-  }
-  max_smem = v[0];
-  sm_smem = v[1];
-  reserved = v[2];
-  return cudaSuccess;
-}
-
 // Registers, dynamic shared memory (bytes), resident CTAs per SM of `kernel`
 // with `threads` threads and `smem` bytes, into out[0..2].
 template <typename Kernel>

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
-from .limits import check_sweep1, tensor_core_expand
+from .limits import check_sweep1_design
 from ..basic import hardswish, reflect_pad
 
 
@@ -111,10 +111,8 @@ def expand_dw(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
             raise ValueError("expand_dw: weights must be on x's device")
     b_expand = _vec(b_expand, e, x.device, "b_expand")
     b_dw = _vec(b_dw, e, x.device, "b_dw")
-    check_sweep1("expand_dw", k, c_in,
-                 mma=tensor_core_expand(x.dtype == torch.bfloat16, c_in,
-                                        w_expand is not None),
-                 expand=w_expand is not None)
+    check_sweep1_design("expand_dw", k, c_in, x.dtype == torch.bfloat16,
+                        w_expand is not None, x.data_ptr() % 16 == 0)
 
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
@@ -137,5 +135,6 @@ def expand_dw(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
 def expand_dw_last_boxes() -> int:
     """The x boxes per halo of the last ``expand_dw`` launch: 1 the whole
     TMA box (or plain loads), C_in16 / 64 its channel chunks (C_in 256 at
-    k3: 4), -1 before any launch."""
+    k3: 4), or at f32 the 3xTF32 design's chunks (``limits.tf32_chunk``),
+    -1 before any launch."""
     return load_library().expand_dw_last_boxes()

@@ -26,7 +26,7 @@ import torch
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
 from .expand_dw import depthwise_reference, expand_reference
-from .limits import check_sweep1, tensor_core_expand
+from .limits import check_sweep1_design
 from ..basic import se_gate
 
 
@@ -170,10 +170,9 @@ def flat_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         proj_bias, "flat_block")
     if identity and c_in != c_out:
         raise ValueError("flat_block: identity needs C_in == C_out")
-    check_sweep1("flat_block", kernel_size, c_in,
-                 mma=tensor_core_expand(x.dtype == torch.bfloat16, c_in,
-                                        w_expand is not None),
-                 expand=w_expand is not None)
+    check_sweep1_design("flat_block", kernel_size, c_in,
+                        x.dtype == torch.bfloat16, w_expand is not None,
+                        x.data_ptr() % 16 == 0)
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
     gate = torch.empty((n, e), dtype=torch.float32, device=x.device)

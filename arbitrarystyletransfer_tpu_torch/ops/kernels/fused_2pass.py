@@ -25,7 +25,8 @@ from . import LAUNCHES
 from ._build import check, launch_stream, load_library
 from .expand_dw import _vec, depthwise_reference, expand_reference
 from .flat_block import check_input, ptr, round_to
-from .limits import check_fused_project, check_sweep1, tensor_core_expand
+from .limits import (check_fused_project, check_sweep1_design,
+                     tensor_core_expand)
 
 
 def _hidden_f32(x, w_expand, w_dw, kernel_size, pre_act, b_expand, b_dw):
@@ -89,10 +90,9 @@ def fused_sums(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
                        b_expand, b_dw)
     n, h, w, c_in = x.shape
     e = w_dw.shape[-1]
-    check_sweep1("fused_sums", kernel_size, c_in,
-                 mma=tensor_core_expand(x.dtype == torch.bfloat16, c_in,
-                                        w_expand is not None),
-                 expand=w_expand is not None)
+    check_sweep1_design("fused_sums", kernel_size, c_in,
+                        x.dtype == torch.bfloat16, w_expand is not None,
+                        x.data_ptr() % 16 == 0)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
     rc = load_library().fused_sums_launch(
         x.data_ptr(), *map(ptr, ops), sums.data_ptr(), n, h, w, c_in, e,

@@ -1,9 +1,10 @@
 """The block shapes the kernels' x staging takes, checked before a launch.
 
 A pure mirror (no torch, no CUDA) of the shared-memory arithmetic of the
-bf16 first sweeps: ``Smem`` and ``c_split`` of ``csrc/expand_dw.cuh``
+first sweeps: ``Smem`` and ``c_split`` of ``csrc/expand_dw.cuh``
 (``expand_dw``, ``flat_block``'s and ``fused_sums``' sweep 1, NHWC x;
-``mega_block``'s, (N, H, C, W) x), ``Smem`` and ``s2_split`` of
+``mega_block``'s, (N, H, C, W) x; the f32 NHWC design ``kTf32`` and its
+``tf32_chunk``), ``Smem`` and ``s2_split`` of
 ``csrc/flat_s2.cu``, and the two designs of ``csrc/fused_2pass.cu``'s
 ``fused_project`` (``WsSmem``, the tile ``Smem``).  Each stages its x box
 whole where it can and in channel chunks where it cannot (wider than a
@@ -16,14 +17,19 @@ launches, so a shape that a kernel cannot take raises ``ValueError``
 naming the shape and the limit, not a CUDA error.  The limits are an
 H100's: a TMA box has at most 256 elements along each dimension, and a
 CTA at most 232,448 bytes of dynamic shared memory (the kernels read it
-from the device, ``expand_dw.cuh`` ``max_smem``).  f32 x, C_in % 8 != 0
-and the expand==1 form take the CUDA-core expand (``mma=False``), which
+from the device, ``expand_dw.cuh`` ``max_smem``).  ``sweep1_design``
+names the design of a sweep 1: bf16 NHWC x takes the tensor-core expand
+(``mma``), f32 NHWC x the 3xTF32 one (``tf32``, its box in channel
+chunks); C_in % 8 != 0, (N, H, C, W) f32 x, an unaligned x and the
+expand==1 form take the CUDA-core expand (``core``: ``mma=False``), which
 stages x in steps of 32 channels without a box and keeps the expand
 weights in f32.  ``chip_smoke.py``'s split phase holds these numbers to
 what the kernels' ``*_occupancy`` entry points report on the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 MAX_BOX = 256          # elements along one dimension of a TMA box
 SMEM_OPT_IN = 232448   # dynamic shared memory a CTA may have on an H100
@@ -43,6 +49,8 @@ GP_TP, GP_BOX = 128, 16384   # gate_project.cuh's TP, BOX_BYTES
 GP_SLOTS, GP_YS_LD = 4, 40   # its SLOTS, YS_LD
 GP_MAX_COUT = 128            # its MAX_NT * 8
 GP_GTP, GP_GKC = 32, 32      # gate_project_generic's pixels, channels
+# The sweep-1 designs by the value of ``*_last_sweep1``.
+SWEEP1_DESIGNS = {0: "core", 1: "mma", 2: "tf32"}
 
 
 def _up(v: int, m: int) -> int:
@@ -53,6 +61,64 @@ def _halo(k: int):
     p = (k - 1) // 2
     hh, hw = TH + 2 * p, TW + 2 * p
     return hh, hw, hh * hw
+
+
+def _edw_tf32_smem(k: int, c_in: int, bch: int) -> dict:
+    """``expand_dw.cuh`` ``Smem<K, true, true, 4>(c_in, bch)`` (kTf32):
+    f32 words, the x box ``bch`` channels wide (+ 4), the weights' TF32 hi
+    and lo parts [32][C_in8 + 4] each."""
+    hh, hw, hp = _halo(k)
+    cin8 = _up(c_in, 8)
+    ldxs = bch + 4
+    total = (hp * CE * 4 + (hp + 15) // 16 * 16 * ldxs * 4
+             + 2 * CE * (cin8 + 4) * 4 + NWARPS * 32 * 4 + CE * 4 + 8 + 128)
+    return {"smem": total, "box": (ldxs, hw, hh),
+            "boxes": -(-cin8 // bch), "chunk": bch}
+
+
+def _tf32_fit(k: int, c_in: int, want: int) -> int:
+    """``expand_dw.cuh`` ``tf32_fit``: the channels per box of the fewest
+    chunks with which ``want`` CTAs share an SM, or 0."""
+    cin8 = _up(c_in, 8)
+    for chunks in range(1, cin8 // 8 + 1):
+        b = _up(-(-cin8 // chunks), 8)
+        if b + 4 > MAX_BOX:
+            continue
+        t = _edw_tf32_smem(k, c_in, b)["smem"]
+        if t <= SMEM_OPT_IN and want * (t + CTA_RESERVED) <= SM_SMEM:
+            return b
+    return 0
+
+
+def tf32_chunk(k: int, c_in: int) -> int:
+    """``expand_dw.cuh`` ``tf32_chunk`` on an H100: the channels per x box
+    of the 3xTF32 design, sized for two CTAs per SM where that costs at
+    most one chunk more than one CTA's fewest, else for one; 0 where no
+    chunk fits (the shape takes the CUDA-core expand)."""
+    one, two = _tf32_fit(k, c_in, 1), _tf32_fit(k, c_in, 2)
+    cin8 = _up(c_in, 8)
+    if two and -(-cin8 // two) <= (-(-cin8 // one) if one else 0) + 1:
+        return two
+    return one
+
+
+def sweep1_design(bf16: bool, c_in: int, expand: bool = True,
+                  layout: str = "nhwc", aligned: bool = True,
+                  k: int = 3) -> str:
+    """The design of a sweep 1 of ``expand_dw.cuh`` (``dispatch_k``):
+    "mma" (bf16: the tensor-core expand; NHWC x at C_in % 8 == 0 and
+    aligned, every (N, H, C, W) x), "tf32" (f32 NHWC x at C_in % 8 == 0,
+    aligned, within shared memory: ``tf32_chunk``) or "core" (the
+    CUDA-core expand: the rest, and the expand==1 form)."""
+    if not expand:
+        return "core"
+    if bf16:
+        return "mma" if layout != "nhwc" or (c_in % 8 == 0 and aligned) \
+            else "core"
+    if (layout == "nhwc" and c_in % 8 == 0 and aligned
+            and tf32_chunk(k, c_in)):
+        return "tf32"
+    return "core"
 
 
 def _edw_smem(k: int, c_in: int, xb: int, mma: bool = True,
@@ -85,12 +151,14 @@ def _edw_smem(k: int, c_in: int, xb: int, mma: bool = True,
 
 
 def sweep1_staging(k: int, c_in: int, layout: str = "nhwc",
-                   mma: bool = True, expand: bool = True) -> dict:
+                   mma: bool = True, expand: bool = True,
+                   tf32: bool = False) -> dict:
     """How a sweep 1 of ``expand_dw.cuh`` stages x for a block of kernel
     ``k`` and ``c_in`` channels: {"smem": bytes per CTA, "box": the TMA
     box's dims, innermost first, "boxes": boxes per halo}.  ``mma``: the
     bf16 tensor-core expand (``tensor_core_expand``); without it, no box,
-    any layout.  ``layout`` "nhwc" (expand_dw, flat_block, fused_sums; the
+    any layout.  ``tf32`` (with ``mma``): the f32 3xTF32 design, NHWC x in
+    ``tf32_chunk``'s chunks (and "chunk": its channels per box).  ``layout`` "nhwc" (expand_dw, flat_block, fused_sums; the
     whole box unless it is wider than a box may be or would not fit, then
     kCSplit's chunks) or "xt" ((N, H, C, W) x at W % 8 == 0: mega_block's
     kXBox, halves from C_in16 64) or "xt_rows" (W % 8 != 0: plain loads
@@ -101,6 +169,15 @@ def sweep1_staging(k: int, c_in: int, layout: str = "nhwc",
         raise ValueError(f"unknown layout {layout!r}")
     if not mma:
         return _edw_smem(k, c_in, 0, False, expand)
+    if tf32:
+        if layout != "nhwc":
+            raise ValueError("the 3xTF32 sweep 1 takes NHWC x only")
+        bch = tf32_chunk(k, c_in)
+        if not bch:
+            raise ValueError(
+                f"k {k}, C_in {c_in}: the 3xTF32 sweep 1 fits no x chunk "
+                f"in a CTA's {SMEM_OPT_IN} bytes of shared memory")
+        return _edw_tf32_smem(k, c_in, bch)
     if layout == "xt":
         return _edw_smem(k, c_in, 2 if _up(c_in, 16) >= 64 else 1)
     if layout == "xt_rows":
@@ -245,7 +322,8 @@ def tensor_core_expand(dtype_is_bf16: bool, c_in: int,
                        expand: bool = True) -> bool:
     """Whether a bf16 NHWC sweep 1 expands on the tensor cores from a TMA
     box (``expand_dw.cuh`` ``use_mma``, for the contiguous tensors the
-    wrappers pass): bf16, an expand, C_in % 8 == 0."""
+    wrappers pass): bf16, an expand, C_in % 8 == 0.  (f32's 3xTF32 design:
+    ``sweep1_design``.)"""
     return dtype_is_bf16 and expand and c_in % 8 == 0
 
 
@@ -261,16 +339,33 @@ def _refuse(name: str, shape: str, st: dict) -> None:
 
 
 def check_sweep1(name: str, k: int, c_in: int, layout: str = "nhwc",
-                 mma: bool = True, expand: bool = True) -> dict:
+                 mma: bool = True, expand: bool = True,
+                 tf32: bool = False) -> dict:
     """``sweep1_staging`` or ``ValueError`` where the kernel cannot take
     the shape (NHWC x past C_in 1856 at k5 and 2176 at k3, where the expand
     weights beside the chunks outgrow shared memory; (N, H, C, W) x past
     C_in 512; the CUDA-core expand past C_in 1404 at k5 and 1480 at k3,
-    its f32 weights)."""
-    st = sweep1_staging(k, c_in, layout, mma, expand)
-    kind = f"{layout} x" if mma else "CUDA-core expand"
+    its f32 weights; the 3xTF32 design takes C_in only where
+    ``tf32_chunk`` fits one, ``sweep1_design`` sends the rest to the
+    CUDA-core expand)."""
+    st = sweep1_staging(k, c_in, layout, mma, expand, tf32)
+    kind = ("3xTF32" if tf32 else f"{layout} x") if mma \
+        else "CUDA-core expand"
     _refuse(name, f"k {k}, C_in {c_in} ({kind})", st)
     return st
+
+
+@functools.lru_cache(maxsize=None)
+def check_sweep1_design(name: str, k: int, c_in: int, bf16: bool,
+                        expand: bool = True, aligned: bool = True) -> str:
+    """``check_sweep1`` of the design ``sweep1_design`` names for an NHWC
+    block (the wrappers of ``expand_dw``, ``flat_block``, ``fused_sums``,
+    on every launch: cached, so a shape costs its arithmetic once);
+    returns the design."""
+    design = sweep1_design(bf16, c_in, expand, aligned=aligned, k=k)
+    check_sweep1(name, k, c_in, mma=design != "core", expand=expand,
+                 tf32=design == "tf32")
+    return design
 
 
 def check_flat_s2(k: int, c_in: int) -> dict:

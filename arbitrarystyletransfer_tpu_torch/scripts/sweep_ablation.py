@@ -1,7 +1,7 @@
 """Where sweep 1's time goes: ``expand_dw`` and ``mega_block`` with one
 part cut out.
 
-    python -m arbitrarystyletransfer_tpu_torch.scripts.sweep_ablation
+    python -m arbitrarystyletransfer_tpu_torch.scripts.sweep_ablation [--f32]
 
 Run from the repository root on the card's machine.  For each cut below it
 copies the package into ``build/ablation/<cut>/`` (git-ignored), edits
@@ -23,6 +23,20 @@ and the compiler's spills of the edited kernels.  The cuts:
 * ``hidden_store``: no store of the hidden to HBM;
 * ``k3_three_ctas``: not a cut: ``__launch_bounds__`` asks for three
   CTAs per SM at k3 (at most 85 registers) instead of two.
+
+With ``--f32`` it times ``expand_dw`` in float32 instead (the 3xTF32
+expand, ``expand_mtile_tf32``; no ``mega_block``: its f32 x keeps the
+CUDA-core expand) at the ten shapes of the 512px f32 "fused" request
+(``F32_SHAPES``), under the cuts of ``TF32_CUTS``; each line adds the x
+boxes per halo and the design each shape took, and the ms per request
+(each shape's ms times its launches):
+
+* ``none``: the kernel as it is;
+* ``tf32_small``: only the hi hi product of each k8 step (1xTF32);
+* ``tf32_mma``: none of the three products (their fragment reads stay);
+* ``one_cta``, ``two_cta``: not cuts: ``tf32_chunk`` sizes every shape's
+  x chunks for one CTA per SM, or for two where any chunking lets two
+  share an SM, instead of choosing between the two.
 
 Needs CUDA; fails without it.
 """
@@ -46,7 +60,7 @@ CUTS = {
                    ("        mma_bf16(acc[i], a, b0);\n"
                     "        mma_bf16(acc[i + 1], a, b1);\n", "")],
     "x_stage": [("      mbar_expect_tx(bar, HP * ldx * 2);\n"
-                 "      tma_load_4d(xs, xmap, 0, tx0 - P, ty0 - P, n, bar);",
+                 "      tma_load_4d(xs, xmap, ch0, tx0 - P, ty0 - P, n, bar);",
                  "      mbar_arrive(bar);")],
     "xt_stage": [(
         "      mbar_expect_tx(bar, G::HH * cin16 * G::BW * 2);\n"
@@ -59,6 +73,29 @@ CUTS = {
                        "__launch_bounds__(NTHREADS, MMA ? (K == 3 ? 3 : 2) "
                        ": 1)")],
 }
+_TF = ("    for (int i = 0; i < NTN; ++i) "
+       "mma_tf32(part[i], {}, {}[i][0], {}[i][1]);\n")
+_SIZING = "  return two > 0 && chunks(two) <= chunks(one) + 1 ? two : one;"
+TF32_CUTS = {
+    "none": [],
+    "tf32_small": [(_TF.format("al", "bh", "bh"), ""),
+                   (_TF.format("ah", "bl", "bl"), "")],
+    "tf32_mma": [(_TF.format("al", "bh", "bh"), ""),
+                 (_TF.format("ah", "bl", "bl"), ""),
+                 (_TF.format("ah", "bh", "bh"), "")],
+    "one_cta": [(_SIZING, "  return one;")],
+    "two_cta": [(_SIZING, "  return two > 0 ? two : one;")],
+}
+# name, batch, H=W, C_in, E, k, launches per 512px f32 "fused" request
+# (chip_smoke.py's EXPAND_DW_CASES rows of the path).
+F32_SHAPES = (("e1", 16, 512, 16, 96, 3, 1), ("e3", 16, 256, 24, 144, 3, 1),
+              ("e5-e6", 16, 128, 40, 160, 5, 2),
+              ("d3", 8, 128, 96, 288, 5, 1), ("d4", 8, 128, 96, 384, 5, 1),
+              ("d5-d7", 8, 256, 80, 320, 3, 3),
+              ("d8-d9", 8, 512, 40, 160, 5, 2),
+              ("d10", 8, 512, 40, 240, 5, 1),
+              ("d11-d12", 8, 512, 24, 144, 3, 2),
+              ("d13", 8, 512, 16, 96, 3, 1))
 # name, batch, H=W, C_in, E, k (chip_smoke.py's EXPAND_DW_CASES rows).
 SHAPES = (("e1", 16, 512, 16, 96, 3), ("e3", 16, 256, 24, 144, 3),
           ("d5-d7", 8, 256, 80, 320, 3), ("d8-d9", 8, 512, 40, 160, 5),
@@ -99,12 +136,15 @@ def timed(fn):
     return a.elapsed_time(b) / 10
 
 
-shapes, mega_shapes = json.loads(sys.argv[1])
-ms, mega_ms = {}, {}
+shapes, mega_shapes, dtype = json.loads(sys.argv[1])
+lib = _build.load_library()
+ms, mega_ms, boxes, design = {}, {}, {}, {}
 for name, n, hw, cin, e, k in shapes:
-    x = rand(n, hw, hw, cin).bfloat16()
+    x = rand(n, hw, hw, cin).to(getattr(torch, dtype))
     we, wd = rand(cin, e) / math.sqrt(cin), rand(k, k, e) / k
     ms[name] = timed(lambda: expand_dw(x, we, wd, k))
+    boxes[name] = lib.expand_dw_last_boxes()
+    design[name] = lib.expand_dw_last_sweep1()
     del x
     torch.cuda.empty_cache()
 for name, n, hw, cin, e, cout, k in mega_shapes:
@@ -117,20 +157,29 @@ for name, n, hw, cin, e, cout, k in mega_shapes:
     mega_ms[name] = timed(lambda: mega_block(xt, we, wd, se, wp, k))
     del xt
     torch.cuda.empty_cache()
-print(json.dumps({"ms": ms, "mega_block_ms": mega_ms,
-                  "spill_bytes": spills}))
+print(json.dumps({"ms": ms, "mega_block_ms": mega_ms, "boxes": boxes,
+                  "design": design, "spill_bytes": spills}))
 """
 
 
 def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--f32", action="store_true",
+                    help="time expand_dw in float32 under TF32_CUTS")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_ablation: CUDA is not available", file=sys.stderr)
         return 2
     root = Path.cwd()
-    for cut, edits in CUTS.items():
-        copy = root / "build" / "ablation" / cut
+    cuts = TF32_CUTS if args.f32 else CUTS
+    what = ([[s[:6] for s in F32_SHAPES], [], "float32"] if args.f32
+            else [SHAPES, MEGA_SHAPES, "bfloat16"])
+    for cut, edits in cuts.items():
+        copy = root / "build" / "ablation" / (cut + "_f32" * args.f32)
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(root / "arbitrarystyletransfer_tpu_torch",
                         copy / "arbitrarystyletransfer_tpu_torch")
@@ -143,13 +192,16 @@ def main(argv=None) -> int:
         env = dict(os.environ, PYTHONPATH=str(copy),
                    AST_TORCH_BUILD_DIR=str(copy / "kernels"))
         run = subprocess.run([sys.executable, "-c", TIMER,
-                              json.dumps([SHAPES, MEGA_SHAPES])], env=env,
+                              json.dumps(what)], env=env,
                              cwd=copy,
                              capture_output=True, text=True)
         if run.returncode != 0:
             raise RuntimeError(f"{cut}: {run.stderr[-2000:]}")
-        print(json.dumps({"cut": cut, **json.loads(run.stdout)}),
-              flush=True)
+        rec = json.loads(run.stdout)
+        if args.f32:
+            rec["per_request_ms"] = sum(rec["ms"][s[0]] * s[6]
+                                        for s in F32_SHAPES)
+        print(json.dumps({"cut": cut, **rec}), flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Per-sweep device times of the whole-block kernels on the card.
 
-    python -m arbitrarystyletransfer_tpu_torch.scripts.sweep_times
+    python -m arbitrarystyletransfer_tpu_torch.scripts.sweep_times [--f32]
 
 Run from the repository root (it reads the path shapes from
 ``chip_smoke.py``'s ``EXPAND_DW_CASES`` and ``FLAT_BLOCK_CASES``).  Builds
@@ -12,9 +12,14 @@ device ms from a ``torch.profiler`` trace (kernels ``expand_dw_kernel``;
 bound, its share of that bound, its achieved rates and (where the library
 answers the query) the
 registers, shared memory and resident CTAs per SM of its kernel at that
-shape.  Then the registers and spills of each sweep's kernels from the
+shape; with ``--f32``, ``expand_dw`` and ``flat_block`` at the same
+shapes in float32 after them (the stylize CLI's dtype: the 3xTF32 sweep
+1).  Then the registers and spills of each sweep's kernels from the
 compiler's report and their opcode counts (``sass_ops``).  Prints one JSON
-object per shape and sweep, then a summary.  Needs CUDA; fails without it.
+object per shape and sweep, then a summary (ms per request by kernel,
+sweep and dtype).  Needs CUDA; fails without it.  The shapes come from
+the bf16 rows, so an older ``chip_smoke.py`` serves too: run from a
+parent's tree with this file copied in, it times the parent's kernels.
 """
 
 from __future__ import annotations
@@ -70,10 +75,12 @@ def s2_sweep_costs(n, hw, c_in, e, c_out, k, size=2):
     }
 
 
-def bound_ms(nbytes, mm, dw):
-    """(bound ms, "bytes" or "operations")."""
+def bound_ms(nbytes, mm, dw, mm_peak=PEAK_BF16):
+    """(bound ms, "bytes" or "operations"): the products at ``mm_peak``
+    (bf16's tensor-core peak; f32's at a third of TF32's, 3xTF32), the
+    depthwise at the f32 peak."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = mm / PEAK_BF16 + dw / PEAK_F32
+    t_ops = mm / mm_peak + dw / PEAK_F32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -101,9 +108,10 @@ def profile_sweeps(fn, iters=10):
     return out
 
 
-def sweep_record(label, kernel, sweep, ms, cost, per_req, occ):
+def sweep_record(label, kernel, sweep, ms, cost, per_req, occ, size=2):
     nbytes, mm, dw = cost
-    b, by = bound_ms(nbytes, mm, dw)
+    b, by = bound_ms(nbytes, mm, dw,
+                     PEAK_BF16 if size == 2 else PEAK_TF32 / 3)
     regs, smem, ctas = occ.get(sweep, (None, None, None))
     return {"shape": label, "kernel": kernel, "sweep": sweep,
             "ms": ms, "bound_ms": b, "bound_by": by,
@@ -112,13 +120,15 @@ def sweep_record(label, kernel, sweep, ms, cost, per_req, occ):
             "tflops": (mm + dw) / ms / 1e9 if ms else None,
             "f32_tflops": dw / ms / 1e9 if ms else None,
             "tbytes_s": nbytes / ms / 1e9 if ms else None,
-            "per_request": per_req}
+            "per_request": per_req, "dtype": "bfloat16" if size == 2
+            else "float32"}
 
 
-def occupancy(kernel, k, c_in, e=0, c_out=0, residual=False):
+def occupancy(kernel, k, c_in, e=0, c_out=0, residual=False, bf16=True):
     """{sweep: (registers, shared memory bytes, resident CTAs per SM)} of
-    the bf16 kernels of ``kernel`` ("expand_dw", "flat_block",
-    "mega_block" or "flat_s2_block") at this shape, from the runtime; {}
+    the kernels of ``kernel`` ("expand_dw", "flat_block", "mega_block" or
+    "flat_s2_block") at this shape, from the runtime (f32: sweep 1's 3xTF32
+    kernel of expand_dw and flat_block, and flat_block's sweep 2); {}
     where the library has no such query."""
     import ctypes
 
@@ -127,6 +137,18 @@ def occupancy(kernel, k, c_in, e=0, c_out=0, residual=False):
     lib = _build.load_library()
     out = (ctypes.c_int * 6)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
+    if not bf16:
+        fn = getattr(lib, f"{kernel}_f32_occupancy", None)
+        if fn is None:
+            return {}
+        _build.check(fn(k, c_in, ptr), f"{kernel}_f32_occupancy")
+        occ = {"sweep1": tuple(out[:3])}
+        if kernel == "flat_block":
+            _build.check(lib.gate_project_occupancy(1, e, c_out,
+                                                    int(residual), 0, 0, ptr),
+                         "gate_project_occupancy")
+            occ["sweep2"] = tuple(out[:3])
+        return occ
     name, args = {
         "expand_dw": ("expand_dw_occupancy", (k, c_in)),
         "flat_block": ("flat_block_occupancy",
@@ -167,10 +189,11 @@ def random_se(rand, e):
 
 
 def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
-                mega_cases=(), s2_cases=()):
-    """Per-sweep records of expand_dw at ``expand_cases``, flat_block at
-    ``flat_cases``, mega_block at ``mega_cases`` and flat_s2_block at
-    ``s2_cases`` (``chip_smoke.py``'s tuples); returns the list."""
+                mega_cases=(), s2_cases=(), expand_dtype="bfloat16"):
+    """Per-sweep records of expand_dw at ``expand_cases`` (x of
+    ``expand_dtype``), flat_block at ``flat_cases`` (x of each case's
+    dtype), mega_block at ``mega_cases`` and flat_s2_block at ``s2_cases``
+    (bf16; ``chip_smoke.py``'s tuples); returns the list."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
         expand_dw,
@@ -190,10 +213,10 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
 
     records = []
 
-    def emit(name, kernel, ms, costs, per_req, occ, staging=None):
+    def emit(name, kernel, ms, costs, per_req, occ, staging=None, size=2):
         for sweep in ms:
             rec = sweep_record(name, kernel, sweep, ms[sweep], costs[sweep],
-                               per_req, occ)
+                               per_req, occ, size)
             if staging is not None and sweep == "sweep1":
                 rec["staging"] = staging
             records.append(rec)
@@ -201,15 +224,16 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
         torch.cuda.empty_cache()
 
     for name, n, hw, c_in, e, k, bn, per_req in expand_cases:
-        x = rand(n, hw, hw, c_in).bfloat16()
+        x = rand(n, hw, hw, c_in).to(getattr(torch, expand_dtype))
+        size = x.element_size()
         we, wd = rand(c_in, e) / math.sqrt(c_in), rand(k, k, e) / k
         be = 0.1 * rand(e) if bn else None
         bd = 0.1 * rand(e) if bn else None
         ms = profile_sweeps(lambda: expand_dw(x, we, wd, k, True, be, bd))
         del x
         emit(name, "expand_dw", {"sweep1": ms["sweep1"]},
-             sweep_costs(n, hw, c_in, e, 0, k, False), per_req,
-             occupancy("expand_dw", k, c_in))
+             sweep_costs(n, hw, c_in, e, 0, k, False, size), per_req,
+             occupancy("expand_dw", k, c_in, bf16=size == 2), size=size)
 
     def block(c_in, e, c_out, k, bn):
         we, wd = rand(c_in, e) / math.sqrt(c_in), rand(k, k, e) / k
@@ -221,14 +245,16 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
 
     for case in flat_cases:
         name, n, hw, c_in, e, c_out, k, bn, residual = case[:9]
-        x = rand(n, hw, hw, c_in).bfloat16()
+        x = rand(n, hw, hw, c_in).to(getattr(torch, case[9]))
+        size = x.element_size()
         args, kw = block(c_in, e, c_out, k, bn)
         ms = profile_sweeps(lambda: flat_block(
             x, *args, pre_act=True, identity=residual, **kw))
         del x
         emit(name, "flat_block", ms,
-             sweep_costs(n, hw, c_in, e, c_out, k, residual), case[-1],
-             occupancy("flat_block", k, c_in, e, c_out, residual))
+             sweep_costs(n, hw, c_in, e, c_out, k, residual, size), case[-1],
+             occupancy("flat_block", k, c_in, e, c_out, residual,
+                       bf16=size == 2), size=size)
     for case in mega_cases:
         name, n, h, w, c_in, e, c_out, k, bn, residual = case[:10]
         assert h == w, "the path's mega shapes are square"
@@ -386,8 +412,14 @@ def ptxas_report(build_log, patterns=sum(SWEEPS.values(), ())):
 
 
 def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--f32", action="store_true",
+                    help="also time expand_dw and flat_block in float32")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_times: CUDA is not available", file=sys.stderr)
         return 2
@@ -410,9 +442,14 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         records = time_sweeps(gen, expand_cases, flat_cases,
                               mega_cases=mega_cases, s2_cases=s2_cases)
+        if args.f32:
+            records += time_sweeps(
+                gen, expand_cases,
+                [c[:9] + ("float32",) + c[10:] for c in flat_cases],
+                expand_dtype="float32")
     per_req = {}
     for r in records:
-        key = f"{r['kernel']} {r['sweep']}"
+        key = f"{r['kernel']} {r['sweep']} {r['dtype']}"
         per_req[key] = per_req.get(key, 0.0) + r["ms"] * r["per_request"]
     print(json.dumps({"per_request_ms": per_req}))
     for kernel, regs, st, ld in ptxas_report(_build.build_info["log"]):

@@ -478,7 +478,7 @@ EXPAND_DW_CASES = (
 # every other case's as one box.  It draws from a generator of its own
 # (seed + ADA_OUT_SEED), so the other cases and phases keep their inputs.
 ADA_OUT_CASE = ("ada_out", 16, 128, 256, 768, 3, False, 0)
-ADA_OUT_SEED, ADA_OUT_BOXES = 17, 4
+ADA_OUT_SEED = 17
 # flat_block shapes: name (the blocks of the 512px path it is), batch, H=W,
 # C_in, E, C_out, k, folded-BN biases, residual, dtype, launches per request
 # on "flat-all" ("auto"'s come from its plan, ``auto_case_launches``).  The
@@ -583,6 +583,16 @@ def f32_row(label):
 FLAT_BLOCK_F32 = f32_rows(FLAT_BLOCK_CASES, ("d0-d1@1024",))
 FLAT_S2_F32 = f32_rows(FLAT_S2_CASES)
 MEGA_F32 = f32_rows(MEGA_CASES, ("d0-d1@1024",))
+# expand_dw's f32 rows (x float32: the 3xTF32 sweep 1): each 512px path
+# shape of EXPAND_DW_CASES, its launches those of one 512px batch-8 f32
+# "fused" request, held at F32_TOL / SUMS_TOL and summed per f32 request
+# beside the bf16 sums; plus d0-d2 at 1024px and ada_out (C_in 256: the
+# x box in 4 chunks of 64 channels, one CTA per SM), 0 launches.  They
+# draw from a generator of their own (seed + EXPAND_F32_SEED).
+EXPAND_DW_F32 = tuple((c[0] + F32_TAG,) + c[1:] for c in EXPAND_DW_CASES
+                      + (ADA_OUT_CASE,)
+                      if c[-1] or c[0] in ("d0-d2@1024", ADA_OUT_CASE[0]))
+EXPAND_F32_SEED = 25
 # sweep 2's design by the value of ``*_last_sweep2``.
 SWEEP2_DESIGNS = {0: "generic", 1: "mma", 2: "tf32"}
 
@@ -853,7 +863,38 @@ def sdpa_yardstick(q, k, v, backward=False, windows=5, iters=10,
     raise AssertionError("no SDPA backend took the yardstick")
 
 
+def sweep1_check(kernel, label, dtype, c_in, k, expand=True):
+    """The sweep-1 design and x boxes of ``kernel``'s last launch
+    ("expand_dw" or "flat_block"): the design ``limits.sweep1_design``
+    names for the shape (the bf16 tensor-core expand, f32's 3xTF32 or the
+    CUDA-core one) and the boxes per halo of its ``sweep1_staging`` (the
+    whole box, kCSplit's chunks, ``tf32_chunk``'s); returns (design,
+    boxes)."""
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import limits
+    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
+        load_library,
+    )
+
+    lib = load_library()
+    design = limits.SWEEP1_DESIGNS.get(
+        getattr(lib, f"{kernel}_last_sweep1")())
+    boxes = getattr(lib, f"{kernel}_last_boxes")()
+    want = limits.sweep1_design(dtype == "bfloat16", c_in, expand, k=k)
+    check(design == want, f"{kernel} {label} {dtype}: sweep 1 took {design}, "
+          f"the mirror says {want}")
+    if want != "core":
+        chunks = limits.sweep1_staging(k, c_in, tf32=want == "tf32")["boxes"]
+        check(boxes == chunks, f"{kernel} {label}: {boxes} x boxes per "
+              f"halo, the mirror {chunks}")
+    return design, boxes
+
+
 def expand_dw_phase(gen, cases=None):
+    """expand_dw against its twin at each case, with the sweep-1 design and
+    boxes each must take (``sweep1_check``); returns the worst hidden error
+    of the bf16 cases, the device ms per 512px batch-8 bf16 "fused"
+    request (kernel, twin), its bound, and the same of the f32 request (the
+    f32 rows, ``EXPAND_DW_F32``) as a dict."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
         expand_dw,
@@ -863,24 +904,23 @@ def expand_dw_phase(gen, cases=None):
     worst = 0.0
     ms = plain_ms = 0.0
     bound = Bound()
+    f32 = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound(), "worst": 0.0}
     # Off the main path: the expand==1 form, and a C_in that is not a
     # multiple of 8 (the CUDA-core expand instead of the tensor cores).
-    from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
-        expand_dw_last_boxes,
-    )
-
     if cases is None:
         cases = EXPAND_DW_CASES + (("expand1", 2, 128, 40, 40, 3, True, 0),
                                    ("cin12", 2, 37, 12, 40, 5, True, 0),
-                                   ADA_OUT_CASE)
+                                   ADA_OUT_CASE) + EXPAND_DW_F32
     own = torch.Generator(device=DEVICE).manual_seed(SEED + ADA_OUT_SEED)
     big = torch.Generator(device=DEVICE).manual_seed(SEED + SIZE_CASES_SEED)
+    gen32 = torch.Generator(device=DEVICE).manual_seed(SEED + EXPAND_F32_SEED)
     for name, n, hw, c_in, e, k, bn, per_req in cases:
         expand = name != "expand1"
         dev = dict(device=DEVICE)
-        g = (own if name == ADA_OUT_CASE[0] else big if size_case(name)
-             else gen)
-        x = torch.randn(n, hw, hw, c_in, generator=g, **dev).bfloat16()
+        dt = torch.float32 if f32_row(name) else torch.bfloat16
+        g = (gen32 if f32_row(name) else own if name == ADA_OUT_CASE[0]
+             else big if size_case(name) else gen)
+        x = torch.randn(n, hw, hw, c_in, generator=g, **dev).to(dt)
         we = (torch.randn(c_in, e, generator=g, **dev) / math.sqrt(c_in)
               if expand else None)
         wd = torch.randn(k, k, e, generator=g, **dev) / k
@@ -889,37 +929,49 @@ def expand_dw_phase(gen, cases=None):
         args = (x, we, wd, k, expand, be, bd)
         hidden, sums = expand_dw(*args)
         torch.cuda.synchronize()
-        boxes = expand_dw_last_boxes()
-        want = (ADA_OUT_BOXES if name == ADA_OUT_CASE[0]
-                else 1 if expand and c_in % 8 == 0 else None)
-        check(want is None or boxes == want, f"expand_dw {name}: x staged in "
-              f"{boxes} boxes per halo, expected {want}")
+        design, boxes = sweep1_check("expand_dw", name, str(dt)[6:], c_in, k,
+                                     expand)
         r_hidden, r_sums = expand_dw_reference(*args)
         err_h, err_s = max_err(hidden, r_hidden), max_err(sums, r_sums)
-        tol_h = BF16_TOL * float(r_hidden.float().abs().max())
+        rel = F32_TOL if dt == torch.float32 else BF16_TOL
+        tol_h = rel * float(r_hidden.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
-        worst = max(worst, err_h)
+        if f32_row(name):
+            f32["worst"] = max(f32["worst"], err_h)
+        else:
+            worst = max(worst, err_h)
         del hidden, sums, r_hidden, r_sums
         t_k = timed_ms(lambda: expand_dw(*args))
         t_p = timed_ms(lambda: expand_dw_reference(*args), iters=3, warmup=1)
-        ms += per_req * t_k
-        plain_ms += per_req * t_p
+        size = x.element_size()
         case_bound = Bound()
-        case_bound.add_block(2 * n * hw * hw * (c_in + e) + 4 * n * e,
+        case_bound.add_block(size * n * hw * hw * (c_in + e) + 4 * n * e,
                              2 * n * hw * hw * e * c_in * expand,
-                             2 * n * hw * hw * e * k * k, 2)
-        bound.merge(case_bound, per_req)
-        log(f"expand_dw {name:8s} x={tuple(x.shape)} E={e} k={k} bn={bn}: "
-            f"hidden err {err_h:.4g} (tol {tol_h:.4g}), sums err "
-            f"{err_s:.4g} (tol {tol_s:.4g}); kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms, bound {case_bound.ms():.4f} ms "
-            f"({case_bound.by()}), x boxes per halo {boxes}")
+                             2 * n * hw * hw * e * k * k, size)
+        if f32_row(name):
+            f32["ms"] += per_req * t_k
+            f32["plain_ms"] += per_req * t_p
+            f32["bound"].merge(case_bound, per_req)
+        else:
+            ms += per_req * t_k
+            plain_ms += per_req * t_p
+            bound.merge(case_bound, per_req)
+        log(f"expand_dw {name:8s} x={tuple(x.shape)} {str(dt)[6:]} E={e} "
+            f"k={k} bn={bn}: hidden err {err_h:.4g} (tol {tol_h:.4g}), sums "
+            f"err {err_s:.4g} (tol {tol_s:.4g}); kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {case_bound.ms():.4f} ms "
+            f"({case_bound.by()}), sweep 1 {design}, x boxes per halo "
+            f"{boxes}")
         check(err_h <= tol_h and err_s <= tol_s, f"expand_dw {name} differs")
         torch.cuda.empty_cache()
     if ms:  # the path's cases
         log(f"expand_dw per fused request: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
-    return worst, ms, plain_ms, bound
+    if f32["ms"]:
+        log(f"expand_dw per fused f32 request: kernel {f32['ms']:.4f} ms, "
+            f"plain {f32['plain_ms']:.4f} ms, bound "
+            f"{f32['bound'].ms():.4f} ms ({f32['bound'].by()})")
+    return worst, ms, plain_ms, bound, f32
 
 
 def ragged_phase(gen):
@@ -1029,6 +1081,31 @@ def smem_mirror_check():
         f"{MIRROR_C_IN[0]}-{MIRROR_C_IN[-1]}; C_out {MIRROR_C_OUT}) equal "
         f"the kernels' own, the card's {lib.max_smem_optin()} bytes per CTA "
         "the mirror's")
+    # The f32 3xTF32 sweep 1 (expand_dw, flat_block): its bytes, boxes per
+    # halo and channels per box, or both refuse it (the CUDA-core expand
+    # takes the shape); and the CTAs per SM its sizing was made for.
+    tf32 = 0
+    for k in (3, 5):
+        for c_in in MIRROR_C_IN:
+            chunk = limits.tf32_chunk(k, c_in)
+            st = limits._edw_tf32_smem(k, c_in, chunk) if chunk else None
+            want = st and (st["smem"], st["boxes"], chunk)
+            for name in ("expand_dw", "flat_block"):
+                rc = getattr(lib, f"{name}_f32_occupancy")(k, c_in, ptr)
+                got = None if rc else (out[1], out[3], out[4])
+                check(got == want, f"{name} f32 k {k} C_in {c_in}: the "
+                      f"kernel takes {got} (bytes, boxes, channels per box), "
+                      f"the mirror {want} (None: the CUDA-core expand)")
+                if got:
+                    two = 2 * (st["smem"] + limits.CTA_RESERVED) \
+                        <= limits.SM_SMEM
+                    check(out[2] >= (2 if two else 1), f"{name} f32 k {k} "
+                          f"C_in {c_in}: {out[2]} CTAs per SM")
+                compared += 1
+                tf32 += got is not None
+    log(f"3xTF32 sweep-1 mirror: {len(MIRROR_C_IN) * 4} shapes (k 3, 5; "
+        f"expand_dw and flat_block), {tf32} on the design, the rest on the "
+        "CUDA-core expand, equal the kernels' bytes, boxes and chunks")
     out4 = (ctypes.c_int * 4)()
     ptr4 = ctypes.cast(out4, ctypes.c_void_p)
     designs = {"mma": 0, "tf32": 0, "generic": 0}
@@ -1167,6 +1244,21 @@ def sweeps_phase(gen):
         f"{r['kernel']} {r['shape']} {r['sweep']} {r['ms']:.4f}"
         for r in big))
     sweep2_phase(gen)
+    # The f32 path rows of expand_dw and flat_block by sweep (the 3xTF32
+    # sweep 1), on a generator of their own.
+    gen32 = torch.Generator(device=DEVICE).manual_seed(
+        SEED + EXPAND_F32_SEED + 1)
+    f32 = time_sweeps(
+        gen32, [c for c in EXPAND_DW_F32 if c[-1]],
+        [c for c in FLAT_BLOCK_F32 if c[-1]], DEVICE, log,
+        expand_dtype="float32")
+    per_f32 = {}
+    for r in f32:
+        key = f"{r['kernel']} {r['sweep']}"
+        per_f32[key] = per_f32.get(key, 0.0) + r["ms"] * r["per_request"]
+    log("sweeps per 512px f32 request (expand_dw on \"fused\", flat_block "
+        "on \"flat-all\"): " + ", ".join(f"{k} {v:.4f} ms"
+                                       for k, v in per_f32.items()))
     return per_req
 
 
@@ -1429,15 +1521,17 @@ def check_sweep2(kernel, label, dtype, per_req):
 
 def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
     """One flat kernel against its twin at each case; returns the worst y
-    error of the path's cases and the device ms per request of "flat-all"
-    (kernel, twin) and of "auto" (kernel, twin).  The f32 path rows
-    (``f32_row``) are summed per f32 request apart, and logged."""
+    error of the path's cases, the device ms per request of "flat-all"
+    (kernel, twin) and of "auto" (kernel, twin), their bounds, and the
+    same per f32 request (the f32 path rows, ``f32_row``, summed apart):
+    {"flat-all": (kernel, twin, bound), "auto": ...}.  flat_block's sweep
+    1 must take the design the mirror names (``sweep1_check``)."""
     import torch
     from arbitrarystyletransfer_tpu_torch.scripts.sweep_times import (
         last_staging,
     )
 
-    worst = 0.0
+    worst = worst_f32 = 0.0
     per_route = {"flat-all": [0.0, 0.0], "auto": [0.0, 0.0]}
     bounds = {"flat-all": Bound(), "auto": Bound()}
     per_f32 = {"flat-all": [0.0, 0.0], "auto": [0.0, 0.0]}
@@ -1470,6 +1564,11 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         torch.cuda.synchronize()
         staging = last_staging(name) if stride == 2 else None
         design = check_sweep2(name, label, dtype, per_all or per_auto)
+        if stride == 1:
+            design = "sweep 1 %s, %s x boxes per halo; sweep 2 %s" % (
+                *sweep1_check(name, label, dtype, c_in, k, expand), design)
+        else:
+            design = f"sweep 2 {design}"
         if stride == 2 and (per_all or per_auto or size_case(label)) \
                 and not f32_row(label):
             # the path's bf16 shapes stage x as TMA boxes
@@ -1481,6 +1580,8 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         tol_s = SUMS_TOL * float(r_sums.abs().max())
         if (per_all or per_auto) and not f32_row(label):
             worst = max(worst, err_y)
+        elif per_all or per_auto:
+            worst_f32 = max(worst_f32, err_y)
         check(tuple(y.shape) == tuple(r_y.shape) and y.dtype == dt,
               f"{name} {label}: output {tuple(y.shape)} {y.dtype}")
         del y, sums, r_y, r_sums
@@ -1500,7 +1601,7 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         log(f"{name} {label:8s} x={tuple(x.shape)} E={e} C_out={c_out} "
             f"k={k} bn={bn} res={residual} {dtype}: y err {err_y:.4g} (tol "
             f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms; sweep 2 {design}"
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms; {design}"
             + (f", x staged {staging}" if staging else ""))
         check(err_y <= tol_y and err_s <= tol_s, f"{name} {label} differs")
         torch.cuda.empty_cache()
@@ -1518,7 +1619,9 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         planned = route_launches("auto")[name]
         check(auto_total == planned, f"{name}: the cases hold {auto_total} "
               f"of \"auto\"'s launches, its plan {planned}")
-    return worst, per_route, bounds
+    f32 = {route: (*per_f32[route], bounds_f32[route], worst_f32)
+           for route in per_f32}
+    return worst, per_route, bounds, f32
 
 
 def block_cost(n, h, w, c_in, e, c_out, k, size, expand=True):
@@ -5355,15 +5458,15 @@ def main(argv=None) -> int:
             log(f"phase {name}: {seconds[name]} s")
 
     with torch.inference_mode():
-        e_worst, e_ms, e_plain, e_bound = phase("expand_dw", expand_dw_phase,
-                                                gen)
+        e_worst, e_ms, e_plain, e_bound, e_f32 = phase(
+            "expand_dw", expand_dw_phase, gen)
         gen6 = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
         a_worst, a_ms, a_plain, a_bound, a_lib = phase(
             "adaattn_fwd", adaattn_phase, gen, gen6)
-        f_worst, f_ms, f_bound = phase(
+        f_worst, f_ms, f_bound, f_f32 = phase(
             "flat_block", flat_kernel_phase, gen, "flat_block", flat_block,
             flat_block_reference, FLAT_BLOCK_CASES + FLAT_BLOCK_F32, 1)
-        s_worst, s_ms, s_bound = phase(
+        s_worst, s_ms, s_bound, _ = phase(
             "flat_s2_block", flat_kernel_phase, gen, "flat_s2_block",
             flat_s2_block, flat_s2_block_reference,
             FLAT_S2_CASES + FLAT_S2_F32, 2)
@@ -5408,24 +5511,34 @@ def main(argv=None) -> int:
 
     pallas = "arbitrarystyletransfer_tpu/ops/pallas/"
 
-    def row(name, source, replaces, worst, ms, plain_ms, bound, library_ms):
-        """``replaces`` is the TPU kernel's file:line from the repo root."""
+    def row(name, source, replaces, worst, ms, plain_ms, bound, library_ms,
+            f32=None):
+        """``replaces`` is the TPU kernel's file:line from the repo root;
+        ``f32``: (kernel ms, twin ms, Bound, worst error) per 512px f32
+        request of the same route."""
         by_route = {impl: counts[name] for impl, counts in launches.items()}
-        return {"name": name, "route": "cuda",
-                "source": f"arbitrarystyletransfer_tpu_torch/csrc/{source}",
-                "replaces": replaces,
-                "launches": sum(by_route.values()),
-                "launches_by_route": by_route, "max_abs_err": worst,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.ms(),
-                "bound_by": bound.by(), "library_ms": library_ms}
+        out = {"name": name, "route": "cuda",
+               "source": f"arbitrarystyletransfer_tpu_torch/csrc/{source}",
+               "replaces": replaces,
+               "launches": sum(by_route.values()),
+               "launches_by_route": by_route, "max_abs_err": worst,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.ms(),
+               "bound_by": bound.by(), "library_ms": library_ms}
+        if f32 is not None:
+            out["f32_request"] = {
+                "ms": f32[0], "plain_ms": f32[1], "bound_ms": f32[2].ms(),
+                "bound_by": f32[2].by(), "max_abs_err": f32[3]}
+        return out
 
     kernels = [
         row("expand_dw", "expand_dw.cu", pallas + "fused_block.py:68",
-            e_worst, e_ms, e_plain, e_bound, None),
+            e_worst, e_ms, e_plain, e_bound, None,
+            (e_f32["ms"], e_f32["plain_ms"], e_f32["bound"], e_f32["worst"])),
         row("adaattn_fwd", "adaattn_fwd.cu", pallas + "adaattn_kernel.py:57",
             a_worst, a_ms, a_plain, a_bound, a_lib),
         row("flat_block", "flat_block.cu", pallas + "flatblock.py:92",
-            f_worst, *f_ms[MAIN_ROUTE], f_bound[MAIN_ROUTE], None),
+            f_worst, *f_ms[MAIN_ROUTE], f_bound[MAIN_ROUTE], None,
+            f_f32[MAIN_ROUTE]),
         row("flat_s2_block", "flat_s2.cu", pallas + "flatblock_s2.py:121",
             s_worst, *s_ms[MAIN_ROUTE], s_bound[MAIN_ROUTE], None),
         row("adaattn_dq", "adaattn_bwd.cu", pallas + "adaattn_kernel.py:183",

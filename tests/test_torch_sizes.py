@@ -243,6 +243,42 @@ def test_every_block_takes_a_designed_sweep_2(size, dtype):
         assert any(c_out == 128 for _, c_out in blocks)
 
 
+@pytest.mark.parametrize("size", [256, 320, 512, 720, 1024])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_every_block_takes_a_designed_sweep_1(size, dtype):
+    """``sweep1_design`` (the mirror of ``expand_dw.cuh``'s ``dispatch_k``)
+    sends every NHWC expand block of the model to the bf16 tensor-core
+    expand at bf16 and to the 3xTF32 one at f32 (the stylize CLI's dtype),
+    each within a CTA's shared memory; the 3xTF32 design's x box comes in
+    ``tf32_chunk``'s chunks, sized for two CTAs per SM at C_in 16, 24 (k3)
+    and 40 (k5), where that costs at most one chunk more than one CTA's
+    sizing, and for one CTA at C_in 80, 96, 128 and 256 (two would take
+    three to six chunks).  (N, H, C, W) f32 x (mega_block) and the
+    off-model shapes (C_in 12, an unaligned x, the expand==1 form) take the
+    CUDA-core expand, by design."""
+    bf16 = dtype == "bfloat16"
+    blocks = _kernel_blocks(CFG, size)
+    assert blocks
+    for c_in, c_out, k, _ in blocks:
+        design = limits.sweep1_design(bf16, c_in, k=k)
+        assert design == ("mma" if bf16 else "tf32"), (c_in, k)
+        st = limits.check_sweep1("expand_dw", k, c_in, tf32=not bf16)
+        assert st["smem"] <= limits.SMEM_OPT_IN
+        assert max(st["box"]) <= limits.MAX_BOX
+        if not bf16:
+            two = 2 * (st["smem"] + limits.CTA_RESERVED) <= limits.SM_SMEM
+            assert two == (c_in in (16, 24, 40)), (c_in, k)
+            assert st["boxes"] == -(-c_in // st["chunk"])
+            assert limits.sweep1_design(bf16, c_in, layout="xt", k=k) \
+                == "core"
+    for c_in, k in ((12, 3), (12, 5)):
+        assert limits.sweep1_design(bf16, c_in, k=k) == "core"
+    assert limits.sweep1_design(bf16, 40, aligned=False, k=5) == "core"
+    assert limits.sweep1_design(bf16, 40, expand=False, k=5) == "core"
+    assert limits.sweep1_design(bf16, 40, layout="xt", k=5) == \
+        ("mma" if bf16 else "core")
+
+
 @pytest.mark.parametrize("e,c_out,bf16", [
     (48, 13, True),    # cin12: odd C_out
     (48, 13, False),
@@ -276,6 +312,22 @@ def test_the_sweep_2_mirror_matches_the_card():
         "design": "tf32", "smem": 232000, "slots": 2}
     assert limits.sweep2_staging(384, 128, True, True)["smem"] == \
         165696 + 8 * 8 * 40 * 2
+
+
+def test_the_sweep_1_mirror_matches_the_card():
+    """The 3xTF32 sweep 1's bytes, x boxes and CTAs per SM at shapes whose
+    ``expand_dw_f32_occupancy`` / ``flat_block_f32_occupancy`` the card
+    reported (NVIDIA H100 80GB HBM3, 700.00 W; ``chip_smoke.py``'s sweeps
+    phase): the 512px decoder's k5 C_in 40 (two chunks of 24 channels, two
+    CTAs per SM), k5 C_in 96 (two chunks of 48, one CTA), k3 C_in 80 (the
+    whole box, one CTA) and k3 C_in 16 (the whole box, two CTAs)."""
+    card = {(5, 40): (108552, 2, 2), (5, 96): (161288, 2, 1),
+            (3, 80): (177160, 1, 1), (3, 16): (74760, 1, 2)}
+    for (k, c_in), (smem, boxes, ctas) in card.items():
+        st = limits.sweep1_staging(k, c_in, tf32=True)
+        assert (st["smem"], st["boxes"]) == (smem, boxes), (k, c_in)
+        fit = (limits.SM_SMEM // (st["smem"] + limits.CTA_RESERVED))
+        assert min(fit, 2) == ctas, (k, c_in)
 
 
 def test_mega_rules_at_the_lane_are_jax_defaults():
