@@ -20,7 +20,8 @@
 //     NHWC.  The hidden is NHWC either way.  kXBox (with kXT): its halo
 //     comes as a TMA box (below);
 //   * kNoHidden: only the sums are written (_fused_kernel "sums");
-//   * kTf32: f32 NHWC x, the expand as 3xTF32 (below).
+//   * kTf32: f32 x, the expand as 3xTF32 (below); with kXBox from the
+//     (N, H, C, W) box.
 // At f32 the rounding bits change nothing.
 //
 // What bounds it on an H100: at the 512px decoder tail (d8-d10: k5, C_in 40,
@@ -74,9 +75,10 @@
 //     buffer is [pixel][32 channels] with the channel index XOR-swizzled by
 //     8 * (pixel % 4), so those stores are conflict-free, and the
 //     depthwise's reads (lane = channel, 32 consecutive words of a pixel)
-//     stay so.  (Other channel counts, (N, H, C, W) f32 x, or f32 C_in past
-//     the kTf32 design's shared memory: a CUDA-core expand, x staged as
-//     f32 in 32-channel steps into the halo buffer, by design.)
+//     stay so.  (Off the model's path, NHWC x at C_in % 8 != 0, (N, H, C,
+//     W) x at W % 8 != 0, an unaligned x, or f32 C_in past the kTf32
+//     design's shared memory: a CUDA-core expand, x staged as f32 in
+//     32-channel steps into the halo buffer.)
 //   * kTf32 (f32 NHWC x, C_in % 8 == 0, 16-byte aligned: every NHWC block
 //     of the model): x comes as f32 TMA boxes ([pixel][bch + 4] words),
 //     reflected in shared memory as the bf16 box is (reflect_box), and the
@@ -93,6 +95,19 @@
 //     products, which are kept as f32 partial sums in the halo buffer.
 //     k5 C_in 40: two chunks of 24 channels, 108,552 B, two CTAs per SM
 //     (the whole box would take 134,152 B: one).
+//   * kTf32 with kXBox (f32 (N, H, C, W) x, W % 8 == 0, 16-byte aligned:
+//     every mega block): kXBox's box in f32, [halo row][bch][BW = 24]
+//     words (96-byte rows, on kXBox's shifted tile grid), in tf32_chunk's
+//     channel chunks as above.  ldmatrix.trans moves 16-bit elements only,
+//     so the A fragments (row = pixel, column = input channel) come by
+//     32-bit loads (expand_mtile_tf32_t): lane (g, t) reads word
+//     (k0 + t) * 24 + p0 + g, bank 24 t + g mod 32, 32 distinct banks, no
+//     conflict.  Shared memory: the f32 halo, the box HH * bch * 96 B and
+//     the split weights 256 * (C_in8 + 4) B: k5 C_in 40 two chunks of 24,
+//     109,832 B, two CTAs (the whole box 140,552 B: one); k3 C_in 16 and
+//     24 the whole box, 75,528 and 91,400 B, two CTAs; k3 C_in 80 the
+//     whole box, 202,504 B, and k5 C_in 96 two chunks of 48, 170,248 B,
+//     one CTA (two would take four and six chunks).
 //   * Depthwise (depthwise_tile): each thread owns one channel (lane) and a
 //     8-row x 4-column block of the tile (the 8 warps cover 16 x 16), 32
 //     independent accumulators; every value read from shared memory feeds
@@ -207,19 +222,20 @@ __host__ __device__ constexpr int swz(int p) { return (p & 3) << 3; }
 //   [MT * 16][ldxs = bch + 4], cin16 = C_in padded to 8 (k8 steps), ws
 //   the TF32 hi then lo parts of the weights, f32 [32][ldx = cin16 + 4]
 //   each: rows an odd multiple of 16 bytes apart, so ldmatrix meets no
-//   bank conflict.)
+//   bank conflict.  XB 5, kTf32 with kXBox: as XB 4, xs one chunk of the
+//   (N, H, C, W) box, f32 [HH][bch][BW], ldxs = BW.)
 template <int K, bool EXPAND, bool MMA, int XB = 0>
 struct Smem {
   int cin16, bch, ldx, ldxs, xs, ws, red, bes, bar, total;
   __host__ __device__ explicit Smem(int cin, int tbch = 0) {
     using G = Halo<K>;
-    if (XB == 4) {
+    if (XB == 4 || XB == 5) {
       cin16 = (cin + 7) / 8 * 8;
       bch = tbch;
       ldx = cin16 + 4;
-      ldxs = bch + 4;
+      ldxs = XB == 4 ? bch + 4 : G::BW;
       xs = G::HP * CE * 4;
-      ws = xs + G::MT * 16 * ldxs * 4;
+      ws = xs + (XB == 4 ? G::MT * 16 * ldxs : G::HH * bch * G::BW) * 4;
       red = ws + 2 * CE * ldx * 4;
       bes = red + NWARPS * 32 * 4;
       bar = bes + CE * 4;
@@ -257,7 +273,8 @@ constexpr int XSHIFT = (MODE & kXBox) != 0 ? Halo<K>::P - 8 : 0;
 template <int K, bool EXPAND, bool MMA, int MODE>
 using SmemM = Smem<K, EXPAND, MMA,
                    !MMA                        ? 0
-                   : (MODE & kTf32) != 0       ? 4
+                   : (MODE & kTf32) != 0       ? ((MODE & kXBox) != 0 ? 5
+                                                                      : 4)
                    : (MODE & kCSplit) != 0     ? 3
                    : (MODE & kXBox) == 0       ? 0
                    : (MODE & kXSplit) != 0     ? 2
@@ -318,17 +335,21 @@ inline bool make_x_map(CUtensorMap* map, const void* x, int n, int h, int w,
 
 // x (n, h, cin, w) bf16 as the map of kXBox's boxes (BW columns, bch
 // channels, 16 + 2p rows, 1 image): the channels past C_in lie outside
-// the tensor and come as zeros.  w % 8 == 0 (16-byte strides).
+// the tensor and come as zeros.  w % 8 == 0 (16-byte strides).  f32: x
+// is float (kTf32 with kXBox).
 template <int K>
 bool make_xt_map(CUtensorMap* map, const void* x, int n, int h, int w,
-                 int cin, int bch) {
+                 int cin, int bch, bool f32 = false) {
+  const cuuint64_t es = f32 ? 4 : 2;
   return make_map_4d(map, x,
                      {(cuuint64_t)w, (cuuint64_t)cin, (cuuint64_t)h,
                       (cuuint64_t)n},
-                     {(cuuint64_t)w * 2, (cuuint64_t)cin * w * 2,
-                      (cuuint64_t)h * cin * w * 2},
+                     {(cuuint64_t)w * es, (cuuint64_t)cin * w * es,
+                      (cuuint64_t)h * cin * w * es},
                      {(cuuint32_t)Halo<K>::BW, (cuuint32_t)bch,
-                      (cuuint32_t)Halo<K>::HH, 1});
+                      (cuuint32_t)Halo<K>::HH, 1},
+                     f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // x[n] at row gy, column gx, channel ci; xn is image n's base.
@@ -339,28 +360,39 @@ __device__ __forceinline__ T x_at(const T* __restrict__ xn, int gy, int gx,
             : xn[((size_t)gy * W + gx) * cin + ci];
 }
 
+// The 3xTF32 expand's weights of channels [c0, c0 + 32): each split once
+// into its TF32 parts, hi and lo both rounded to nearest (split_tf32), so
+// that the tensor cores, which read a TF32 operand's top 19 bits, take lo
+// as it is; wh [32][ldx] the hi parts, then wl the lo parts, K columns
+// [0, cin8) (zero past C_in).  Lanes on consecutive output channels:
+// coalesced reads.
+template <typename T>
+__device__ __forceinline__ void stage_weights_tf32(const T* __restrict__ we,
+                                                   uint32_t* wh, int ldx,
+                                                   int cin8, int cin, int E,
+                                                   int c0) {
+  uint32_t* wl = wh + CE * ldx;
+  for (int idx = threadIdx.x; idx < CE * cin8; idx += NTHREADS) {
+    const int cc = idx % CE, ci = idx / CE;
+    float v = 0.f;
+    if (ci < cin && c0 + cc < E) v = to_f32(we[(size_t)ci * E + c0 + cc]);
+    uint32_t hi, lo, lo_hi, lo_lo;
+    split_tf32(v, hi, lo);
+    split_tf32(__uint_as_float(lo), lo_hi, lo_lo);
+    wh[cc * ldx + ci] = hi;
+    wl[cc * ldx + ci] = lo_hi;
+  }
+}
+
 // The expand weights of channels [c0, c0 + 32) into ws, the expand bias
 // into bes.  The caller's next barrier publishes them.
 template <typename T, int K, bool EXPAND, bool MMA, int XB>
 __device__ __forceinline__ void stage_weights(
     const T* __restrict__ we, const float* __restrict__ be, char* smem,
     const Smem<K, EXPAND, MMA, XB>& L, int cin, int E, int c0) {
-  if constexpr (XB == 4) {
-    // kTf32: each weight split once into its TF32 parts, hi and lo both
-    // rounded to nearest (split_tf32), so that the tensor cores, which
-    // read a TF32 operand's top 19 bits, take lo as it is.
-    uint32_t* wh = reinterpret_cast<uint32_t*>(smem + L.ws);
-    uint32_t* wl = wh + CE * L.ldx;
-    for (int idx = threadIdx.x; idx < CE * L.cin16; idx += NTHREADS) {
-      const int cc = idx % CE, ci = idx / CE;
-      float v = 0.f;
-      if (ci < cin && c0 + cc < E) v = to_f32(we[(size_t)ci * E + c0 + cc]);
-      uint32_t hi, lo, lo_hi, lo_lo;
-      split_tf32(v, hi, lo);
-      split_tf32(__uint_as_float(lo), lo_hi, lo_lo);
-      wh[cc * L.ldx + ci] = hi;
-      wl[cc * L.ldx + ci] = lo_hi;
-    }
+  if constexpr (XB == 4 || XB == 5) {
+    stage_weights_tf32(we, reinterpret_cast<uint32_t*>(smem + L.ws), L.ldx,
+                       L.cin16, cin, E, c0);
   } else if constexpr (MMA) {
     __nv_bfloat16* wsT = reinterpret_cast<__nv_bfloat16*>(smem + L.ws);
     // Lanes on consecutive output channels: coalesced 64-byte reads.
@@ -523,25 +555,33 @@ __device__ __forceinline__ void wait_x(uint64_t* bar, uint32_t parity, E* xs,
 // (ty0, tx0) of image n into xs ([pixel][ldxs]), one TMA box from
 // make_x_map's f32 map, zeros outside the image and past C_in, completing
 // on bar (wait_x reflects); rows of the last MMA tile past the halo are
-// not written (they feed only dropped outputs).  xs must be free.
-template <int K>
+// not written (they feed only dropped outputs).  XT (with kXBox): `width`
+// f32 channels from ch0 of make_xt_map's f32 map into xs ([halo row]
+// [width][BW]; wait_xt reflects).  xs must be free.
+template <int K, bool XT = false>
 __device__ __forceinline__ void stage_x32(const CUtensorMap* xmap,
-                                          uint64_t* bar, float* xs, int ldxs,
+                                          uint64_t* bar, float* xs, int width,
                                           int n, int ty0, int tx0, int ch0) {
   using G = Halo<K>;
   if (threadIdx.x == 0) {
     fence_proxy_async();  // this thread's earlier writes of xs come first
-    mbar_expect_tx(bar, G::HP * ldxs * 4);
-    tma_load_4d(xs, xmap, ch0, tx0 - G::P, ty0 - G::P, n, bar);
+    if constexpr (XT) {
+      mbar_expect_tx(bar, G::HH * width * G::BW * 4);
+      tma_load_4d(xs, xmap, tx0 - G::P, ch0, ty0 - G::P, n, bar);
+    } else {
+      mbar_expect_tx(bar, G::HP * width * 4);
+      tma_load_4d(xs, xmap, ch0, tx0 - G::P, ty0 - G::P, n, bar);
+    }
   }
 }
 
-// wait_x for kXBox's box ([halo row][cin16][BW]): whole channel planes for
-// the rows, single values for the columns, rows first.
-template <int K>
+// wait_x for kXBox's box ([halo row][cin16][BW] elements of type E):
+// whole channel planes for the rows, single values for the columns, rows
+// first.
+template <int K, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wait_xt(uint64_t* bar, uint32_t parity,
-                                        __nv_bfloat16* xs, int cin16, int H,
-                                        int W, int ty0, int tx0) {
+                                        E* xs, int cin16, int H, int W,
+                                        int ty0, int tx0) {
   using G = Halo<K>;
   constexpr int P = G::P, HH = G::HH, HW = G::HW, BW = G::BW;
   mbar_wait(bar, parity);
@@ -549,7 +589,8 @@ __device__ __forceinline__ void wait_xt(uint64_t* bar, uint32_t parity,
   const bool top = y0 < 0, bottom = y0 + HH > H;
   const bool left = x0 < 0, right = x0 + HW > W;
   if (!(top || bottom || left || right)) return;  // uniform over the CTA
-  const int vpr = cin16 * BW / 8;  // 16-byte vectors per halo row
+  // 16-byte vectors per halo row
+  const int vpr = cin16 * BW / (16 / (int)sizeof(E));
   uint4* v = reinterpret_cast<uint4*>(xs);
   for (int idx = threadIdx.x; idx < 2 * P * vpr; idx += NTHREADS) {
     const int j = idx / vpr, rest = idx % vpr;
@@ -571,7 +612,7 @@ __device__ __forceinline__ void wait_xt(uint64_t* bar, uint32_t parity,
     if (hc[j] < 0 || hc[j] >= HW || hs[j] < 0 || hs[j] >= HW) hc[j] = -1;
   }
   for (int row = threadIdx.x; row < HH * cin16; row += NTHREADS) {
-    __nv_bfloat16* line = xs + row * BW;
+    E* line = xs + row * BW;
 #pragma unroll
     for (int j = 0; j < 2 * P; ++j)
       if (hc[j] >= 0) line[hc[j]] = line[hs[j]];
@@ -790,20 +831,23 @@ __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
 // 4 * ((l / 8) % 2) (B: b0, b1 of two columns; x2 takes lanes 0-15).  Rows
 // an odd multiple of 16 bytes apart meet no bank conflict.  (Two tiles at
 // a time, sharing the B fragments, spilled at k5 and ran slower there on
-// an H100, and gained little at k3.)  Then store_mtile.
-template <typename T, int NTN, bool ROUND_EX, int PASS = 0>
-__device__ __forceinline__ void expand_mtile_tf32(
-    const float* xs, int ldxa, const uint32_t* wh, const uint32_t* wl,
-    const float* bes, float* buf, int ldx, int kext, int mt, int nt0,
-    int pre_act, int hp) {
+// an H100, and gained little at k3.)  Then store_mtile.  tf32_products
+// forms the products into acc, its aload(a, ks) giving the A fragment of
+// the k8 step at channel ks (expand_mtile_tf32_t's from the (N, H, C, W)
+// box).
+template <int NTN, typename ALoad>
+__device__ __forceinline__ void tf32_products(float (&acc)[NTN][4],
+                                              const uint32_t* wh,
+                                              const uint32_t* wl, int ldx,
+                                              int kext, int nt0,
+                                              ALoad aload) {
   static_assert(NTN == 1 || NTN % 2 == 0, "B columns come in pairs");
   const int lane = threadIdx.x & 31;
-  float acc[NTN][4], part[NTN][4];
+  float part[NTN][4];
 #pragma unroll
   for (int i = 0; i < NTN; ++i)
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
-  const float* ap = xs + (mt * 16 + (lane & 15)) * ldxa + (lane >> 4) * 4;
   const int bo =
       (nt0 * 8 + (lane >> 4) * 8 + (lane & 7)) * ldx + ((lane >> 3) & 1) * 4;
   for (int ks = 0, step = 0; ks < kext; ks += 8, ++step) {
@@ -814,7 +858,7 @@ __device__ __forceinline__ void expand_mtile_tf32(
         for (int r = 0; r < 4; ++r) part[i][r] = 0.f;
     }
     uint32_t a[4], ah[4], al[4];
-    ldmatrix_x4(a, ap + ks);
+    aload(a, ks);
 #pragma unroll
     for (int m = 0; m < 4; ++m) split_tf32(__uint_as_float(a[m]), ah[m], al[m]);
     uint32_t bh[NTN][2], bl[NTN][2];
@@ -846,7 +890,64 @@ __device__ __forceinline__ void expand_mtile_tf32(
         for (int r = 0; r < 4; ++r) acc[i][r] += part[i][r];
     }
   }
+}
+
+template <typename T, int NTN, bool ROUND_EX, int PASS = 0>
+__device__ __forceinline__ void expand_mtile_tf32(
+    const float* xs, int ldxa, const uint32_t* wh, const uint32_t* wl,
+    const float* bes, float* buf, int ldx, int kext, int mt, int nt0,
+    int pre_act, int hp) {
+  const int lane = threadIdx.x & 31;
+  const float* ap = xs + (mt * 16 + (lane & 15)) * ldxa + (lane >> 4) * 4;
+  float acc[NTN][4];
+  tf32_products<NTN>(acc, wh, wl, ldx, kext, nt0,
+                     [&](uint32_t(&a)[4], int ks) { ldmatrix_x4(a, ap + ks); });
   store_mtile<T, NTN, ROUND_EX, PASS>(acc, bes, buf, mt, nt0, pre_act, hp);
+}
+
+// expand_mtile_tf32 for kXBox's f32 box ([halo row][bch][BW] words): tile
+// mt is the 8-pixel groups 2 mt and 2 mt + 1, as in expand_mtile_t, over
+// the box's channels, which are the weights' K columns [kofs, kofs +
+// kext) (the caller offsets wh, wl).  ldmatrix.trans moves 16-bit
+// elements only, so each A value comes by a 32-bit load from its channel
+// row: lane (g, t) reads a0 = pixel g of group 2 mt at channel ks + t, a1
+// the same of group 2 mt + 1, a2 and a3 at channel ks + t + 4; its word
+// (ks + t) * BW + 8 j + g lies in bank 24 t + g + const mod 32, 32
+// distinct banks for each load.  Then store_pass per value (columns past
+// the halo dropped).
+template <typename T, int K, int NTN, bool ROUND_EX, int PASS>
+__device__ __forceinline__ void expand_mtile_tf32_t(
+    const float* xs, int bch, const uint32_t* wh, const uint32_t* wl,
+    const float* bes, float* buf, int ldx, int kext, int mt, int nt0,
+    int pre_act) {
+  using G = Halo<K>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int g0 = 2 * mt, g1 = 2 * mt + 1;
+  const float* a0 = xs + ((g0 / G::GPR) * bch + tig) * G::BW +
+                    (g0 % G::GPR) * 8 + g;
+  const float* a1 = xs + ((g1 / G::GPR) * bch + tig) * G::BW +
+                    (g1 % G::GPR) * 8 + g;
+  float acc[NTN][4];
+  tf32_products<NTN>(acc, wh, wl, ldx, kext, nt0,
+                     [&](uint32_t(&a)[4], int ks) {
+                       a[0] = __float_as_uint(a0[ks * G::BW]);
+                       a[1] = __float_as_uint(a1[ks * G::BW]);
+                       a[2] = __float_as_uint(a0[(ks + 4) * G::BW]);
+                       a[3] = __float_as_uint(a1[(ks + 4) * G::BW]);
+                     });
+#pragma unroll
+  for (int i = 0; i < NTN; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int grp = 2 * mt + half;
+      const int hc = (grp % G::GPR) * 8 + g;
+      if (hc >= G::HW) continue;
+      store_pass<T, ROUND_EX, PASS>(buf, bes, pre_act,
+                                    (grp / G::GPR) * G::HW + hc,
+                                    (nt0 + i) * 8 + tig * 2, acc[i][2 * half],
+                                    acc[i][2 * half + 1]);
+    }
 }
 
 // expand_mtile for kXBox's box ([halo row][bch][BW]): tile mt is the 8-
@@ -917,16 +1018,26 @@ __device__ __forceinline__ void expand_halo(const T* __restrict__ xn,
     const uint32_t* wh = reinterpret_cast<const uint32_t*>(smem + L.ws);
     const uint32_t* wl = wh + CE * L.ldx;
     const int kext = min(L.bch, L.cin16 - kofs);
-    constexpr int ROUNDS = G::MT / NWARPS;
-    constexpr int LEFT = (G::MT - ROUNDS * NWARPS) * (CE / 8);
+    constexpr bool XBOX = (MODE & kXBox) != 0;
+    constexpr int MT = XBOX ? G::MTB : G::MT;
+    constexpr int ROUNDS = MT / NWARPS;
+    constexpr int LEFT = (MT - ROUNDS * NWARPS) * (CE / 8);
+    auto tile = [&](auto ntn, int mt, int nt0) {
+      constexpr int NTN = decltype(ntn)::value;
+      if constexpr (XBOX)
+        expand_mtile_tf32_t<T, K, NTN, ROUND_EX, PASS>(
+            xs, L.bch, wh + kofs, wl + kofs, bes, buf, L.ldx, kext, mt, nt0,
+            pre_act);
+      else
+        expand_mtile_tf32<T, NTN, ROUND_EX, PASS>(
+            xs, L.ldxs, wh + kofs, wl + kofs, bes, buf, L.ldx, kext, mt, nt0,
+            pre_act, HP);
+    };
     for (int i = 0; i < ROUNDS; ++i)
-      expand_mtile_tf32<T, CE / 8, ROUND_EX, PASS>(
-          xs, L.ldxs, wh + kofs, wl + kofs, bes, buf, L.ldx, kext,
-          warp + i * NWARPS, 0, pre_act, HP);
+      tile(std::integral_constant<int, CE / 8>{}, warp + i * NWARPS, 0);
     for (int u = warp; u < LEFT; u += NWARPS)
-      expand_mtile_tf32<T, 1, ROUND_EX, PASS>(
-          xs, L.ldxs, wh + kofs, wl + kofs, bes, buf, L.ldx, kext,
-          ROUNDS * NWARPS + u / (CE / 8), u % (CE / 8), pre_act, HP);
+      tile(std::integral_constant<int, 1>{}, ROUNDS * NWARPS + u / (CE / 8),
+           u % (CE / 8));
   } else if constexpr (MMA) {
     const __nv_bfloat16* xs =
         reinterpret_cast<const __nv_bfloat16*>(smem + L.xs);
@@ -1140,6 +1251,19 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   T* hs = reinterpret_cast<T*>(smem);  // the tile's hidden, [256][32]
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.xs);
   [[maybe_unused]] float* xs32 = reinterpret_cast<float*>(smem + L.xs);
+  // kTf32's box of channels from ch0 (the NHWC one or, with kXBox, the
+  // (N, H, C, W) one) and its wait and edge copies.
+  constexpr bool XBOX = (MODE & kXBox) != 0;
+  [[maybe_unused]] auto stage_tf = [&](int n, int ty0, int tx0, int ch0) {
+    stage_x32<K, XBOX>(&xmap, xbar, xs32, XBOX ? L.bch : L.ldxs, n, ty0, tx0,
+                       ch0);
+  };
+  [[maybe_unused]] auto wait_tf = [&](uint32_t parity, int ty0, int tx0) {
+    if constexpr (XBOX)
+      wait_xt<K>(xbar, parity, xs32, L.bch, H, W, ty0, tx0);
+    else
+      wait_x<K>(xbar, parity, xs32, L.ldxs, H, W, ty0, tx0);
+  };
 
   const int lane = threadIdx.x & 31;
   const int c0 = blockIdx.y * CE;
@@ -1178,7 +1302,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     int ty0, tx0;
     tile_origin(item, ty0, tx0);
     if constexpr (TF)
-      stage_x32<K>(&xmap, xbar, xs32, L.ldxs, image_of(item), ty0, tx0, 0);
+      stage_tf(image_of(item), ty0, tx0, 0);
     else
       stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
                           image_of(item), ty0, tx0);
@@ -1206,10 +1330,10 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
           pre_act, ty0, tx0, c0);
     } else {
       if constexpr (ASYNC) {
-        if constexpr ((MODE & kXBox) != 0)
+        if constexpr (TF)
+          wait_tf(xphase, ty0, tx0);
+        else if constexpr (XBOX)
           wait_xt<K>(xbar, xphase, xs, L.bch, H, W, ty0, tx0);
-        else if constexpr (TF)
-          wait_x<K>(xbar, xphase, xs32, L.ldxs, H, W, ty0, tx0);
         else
           wait_x<K>(xbar, xphase, xs, L.ldxs, H, W, ty0, tx0);
         xphase ^= 1;
@@ -1227,8 +1351,8 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
           expand_halo<T, K, EXPAND, MMA, MODE, 1>(xn, smem, L, H, W, cin,
                                                   pre_act, ty0, tx0);
           for (int ch0 = L.bch; ch0 < L.cin16; ch0 += L.bch) {
-            stage_x32<K>(&xmap, xbar, xs32, L.ldxs, n, ty0, tx0, ch0);
-            wait_x<K>(xbar, xphase, xs32, L.ldxs, H, W, ty0, tx0);
+            stage_tf(n, ty0, tx0, ch0);
+            wait_tf(xphase, ty0, tx0);
             xphase ^= 1;
             if (ch0 + L.bch < L.cin16)
               expand_halo<T, K, EXPAND, MMA, MODE, 3>(xn, smem, L, H, W, cin,
@@ -1277,8 +1401,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
           int ny0, nx0;
           tile_origin(next, ny0, nx0);
           if constexpr (TF)
-            stage_x32<K>(&xmap, xbar, xs32, L.ldxs, image_of(next), ny0, nx0,
-                         0);
+            stage_tf(image_of(next), ny0, nx0, 0);
           else
             stage_x<T, K, MODE>(&xmap, xbar, x, xs, L.ldxs, L.bch, H, W, cin,
                                 image_of(next), ny0, nx0);
@@ -1387,7 +1510,7 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
   auto kernel = expand_dw_kernel<T, K, EXPAND, MMA, MODE>;
   CUtensorMap xmap{};
   if (ASYNC && !((MODE & kXT) != 0
-                     ? make_xt_map<K>(&xmap, x, n, h, w, cin, L.bch)
+                     ? make_xt_map<K>(&xmap, x, n, h, w, cin, L.bch, TF)
                      : make_x_map(&xmap, x, n, h, w, cin, Halo<K>::HW,
                                   Halo<K>::HH, L.ldxs, TF)))
     return cudaErrorInvalidValue;
@@ -1463,66 +1586,90 @@ bool c_split(int cin) {
   return box_split(whole.ldx, whole.total);
 }
 
-// kTf32's channels per x box at this k and C_in for `want` CTAs per SM:
-// the fewest chunks (ceil(C_in8 / n) channels, a multiple of 8, the box's
-// inner extent bch + 4 <= 256) with which that many CTAs share an SM; 0
-// where none does.
-template <int K>
-int tf32_fit(int cin, int want) {
+// The channels per x box of a 3xTF32 sweep 1 for `want` CTAs per SM: the
+// fewest chunks (ceil(C_in8 / n) channels, a multiple of 8) with which
+// that many CTAs share an SM; 0 where none does.  bytes(b, dim): the
+// CTA's shared memory with a box of b channels, and in dim the box's
+// widest dimension (at most 256 elements).
+template <typename Bytes>
+int tf32_fit(int cin, int want, Bytes bytes) {
   const int cin8 = (cin + 7) / 8 * 8;
   int cta = 0, sm = 0, reserved = 0;
   smem_limits(cta, sm, reserved);
   for (int chunks = 1; chunks <= cin8 / 8; ++chunks) {
     const int b = ((cin8 + chunks - 1) / chunks + 7) / 8 * 8;
-    const int t = Smem<K, true, true, 4>(cin, b).total;
-    if (!box_split(b + 4, t) && want * (t + reserved) <= sm) return b;
+    int dim = 0;
+    const int t = bytes(b, dim);
+    if (!box_split(dim, t) && want * (t + reserved) <= sm) return b;
   }
   return 0;
 }
 
-// kTf32's channels per x box at this k and C_in: sized for two CTAs per
-// SM where that costs at most one chunk more than one CTA's fewest, else
-// for one.  On an H100 (scripts/sweep_ablation.py --f32, its cuts one_cta
-// and two_cta), at k5 C_in 96 two CTAs in 6 chunks took 0.789 ms per d4
-// launch against one CTA's 0.723 in 2, at k3 C_in 80 1.538 in 3 against
-// 1.452 in 1, while at k5 C_in 40 two in 2 chunks took 3.924 ms per d10
-// launch against one's 4.490 in 1.  0 where no chunk fits (the CUDA-core
-// expand takes the shape).  At the model's shapes: k3 C_in 16 and 24 the
-// whole box, two CTAs; 80 the whole box, 128 two chunks of 64, 256 four
-// of 64, one CTA; k5 C_in 40 two chunks of 24, two CTAs; 96 two of 48,
-// one.  ops/kernels/limits.py mirrors the rule.
-template <int K>
-int tf32_chunk(int cin) {
-  const int one = tf32_fit<K>(cin, 1), two = tf32_fit<K>(cin, 2);
+// The channels per x box of a 3xTF32 sweep 1 (bytes: as tf32_fit's): sized
+// for two CTAs per SM where that costs at most one chunk more than one
+// CTA's fewest, else for one; 0 where no chunk fits (the CUDA-core expand
+// takes the shape).  The rule of kTf32 (tf32_chunk), of kTf32 with kXBox
+// and of flat_s2.cu's f32 sweep 1 (s2_tf32_chunk).
+template <typename Bytes>
+int tf32_sized(int cin, Bytes bytes) {
+  const int one = tf32_fit(cin, 1, bytes), two = tf32_fit(cin, 2, bytes);
   const int cin8 = (cin + 7) / 8 * 8;
   const auto chunks = [&](int b) { return (cin8 + b - 1) / b; };
   return two > 0 && chunks(two) <= chunks(one) + 1 ? two : one;
 }
 
-// Whether f32 NHWC x takes kTf32 (given a chunk size): its 16-byte TMA
-// rows need C_in % 8 == 0 (as the bf16 design's, so that every k8 step is
-// whole) and an aligned x.  Every NHWC block of the model.
-template <typename T, int MODE>
-bool use_tf32(const void* x, int cin) {
-  return sizeof(T) == 4 && (MODE & kXT) == 0 && cin % 8 == 0 &&
-         aligned(x, 16);
+// kTf32's channels per x box at this k and C_in (XB 4: NHWC x, the box's
+// inner extent bch + 4; XB 5: kXBox's, bch channels of 24 columns):
+// tf32_sized's rule.  On an H100 (scripts/sweep_ablation.py --f32, its
+// cuts one_cta and two_cta), at k5 C_in 96 two CTAs in 6 chunks took
+// 0.789 ms per d4 launch against one CTA's 0.723 in 2, at k3 C_in 80
+// 1.538 in 3 against
+// 1.452 in 1, while at k5 C_in 40 two in 2 chunks took 3.924 ms per d10
+// launch against one's 4.490 in 1.  0 where no chunk fits (the CUDA-core
+// expand takes the shape).  At the model's shapes: k3 C_in 16 and 24 the
+// whole box, two CTAs; 80 the whole box, 128 two chunks of 64, 256 four
+// of 64, one CTA; k5 C_in 40 two chunks of 24, two CTAs; 96 two of 48,
+// one.  kXBox's f32 box at the model's shapes: above (the header).
+// ops/kernels/limits.py mirrors the rule (tf32_chunk).
+template <int K, int XB = 4>
+int tf32_chunk(int cin) {
+  return tf32_sized(cin, [&](int b, int& dim) {
+    dim = XB == 4 ? b + 4 : b;
+    return Smem<K, true, true, XB>(cin, b).total;
+  });
 }
 
-// query() of kTf32's kernel for an f32 block with this k and C_in, its
-// boxes per halo and channels per box into out[3], out[4];
-// cudaErrorInvalidValue where the design does not take the shape.
+// Whether f32 x takes kTf32 (given a chunk size).  NHWC x: its 16-byte TMA
+// rows need C_in % 8 == 0 (as the bf16 design's, so that every k8 step is
+// whole) and an aligned x: every NHWC block of the model.  (N, H, C, W) x
+// (with kXBox): kXBox's map, W % 8 == 0 and an aligned x (xt_box), any
+// C_in (the box's channels past C_in come as zeros): every mega block.
+template <typename T, int MODE>
+bool use_tf32(const void* x, int cin, int w) {
+  if (sizeof(T) != 4) return false;
+  if ((MODE & kXT) != 0) return w % 8 == 0 && aligned(x, 16);
+  return cin % 8 == 0 && aligned(x, 16);
+}
+
+// query() of kTf32's kernel for an f32 block with this k and C_in (kMega:
+// with kXBox), its boxes per halo and channels per box into out[3],
+// out[4]; cudaErrorInvalidValue where the design does not take the shape.
 template <int M>
 cudaError_t occupancy_tf32(int k, int cin, int* out) {
-  const int b = cin % 8 != 0 ? 0 : k == 3 ? tf32_chunk<3>(cin)
-                                 : k == 5 ? tf32_chunk<5>(cin) : 0;
+  constexpr int MT = (M & kXT) != 0 ? M | kXBox | kTf32 : M | kTf32;
+  constexpr int XB = (M & kXT) != 0 ? 5 : 4;
+  const int b = (XB == 4 && cin % 8 != 0) ? 0
+                : k == 3                  ? tf32_chunk<3, XB>(cin)
+                : k == 5                  ? tf32_chunk<5, XB>(cin)
+                                          : 0;
   if (b == 0) return cudaErrorInvalidValue;
   out[3] = ((cin + 7) / 8 * 8 + b - 1) / b;
   out[4] = b;
   if (k == 3)
-    return query(expand_dw_kernel<float, 3, true, true, M | kTf32>, NTHREADS,
-                 SmemM<3, true, true, M | kTf32>(cin, b).total, out);
-  return query(expand_dw_kernel<float, 5, true, true, M | kTf32>, NTHREADS,
-               SmemM<5, true, true, M | kTf32>(cin, b).total, out);
+    return query(expand_dw_kernel<float, 3, true, true, MT>, NTHREADS,
+                 SmemM<3, true, true, MT>(cin, b).total, out);
+  return query(expand_dw_kernel<float, 5, true, true, MT>, NTHREADS,
+               SmemM<5, true, true, MT>(cin, b).total, out);
 }
 
 // query() of the kernel a bf16 block with this k and C_in launches (the
@@ -1576,9 +1723,15 @@ cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
     return launch<T, K, false, false, MODE>(x, we, wd, be, bd, hidden, sums,
                                             n, h, w, cin, e, pre_act, s);
   if constexpr (!BF16 && (MODE & kXT) == 0) {
-    const int b = use_tf32<T, MODE>(x, cin) ? tf32_chunk<K>(cin) : 0;
+    const int b = use_tf32<T, MODE>(x, cin, w) ? tf32_chunk<K>(cin) : 0;
     if (b > 0)
       return launch<T, K, true, true, MODE | kTf32>(
+          x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s, b);
+  }
+  if constexpr (!BF16 && (MODE & kXT) != 0) {
+    const int b = use_tf32<T, MODE>(x, cin, w) ? tf32_chunk<K, 5>(cin) : 0;
+    if (b > 0)
+      return launch<T, K, true, true, MODE | kXBox | kTf32>(
           x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, pre_act, s, b);
   }
   if (!use_mma<T, MODE>(x, cin))

@@ -26,8 +26,8 @@
 //   * Persistent CTAs of 256 threads, grid (as many as fit at once, E / 32):
 //     a CTA keeps one 32-channel chunk of E (its expand weights staged once,
 //     its depthwise weights in registers) and walks (image, 8 x 16 output
-//     tile) items.  The SE sums are kept per thread across the CTA's tiles
-//     of one image, one atomic per (CTA, image, channel).
+//     tile; f32: 4 x 16) items.  The SE sums are kept per thread across
+//     the CTA's tiles of one image, one atomic per (CTA, image, channel).
 //   * The tile's input halo, (2*8 - 1 + 2p) x (2*16 - 1 + 2p) pixels (17 x
 //     33 at k3, 19 x 35 at k5), is one TMA box of NHWC x ([pixel][C_in16 +
 //     8]: conflict-free ldmatrix rows), issued by one thread for the next
@@ -59,9 +59,30 @@
 //     model) comes in chunks of 32 channels, the expand's partial sums kept
 //     in f32 in shared memory (prt) as expand_dw.cuh's kCSplit does; one
 //     CTA per SM.
-//   * f32, or C_in % 8 != 0 (off the path): the same walk with the x halo
-//     read synchronously (reflect-indexed loads) and expanded on the CUDA
-//     cores in passes of 128 pixels, the halo kept in the I/O dtype.
+//   * f32 (C_in % 8 == 0, an aligned x: e2 and e4, the stylize CLI's
+//     dtype): the same walk with an f32 box ([pixel][bch + 4] words,
+//     edw::make_x_map's f32 map, reflected by edw::reflect_box on f32) and
+//     the 3xTF32 expand of every f32 block of the model
+//     (edw::expand_mtile_tf32: x split into TF32 hi + lo as its fragments
+//     load, the weights split once per CTA, lo hi + hi lo + hi hi on
+//     mma.sync m16n8k8, partials of TF_PAIR k8 steps added in f32 to
+//     nearest), into an f32 expanded halo swizzled as expand_dw.cuh's
+//     (edw::swz: channel c of pixel p at c ^ 8 (p % 4), the expand's float2
+//     stores and the depthwise's reads conflict-free); the flat rounding is
+//     a no-op at f32.  Its tile is 4 x 16 (OH_TF; each thread's depthwise
+//     block 2 x 4): the 8 x 16 tile's f32 halo alone takes 71,808 B at k3
+//     and 85,120 B at k5, and with the whole f32 box (46,080 B at e2,
+//     75,264 B at e4) and the split weights (256 (C_in + 4) B) 124,296 B
+//     and 168,840 B, one CTA per SM (two need at most 115,712 B each; e2
+//     reached two with the box in two chunks of 8, 105,864 B, e4 at no
+//     chunk).  The 4 x 16 tile takes 68,744 B at e2 and 102,536 B at e4
+//     with the whole box: two CTAs at both.  A box that does not fit comes
+//     in channel chunks sized by expand_dw.cuh's rule (s2_tf32_chunk), the
+//     chunks' products kept as f32 partial sums in the halo itself.
+//   * C_in % 8 != 0 or an unaligned x (off the path): the same walk with
+//     the x halo read synchronously (reflect-indexed loads) and expanded on
+//     the CUDA cores in passes of 128 pixels, the halo kept in the I/O
+//     dtype.
 // Sweep 2 is gate_project.cuh without residual.
 
 #include "common.cuh"
@@ -78,20 +99,34 @@ using edw::NWARPS;
 constexpr int CK = 32;                        // input channels per step (CC)
 constexpr int NPW = 16;                       // pixels per warp and pass (CC)
 constexpr int PASS_CC = NWARPS * NPW;
-constexpr int OH = 8, OW = 16;                // output tile
+constexpr int OW = 16;                        // output tile columns
 constexpr int CCH2 = 32;                      // channels per split box
-constexpr int BR = 4, BC = 4;                 // a thread's depthwise block
-static_assert((OH / BR) * (OW / BC) == NWARPS, "the warps cover the tile");
+constexpr int BC = 4;                         // a thread's depthwise columns
+// The f32 3xTF32 design's (TF) output tile rows: 4, not the others' 8.
+// At 8 its f32 halo and box leave two CTAs per SM at e2 only with the box
+// in two chunks, and one at e4; at 4 two share an SM with the whole box,
+// for 1.06x (e2) and 1.16x (e4) the expand's pixels: 9.6% and 2.6% less
+// time per launch on an H100 (scripts/sweep_ablation.py --f32, the cut
+// s2_tile_8x16).  The k5 instance spills 12 B at the 128 registers two
+// CTAs allow.
+constexpr int OH_TF = 4;
 
-template <int K>
+// The tile of a sweep (TF: the f32 3xTF32 design): OH x 16 outputs, each
+// thread's depthwise block BR x 4.
+template <int K, bool TF = false>
 struct Geo {
+  static constexpr int OH = TF ? OH_TF : 8;       // output tile rows
+  static constexpr int BR = OH / 2;               // a thread's block rows
+  static_assert((OH / BR) * (OW / BC) == NWARPS, "the warps cover the tile");
   static constexpr int P = (K - 1) / 2;
   static constexpr int HSH = 2 * OH - 1 + 2 * P;  // input halo rows
   static constexpr int HSW = 2 * OW - 1 + 2 * P;  // and columns
   static constexpr int HP = HSH * HSW;
   static constexpr int MT = (HP + 15) / 16;       // 16-row MMA tiles
-  // Depthwise blocks start at halo pixels 2 * BR * HSW * i + 2 * BC * j.
-  static_assert((2 * BR) % 8 == 0 && (2 * BC) % 8 == 0, "swizzle");
+  // Depthwise blocks start at halo pixels 2 * BR * HSW * i + 2 * BC * j,
+  // multiples of the swizzle's period (ex_at): 8 pixels, 4 at f32.
+  static_assert((2 * BR) % (TF ? 4 : 8) == 0 && (2 * BC) % 8 == 0,
+                "swizzle");
 };
 
 __host__ __device__ constexpr int up(int v, int m) {
@@ -99,22 +134,40 @@ __host__ __device__ constexpr int up(int v, int m) {
 }
 
 // Byte offsets of the shared memory from a 128-byte aligned base:
-//   exs  T [HP][32]: the expanded halo (bf16 swizzled, see ex_at), then the
+//   exs  T [HP][32]: the expanded halo (swizzled, see ex_at), then the
 //        tile's hidden [OH * OW][32] before its stores;
-//   xs   MMA: bf16 [MT * 16][ldxs], the x box; else the CUDA-core expand's
-//        f32 staging [PASS_CC][CK] and weights [CK][32];
-//   ws   MMA: bf16 [32][ldx], the chunk's expand weights;
+//   xs   MMA: bf16 [MT * 16][ldxs], the x box; TF: f32 [MT * 16][ldxs];
+//        else the CUDA-core expand's f32 staging [PASS_CC][CK] and
+//        weights [CK][32];
+//   ws   MMA: bf16 [32][ldx], the chunk's expand weights; TF: their TF32
+//        hi then lo parts, f32 [32][ldx] each;
 //   prt  SPLIT: f32 [HP][32] (edw::swz), the expand's partial sums;
 //   red  f32 [NWARPS][32]; bes f32 [32]; bar the box's mbarrier.
 // SPLIT (the whole box cannot be one, s2_split): xs holds one chunk of
 // CCH2 channels of the box ([pixel][ldxs = CCH2 + 8]) and cin16 is padded
 // to whole chunks, the weights' K zero past C_in; otherwise ldxs = ldx and
-// bch = cin16.
-template <typename T, int K, bool MMA, bool SPLIT = false>
+// bch = cin16.  TF (f32, the 3xTF32 expand): xs holds one chunk of `tbch`
+// channels (s2_tf32_chunk), ldxs = bch + 4 words, cin16 = C_in padded to
+// 8 (k8 steps), ldx = cin16 + 4; the chunks' partial sums go to exs.
+template <typename T, int K, bool MMA, bool SPLIT = false, bool TF = false>
 struct Smem {
   int cin16, bch, ldx, ldxs, xs, ws, prt, red, bes, bar, total;
-  __host__ __device__ explicit Smem(int cin) {
-    using G = Geo<K>;
+  __host__ __device__ explicit Smem(int cin, int tbch = 0) {
+    using G = Geo<K, TF>;
+    if (TF) {
+      cin16 = up(cin, 8);
+      bch = tbch;
+      ldx = cin16 + 4;
+      ldxs = bch + 4;
+      xs = up(G::HP * CE * 4, 128);
+      ws = xs + G::MT * 16 * ldxs * 4;
+      prt = ws + 2 * CE * ldx * 4;
+      red = prt;
+      bes = red + NWARPS * 32 * 4;
+      bar = bes + CE * 4;
+      total = bar + 8 + 128;
+      return;
+    }
     cin16 = SPLIT ? up(cin, CCH2) : up(cin, 16);
     bch = SPLIT ? CCH2 : cin16;
     ldx = cin16 + 8;
@@ -132,29 +185,41 @@ struct Smem {
 // Element index of channel c of halo pixel p in exs.  bf16: channel pairs
 // are 4-byte words, word c / 2 of pixel p at (c / 2) ^ (4 * ((p / 2) % 4)),
 // so the expand's bf16-pair stores (pixels g and g + 8 of a tile, channel
-// pairs tig) land in 32 distinct banks.  f32: plain.
+// pairs tig) land in 32 distinct banks.  f32: expand_dw.cuh's swizzle,
+// channel c at c ^ edw::swz(p), which the 3xTF32 expand's store_mtile
+// writes.
 template <typename T>
 __device__ __forceinline__ int ex_at(int p, int c) {
   if constexpr (sizeof(T) == 2)
     return ((p * 16 + ((c >> 1) ^ (((p >> 1) & 3) << 2))) << 1) | (c & 1);
-  return p * CE + c;
+  return p * CE + (c ^ edw::swz(p));
+}
+
+// The slot of halo pixel p0 + d's swizzle in depthwise_s2's lw, p0 a
+// multiple of the swizzle's period: bf16 swizzles by (p / 2) % 4, f32 by
+// p % 4.
+template <typename T>
+__host__ __device__ constexpr int swz_slot(int d) {
+  return sizeof(T) == 2 ? (d >> 1) & 3 : d & 3;
 }
 
 // The expanded halo of output tile (oy0, ox0) into exs, rounded to T.
-// MMA: from the x box in xs (waited for and reflected); otherwise from x,
-// reflect-indexed, on the CUDA cores.  Starts and ends with a barrier.
-// PASS (SPLIT, edw::store_pass's passes): xs holds the weights' K columns
-// [kofs, kofs + bch); 1 stores the products as partial sums in prt, 3 adds
-// them, 2 adds them and runs the epilogue.
-template <typename T, int K, bool MMA, bool SPLIT, int PASS = 0>
+// MMA: from the x box in xs (waited for and reflected); TF: the same from
+// the f32 box, as 3xTF32; otherwise from x, reflect-indexed, on the CUDA
+// cores.  Starts and ends with a barrier.  PASS (SPLIT and TF's chunks,
+// edw::store_pass's passes): xs holds the weights' K columns [kofs, kofs
+// + bch); 1 stores the products as partial sums (SPLIT: in prt; TF: in
+// exs), 3 adds them, 2 adds them and runs the epilogue.
+template <typename T, int K, bool MMA, bool SPLIT, bool TF, int PASS = 0>
 __device__ __forceinline__ void expand_tile(const T* __restrict__ xn,
                                             const T* __restrict__ we,
                                             char* smem,
-                                            const Smem<T, K, MMA, SPLIT>& L,
+                                            const Smem<T, K, MMA, SPLIT,
+                                                       TF>& L,
                                             int H, int W, int cin, int E,
                                             int c0, int iy0, int ix0,
                                             int kofs = 0) {
-  using G = Geo<K>;
+  using G = Geo<K, TF>;
   constexpr int HP = G::HP, HSW = G::HSW;
   T* exs = reinterpret_cast<T*>(smem);
   const float* bes = reinterpret_cast<const float*>(smem + L.bes);
@@ -194,6 +259,27 @@ __device__ __forceinline__ void expand_tile(const T* __restrict__ xn,
                 __floats2bfloat162_rn(hswish(v0 + bes[col]),
                                       hswish(v1 + bes[col + 1]));
           });
+    };
+    constexpr int ROUNDS = G::MT / NWARPS;
+    constexpr int LEFT = (G::MT - ROUNDS * NWARPS) * (CE / 8);
+    for (int i = 0; i < ROUNDS; ++i)
+      tile(std::integral_constant<int, CE / 8>{}, warp + i * NWARPS, 0);
+    for (int u = warp; u < LEFT; u += NWARPS)
+      tile(std::integral_constant<int, 1>{}, ROUNDS * NWARPS + u / (CE / 8),
+           u % (CE / 8));
+  } else if constexpr (TF) {
+    // As the bf16 expand divides its tiles among the warps; the chunk's K
+    // columns [kofs, kofs + kext).
+    const float* xs = reinterpret_cast<const float*>(smem + L.xs);
+    const uint32_t* wh = reinterpret_cast<const uint32_t*>(smem + L.ws);
+    const uint32_t* wl = wh + CE * L.ldx;
+    float* exf = reinterpret_cast<float*>(smem);
+    const int kext = min(L.bch, L.cin16 - kofs);
+    auto tile = [&](auto ntn, int mt, int nt0) {
+      constexpr int NTN = decltype(ntn)::value;
+      edw::expand_mtile_tf32<float, NTN, false, PASS>(
+          xs, L.ldxs, wh + kofs, wl + kofs, bes, exf, L.ldx, kext, mt, nt0,
+          1, HP);
     };
     constexpr int ROUNDS = G::MT / NWARPS;
     constexpr int LEFT = (G::MT - ROUNDS * NWARPS) * (CE / 8);
@@ -260,35 +346,39 @@ __device__ __forceinline__ void expand_tile(const T* __restrict__ xn,
 }
 
 // The stride-2 depthwise of the lane's channel over the expanded halo:
-// o[r][j] = hswish(dw + bd) in f32 at output row 4 * (warp / 4) + r, column
-// 4 * (warp % 4) + j of the tile.  Output (oy, ox) tap (di, dj) reads halo
-// (2 oy + di, 2 ox + dj); each output sums its k*k taps in row-major order
-// (row di, then column dj), one fmaf each.  Only reads exs.
-template <typename T, int K>
-__device__ __forceinline__ void depthwise_s2(const T* exs,
-                                             const float (&wk)[K * K],
-                                             float bdv, float (&o)[BR][BC]) {
-  using G = Geo<K>;
-  constexpr int HSW = G::HSW, SPAN = 2 * (BR - 1) + K;
+// o[r][j] = hswish(dw + bd) in f32 at output row BR * (warp / 4) + r,
+// column 4 * (warp % 4) + j of the tile.  Output (oy, ox) tap (di, dj)
+// reads halo (2 oy + di, 2 ox + dj); each output sums its k*k taps in
+// row-major order (row di, then column dj), one fmaf each.  Only reads
+// exs.
+template <typename T, int K, bool TF>
+__device__ __forceinline__ void depthwise_s2(
+    const T* exs, const float (&wk)[K * K], float bdv,
+    float (&o)[Geo<K, TF>::BR][BC]) {
+  using G = Geo<K, TF>;
+  constexpr int BR = G::BR, HSW = G::HSW;
+  constexpr int ROWS = 2 * (BR - 1) + K, COLS = 2 * (BC - 1) + K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p0 =
       2 * BR * (warp / (OW / BC)) * HSW + 2 * BC * (warp % (OW / BC));
-  // p0 % 8 == 0, so ex_at(p0 + d, lane) = (p0 + d) * 32 + lw[(d / 2) % 4]
-  // with the lane's four swizzled offsets lw.
+  // p0 is a multiple of the swizzle's period, so ex_at(p0 + d, lane) =
+  // (p0 + d) * 32 + lw[swz_slot<T>(d)] with the lane's four swizzled
+  // offsets lw.
   const T* base = exs + p0 * CE;
+  constexpr int QS = sizeof(T) == 2 ? 2 : 1;  // pixels per slot step
   int lw[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) lw[q] = ex_at<T>(2 * q, lane) - 2 * q * CE;
+  for (int q = 0; q < 4; ++q) lw[q] = ex_at<T>(QS * q, lane) - QS * q * CE;
 #pragma unroll
   for (int r = 0; r < BR; ++r)
 #pragma unroll
     for (int j = 0; j < BC; ++j) o[r][j] = 0.f;
 #pragma unroll
-  for (int hr = 0; hr < SPAN; ++hr) {
+  for (int hr = 0; hr < ROWS; ++hr) {
 #pragma unroll
-    for (int hc = 0; hc < SPAN; ++hc) {
+    for (int hc = 0; hc < COLS; ++hc) {
       const int d = hr * HSW + hc;  // relative to the block's first pixel
-      const float v = to_f32(base[d * CE + lw[(d >> 1) & 3]]);
+      const float v = to_f32(base[d * CE + lw[swz_slot<T>(d)]]);
 #pragma unroll
       for (int j = 0; j < BC; ++j) {
         const int dj = hc - 2 * j;
@@ -307,25 +397,29 @@ __device__ __forceinline__ void depthwise_s2(const T* exs,
     for (int j = 0; j < BC; ++j) o[r][j] = hswish(o[r][j] + bdv);
 }
 
-// xmap: x as edw::make_x_map's map with this tile's box (MMA only; SPLIT:
-// boxes of one chunk of channels, the first prefetched, the others loaded
-// after the previous chunk's products).
-template <typename T, int K, bool MMA, bool SPLIT = false>
-__global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
+// xmap: x as edw::make_x_map's map with this tile's box (MMA and TF only;
+// SPLIT and TF's chunks: boxes of one chunk of channels, the first
+// prefetched, the others loaded after the previous chunk's products).
+// tbch: TF's channels per box (s2_tf32_chunk); unused otherwise.
+template <typename T, int K, bool MMA, bool SPLIT = false, bool TF = false>
+__global__ void __launch_bounds__(NTHREADS, MMA || TF ? 2 : 1)
     s2_expand_dw_kernel(const __grid_constant__ CUtensorMap xmap,
                         const T* __restrict__ x, const T* __restrict__ we,
                         const float* __restrict__ wd,
                         const float* __restrict__ be,
                         const float* __restrict__ bd, T* __restrict__ hidden,
                         float* __restrict__ sums, int N, int H, int W,
-                        int cin, int E, int tiles_x, int tiles_per_image) {
-  using G = Geo<K>;
-  constexpr int P = G::P, VEC = 16 / (int)sizeof(T);
+                        int cin, int E, int tiles_x, int tiles_per_image,
+                        int tbch) {
+  using G = Geo<K, TF>;
+  constexpr int P = G::P, OH = G::OH, VEC = 16 / (int)sizeof(T);
+  constexpr bool BOX = MMA || TF;  // x comes as TMA boxes
   char* smem = edw::smem_base();
-  const Smem<T, K, MMA, SPLIT> L(cin);
+  const Smem<T, K, MMA, SPLIT, TF> L(cin, tbch);
   T* exs = reinterpret_cast<T*>(smem);
   T* hs = exs;  // the tile's hidden, [OH * OW][32]
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.xs);
+  [[maybe_unused]] float* xs32 = reinterpret_cast<float*>(smem + L.xs);
   uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.bar);
   float* red = reinterpret_cast<float*>(smem + L.red);
 
@@ -346,6 +440,9 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
       if (ci < cin && c0 + cc < E) v = we[(size_t)ci * E + c0 + cc];
       wsT[cc * L.ldx + ci] = v;
     }
+  } else if constexpr (TF) {
+    edw::stage_weights_tf32(we, reinterpret_cast<uint32_t*>(smem + L.ws),
+                            L.ldx, L.cin16, cin, E, c0);
   }
   float* bes = reinterpret_cast<float*>(smem + L.bes);
   if (threadIdx.x < CE)
@@ -366,11 +463,19 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     int n, oy0, ox0;
     origin(it, n, oy0, ox0);
     fence_proxy_async();  // this thread's earlier accesses of xs come first
-    mbar_expect_tx(xbar, G::HP * L.ldxs * 2);
+    mbar_expect_tx(xbar, G::HP * L.ldxs * (int)(TF ? 4 : 2));
     tma_load_4d(xs, &xmap, ch0, 2 * ox0 - P, 2 * oy0 - P, n, xbar);
   };
+  // The box's edges outside the image, copied from inside it.
+  auto reflect = [&](int iy0, int ix0) {
+    if constexpr (TF)
+      edw::reflect_box<P, G::HSH, G::HSW, 0, float>(xs32, L.ldxs, H, W, iy0,
+                                                    ix0);
+    else
+      edw::reflect_box<P, G::HSH, G::HSW>(xs, L.ldxs, H, W, iy0, ix0);
+  };
   uint32_t xphase = 0;
-  if constexpr (MMA) {
+  if constexpr (BOX) {
     if (threadIdx.x == 0) {
       mbar_init(xbar, 1);
       mbar_fence_init();
@@ -380,7 +485,8 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   }
   const bool vec_out = E % VEC == 0 &&
                        (reinterpret_cast<uintptr_t>(hidden) & 15) == 0;
-  const int by0 = BR * (warp / (OW / BC)), bx0 = BC * (warp % (OW / BC));
+  const int by0 = G::BR * (warp / (OW / BC));
+  const int bx0 = BC * (warp % (OW / BC));
   int n_cur = item / tiles_per_image;
   float csum = 0.f;
 
@@ -394,43 +500,48 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
     }
     const int iy0 = 2 * oy0 - P, ix0 = 2 * ox0 - P;
     const T* xn = x + (size_t)n * H * W * cin;
-    if constexpr (MMA) {
+    if constexpr (BOX) {
       mbar_wait(xbar, xphase);
       xphase ^= 1;
-      edw::reflect_box<P, G::HSH, G::HSW>(xs, L.ldxs, H, W, iy0, ix0);
+      reflect(iy0, ix0);
     }
-    if constexpr (SPLIT) {
-      // Chunk 0's partial sums, then each further chunk's box (xs is free
-      // after the last expand's barrier), its products added; the last
-      // one's epilogue.
-      expand_tile<T, K, MMA, SPLIT, 1>(xn, we, smem, L, H, W, cin, E, c0,
-                                       iy0, ix0, 0);
-      for (int ch0 = L.bch; ch0 < L.cin16; ch0 += L.bch) {
-        if (threadIdx.x == 0) issue(item, ch0);
-        mbar_wait(xbar, xphase);
-        xphase ^= 1;
-        edw::reflect_box<P, G::HSH, G::HSW>(xs, L.ldxs, H, W, iy0, ix0);
-        if (ch0 + L.bch < L.cin16)
-          expand_tile<T, K, MMA, SPLIT, 3>(xn, we, smem, L, H, W, cin, E, c0,
-                                           iy0, ix0, ch0);
-        else
-          expand_tile<T, K, MMA, SPLIT, 2>(xn, we, smem, L, H, W, cin, E, c0,
-                                           iy0, ix0, ch0);
+    if constexpr (SPLIT || TF) {
+      if (!SPLIT && L.bch >= L.cin16) {  // TF: the whole box
+        expand_tile<T, K, MMA, SPLIT, TF>(xn, we, smem, L, H, W, cin, E, c0,
+                                          iy0, ix0);
+      } else {
+        // Chunk 0's partial sums, then each further chunk's box (xs is
+        // free after the last expand's barrier), its products added; the
+        // last one's epilogue.
+        expand_tile<T, K, MMA, SPLIT, TF, 1>(xn, we, smem, L, H, W, cin, E,
+                                             c0, iy0, ix0, 0);
+        for (int ch0 = L.bch; ch0 < L.cin16; ch0 += L.bch) {
+          if (threadIdx.x == 0) issue(item, ch0);
+          mbar_wait(xbar, xphase);
+          xphase ^= 1;
+          reflect(iy0, ix0);
+          if (ch0 + L.bch < L.cin16)
+            expand_tile<T, K, MMA, SPLIT, TF, 3>(xn, we, smem, L, H, W, cin,
+                                                 E, c0, iy0, ix0, ch0);
+          else
+            expand_tile<T, K, MMA, SPLIT, TF, 2>(xn, we, smem, L, H, W, cin,
+                                                 E, c0, iy0, ix0, ch0);
+        }
       }
     } else {
-      expand_tile<T, K, MMA, SPLIT>(xn, we, smem, L, H, W, cin, E, c0, iy0,
-                                    ix0);
+      expand_tile<T, K, MMA, SPLIT, TF>(xn, we, smem, L, H, W, cin, E, c0,
+                                        iy0, ix0);
     }
-    if constexpr (MMA) {
+    if constexpr (BOX) {
       // The next tile's box comes in while this one's depthwise runs.
       if (threadIdx.x == 0 && item + (int)gridDim.x < total)
         issue(item + gridDim.x, 0);
     }
-    float o[BR][BC];
-    depthwise_s2<T, K>(exs, wk, bdv, o);
+    float o[G::BR][BC];
+    depthwise_s2<T, K, TF>(exs, wk, bdv, o);
     __syncthreads();  // every read of the expanded halo is done
 #pragma unroll
-    for (int r = 0; r < BR; ++r)
+    for (int r = 0; r < G::BR; ++r)
 #pragma unroll
       for (int j = 0; j < BC; ++j) {
         const T hv = from_f32<T>(o[r][j]);
@@ -457,16 +568,18 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   edw::flush_sums(csum, red, sums, n_cur, E, c);
 }
 
-template <typename T, int K, bool MMA, bool SPLIT = false>
+// tbch: TF's channels per box (s2_tf32_chunk); unused otherwise.
+template <typename T, int K, bool MMA, bool SPLIT = false, bool TF = false>
 cudaError_t launch(const void* x, const void* we, const void* wd,
                    const void* be, const void* bd, void* hidden, void* sums,
-                   int n, int h, int w, int cin, int e, cudaStream_t stream) {
-  using G = Geo<K>;
-  const Smem<T, K, MMA, SPLIT> L(cin);
-  auto kernel = s2_expand_dw_kernel<T, K, MMA, SPLIT>;
+                   int n, int h, int w, int cin, int e, cudaStream_t stream,
+                   int tbch = 0) {
+  using G = Geo<K, TF>;
+  const Smem<T, K, MMA, SPLIT, TF> L(cin, tbch);
+  auto kernel = s2_expand_dw_kernel<T, K, MMA, SPLIT, TF>;
   CUtensorMap xmap{};
-  if (MMA &&
-      !edw::make_x_map(&xmap, x, n, h, w, cin, G::HSW, G::HSH, L.ldxs))
+  if ((MMA || TF) && !edw::make_x_map(&xmap, x, n, h, w, cin, G::HSW,
+                                      G::HSH, L.ldxs, TF))
     return cudaErrorInvalidValue;
   if (L.total > edw::max_smem()) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -481,7 +594,7 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles_x = (w / 2 + OW - 1) / OW;
-  const int tiles_per_image = tiles_x * ((h / 2 + OH - 1) / OH);
+  const int tiles_per_image = tiles_x * ((h / 2 + G::OH - 1) / G::OH);
   const int chunks = (e + CE - 1) / CE;
   const long long items = (long long)n * tiles_per_image;
   // Never more CTAs than fit at once (edw::launch says why).
@@ -491,9 +604,11 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
       xmap, static_cast<const T*>(x), static_cast<const T*>(we),
       static_cast<const float*>(wd), static_cast<const float*>(be),
       static_cast<const float*>(bd), static_cast<T*>(hidden),
-      static_cast<float*>(sums), n, h, w, cin, e, tiles_x, tiles_per_image);
-  edw::last_async() = MMA ? 1 : 0;
-  edw::last_boxes() = L.cin16 / L.bch;
+      static_cast<float*>(sums), n, h, w, cin, e, tiles_x, tiles_per_image,
+      tbch);
+  edw::last_async() = MMA || TF ? 1 : 0;
+  edw::last_boxes() = (L.cin16 + L.bch - 1) / L.bch;
+  edw::last_design() = TF ? 2 : MMA ? 1 : 0;
   return cudaGetLastError();
 }
 
@@ -508,11 +623,32 @@ bool s2_split(int cin) {
   return edw::box_split(whole.ldx, whole.total);
 }
 
+// The f32 sweep's channels per x box at this k and C_in: expand_dw.cuh's
+// rule (edw::tf32_sized) on this sweep's layout, the box's inner extent
+// bch + 4.  e2 (k3 C_in 16) and e4 (k5 C_in 24): the whole box, two CTAs
+// per SM.  ops/kernels/limits.py mirrors the rule.
+template <int K>
+int s2_tf32_chunk(int cin) {
+  return edw::tf32_sized(cin, [&](int b, int& dim) {
+    dim = b + 4;
+    return Smem<float, K, false, false, true>(cin, b).total;
+  });
+}
+
 template <typename T, int K>
 cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
                        const void* be, const void* bd, void* hidden,
                        void* sums, int n, int h, int w, int cin, int e,
                        cudaStream_t s) {
+  // f32: the 3xTF32 expand from f32 boxes (C_in % 8 == 0, an aligned x,
+  // a chunk that fits).
+  if constexpr (sizeof(T) == 4) {
+    const int b =
+        edw::use_tf32<T, edw::kFlat>(x, cin, w) ? s2_tf32_chunk<K>(cin) : 0;
+    if (b > 0)
+      return launch<T, K, false, false, true>(x, we, wd, be, bd, hidden,
+                                              sums, n, h, w, cin, e, s, b);
+  }
   // The tensor-core expand with the TMA box: bf16, C_in % 8 == 0 (16-byte
   // box rows), an aligned x.
   if constexpr (sizeof(T) == 2) {
@@ -544,6 +680,27 @@ cudaError_t occupancy(int k, int cin, int* out) {
                : edw::query(s2_expand_dw_kernel<B, 5, true>, NTHREADS,
                             Smem<B, 5, true>(cin).total, out);
   return cudaErrorInvalidValue;
+}
+
+// Registers, dynamic shared memory and CTAs per SM of the f32 sweep-1
+// kernel (the 3xTF32 expand) at this k and C_in, its x boxes per halo and
+// channels per box, into out[0..4]; cudaErrorInvalidValue where the design
+// does not take the shape.
+cudaError_t occupancy_tf32(int k, int cin, int* out) {
+  const int b = cin % 8 != 0 ? 0
+                : k == 3     ? s2_tf32_chunk<3>(cin)
+                : k == 5     ? s2_tf32_chunk<5>(cin)
+                             : 0;
+  if (b == 0) return cudaErrorInvalidValue;
+  out[3] = (up(cin, 8) + b - 1) / b;
+  out[4] = b;
+  if (k == 3)
+    return edw::query(s2_expand_dw_kernel<float, 3, false, false, true>,
+                      NTHREADS,
+                      Smem<float, 3, false, false, true>(cin, b).total, out);
+  return edw::query(s2_expand_dw_kernel<float, 5, false, false, true>,
+                    NTHREADS, Smem<float, 5, false, false, true>(cin, b).total,
+                    out);
 }
 
 template <typename T>
@@ -606,6 +763,19 @@ extern "C" int flat_s2_occupancy(int k, int cin, int e, int cout, int* out) {
   cudaError_t err = s2::occupancy(k, cin, out);
   if (err != cudaSuccess) return (int)err;
   return (int)gp::occupancy(e, cout, false, out + 3);
+}
+
+// flat_s2_occupancy's sweep 1 for f32 x: the 3xTF32 kernel's registers,
+// shared memory, CTAs per SM, x boxes per halo and channels per box into
+// out[0..4].  Launches nothing.
+extern "C" int flat_s2_f32_occupancy(int k, int cin, int* out) {
+  return (int)ast_kernels::s2::occupancy_tf32(k, cin, out);
+}
+
+// The sweep-1 design of the last flat_s2_launch: 0 the CUDA-core expand, 1
+// the bf16 tensor-core expand, 2 the f32 3xTF32 one; -1 before any launch.
+extern "C" int flat_s2_block_last_sweep1() {
+  return ast_kernels::edw::last_design();
 }
 
 // How the last flat_s2_launch staged x in sweep 1: 1 as TMA boxes

@@ -32,10 +32,18 @@
 //     past C_in zero outside the tensor, the image's edges reflected by
 //     copies in shared memory; the expand reads its A fragments straight
 //     from the box with ldmatrix.trans, 16-pixel MMA tiles of two 8-column
-//     groups (24/20 of the expand at k5, 24/18 at k3).  Other W: the halo
-//     is staged synchronously (plain loads, reflected by index).  The bf16
-//     hidden is written once (NHWC, the layout sweep 2 streams), and the
-//     exact per-image sums of the rounded hidden are added with atomics;
+//     groups (24/20 of the expand at k5, 24/18 at k3).  f32 x (the stylize
+//     CLI's dtype) takes the same box in f32 words, [halo row][bch][24]
+//     (96-byte rows), in channel chunks sized as the NHWC f32 design's
+//     (tf32_chunk), and expands on the tensor cores as 3xTF32, the
+//     arithmetic of every f32 block of the model (expand_mtile_tf32_t: A
+//     fragments by conflict-free 32-bit loads from the channel rows, since
+//     ldmatrix.trans moves 16-bit elements only; expand_dw.cuh gives the
+//     shared memory at each shape).  Other W (off the model's path): the
+//     halo is staged synchronously (plain loads, reflected by index; f32 on
+//     the CUDA cores).  The hidden is written once (NHWC, the layout sweep
+//     2 streams), and the exact per-image sums of the rounded hidden are
+//     added with atomics;
 //   * sweep 2, gate_project.cuh with YT: each image's gate from its sums,
 //     then the hidden streamed, gated and projected on the tensor cores,
 //     the bias added; where a 128-pixel tile lies in one image row
@@ -102,10 +110,32 @@ extern "C" int mega_block_occupancy(int k, int cin, int e, int cout,
   return (int)gp::occupancy<true>(e, cout, identity != 0, out + 3);
 }
 
+// expand_dw_f32_occupancy for mega_block's f32 sweep 1 (kMega with kXBox
+// and kTf32, W % 8 == 0): registers, shared memory, CTAs per SM, x boxes
+// per halo and channels per box into out[0..4].  Launches nothing.
+extern "C" int mega_block_f32_occupancy(int k, int cin, int* out) {
+  using namespace ast_kernels;
+  return (int)edw::occupancy_tf32<edw::kMega>(k, cin, out);
+}
+
 // How the last mega_block_launch staged x in sweep 1: 1 as TMA boxes
 // (asynchronous), 0 with plain loads, -1 before any launch.
 extern "C" int mega_block_last_staging() {
   return ast_kernels::edw::last_async();
+}
+
+// The sweep-1 design of the last mega_block_launch: 0 the CUDA-core expand
+// (or expand==1), 1 the bf16 tensor-core expand, 2 the f32 3xTF32 one;
+// -1 before any launch.
+extern "C" int mega_block_last_sweep1() {
+  return ast_kernels::edw::last_design();
+}
+
+// The x boxes per halo of the last mega_block_launch's sweep 1: 1 the whole
+// box (or plain loads), 2 kXSplit's halves, or the 3xTF32 design's
+// chunks; -1 before any launch.
+extern "C" int mega_block_last_boxes() {
+  return ast_kernels::edw::last_boxes();
 }
 
 // The design of the last mega_block_launch's sweep 2: 0

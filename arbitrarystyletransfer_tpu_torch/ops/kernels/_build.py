@@ -97,12 +97,18 @@ _SIGNATURES = {
     # (0 the CUDA-core expand, 1 bf16 tensor-core, 2 f32 3xTF32, -1 none)
     "expand_dw_last_sweep1": [],
     "flat_block_last_sweep1": [],
-    # no arguments: the x boxes per halo of the last flat_block launch
+    "mega_block_last_sweep1": [],
+    "flat_s2_block_last_sweep1": [],
+    # no arguments: the x boxes per halo of the last flat_block (mega_block)
+    # launch
     "flat_block_last_boxes": [],
+    "mega_block_last_boxes": [],
     # k, c_in, out[5]: registers, shared memory, CTAs per SM, x boxes per
     # halo, channels per box of the f32 3xTF32 sweep 1 (no launch)
     "expand_dw_f32_occupancy": [_I, _I, _P],
     "flat_block_f32_occupancy": [_I, _I, _P],
+    "mega_block_f32_occupancy": [_I, _I, _P],
+    "flat_s2_f32_occupancy": [_I, _I, _P],
     # k, c_in, e, c_out, identity, out[6]: the same of both sweeps
     "flat_block_occupancy": [_I] * 5 + [_P],
     "mega_block_occupancy": [_I] * 5 + [_P],

@@ -11,9 +11,10 @@ and no residual.  For x (N, H, W, C_in) with H and W even::
     y      = round((hidden * round(gate(sums))) @ Wp [f32 acc] + pb)
 
 The CUDA kernel is ``csrc/flat_s2.cu``: its first sweep expands each
-output tile's input halo into shared memory, so the input-resolution hidden
-never reaches device memory, and its second sweep is ``flat_block``'s
-``gate_project``.  ``flat_s2_block_reference`` is the plain PyTorch twin.
+output tile's input halo into shared memory (on the tensor cores: bf16, or
+f32 as 3xTF32), so the input-resolution hidden never reaches device
+memory, and its second sweep is ``flat_block``'s ``gate_project``.
+``flat_s2_block_reference`` is the plain PyTorch twin.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
 from .expand_dw import depthwise_reference, expand_reference
-from .limits import check_flat_s2, tensor_core_expand
+from .limits import check_flat_s2, s2_sweep1_design
 from .flat_block import (
     check_input,
     gate_project_reference,
@@ -69,8 +70,10 @@ def flat_s2_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
     ops, (e, s, c_out) = kernel_operands(
         x, w_expand, w_dw, se_params, w_proj, kernel_size, b_expand, b_dw,
         proj_bias, "flat_s2_block")
-    if tensor_core_expand(x.dtype == torch.bfloat16, c_in):
-        check_flat_s2(kernel_size, c_in)
+    design = s2_sweep1_design(x.dtype == torch.bfloat16, c_in,
+                              x.data_ptr() % 16 == 0, kernel_size)
+    if design != "core":
+        check_flat_s2(kernel_size, c_in, f32=design == "tf32")
     ho, wo = h // 2, w // 2
     hidden = torch.empty((n, ho, wo, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)

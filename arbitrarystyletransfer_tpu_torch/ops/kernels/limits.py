@@ -3,9 +3,10 @@
 A pure mirror (no torch, no CUDA) of the shared-memory arithmetic of the
 first sweeps: ``Smem`` and ``c_split`` of ``csrc/expand_dw.cuh``
 (``expand_dw``, ``flat_block``'s and ``fused_sums``' sweep 1, NHWC x;
-``mega_block``'s, (N, H, C, W) x; the f32 NHWC design ``kTf32`` and its
-``tf32_chunk``), ``Smem`` and ``s2_split`` of
-``csrc/flat_s2.cu``, and the two designs of ``csrc/fused_2pass.cu``'s
+``mega_block``'s, (N, H, C, W) x; the f32 design ``kTf32`` on either
+layout and its ``tf32_chunk``), ``Smem``, ``s2_split`` and
+``s2_tf32_chunk`` of ``csrc/flat_s2.cu``, and the two designs of
+``csrc/fused_2pass.cu``'s
 ``fused_project`` (``WsSmem``, the tile ``Smem``).  Each stages its x box
 whole where it can and in channel chunks where it cannot (wider than a
 TMA box, or past shared memory).  Beside them, the design that sweep 2
@@ -18,13 +19,15 @@ naming the shape and the limit, not a CUDA error.  The limits are an
 H100's: a TMA box has at most 256 elements along each dimension, and a
 CTA at most 232,448 bytes of dynamic shared memory (the kernels read it
 from the device, ``expand_dw.cuh`` ``max_smem``).  ``sweep1_design``
-names the design of a sweep 1: bf16 NHWC x takes the tensor-core expand
-(``mma``), f32 NHWC x the 3xTF32 one (``tf32``, its box in channel
-chunks); C_in % 8 != 0, (N, H, C, W) f32 x, an unaligned x and the
-expand==1 form take the CUDA-core expand (``core``: ``mma=False``), which
-stages x in steps of 32 channels without a box and keeps the expand
-weights in f32.  ``chip_smoke.py``'s split phase holds these numbers to
-what the kernels' ``*_occupancy`` entry points report on the card.
+names the design of a sweep 1: bf16 x takes the tensor-core expand
+(``mma``), f32 x the 3xTF32 one (``tf32``, its box in channel chunks;
+(N, H, C, W) x at W % 8 == 0); NHWC x at C_in % 8 != 0, (N, H, C, W) x
+at W % 8 != 0 (f32), an unaligned x and the expand==1 form take the
+CUDA-core expand (``core``: ``mma=False``), which stages x in steps of 32
+channels without a box and keeps the expand weights in f32.
+``s2_sweep1_design`` does the same for ``flat_s2_block``.
+``chip_smoke.py``'s split phase holds these numbers to what the kernels'
+``*_occupancy`` entry points report on the card.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ CCH = 64               # expand_dw.cuh kCSplit's channels per box
 CCH2 = 32              # flat_s2.cu's channels per split box
 TH = TW = 16           # expand_dw.cuh's output tile
 S2_OH, S2_OW = 8, 16   # flat_s2.cu's output tile
+S2_TF_OH = 4           # its rows in the f32 3xTF32 design (OH_TF)
 MAX_COUT = 128         # fused_2pass.cu's MAX_NT * 8 (the tile design)
 WS_MAX_COUT = 96       # its WS_NT * 8 (the persistent design)
 TP, HS_LD = 256, 40    # fused_2pass.cu's tile pixels, hidden row (bf16)
@@ -63,43 +67,86 @@ def _halo(k: int):
     return hh, hw, hh * hw
 
 
-def _edw_tf32_smem(k: int, c_in: int, bch: int) -> dict:
-    """``expand_dw.cuh`` ``Smem<K, true, true, 4>(c_in, bch)`` (kTf32):
-    f32 words, the x box ``bch`` channels wide (+ 4), the weights' TF32 hi
-    and lo parts [32][C_in8 + 4] each."""
+def _with_ctas(st: dict) -> dict:
+    """``st`` with "ctas": the CTAs per SM its shared memory lets share an
+    SM, up to the two that the kernels' ``__launch_bounds__`` ask for."""
+    return dict(st, ctas=min(2, SM_SMEM // (st["smem"] + CTA_RESERVED)))
+
+
+def _edw_tf32_smem(k: int, c_in: int, bch: int,
+                   layout: str = "nhwc") -> dict:
+    """``expand_dw.cuh`` ``Smem<K, true, true, XB>(c_in, bch)``: kTf32
+    (XB 4, NHWC x: f32 words, the x box ``bch`` channels wide (+ 4)) or,
+    with ``layout`` "xt", kTf32 with kXBox (XB 5: the (N, H, C, W) box,
+    [halo row][bch][24] words); the weights' TF32 hi and lo parts
+    [32][C_in8 + 4] each."""
     hh, hw, hp = _halo(k)
     cin8 = _up(c_in, 8)
-    ldxs = bch + 4
-    total = (hp * CE * 4 + (hp + 15) // 16 * 16 * ldxs * 4
+    if layout == "xt":
+        bw = _up(hw, 8)
+        xs, box = hh * bch * bw * 4, (bw, bch, hh)
+    else:
+        ldxs = bch + 4
+        xs, box = (hp + 15) // 16 * 16 * ldxs * 4, (ldxs, hw, hh)
+    total = (hp * CE * 4 + xs + 2 * CE * (cin8 + 4) * 4 + NWARPS * 32 * 4
+             + CE * 4 + 8 + 128)
+    return _with_ctas({"smem": total, "box": box,
+                       "boxes": -(-cin8 // bch), "chunk": bch})
+
+
+def _s2_tf32_smem(k: int, c_in: int, bch: int) -> dict:
+    """``flat_s2.cu`` ``Smem<float, K, false, false, true>(c_in, bch)``:
+    the f32 expanded halo (4 x 16 outputs' input halo at stride 2), the f32
+    x box ``bch`` channels wide (+ 4), the split weights."""
+    p = (k - 1) // 2
+    hsh, hsw = 2 * S2_TF_OH - 1 + 2 * p, 2 * S2_OW - 1 + 2 * p
+    hp = hsh * hsw
+    cin8, ldxs = _up(c_in, 8), bch + 4
+    total = (_up(hp * CE * 4, 128) + (hp + 15) // 16 * 16 * ldxs * 4
              + 2 * CE * (cin8 + 4) * 4 + NWARPS * 32 * 4 + CE * 4 + 8 + 128)
-    return {"smem": total, "box": (ldxs, hw, hh),
-            "boxes": -(-cin8 // bch), "chunk": bch}
+    return _with_ctas({"smem": total, "box": (ldxs, hsw, hsh),
+                       "boxes": -(-cin8 // bch), "chunk": bch})
 
 
-def _tf32_fit(k: int, c_in: int, want: int) -> int:
+def _tf32_fit(c_in: int, want: int, staging) -> int:
     """``expand_dw.cuh`` ``tf32_fit``: the channels per box of the fewest
-    chunks with which ``want`` CTAs share an SM, or 0."""
+    chunks with which ``want`` CTAs share an SM, or 0; ``staging(b)`` is
+    the layout's dict with a box of ``b`` channels."""
     cin8 = _up(c_in, 8)
     for chunks in range(1, cin8 // 8 + 1):
         b = _up(-(-cin8 // chunks), 8)
-        if b + 4 > MAX_BOX:
+        st = staging(b)
+        if max(st["box"]) > MAX_BOX:
             continue
-        t = _edw_tf32_smem(k, c_in, b)["smem"]
+        t = st["smem"]
         if t <= SMEM_OPT_IN and want * (t + CTA_RESERVED) <= SM_SMEM:
             return b
     return 0
 
 
-def tf32_chunk(k: int, c_in: int) -> int:
-    """``expand_dw.cuh`` ``tf32_chunk`` on an H100: the channels per x box
-    of the 3xTF32 design, sized for two CTAs per SM where that costs at
-    most one chunk more than one CTA's fewest, else for one; 0 where no
-    chunk fits (the shape takes the CUDA-core expand)."""
-    one, two = _tf32_fit(k, c_in, 1), _tf32_fit(k, c_in, 2)
+def _tf32_sized(c_in: int, staging) -> int:
+    """``expand_dw.cuh`` ``tf32_sized`` on an H100: two CTAs per SM where
+    that costs at most one chunk more than one CTA's fewest, else one."""
+    one, two = _tf32_fit(c_in, 1, staging), _tf32_fit(c_in, 2, staging)
     cin8 = _up(c_in, 8)
     if two and -(-cin8 // two) <= (-(-cin8 // one) if one else 0) + 1:
         return two
     return one
+
+
+def tf32_chunk(k: int, c_in: int, layout: str = "nhwc") -> int:
+    """``expand_dw.cuh`` ``tf32_chunk`` on an H100: the channels per x box
+    of the 3xTF32 design (``layout`` "nhwc" or "xt", mega_block's (N, H,
+    C, W) box), sized for two CTAs per SM where that costs at most one
+    chunk more than one CTA's fewest, else for one; 0 where no chunk fits
+    (the shape takes the CUDA-core expand)."""
+    return _tf32_sized(c_in, lambda b: _edw_tf32_smem(k, c_in, b, layout))
+
+
+def s2_tf32_chunk(k: int, c_in: int) -> int:
+    """``flat_s2.cu`` ``s2_tf32_chunk``: ``tf32_chunk``'s rule on the f32
+    stride-2 sweep's layout."""
+    return _tf32_sized(c_in, lambda b: _s2_tf32_smem(k, c_in, b))
 
 
 def sweep1_design(bf16: bool, c_in: int, expand: bool = True,
@@ -107,18 +154,33 @@ def sweep1_design(bf16: bool, c_in: int, expand: bool = True,
                   k: int = 3) -> str:
     """The design of a sweep 1 of ``expand_dw.cuh`` (``dispatch_k``):
     "mma" (bf16: the tensor-core expand; NHWC x at C_in % 8 == 0 and
-    aligned, every (N, H, C, W) x), "tf32" (f32 NHWC x at C_in % 8 == 0,
-    aligned, within shared memory: ``tf32_chunk``) or "core" (the
-    CUDA-core expand: the rest, and the expand==1 form)."""
+    aligned, every (N, H, C, W) x), "tf32" (f32: NHWC x at C_in % 8 == 0,
+    (N, H, C, W) x at W % 8 == 0 (``layout`` "xt"), aligned, within shared
+    memory: ``tf32_chunk``) or "core" (the CUDA-core expand: the rest, and
+    the expand==1 form)."""
     if not expand:
         return "core"
     if bf16:
         return "mma" if layout != "nhwc" or (c_in % 8 == 0 and aligned) \
             else "core"
+    if layout == "xt" and aligned and tf32_chunk(k, c_in, "xt"):
+        return "tf32"
     if (layout == "nhwc" and c_in % 8 == 0 and aligned
             and tf32_chunk(k, c_in)):
         return "tf32"
     return "core"
+
+
+def s2_sweep1_design(bf16: bool, c_in: int, aligned: bool = True,
+                     k: int = 3) -> str:
+    """The design of ``flat_s2.cu``'s sweep 1 (``dispatch_k``): "mma"
+    (bf16), "tf32" (f32, within shared memory: ``s2_tf32_chunk``), each at
+    C_in % 8 == 0 and an aligned x; else "core"."""
+    if c_in % 8 or not aligned:
+        return "core"
+    if bf16:
+        return "mma"
+    return "tf32" if s2_tf32_chunk(k, c_in) else "core"
 
 
 def _edw_smem(k: int, c_in: int, xb: int, mma: bool = True,
@@ -157,12 +219,14 @@ def sweep1_staging(k: int, c_in: int, layout: str = "nhwc",
     ``k`` and ``c_in`` channels: {"smem": bytes per CTA, "box": the TMA
     box's dims, innermost first, "boxes": boxes per halo}.  ``mma``: the
     bf16 tensor-core expand (``tensor_core_expand``); without it, no box,
-    any layout.  ``tf32`` (with ``mma``): the f32 3xTF32 design, NHWC x in
-    ``tf32_chunk``'s chunks (and "chunk": its channels per box).  ``layout`` "nhwc" (expand_dw, flat_block, fused_sums; the
-    whole box unless it is wider than a box may be or would not fit, then
-    kCSplit's chunks) or "xt" ((N, H, C, W) x at W % 8 == 0: mega_block's
-    kXBox, halves from C_in16 64) or "xt_rows" (W % 8 != 0: plain loads
-    into the NHWC layout's buffer, no box)."""
+    any layout.  ``tf32`` (with ``mma``): the f32 3xTF32 design, x in
+    ``tf32_chunk``'s chunks (and "chunk": its channels per box, "ctas": the
+    CTAs per SM its shared memory allows, up to two).  ``layout`` "nhwc"
+    (expand_dw, flat_block, fused_sums; the whole box unless it is wider
+    than a box may be or would not fit, then kCSplit's chunks) or "xt"
+    ((N, H, C, W) x at W % 8 == 0: mega_block's kXBox, halves from C_in16
+    64) or "xt_rows" (W % 8 != 0: plain loads into the NHWC layout's
+    buffer, no box)."""
     if k not in (3, 5):
         raise ValueError(f"kernel_size must be 3 or 5, got {k}")
     if layout not in ("nhwc", "xt", "xt_rows"):
@@ -170,14 +234,15 @@ def sweep1_staging(k: int, c_in: int, layout: str = "nhwc",
     if not mma:
         return _edw_smem(k, c_in, 0, False, expand)
     if tf32:
-        if layout != "nhwc":
-            raise ValueError("the 3xTF32 sweep 1 takes NHWC x only")
-        bch = tf32_chunk(k, c_in)
+        if layout == "xt_rows":
+            raise ValueError("the 3xTF32 sweep 1 takes NHWC x or (N, H, C, "
+                             "W) x at W % 8 == 0")
+        bch = tf32_chunk(k, c_in, layout)
         if not bch:
             raise ValueError(
                 f"k {k}, C_in {c_in}: the 3xTF32 sweep 1 fits no x chunk "
                 f"in a CTA's {SMEM_OPT_IN} bytes of shared memory")
-        return _edw_tf32_smem(k, c_in, bch)
+        return _edw_tf32_smem(k, c_in, bch, layout)
     if layout == "xt":
         return _edw_smem(k, c_in, 2 if _up(c_in, 16) >= 64 else 1)
     if layout == "xt_rows":
@@ -204,13 +269,23 @@ def _s2_smem(k: int, c_in: int, split: bool) -> dict:
     return {"smem": total, "box": (ldxs, hsw, hsh), "boxes": cin16 // bch}
 
 
-def flat_s2_staging(k: int, c_in: int) -> dict:
+def flat_s2_staging(k: int, c_in: int, f32: bool = False) -> dict:
     """``flat_s2.cu`` ``Smem<bf16, K, true, SPLIT>(c_in)``: its bytes and
     its x box per tile (8 x 16 outputs, the input halo at stride 2): the
     whole box, or (``s2_split``) chunks of 32 channels with f32 partial
-    sums."""
+    sums.  ``f32``: the 3xTF32 sweep (``Smem<float, K, false, false,
+    true>``), the f32 box in ``s2_tf32_chunk``'s chunks ("chunk": its
+    channels per box, "ctas": the CTAs per SM its shared memory allows, up
+    to two); ``ValueError`` where no chunk fits."""
     if k not in (3, 5):
         raise ValueError(f"kernel_size must be 3 or 5, got {k}")
+    if f32:
+        bch = s2_tf32_chunk(k, c_in)
+        if not bch:
+            raise ValueError(
+                f"k {k}, C_in {c_in}: the f32 stride-2 sweep 1 fits no x "
+                f"chunk in a CTA's {SMEM_OPT_IN} bytes of shared memory")
+        return _s2_tf32_smem(k, c_in, bch)
     whole = _s2_smem(k, c_in, False)
     if whole["box"][0] > MAX_BOX or whole["smem"] > SMEM_OPT_IN:
         return _s2_smem(k, c_in, True)
@@ -368,12 +443,14 @@ def check_sweep1_design(name: str, k: int, c_in: int, bf16: bool,
     return design
 
 
-def check_flat_s2(k: int, c_in: int) -> dict:
-    """``flat_s2_staging`` or ``ValueError`` (C_in past 736 at k5 and 1184
-    at k3, where the expand weights beside the chunks outgrow shared
-    memory)."""
-    st = flat_s2_staging(k, c_in)
-    _refuse("flat_s2_block", f"k {k}, C_in {c_in}", st)
+def check_flat_s2(k: int, c_in: int, f32: bool = False) -> dict:
+    """``flat_s2_staging`` or ``ValueError`` (bf16: C_in past 736 at k5
+    and 1184 at k3, where the expand weights beside the chunks outgrow
+    shared memory; f32: where ``s2_tf32_chunk`` fits none, which
+    ``s2_sweep1_design`` sends to the CUDA-core expand)."""
+    st = flat_s2_staging(k, c_in, f32)
+    _refuse("flat_s2_block", f"k {k}, C_in {c_in}"
+            + (" (3xTF32)" if f32 else ""), st)
     return st
 
 

@@ -15,9 +15,10 @@ kernel of the "mega" route.  x and y are (N, H, C, W), W contiguous::
 where ``round`` casts to the I/O dtype.  These rounding points are neither
 ``_flat_kernel``'s (which rounds ``ex``) nor ``_fused_kernel``'s (which sums
 the unrounded hidden).  The CUDA kernel is ``csrc/mega_block.cu``, two
-launches: the expand + depthwise sweep reads x in its own layout and writes
-the hidden and its sums, and ``gate_project`` takes the gate from the sums,
-projects and writes y in (N, H, C_out, W); nothing transposes around it.
+launches: the expand + depthwise sweep reads x in its own layout (on the
+tensor cores: bf16, or f32 as 3xTF32) and writes the hidden and its sums,
+and ``gate_project`` takes the gate from the sums, projects and writes y
+in (N, H, C_out, W); nothing transposes around it.
 ``mega_block_reference`` is its plain PyTorch twin.
 """
 
@@ -28,7 +29,7 @@ import torch
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
 from .expand_dw import depthwise_reference, expand_reference
-from .limits import check_sweep1
+from .limits import check_sweep1, sweep1_design
 from .flat_block import (
     check_input,
     gate_project_reference,
@@ -86,10 +87,13 @@ def mega_block(xt, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         proj_bias, "mega_block", channel_dim=2)
     if identity and c_in != c_out:
         raise ValueError("mega_block: identity needs C_in == C_out")
-    check_sweep1("mega_block", kernel_size, c_in,
-                 "xt" if w % 8 == 0 else "xt_rows",
-                 mma=x.dtype == torch.bfloat16 and w_expand is not None,
-                 expand=w_expand is not None)
+    layout = "xt" if w % 8 == 0 else "xt_rows"
+    design = sweep1_design(x.dtype == torch.bfloat16, c_in,
+                           w_expand is not None, layout,
+                           x.data_ptr() % 16 == 0, kernel_size)
+    check_sweep1("mega_block", kernel_size, c_in, layout,
+                 mma=design != "core", expand=w_expand is not None,
+                 tf32=design == "tf32")
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
     sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
     gate = torch.empty((n, e), dtype=torch.float32, device=x.device)

@@ -1,14 +1,16 @@
 """Two trees' 512px route and row times in turns, pooled.
 
     python -m arbitrarystyletransfer_tpu_torch.scripts.route_turns \\
-        PARENT CHANGE [--order CPPCPCCP] [--out chiprun_out/route_turns]
+        PARENT CHANGE [--order CPPCPCCP] [--out chiprun_out/route_turns] \\
+        [--f32]
 
 Run on the card's machine.  PARENT and CHANGE are checkouts of the repo
 (each with its own ``chip_smoke.py``); for each letter of ``--order`` it
 runs ``python3 chip_smoke.py --phase routes`` in that tree (C the change,
 P the parent), then this tree's ``sweep_times.py`` against that tree's
-package (the bf16 rows' device ms per request by kernel and sweep), one
-process at a time, and keeps their logs in ``--out``.  The routes phase
+package (the bf16 rows' device ms per request by kernel and sweep; with
+``--f32`` the f32 rows' too, ``sweep_times.py --f32``), one process at a
+time, and keeps their logs in ``--out``.  The routes phase
 times each route's bf16 requests (the first a warm-up), two more in its
 ``adaattn_fwd`` A/B ("on the tensor-core kernel": the route as served),
 and four f32 requests (the first a warm-up).  One JSON line per route,
@@ -102,6 +104,8 @@ def main(argv=None) -> int:
     ap.add_argument("change", type=Path)
     ap.add_argument("--order", default="CPPCPCCP")
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/route_turns"))
+    ap.add_argument("--f32", action="store_true",
+                    help="also time the rows in float32 (sweep_times --f32)")
     args = ap.parse_args(argv)
     if set(args.order) - {"C", "P"}:
         ap.error("--order takes the letters C and P")
@@ -116,7 +120,8 @@ def main(argv=None) -> int:
         out = run_logged([sys.executable, "chip_smoke.py", "--phase",
                           "routes"], tree, args.out / f"{i:02d}{side}.log")
         runs.append({"side": side, "routes": parse(out)})
-        out = run_logged([sys.executable, str(SWEEP_TIMES)], tree,
+        out = run_logged([sys.executable, str(SWEEP_TIMES)]
+                         + ["--f32"] * args.f32, tree,
                          args.out / f"{i:02d}{side}_sweeps.log",
                          env=dict(os.environ, PYTHONPATH=str(tree)))
         per = [json.loads(line)["per_request_ms"] for line in

@@ -13,9 +13,10 @@ bound, its share of that bound, its achieved rates and (where the library
 answers the query) the
 registers, shared memory and resident CTAs per SM of its kernel at that
 shape; with ``--f32``, ``expand_dw`` and ``flat_block`` at the same
-shapes in float32 after them (the stylize CLI's dtype: the 3xTF32 sweep
-1).  Then the registers and spills of each sweep's kernels from the
-compiler's report and their opcode counts (``sass_ops``).  Prints one JSON
+shapes in float32 after them, then ``mega_block`` and ``flat_s2_block``
+at theirs (the stylize CLI's dtype: the 3xTF32 sweep 1).  Then the
+registers and spills of each sweep's kernels from the compiler's report
+and their opcode counts (``sass_ops``).  Prints one JSON
 object per shape and sweep, then a summary (ms per request by kernel,
 sweep and dtype).  Needs CUDA; fails without it.  The shapes come from
 the bf16 rows, so an older ``chip_smoke.py`` serves too: run from a
@@ -128,7 +129,7 @@ def occupancy(kernel, k, c_in, e=0, c_out=0, residual=False, bf16=True):
     """{sweep: (registers, shared memory bytes, resident CTAs per SM)} of
     the kernels of ``kernel`` ("expand_dw", "flat_block", "mega_block" or
     "flat_s2_block") at this shape, from the runtime (f32: sweep 1's 3xTF32
-    kernel of expand_dw and flat_block, and flat_block's sweep 2); {}
+    kernel, ``*_f32_occupancy``, and sweep 2's ``gate_project_tf32``); {}
     where the library has no such query."""
     import ctypes
 
@@ -138,15 +139,17 @@ def occupancy(kernel, k, c_in, e=0, c_out=0, residual=False, bf16=True):
     out = (ctypes.c_int * 6)()
     ptr = ctypes.cast(out, ctypes.c_void_p)
     if not bf16:
-        fn = getattr(lib, f"{kernel}_f32_occupancy", None)
+        name = ("flat_s2_f32_occupancy" if kernel == "flat_s2_block"
+                else f"{kernel}_f32_occupancy")
+        fn = getattr(lib, name, None)
         if fn is None:
             return {}
-        _build.check(fn(k, c_in, ptr), f"{kernel}_f32_occupancy")
+        _build.check(fn(k, c_in, ptr), name)
         occ = {"sweep1": tuple(out[:3])}
-        if kernel == "flat_block":
-            _build.check(lib.gate_project_occupancy(1, e, c_out,
-                                                    int(residual), 0, 0, ptr),
-                         "gate_project_occupancy")
+        if kernel != "expand_dw":
+            _build.check(lib.gate_project_occupancy(
+                1, e, c_out, int(residual), int(kernel == "mega_block"), 0,
+                ptr), "gate_project_occupancy")
             occ["sweep2"] = tuple(out[:3])
         return occ
     name, args = {
@@ -193,7 +196,8 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
     """Per-sweep records of expand_dw at ``expand_cases`` (x of
     ``expand_dtype``), flat_block at ``flat_cases`` (x of each case's
     dtype), mega_block at ``mega_cases`` and flat_s2_block at ``s2_cases``
-    (bf16; ``chip_smoke.py``'s tuples); returns the list."""
+    (x of each case's dtype; ``chip_smoke.py``'s tuples); returns the
+    list."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.expand_dw import (
         expand_dw,
@@ -258,25 +262,28 @@ def time_sweeps(gen, expand_cases, flat_cases, device="cuda", log=print,
     for case in mega_cases:
         name, n, h, w, c_in, e, c_out, k, bn, residual = case[:10]
         assert h == w, "the path's mega shapes are square"
-        xt = rand(n, h, c_in, w).bfloat16()
+        xt = rand(n, h, c_in, w).to(getattr(torch, case[10]))
+        size = xt.element_size()
         args, kw = block(c_in, e, c_out, k, bn)
         ms = profile_sweeps(lambda: mega_block(
             xt, *args, pre_act=True, identity=residual, **kw))
         del xt
         emit(name, "mega_block", ms,
-             sweep_costs(n, h, c_in, e, c_out, k, residual), case[-1],
-             occupancy("mega_block", k, c_in, e, c_out, residual),
-             last_staging("mega_block"))
+             sweep_costs(n, h, c_in, e, c_out, k, residual, size), case[-1],
+             occupancy("mega_block", k, c_in, e, c_out, residual,
+                       bf16=size == 2),
+             last_staging("mega_block"), size=size)
     for case in s2_cases:
         name, n, hw, c_in, e, c_out, k, bn = case[:8]
-        x = rand(n, hw, hw, c_in).bfloat16()
+        x = rand(n, hw, hw, c_in).to(getattr(torch, case[8]))
+        size = x.element_size()
         args, kw = block(c_in, e, c_out, k, bn)
         ms = profile_sweeps(lambda: flat_s2_block(x, *args, **kw))
         del x
         emit(name, "flat_s2_block", ms,
-             s2_sweep_costs(n, hw, c_in, e, c_out, k), case[-1],
-             occupancy("flat_s2_block", k, c_in, e, c_out),
-             last_staging("flat_s2_block"))
+             s2_sweep_costs(n, hw, c_in, e, c_out, k, size), case[-1],
+             occupancy("flat_s2_block", k, c_in, e, c_out, bf16=size == 2),
+             last_staging("flat_s2_block"), size=size)
     return records
 
 
@@ -418,7 +425,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--f32", action="store_true",
-                    help="also time expand_dw and flat_block in float32")
+                    help="also time the four kernels in float32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_times: CUDA is not available", file=sys.stderr)
@@ -446,6 +453,9 @@ def main(argv=None) -> int:
             records += time_sweeps(
                 gen, expand_cases,
                 [c[:9] + ("float32",) + c[10:] for c in flat_cases],
+                mega_cases=[c[:10] + ("float32",) + c[11:]
+                            for c in mega_cases],
+                s2_cases=[c[:8] + ("float32",) + c[9:] for c in s2_cases],
                 expand_dtype="float32")
     per_req = {}
     for r in records:

@@ -16,7 +16,8 @@
    ``flat_s2_block`` and ``mega_block``; and every block of the 512px
    path again at f32, the stylize CLI's dtype, summed per f32 request, the
    block kernels' sweep 2 of every path row on the designed kernel of its
-   dtype, ``*_last_sweep2``), with the max
+   dtype, ``*_last_sweep2``, and their sweep 1 on the design the mirror
+   names, 3xTF32 at f32, ``*_last_sweep1``), with the max
    error against a stated tolerance and the
    device times (CUDA events) of the kernel, the twin and, where one
    PyTorch call computes the same function, that call (the SDPA yardstick
@@ -284,7 +285,8 @@ MAIN_ROUTE = "flat-all"  # the stylize routes' main path (slice 2)
 # The routes phase also serves each route's request 1 and the next ones at
 # f32 (the stylize CLI's dtype), ROUTE_F32_REQUESTS in all, the first held
 # to the plain twins and a warm-up, the others timed (median); and "flat"
-# (F32_ONLY_ROUTES), which serves at bf16 in the sizes phase, at f32 here.
+# (F32_ONLY_ROUTES), which serves at bf16 in the sizes phase, at f32 here,
+# its first request held to the twins too.
 ROUTE_F32_REQUESTS, F32_ONLY_ROUTES = 4, ("flat",)
 
 # Training (slice 3's main path): ASTTrainer, full-width ModelConfig with the
@@ -581,8 +583,18 @@ def f32_row(label):
 
 
 FLAT_BLOCK_F32 = f32_rows(FLAT_BLOCK_CASES, ("d0-d1@1024",))
-FLAT_S2_F32 = f32_rows(FLAT_S2_CASES)
-MEGA_F32 = f32_rows(MEGA_CASES, ("d0-d1@1024",))
+# Beside the path rows, the 3xTF32 sweep 1 of flat_s2_block and mega_block
+# at ragged maps (0 launches, drawn last from the f32 generator): stride 2
+# at k5 (the whole box) and k3 (two chunks of 8 channels) on maps whose
+# last tiles are partial, and mega_block at k5 with C_in 12 (the box's
+# channels past C_in zero), an odd H and W = 40 (the shifted grid's last
+# tile partial).
+FLAT_S2_F32 = f32_rows(FLAT_S2_CASES) + (
+    ("s2-rag-k5" + F32_TAG, 2, 74, 24, 48, 24, 5, True, "float32", 0),
+    ("s2-rag-k3" + F32_TAG, 2, 70, 16, 48, 16, 3, False, "float32", 0))
+MEGA_F32 = f32_rows(MEGA_CASES, ("d0-d1@1024",)) + (
+    ("rag40-k5" + F32_TAG, 2, 37, 40, 12, 48, 16, 5, True, False,
+     "float32", 0),)
 # expand_dw's f32 rows (x float32: the 3xTF32 sweep 1): each 512px path
 # shape of EXPAND_DW_CASES, its launches those of one 512px batch-8 f32
 # "fused" request, held at F32_TOL / SUMS_TOL and summed per f32 request
@@ -863,13 +875,17 @@ def sdpa_yardstick(q, k, v, backward=False, windows=5, iters=10,
     raise AssertionError("no SDPA backend took the yardstick")
 
 
-def sweep1_check(kernel, label, dtype, c_in, k, expand=True):
+def sweep1_check(kernel, label, dtype, c_in, k, expand=True,
+                 layout="nhwc"):
     """The sweep-1 design and x boxes of ``kernel``'s last launch
-    ("expand_dw" or "flat_block"): the design ``limits.sweep1_design``
-    names for the shape (the bf16 tensor-core expand, f32's 3xTF32 or the
-    CUDA-core one) and the boxes per halo of its ``sweep1_staging`` (the
-    whole box, kCSplit's chunks, ``tf32_chunk``'s); returns (design,
-    boxes)."""
+    ("expand_dw", "flat_block", "flat_s2_block" or "mega_block", whose x
+    is ``layout`` "xt" at W % 8 == 0, else "xt_rows"): the design
+    ``limits.sweep1_design`` (``s2_sweep1_design``) names for the shape
+    (the bf16 tensor-core expand, f32's 3xTF32 or the CUDA-core one) and
+    the boxes per halo of its ``sweep1_staging`` (``flat_s2_staging``: the
+    whole box, kCSplit's or kXSplit's chunks, ``tf32_chunk``'s); a path
+    row at f32 (``f32_row``) must take the 3xTF32 design.  Returns
+    (design, boxes)."""
     from arbitrarystyletransfer_tpu_torch.ops.kernels import limits
     from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
         load_library,
@@ -879,11 +895,18 @@ def sweep1_check(kernel, label, dtype, c_in, k, expand=True):
     design = limits.SWEEP1_DESIGNS.get(
         getattr(lib, f"{kernel}_last_sweep1")())
     boxes = getattr(lib, f"{kernel}_last_boxes")()
-    want = limits.sweep1_design(dtype == "bfloat16", c_in, expand, k=k)
+    bf16 = dtype == "bfloat16"
+    s2 = kernel == "flat_s2_block"
+    want = (limits.s2_sweep1_design(bf16, c_in, k=k) if s2 else
+            limits.sweep1_design(bf16, c_in, expand, layout, k=k))
     check(design == want, f"{kernel} {label} {dtype}: sweep 1 took {design}, "
           f"the mirror says {want}")
-    if want != "core":
-        chunks = limits.sweep1_staging(k, c_in, tf32=want == "tf32")["boxes"]
+    check(not f32_row(label) or design == "tf32", f"{kernel} {label}: the "
+          f"f32 path row's sweep 1 took the {design} expand, not 3xTF32")
+    if want != "core" and layout != "xt_rows":  # xt_rows: no box
+        tf32 = want == "tf32"
+        chunks = (limits.flat_s2_staging(k, c_in, tf32) if s2 else
+                  limits.sweep1_staging(k, c_in, layout, tf32=tf32))["boxes"]
         check(boxes == chunks, f"{kernel} {label}: {boxes} x boxes per "
               f"halo, the mirror {chunks}")
     return design, boxes
@@ -1081,31 +1104,44 @@ def smem_mirror_check():
         f"{MIRROR_C_IN[0]}-{MIRROR_C_IN[-1]}; C_out {MIRROR_C_OUT}) equal "
         f"the kernels' own, the card's {lib.max_smem_optin()} bytes per CTA "
         "the mirror's")
-    # The f32 3xTF32 sweep 1 (expand_dw, flat_block): its bytes, boxes per
-    # halo and channels per box, or both refuse it (the CUDA-core expand
-    # takes the shape); and the CTAs per SM its sizing was made for.
+    # The f32 3xTF32 sweep 1 (expand_dw, flat_block: NHWC; mega_block: the
+    # (N, H, C, W) box; flat_s2_block: its stride-2 layout): its bytes,
+    # boxes per halo and channels per box, or both refuse it (the
+    # CUDA-core expand takes the shape); and at least the CTAs per SM its
+    # sizing was made for ("ctas").
+    def tf32_mirror(layout, c_in, k):
+        try:
+            if layout == "s2":
+                return limits.flat_s2_staging(k, c_in, f32=True)
+            if layout == "nhwc" and c_in % 8:
+                return None
+            return limits.sweep1_staging(k, c_in, layout, tf32=True)
+        except ValueError:
+            return None
+
     tf32 = 0
+    queries = (("expand_dw", "nhwc"), ("flat_block", "nhwc"),
+               ("mega_block", "xt"), ("flat_s2", "s2"))
     for k in (3, 5):
         for c_in in MIRROR_C_IN:
-            chunk = limits.tf32_chunk(k, c_in)
-            st = limits._edw_tf32_smem(k, c_in, chunk) if chunk else None
-            want = st and (st["smem"], st["boxes"], chunk)
-            for name in ("expand_dw", "flat_block"):
+            for name, layout in queries:
+                st = tf32_mirror(layout, c_in, k)
+                want = st and (st["smem"], st["boxes"], st["chunk"])
                 rc = getattr(lib, f"{name}_f32_occupancy")(k, c_in, ptr)
                 got = None if rc else (out[1], out[3], out[4])
                 check(got == want, f"{name} f32 k {k} C_in {c_in}: the "
                       f"kernel takes {got} (bytes, boxes, channels per box), "
                       f"the mirror {want} (None: the CUDA-core expand)")
                 if got:
-                    two = 2 * (st["smem"] + limits.CTA_RESERVED) \
-                        <= limits.SM_SMEM
-                    check(out[2] >= (2 if two else 1), f"{name} f32 k {k} "
-                          f"C_in {c_in}: {out[2]} CTAs per SM")
+                    check(out[2] >= st["ctas"], f"{name} f32 k {k} C_in "
+                          f"{c_in}: {out[2]} CTAs per SM, the mirror "
+                          f"{st['ctas']}")
                 compared += 1
                 tf32 += got is not None
-    log(f"3xTF32 sweep-1 mirror: {len(MIRROR_C_IN) * 4} shapes (k 3, 5; "
-        f"expand_dw and flat_block), {tf32} on the design, the rest on the "
-        "CUDA-core expand, equal the kernels' bytes, boxes and chunks")
+    log(f"3xTF32 sweep-1 mirror: {len(MIRROR_C_IN) * 2 * len(queries)} "
+        f"shapes (k 3, 5; {', '.join(q[0] for q in queries)}), {tf32} on "
+        "the design, the rest on the CUDA-core expand, equal the kernels' "
+        "bytes, boxes and chunks")
     out4 = (ctypes.c_int * 4)()
     ptr4 = ctypes.cast(out4, ctypes.c_void_p)
     designs = {"mma": 0, "tf32": 0, "generic": 0}
@@ -1244,21 +1280,27 @@ def sweeps_phase(gen):
         f"{r['kernel']} {r['shape']} {r['sweep']} {r['ms']:.4f}"
         for r in big))
     sweep2_phase(gen)
-    # The f32 path rows of expand_dw and flat_block by sweep (the 3xTF32
-    # sweep 1), on a generator of their own.
+    # The f32 path rows of expand_dw, flat_block, mega_block and
+    # flat_s2_block by sweep (the 3xTF32 sweep 1), on a generator of their
+    # own; mega_block and flat_s2_block draw after the others.
     gen32 = torch.Generator(device=DEVICE).manual_seed(
         SEED + EXPAND_F32_SEED + 1)
     f32 = time_sweeps(
         gen32, [c for c in EXPAND_DW_F32 if c[-1]],
         [c for c in FLAT_BLOCK_F32 if c[-1]], DEVICE, log,
-        expand_dtype="float32")
+        mega_cases=[c for c in MEGA_F32 if c[-1]],
+        s2_cases=[c for c in FLAT_S2_F32 if c[-1]], expand_dtype="float32")
+    for r in f32:
+        if r["kernel"] in ("mega_block", "flat_s2_block") and "staging" in r:
+            check(r["staging"] == "async",
+                  f"{r['kernel']} {r['shape']}: x staged {r['staging']}")
     per_f32 = {}
     for r in f32:
         key = f"{r['kernel']} {r['sweep']}"
         per_f32[key] = per_f32.get(key, 0.0) + r["ms"] * r["per_request"]
     log("sweeps per 512px f32 request (expand_dw on \"fused\", flat_block "
-        "on \"flat-all\"): " + ", ".join(f"{k} {v:.4f} ms"
-                                       for k, v in per_f32.items()))
+        "and flat_s2_block on \"flat-all\", mega_block on \"mega\"): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in per_f32.items()))
     return per_req
 
 
@@ -1277,7 +1319,7 @@ def sweep2_cases():
              for c in FLAT_BLOCK_CASES + FLAT_BLOCK_F32
              if c[5] > 96 or f32_row(c[0])]
     cases += [(c[0], c[1], c[2] // 2, c[2] // 2, c[4], c[5], False, c[8],
-               False, c[-1]) for c in FLAT_S2_F32]
+               False, c[-1]) for c in FLAT_S2_F32 if c[-1]]
     cases += [(c[0] + "/yt", c[1], c[2], c[3], c[5], c[6], c[9], c[10],
                True, c[-1]) for c in MEGA_CASES + MEGA_F32
               if c[6] > 96 or c[0] == "d5-d6" + F32_TAG]
@@ -1563,15 +1605,12 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
         y, sums = fn(*args, **kw)
         torch.cuda.synchronize()
         staging = last_staging(name) if stride == 2 else None
-        design = check_sweep2(name, label, dtype, per_all or per_auto)
-        if stride == 1:
-            design = "sweep 1 %s, %s x boxes per halo; sweep 2 %s" % (
-                *sweep1_check(name, label, dtype, c_in, k, expand), design)
-        else:
-            design = f"sweep 2 {design}"
-        if stride == 2 and (per_all or per_auto or size_case(label)) \
-                and not f32_row(label):
-            # the path's bf16 shapes stage x as TMA boxes
+        design = "sweep 1 %s, %s x boxes per halo; sweep 2 %s" % (
+            *sweep1_check(name, label, dtype, c_in, k, expand),
+            check_sweep2(name, label, dtype, per_all or per_auto))
+        if stride == 2 and (per_all or per_auto or size_case(label)
+                            or f32_row(label)):
+            # the path's shapes stage x as TMA boxes, at bf16 and f32
             check(staging == "async", f"{name} {label}: x staged {staging}")
         r_y, r_sums = ref_fn(*args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
@@ -1635,9 +1674,11 @@ def block_cost(n, h, w, c_in, e, c_out, k, size, expand=True):
 
 def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
     """mega_block against its twin at every case, with flat_block timed on
-    the same block (NHWC) beside it; returns the worst y error of the
-    path's cases, (kernel, twin) device ms per "mega" request and the
-    bound (bf16; the f32 path rows' per-request sums are logged)."""
+    the same block (NHWC) beside it, and the sweep-1 design and boxes each
+    must take (``sweep1_check``); returns the worst y error of the path's
+    cases, (kernel, twin) device ms per "mega" request and the bound
+    (bf16), and the same per f32 request (the f32 path rows) as (kernel,
+    twin, bound, worst y error)."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
         flat_block,
@@ -1651,7 +1692,7 @@ def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
     )
 
     worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
-    ms32, plain32, bound32 = 0.0, 0.0, Bound()
+    ms32, plain32, bound32, worst32 = 0.0, 0.0, Bound(), 0.0
     big = torch.Generator(device=DEVICE).manual_seed(SEED + SIZE_CASES_SEED)
     gen32 = torch.Generator(device=DEVICE).manual_seed(SEED + F32_SEED)
     for (label, n, h, w, c_in, e, c_out, k, bn, residual, dtype,
@@ -1667,12 +1708,15 @@ def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
         args = (we, wd, se, wp, k)
         y, sums = mega_block(xt, *args, **kw)
         torch.cuda.synchronize()
-        # Sweep 1 stages x as TMA boxes at every shape of the path and with
-        # plain loads where the map cannot take W (W % 8 != 0).
+        # Sweep 1 stages x as TMA boxes at every shape of the path, bf16
+        # and f32, and with plain loads where the map cannot take W (W % 8
+        # != 0).
         staging = last_staging("mega_block")
-        design = check_sweep2("mega_block", label, dtype, per_req)
-        want = (None if f32_row(label)  # the CUDA-core expand: no box
-                else "async" if per_req or size_case(label)
+        design = "sweep 1 %s, %s x boxes per halo; sweep 2 %s" % (
+            *sweep1_check("mega_block", label, dtype, c_in, k, expand,
+                          "xt" if w % 8 == 0 else "xt_rows"),
+            check_sweep2("mega_block", label, dtype, per_req))
+        want = ("async" if per_req or size_case(label) or f32_row(label)
                 else "sync" if w % 8 else None)
         check(want is None or staging == want,
               f"mega_block {label}: x staged {staging}, not {want}")
@@ -1685,6 +1729,8 @@ def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
               f"mega_block {label}: output {tuple(y.shape)} {y.dtype}")
         if per_req and not f32_row(label):
             worst = max(worst, err_y)
+        elif per_req:
+            worst32 = max(worst32, err_y)
         del y, sums, r_y, r_sums
         t_k = timed_ms(lambda: mega_block(xt, *args, **kw))
         t_p = timed_ms(lambda: mega_block_reference(xt, *args, **kw),
@@ -1711,7 +1757,7 @@ def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
             f"{tol_y:.4g}), sums err {err_s:.4g} (tol {tol_s:.4g}); kernel "
             f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {one.ms():.4f} ms "
             f"({one.by()}); A/B flat_block on NHWC {t_f:.4f} ms (mega/flat "
-            f"{t_k / t_f:.3f}); x staged {staging}; sweep 2 {design}")
+            f"{t_k / t_f:.3f}); x staged {staging}; {design}")
         check(err_y <= tol_y and err_s <= tol_s, f"mega_block {label} differs")
         del xt
         torch.cuda.empty_cache()
@@ -1722,7 +1768,7 @@ def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
         log(f"mega_block per mega f32 request: kernel {ms32:.4f} ms, plain "
             f"{plain32:.4f} ms, bound {bound32.ms():.4f} ms "
             f"({bound32.by()})")
-    return worst, ms, plain_ms, bound
+    return worst, ms, plain_ms, bound, (ms32, plain32, bound32, worst32)
 
 
 def project_sweep(label, x, we, wd, k, gate, wp, common, identity, bound):
@@ -2528,6 +2574,7 @@ def routes_phase(gen):
                         route_launches(impl))
         torch.cuda.empty_cache()
     from arbitrarystyletransfer_tpu_torch.ops import flatblock
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import LAUNCHES
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     for impl in F32_ONLY_ROUTES:
@@ -2536,9 +2583,14 @@ def routes_phase(gen):
                                decoder_impl=impl)
         expected = counts(adaattn_fwd=1, **flatblock.planned_launches(
             cfg, SIZE, impl, impl, device=DEVICE))
-        _, times32, launches[f"{impl}-f32"] = f32_requests(
+        out32, times32, launches[f"{impl}-f32"] = f32_requests(
             pipe32, requests, expected, impl)
+        plain32, _ = run_plain(pipe32, *requests[0], repeats=1)
+        check(dict(LAUNCHES) == launches[f"{impl}-f32"],
+              "the plain run launched a kernel")
+        f32_image_gate(impl, out32, plain32)
         ms32[impl] = statistics.median(times32[1:])
+        del out32, plain32
         torch.cuda.empty_cache()
     log(f"auto's plan at {SIZE}px (the shipped table): {auto_plan()[0]}")
     log(f"routes at {SIZE}px batch {BATCH}, median ms per request (img/s), "
@@ -2549,6 +2601,18 @@ def routes_phase(gen):
         + ", ".join(f"{impl} {t:.3f} ({BATCH * 1000 / t:.2f})"
                     for impl, t in ms32.items()))
     return launches
+
+
+def f32_image_gate(impl, out32, plain32):
+    """Request 1's f32 image through the kernels against the plain twins',
+    within ``IMAGE_F32_TOL`` (max abs, mean abs)."""
+    d = (out32 - plain32).abs()
+    k32 = float(d.max()), float(d.mean())
+    log(f"{impl} request 1, f32, kernels vs plain twins: max abs {k32[0]:.4g} "
+        f"(tol {IMAGE_F32_TOL[0]}), mean abs {k32[1]:.4g} (tol "
+        f"{IMAGE_F32_TOL[1]})")
+    check(k32[0] <= IMAGE_F32_TOL[0] and k32[1] <= IMAGE_F32_TOL[1],
+          f"{impl}: f32 kernel path and plain path disagree")
 
 
 def f32_requests(pipe32, requests, expected, impl):
@@ -2642,19 +2706,14 @@ def drive_route(pipe, impl, requests, expected):
         d = (a - b).abs()
         return float(d.max()), float(d.mean())
 
-    k32 = errs(out32, plain32)
+    f32_image_gate(impl, out32, plain32)
     k16 = errs(outs[0], plain)
     floor16 = errs(plain, plain32)
     del out32, plain32
-    log(f"{impl} request 1, f32, kernels vs plain twins: max abs {k32[0]:.4g} "
-        f"(tol {IMAGE_F32_TOL[0]}), mean abs {k32[1]:.4g} (tol "
-        f"{IMAGE_F32_TOL[1]})")
     log(f"{impl} request 1, bf16, kernels vs plain twins: max abs "
         f"{k16[0]:.4g}, mean abs {k16[1]:.4g}; the bf16 plain path's own "
         f"error vs f32: max abs {floor16[0]:.4g}, mean abs {floor16[1]:.4g} "
         f"(tol {IMAGE_BF16_FACTOR}x that)")
-    check(k32[0] <= IMAGE_F32_TOL[0] and k32[1] <= IMAGE_F32_TOL[1],
-          f"{impl}: f32 kernel path and plain path disagree")
     check(k16[0] <= IMAGE_BF16_FACTOR * floor16[0]
           and k16[1] <= IMAGE_BF16_FACTOR * floor16[1],
           f"{impl}: bf16 kernel path differs from the plain path by more "
@@ -5466,15 +5525,15 @@ def main(argv=None) -> int:
         f_worst, f_ms, f_bound, f_f32 = phase(
             "flat_block", flat_kernel_phase, gen, "flat_block", flat_block,
             flat_block_reference, FLAT_BLOCK_CASES + FLAT_BLOCK_F32, 1)
-        s_worst, s_ms, s_bound, _ = phase(
+        s_worst, s_ms, s_bound, s_f32 = phase(
             "flat_s2_block", flat_kernel_phase, gen, "flat_s2_block",
             flat_s2_block, flat_s2_block_reference,
             FLAT_S2_CASES + FLAT_S2_F32, 2)
         # Slice 4's kernel phases draw from a generator of their own, so
         # that every other phase gets the inputs it got before them.
         gen4 = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
-        m_worst, m_ms, m_plain, m_bound = phase("mega_block", mega_phase,
-                                                gen4)
+        m_worst, m_ms, m_plain, m_bound, m_f32 = phase(
+            "mega_block", mega_phase, gen4)
         two_pass = phase("fused_2pass", two_pass_phase, gen4)
         # So do slice 5's probes.
         gen5 = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
@@ -5540,13 +5599,14 @@ def main(argv=None) -> int:
             f_worst, *f_ms[MAIN_ROUTE], f_bound[MAIN_ROUTE], None,
             f_f32[MAIN_ROUTE]),
         row("flat_s2_block", "flat_s2.cu", pallas + "flatblock_s2.py:121",
-            s_worst, *s_ms[MAIN_ROUTE], s_bound[MAIN_ROUTE], None),
+            s_worst, *s_ms[MAIN_ROUTE], s_bound[MAIN_ROUTE], None,
+            s_f32[MAIN_ROUTE]),
         row("adaattn_dq", "adaattn_bwd.cu", pallas + "adaattn_kernel.py:183",
             *bwd["adaattn_dq"]),
         row("adaattn_dkv", "adaattn_bwd.cu",
             pallas + "adaattn_kernel.py:220", *bwd["adaattn_dkv"]),
         row("mega_block", "mega_block.cu", pallas + "megablock.py:117",
-            m_worst, m_ms, m_plain, m_bound, None),
+            m_worst, m_ms, m_plain, m_bound, None, m_f32),
         row("fused_sums", "fused_2pass.cu", pallas + "fused_block.py:68",
             *two_pass["fused_sums"], None),
         row("fused_project", "fused_2pass.cu", pallas + "fused_block.py:68",
@@ -5564,6 +5624,9 @@ def main(argv=None) -> int:
         "drivers' "
         "runs (counted per route, path or driver); for the stylize kernels "
         "max_abs_err is the worst output error over their 512px bf16 cases "
+        "(f32_request, on expand_dw, flat_block, flat_s2_block and "
+        "mega_block: the same per 512px batch-8 f32 request, the f32 path "
+        "rows) "
         "(hidden for expand_dw, mean/std of the AdaAttN taps case) and ms, "
         "plain_ms, bound_ms are device ms per 512px batch-8 request (fused "
         "route for expand_dw, the AdaAttN taps call for adaattn_fwd, the "

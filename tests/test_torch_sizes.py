@@ -253,9 +253,10 @@ def test_every_block_takes_a_designed_sweep_1(size, dtype):
     ``tf32_chunk``'s chunks, sized for two CTAs per SM at C_in 16, 24 (k3)
     and 40 (k5), where that costs at most one chunk more than one CTA's
     sizing, and for one CTA at C_in 80, 96, 128 and 256 (two would take
-    three to six chunks).  (N, H, C, W) f32 x (mega_block) and the
-    off-model shapes (C_in 12, an unaligned x, the expand==1 form) take the
-    CUDA-core expand, by design."""
+    three to six chunks).  (N, H, C, W) f32 x (mega_block, W % 8 == 0)
+    takes the 3xTF32 design too; the off-model shapes (C_in 12 in NHWC,
+    (N, H, C, W) x at W % 8 != 0, an unaligned x, the expand==1 form) take
+    the CUDA-core expand."""
     bf16 = dtype == "bfloat16"
     blocks = _kernel_blocks(CFG, size)
     assert blocks
@@ -270,13 +271,77 @@ def test_every_block_takes_a_designed_sweep_1(size, dtype):
             assert two == (c_in in (16, 24, 40)), (c_in, k)
             assert st["boxes"] == -(-c_in // st["chunk"])
             assert limits.sweep1_design(bf16, c_in, layout="xt", k=k) \
-                == "core"
+                == "tf32"
+            assert limits.sweep1_design(bf16, c_in, layout="xt_rows",
+                                        k=k) == "core"
     for c_in, k in ((12, 3), (12, 5)):
         assert limits.sweep1_design(bf16, c_in, k=k) == "core"
     assert limits.sweep1_design(bf16, 40, aligned=False, k=5) == "core"
     assert limits.sweep1_design(bf16, 40, expand=False, k=5) == "core"
     assert limits.sweep1_design(bf16, 40, layout="xt", k=5) == \
-        ("mma" if bf16 else "core")
+        ("mma" if bf16 else "tf32")
+
+
+@pytest.mark.parametrize("size", [256, 320, 512, 720, 1024])
+def test_every_mega_and_stride_2_block_takes_3xtf32(size):
+    """At f32 every mega block (the (N, H, C, W) box, at widths that are
+    multiples of 8) and every stride-2 block (``flat_s2_block``) of the
+    full-width model takes the 3xTF32 sweep 1 within a CTA's shared memory
+    and a TMA box's 256 elements, its box rows whole 16-byte multiples and
+    its chunks covering C_in; two CTAs share an SM at C_in 16, 24 and 40
+    (mega, k3 and k5) and at every stride-2 block (its f32 4 x 16 tile,
+    the whole box), one at mega's C_in 80-128."""
+    for c_in, c_out, k, _ in _kernel_blocks(CFG, size):
+        if (c_in, c_out) == ADA_OUT[:2]:  # no mega chain has ada_out
+            continue
+        assert limits.sweep1_design(False, c_in, layout="xt", k=k) == "tf32"
+        st = limits.check_sweep1("mega_block", k, c_in, "xt", tf32=True)
+        assert st["smem"] <= limits.SMEM_OPT_IN
+        assert max(st["box"]) <= limits.MAX_BOX
+        assert st["box"][0] * 4 % 16 == 0 and st["box"][1] == st["chunk"]
+        assert st["boxes"] * st["chunk"] >= c_in > (st["boxes"] - 1) * \
+            st["chunk"]
+        assert st["ctas"] == (2 if c_in in (16, 24, 40) else 1), (c_in, k)
+        assert 2 * (st["smem"] + limits.CTA_RESERVED) <= limits.SM_SMEM \
+            or st["ctas"] == 1
+    stride2 = {(c_in, k) for c_in, _, stride, k, _, _, _
+               in enumerate_blocks(CFG, size) if stride == 2}
+    assert stride2 == {(16, 3), (24, 5), (40, 3)}
+    for c_in, k in stride2:
+        assert limits.s2_sweep1_design(False, c_in, k=k) == "tf32"
+        assert limits.s2_sweep1_design(True, c_in, k=k) == "mma"
+        st = limits.check_flat_s2(k, c_in, f32=True)
+        assert st["smem"] <= limits.SMEM_OPT_IN
+        assert max(st["box"]) <= limits.MAX_BOX
+        assert st["box"][0] * 4 % 16 == 0
+        assert st["boxes"] == 1 and st["ctas"] == 2, (c_in, k)
+    assert limits.s2_sweep1_design(False, 12, k=3) == "core"
+    assert limits.s2_sweep1_design(False, 16, aligned=False, k=3) == "core"
+
+
+def test_the_3xtf32_mirror_matches_the_header_comments():
+    """The shared memory the f32 designs' sources state: mega_block's (N,
+    H, C, W) box (``expand_dw.cuh``: k5 C_in 40 two chunks of 24 in
+    109,832 B against the whole box's 140,552; k3 C_in 16 and 24 75,528 and
+    91,400 B; k3 C_in 80 202,504 B; k5 C_in 96 two chunks of 48 in 170,248
+    B) and flat_s2_block's 4 x 16 f32 tile (``flat_s2.cu``: e2 68,744 B,
+    e4 102,536 B, the whole box)."""
+    def xt(k, c_in, b=None):
+        return limits._edw_tf32_smem(k, c_in, b or limits.tf32_chunk(
+            k, c_in, "xt"), "xt")
+
+    assert (xt(5, 40)["smem"], xt(5, 40)["chunk"]) == (109832, 24)
+    assert xt(5, 40, 40)["smem"] == 140552
+    assert (xt(3, 16)["smem"], xt(3, 24)["smem"]) == (75528, 91400)
+    assert (xt(3, 80)["smem"], xt(3, 80)["boxes"]) == (202504, 1)
+    assert (xt(5, 96)["smem"], xt(5, 96)["chunk"]) == (170248, 48)
+    e2 = limits.flat_s2_staging(3, 16, f32=True)
+    e4 = limits.flat_s2_staging(5, 24, f32=True)
+    assert (e2["smem"], e2["chunk"], e2["boxes"]) == (68744, 16, 1)
+    assert (e4["smem"], e4["chunk"], e4["boxes"]) == (102536, 24, 1)
+    # Two CTAs per SM need at most 115,712 bytes each.
+    assert xt(5, 40)["smem"] <= 115712 < xt(5, 40, 40)["smem"]
+    assert max(e2["smem"], e4["smem"]) <= 115712
 
 
 @pytest.mark.parametrize("e,c_out,bf16", [

@@ -13,7 +13,11 @@ to nearest (``store_pass``).  This file emulates that arithmetic in plain
 PyTorch and holds it to JAX's f32 expand (``jnp.dot(...,
 preferred_element_type=jnp.float32)``, ``ops/pallas/flatblock.py``) and to
 float64, at the 512px decoder's shapes (d8-d10: C_in 40, k5; d11-d12: 24;
-d13: 16), before any run on the card.
+d13: 16), before any run on the card.  ``mega_block``'s f32 sweep 1 (the
+(N, H, C, W) box, ``expand_mtile_tf32_t``) and ``flat_s2_block``'s
+(``csrc/flat_s2.cu``) take the same products and pairs in their own
+chunks (``limits.tf32_chunk(..., "xt")``, ``limits.s2_tf32_chunk``):
+mega's C_in 80 (d5-d7) and 96 (d3-d4), stride 2's e2 and e4.
 
 Each MMA's sum is modelled as the exact sum of its products and the
 accumulator, truncated to f32.  Under that model the expand cannot be as
@@ -39,9 +43,21 @@ TF_PAIR = 2  # expand_dw.cuh's k8 steps per partial
 MASK = -8192  # 0xffffe000 as int32: a TF32 value's bits
 CSRC = Path(limits.__file__).resolve().parents[2] / "csrc"
 PIXELS = 400  # one k5 halo
-# (label, C_in, E, k) of the 512px decoder's blocks.
-CASES = (("d8-d9", 40, 160, 5), ("d10", 40, 240, 5),
-         ("d11-d12", 24, 144, 3), ("d13", 16, 96, 3))
+# (label, C_in, E, k, layout) of the 512px decoder's blocks (NHWC: the
+# flat and fused routes), mega_block's at C_in 80 and 96 ("xt": its (N,
+# H, C, W) box) and the stride-2 blocks e2 and e4 ("s2": flat_s2_block).
+CASES = (("d8-d9", 40, 160, 5, "nhwc"), ("d10", 40, 240, 5, "nhwc"),
+         ("d11-d12", 24, 144, 3, "nhwc"), ("d13", 16, 96, 3, "nhwc"),
+         ("mega-d5-d7", 80, 320, 3, "xt"), ("mega-d3-d4", 96, 384, 5, "xt"),
+         ("e2", 16, 96, 3, "s2"), ("e4", 24, 144, 5, "s2"))
+IDS = ["-".join(map(str, c[:4])) for c in CASES]
+
+
+def _chunk(k, c_in, layout):
+    """The channels per x box the kernel of ``layout`` takes."""
+    if layout == "s2":
+        return limits.s2_tf32_chunk(k, c_in)
+    return limits.tf32_chunk(k, c_in, layout)
 
 
 def _bits(t):
@@ -129,12 +145,12 @@ def _dot_bound(x, w):
                                       @ np.abs(w).astype(np.float64))
 
 
-@pytest.mark.parametrize("label,c_in,e,k", CASES)
-def test_3xtf32_expand_matches_jax_f32(label, c_in, e, k):
+@pytest.mark.parametrize("label,c_in,e,k,layout", CASES, ids=IDS)
+def test_3xtf32_expand_matches_jax_f32(label, c_in, e, k, layout):
     """Within 1e-5 of JAX's largest value, and within the f32 dot
     product's error bound of float64 wherever JAX's is."""
     x, w = _operands(c_in, e, seed=c_in + e)
-    chunk = limits.tf32_chunk(k, c_in)
+    chunk = _chunk(k, c_in, layout)
     assert chunk % 8 == 0 and chunk > 0
     out = tf32_expand(torch.from_numpy(x), torch.from_numpy(w),
                       chunk).numpy().astype(np.float64)
@@ -147,8 +163,8 @@ def test_3xtf32_expand_matches_jax_f32(label, c_in, e, k):
     assert share <= 1.0, f"{label}: {share:.3f} of the f32 dot bound"
 
 
-@pytest.mark.parametrize("label,c_in,e,k", CASES)
-def test_pairs_bring_the_expand_closer_to_float64(label, c_in, e, k):
+@pytest.mark.parametrize("label,c_in,e,k,layout", CASES, ids=IDS)
+def test_pairs_bring_the_expand_closer_to_float64(label, c_in, e, k, layout):
     """Partials of TF_PAIR k8 steps added to nearest lie no farther from
     float64 (max abs) than every product of a chunk accumulated in the
     tensor cores' truncating f32, and closer on average where a chunk holds
@@ -156,7 +172,7 @@ def test_pairs_bring_the_expand_closer_to_float64(label, c_in, e, k):
     than the truncated one (``split_tf32_trunc``), and closer on
     average."""
     x, w = _operands(c_in, e, seed=c_in + e + 1)
-    chunk = limits.tf32_chunk(k, c_in)
+    chunk = _chunk(k, c_in, layout)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     f64 = _f64(x, w)
 
@@ -186,15 +202,45 @@ def test_the_split_is_exact_where_it_must_be():
     assert ((lo - lo_read.double()).abs() <= lo.abs() * 2.0 ** -10).all()
 
 
+def _function(src, name):
+    """The text of the C++ function ``name`` of ``src``, from its name to
+    the first line that closes a top-level brace."""
+    m = re.search(r"\b" + name + r"\(.*?\n\}", src, re.S)
+    assert m, name
+    return m.group(0)
+
+
 def test_the_emulation_keeps_the_kernels_arithmetic():
-    """The constants and splits above are the kernel's own: TF_PAIR is
+    """The constants and splits above are the kernels' own: TF_PAIR is
     ``expand_dw.cuh``'s, ``split_tf32`` (``common.cuh``) rounds hi on the
     bits as ``tf32_rna`` does and ``split_tf32_trunc`` masks as
     ``tf32_read`` does, x's fragments take the rounded split
     (``split_x``'s default) and the weights two rounded splits
-    (``split_w``)."""
+    (``split_w``).  Every f32 sweep 1 forms its products in
+    ``tf32_products`` (the NHWC box's ``expand_mtile_tf32``, which
+    ``flat_s2.cu`` calls, and the (N, H, C, W) box's
+    ``expand_mtile_tf32_t``, whose A values are channels ks + t and ks + t
+    + 4 as ``mma_tf32`` takes them), splits its weights in
+    ``stage_weights_tf32`` and sizes its chunks by ``tf32_sized``."""
     edw = (CSRC / "expand_dw.cuh").read_text()
+    s2 = (CSRC / "flat_s2.cu").read_text()
     common = (CSRC / "common.cuh").read_text()
+    products = _function(edw, "void tf32_products")
+    assert "split_tf32(__uint_as_float(a[m]), ah[m], al[m])" in products
+    assert products.count("mma_tf32(part[i], ") == 3
+    for name in ("void expand_mtile_tf32", "void expand_mtile_tf32_t"):
+        assert "tf32_products<NTN>(" in _function(edw, name), name
+    xt = " ".join(_function(edw, "void expand_mtile_tf32_t").split())
+    for a in ("a[0] = __float_as_uint(a0[ks * G::BW]);",
+              "a[1] = __float_as_uint(a1[ks * G::BW]);",
+              "a[2] = __float_as_uint(a0[(ks + 4) * G::BW]);",
+              "a[3] = __float_as_uint(a1[(ks + 4) * G::BW]);"):
+        assert a in xt, a
+    assert "edw::expand_mtile_tf32<float, NTN, false, PASS>(" in s2
+    assert "edw::stage_weights_tf32(" in s2
+    assert "stage_weights_tf32(" in _function(edw, "void stage_weights")
+    assert "return edw::tf32_sized(" in _function(s2, "int s2_tf32_chunk")
+    assert "return tf32_sized(" in _function(edw, "int tf32_chunk")
     pair = re.search(r"constexpr int TF_PAIR = (\d+);", edw)
     assert pair and int(pair.group(1)) == TF_PAIR
 
