@@ -16,7 +16,7 @@
 // Nc = Ns = 4096, C = 128) it is 2 * B * Nc * Ns * 3C = 206 GFLOP against
 // ~100 MB of q, k, v and outputs, far above the card's ~295 FLOP/byte
 // balance point: it is bound by arithmetic, and only the tensor cores can
-// supply it.  Two kernels, by input dtype:
+// supply it.  Three kernels, by dtype and use:
 //
 // bfloat16 (the stylize routes): `adaattn_fwd_wgmma_kernel`, on the tensor
 // cores through warpgroup MMAs (wgmma), f32 accumulators.
@@ -47,8 +47,9 @@
 // [v, v^2] as three m64n128 products (which clears ptxas's C7511 warning
 // that the m64n256 and m64n128 products, sharing accumulators, serialize).
 //
-// float32 (the training step): `adaattn_fwd_f64_kernel`, with every stage
-// in float64: the logits as one chain of FP64 tensor-core products per
+// float32, training (every call that autograd records: the train, GAN and
+// data-parallel steps): `adaattn_fwd_f64_kernel`, with every stage in
+// float64: the logits as one chain of FP64 tensor-core products per
 // (query, key) over the exact products (`adaattn_logits64`, common.cuh),
 // the exponentials, the online rescale and the sums (CUDA cores), rounded
 // to f32 once at the end.  Its outputs are then the float64 statistics
@@ -73,9 +74,46 @@
 //     rescaled to it, so P is exp(s - m) / l with the returned m.
 //   * Shared memory 182,784 B: one CTA per SM; the grid is twice the 64-row
 //     tiles' (104 CTAs at the training shape (8, 400, 400)).
-// `adaattn_fwd_simt_launch` runs the earlier CUDA-core kernel at bf16
-// (`adaattn_fwd_kernel`, f32 logits and sums): the bf16 kernel before the
-// tensor-core one, kept for the A/B of `chip_smoke.py`; no path calls it.
+// float32, serving (`adaattn_fwd_serve_kernel`, every f32 inference path:
+// the stylize routes and the graph engine; ops/kernels/adaattn_fwd.py
+// chooses it where autograd does not record the call).  The same function
+// on the tensor cores in 3xTF32, `mma.sync.m16n8k8` with f32 accumulators,
+// its products bounded at a third of the TF32 peak (1.249 ms at the taps
+// shape).  What it keeps of f32's accuracy, and how:
+//   * The second moment is taken about vbar, the values' per-image,
+//     per-channel mean over the keys (the wrapper's): mean = A v, and with
+//     vc = v - vbar and mc = mean - vbar, std^2 = A vc^2 - mc^2, so an
+//     offset of the values no longer cancels in std.
+//   * v and vc^2 (rounded once in f32) are carried EXACTLY, each as three
+//     truncated TF32 pieces (`tf32_pieces3`), and P as hi (to nearest) +
+//     lo (read as the tensor cores read it): A v is P_hi (x3 + x2 + x1) +
+//     P_lo x1, smallest first, the same for vc^2, and l sums P_hi + P_lo,
+//     the one P of both products.  So a one-hot row gives mean = v and std
+//     = 0 exactly, and ev2 - mean^2 stays the variance of one distribution
+//     (two pieces left std ~2^-11 |v| there, and the mean taken as vbar +
+//     A vc missed v by an ulp: the CPU emulation of this arithmetic in
+//     ops/kernels/adaattn_fwd.py, tests/test_torch_adaattn_f32serve.py).
+//   * The logits are q hi k lo + q lo k hi + q hi k hi (`split_tf32`),
+//     summed in partials of two k8 steps from zero (the tensor cores add
+//     rounding toward zero), each partial added to the logit in f32 to
+//     nearest; each k8 step's products with [v, vc^2] are likewise summed
+//     from zero and added to the accumulators to nearest.  A chain of
+//     truncating adds biased ev2 and mean^2 apart in peaked rows (std ~3x
+//     the f32 twin's error in the emulation); per step it is below the
+//     twin's.
+//   * One CTA per (image, 128 query rows, chunk of the style axis), 8 warps
+//     of 16 rows each, looping over 32-key tiles: q (f32, 67.6 KB) and a
+//     ring of 3 k and v tiles (cp.async, rows of 132 words: every fragment
+//     load is free of bank conflicts) in shared memory, 169.5 KB, one CTA
+//     per SM.  S (16 x 32 per warp) becomes P in registers, its
+//     accumulator fragment reused as the A fragment of the P [v, vc^2]
+//     product by ordering each k8 step's keys 2t, 2t + 1 as t, t + 4 (the
+//     v rows are read in that order).  The 16 x 256 accumulators are 128
+//     registers per thread.
+//   * Grids smaller than the card (the CLI's 320px request: 1 x 1600
+//     queries, 13 CTAs) split the style axis over CTAs (`serve_splits` in
+//     the wrapper): each writes its unnormalized sums and (m, l), and
+//     `adaattn_fwd_serve_combine` merges them and finishes the rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,183 +124,8 @@
 namespace ast_kernels {
 namespace {
 
-constexpr int BQ = 64;         // query rows per CTA
-constexpr int BK = 64;         // style keys per tile
-constexpr int C = 128;         // channels
-constexpr int NT = 256;        // threads
-constexpr int LD = C + 4;      // padded row of the q and k tiles
-constexpr int LDT = BQ + 4;    // padded row of the transposed P tile
-constexpr float NEG_INF = -1e30f;
-constexpr int SMEM_FLOATS = BQ * LD + BK * LD + BK * C + BK * LDT;
-
-// a . b over four channels, summed in this order.
-__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// The f32 logits s[i][j] = q[ty*4+i] . k[tx+16j] of a 16 x 16 thread grid
-// over row-major f32 tiles (row stride LD), in four-channel steps.
-__device__ __forceinline__ void logits_f32(const float* qs, const float* ks,
-                                           int ty, int tx, float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < C; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&qs[(ty * 4 + i) * LD + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += dot4(a[i], b[j]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    adaattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ mean_out,
-                       T* __restrict__ std_out, float* __restrict__ m_out,
-                       float* __restrict__ l_out, int nc, int ns) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
-  float* ks = qs + BQ * LD;                     // [BK][LD]
-  float* vs = ks + BK * LD;                     // [BK][C]
-  float* pT = vs + BK * C;                      // [BK][LDT]
-
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // logits: key cols tx+16j; products: chans tx*8+j
-  const int ty = tid >> 4;  // query rows ty*4+i
-  const T* qb = q + (size_t)b * nc * C;
-  const T* kb = k + (size_t)b * ns * C;
-  const T* vb = v + (size_t)b * ns * C;
-
-  for (int idx = tid; idx < BQ * C; idx += NT) {
-    const int r = idx / C, d = idx % C;
-    qs[r * LD + d] = (q0 + r < nc) ? to_f32(qb[(size_t)(q0 + r) * C + d]) : 0.f;
-  }
-
-  float m_i[4], l_i[4], acc_m[4][8], acc_s[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc_m[i][j] = acc_s[i][j] = 0;
-  }
-
-  for (int k0 = 0; k0 < ns; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * C; idx += NT) {
-      const int r = idx / C, d = idx % C;
-      const bool ok = k0 + r < ns;
-      const size_t off = (size_t)(k0 + r) * C + d;
-      ks[r * LD + d] = ok ? to_f32(kb[off]) : 0.f;
-      vs[r * C + d] = ok ? to_f32(vb[off]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-    logits_f32(qs, ks, ty, tx, s);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= ns) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // The 16 threads of a row are one half-warp (lanes differ in bits 0-3).
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float corr = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        pT[(tx + 16 * j) * LDT + ty * 4 + i] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * corr + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc_m[i][j] *= corr;
-        acc_s[i][j] *= corr;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&pT[kk * LDT + ty * 4]);
-      const float4 va = *reinterpret_cast<const float4*>(&vs[kk * C + tx * 8]);
-      const float4 vb4 = *reinterpret_cast<const float4*>(&vs[kk * C + tx * 8 + 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float vv[8] = {va.x, va.y, va.z, va.w, vb4.x, vb4.y, vb4.z, vb4.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float vj = vv[j], v2 = vj * vj;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_m[i][j] = fmaf(pv[i], vj, acc_m[i][j]);
-          acc_s[i][j] = fmaf(pv[i], v2, acc_s[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= nc) continue;
-    const float inv_l = 1.f / l_i[i];
-    const size_t base = ((size_t)b * nc + row) * C + tx * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float mean = acc_m[i][j] * inv_l;
-      const float ev2 = acc_s[i][j] * inv_l;
-      mean_out[base + j] = from_f32<T>(mean);
-      std_out[base + j] = from_f32<T>(sqrtf(fmaxf(ev2 - mean * mean, 0.f)));
-    }
-    if (tx == 0) {
-      m_out[(size_t)b * nc + row] = m_i[i];
-      l_out[(size_t)b * nc + row] = l_i[i];
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* mean,
-                   void* stdv, void* m, void* l, int b, int nc, int ns,
-                   cudaStream_t stream) {
-  const int smem = SMEM_FLOATS * (int)sizeof(float);
-  auto kernel = adaattn_fwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((nc + BQ - 1) / BQ, b);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(mean), static_cast<T*>(stdv),
-      static_cast<float*>(m), static_cast<float*>(l), nc, ns);
-  return cudaGetLastError();
-}
-
+constexpr int C = 128;  // channels
+constexpr int NT = 256;  // threads of the float64 kernel
 
 // ---------------------------------------------------------------------------
 // float32: every stage in float64 on the CUDA cores.
@@ -452,6 +315,396 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* mean,
 }
 
 }  // namespace f64k
+
+
+// ---------------------------------------------------------------------------
+// float32, serving: 3xTF32 on the tensor cores (mma.sync).
+namespace sv {
+
+constexpr int BQ = 128;               // query rows per CTA (8 warps of 16)
+constexpr int BK = 32;                // style keys per tile
+constexpr int NTH = 256;
+constexpr int LDW = C + 4;            // row stride (words) of every tile
+constexpr int STAGES = 3;             // ring slots of (k, v) tiles
+constexpr int TILE = BK * LDW;        // words of one k or v tile
+constexpr int SMEM_BYTES = (BQ * LDW + STAGES * 2 * TILE + C) * 4;
+constexpr float NEG = -1e30f;
+constexpr uint32_t TF_MASK = 0xffffe000u;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + rows) of an (n, C) f32 matrix into a tile of row
+// stride LDW by 16-byte asynchronous copies; rows at or past `end` are
+// zeros.
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int rows, int end) {
+  for (int i = threadIdx.x; i < rows * (C / 4); i += NTH) {
+    const int r = i / (C / 4), c4 = i % (C / 4);
+    const bool ok = row0 + r < end;
+    cp_async16(dst + r * LDW + 4 * c4,
+               src + (size_t)(ok ? row0 + r : 0) * C + 4 * c4, ok);
+  }
+}
+
+// x = w[0] + w[1] + w[2] exactly, each a TF32 value: the top 11
+// significant bits, the next 11, the last 2 (truncated splits, so every
+// subtraction is exact).
+__device__ __forceinline__ void tf32_pieces3(float x, uint32_t (&w)[3]) {
+  w[0] = __float_as_uint(x) & TF_MASK;
+  const float r = __fsub_rn(x, __uint_as_float(w[0]));
+  w[1] = __float_as_uint(r) & TF_MASK;
+  w[2] = __float_as_uint(__fsub_rn(r, __uint_as_float(w[1])));
+}
+
+// One 8-key step of A x (x: v or vc^2, given as its pieces) into d
+// (zeroed first), smallest products first: P_hi x3 + P_hi x2 + P_lo x1 +
+// P_hi x1.
+__device__ __forceinline__ void pv_step(float (&d)[4], const uint32_t (&ph)[4],
+                                        const uint32_t (&pl)[4],
+                                        const uint32_t (&w0)[3],
+                                        const uint32_t (&w1)[3]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = 0.f;
+  mma_tf32(d, ph, w0[2], w1[2]);
+  mma_tf32(d, ph, w0[1], w1[1]);
+  mma_tf32(d, pl, w0[0], w1[0]);
+  mma_tf32(d, ph, w0[0], w1[0]);
+}
+
+// mean = A v, std = sqrt(max(A vc^2 - (mean - vbar)^2, 0)) from the
+// unnormalized sums; each product and difference rounded once, never
+// fused (a one-hot row's (mean - vbar)^2 then equals its A vc^2 bit for
+// bit).
+__device__ __forceinline__ void finish(float om, float os, float inv_l,
+                                       float vb, float& mean, float& sd) {
+  mean = __fmul_rn(om, inv_l);
+  const float mc = __fsub_rn(mean, vb), e2 = __fmul_rn(os, inv_l);
+  sd = sqrtf(fmaxf(__fsub_rn(e2, __fmul_rn(mc, mc)), 0.f));
+}
+
+__global__ void __launch_bounds__(NTH, 1)
+    adaattn_fwd_serve_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ vbar,
+                             float* __restrict__ mean_out,
+                             float* __restrict__ std_out,
+                             float* __restrict__ m_out,
+                             float* __restrict__ l_out,
+                             float* __restrict__ part, int nc, int ns,
+                             int per_split) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][LDW]
+  float* ring = qs + BQ * LDW;                  // [STAGES][k, v][BK][LDW]
+  float* vbs = ring + STAGES * 2 * TILE;        // [C]
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int kbeg = blockIdx.z * per_split;
+  const int kend = min(ns, kbeg + per_split);
+  const int ntiles = (kend - kbeg + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const float* kb = k + (size_t)b * ns * C;
+  const float* vb = v + (size_t)b * ns * C;
+
+  load_rows(qs, q + (size_t)b * nc * C, q0, BQ, nc);
+  if (tid < C) vbs[tid] = vbar[b * C + tid];
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) {
+      load_rows(ring + s * 2 * TILE, kb, kbeg + s * BK, BK, kend);
+      load_rows(ring + s * 2 * TILE + TILE, vb, kbeg + s * BK, BK, kend);
+    }
+    cp_async_commit();
+  }
+
+  // Accumulators: o[0] A v, o[1] A vc^2; [n][e] is row g + 8 (e >> 1),
+  // channel 8 n + 2 t + (e & 1) of the warp's 16 rows.
+  float o[2][16][4];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[x][n][e] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  const float* qw = qs + (16 * warp + g) * LDW + t;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile j is in, and every warp is done with j - 1
+    {
+      const int jn = j + STAGES - 1;
+      if (jn < ntiles) {
+        float* st = ring + (jn % STAGES) * 2 * TILE;
+        load_rows(st, kb, kbeg + jn * BK, BK, kend);
+        load_rows(st + TILE, vb, kbeg + jn * BK, BK, kend);
+      }
+      cp_async_commit();
+    }
+    const float* ks = ring + (j % STAGES) * 2 * TILE;
+    const float* vs = ks + TILE;
+    const int k0 = kbeg + j * BK;
+
+    // S = Q K^T (16 x 32): lo hi + hi lo + hi hi per k8 step, partials of
+    // two steps from zero added to nearest.
+    float sc[4][4], sp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < C; c0 += 8) {
+      if ((c0 & 8) == 0) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sp[n][e] = 0.f;
+      }
+      uint32_t ah[4], al[4];
+      split_tf32(qw[c0], ah[0], al[0]);
+      split_tf32(qw[8 * LDW + c0], ah[1], al[1]);
+      split_tf32(qw[c0 + 4], ah[2], al[2]);
+      split_tf32(qw[8 * LDW + c0 + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float* kr = ks + (8 * n + g) * LDW + c0 + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kr[0], bh0, bl0);
+        split_tf32(kr[4], bh1, bl1);
+        mma_tf32(sp[n], al, bh0, bh1);
+        mma_tf32(sp[n], ah, bl0, bl1);
+        mma_tf32(sp[n], ah, bh0, bh1);
+      }
+      if (c0 & 8) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = __fadd_rn(sc[n][e], sp[n][e]);
+      }
+    }
+
+    // The online softmax: sc[n][e] is row g + 8 (e >> 1), key 8 n + 2 t +
+    // (e & 1); a row lives in the 4 threads of a quad.
+    if (k0 + BK > kend) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * n + 2 * t + (e & 1) >= kend) sc[n][e] = NEG;
+    }
+    float mx[2] = {m_r[0], m_r[1]}, corr[2];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = expf(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] = __fmul_rn(l_r[r], corr[r]);
+    }
+    // P as hi + lo, in the A fragment order of the P [v, vc^2] product:
+    // key 2t of a k8 step is its k index t, key 2t + 1 its t + 4.
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[n][e] - mx[e >> 1]);
+        const uint32_t hi = (__float_as_uint(p) + 0x1000u) & TF_MASK;
+        const uint32_t lo =
+            __float_as_uint(__fsub_rn(p, __uint_as_float(hi))) & TF_MASK;
+        l_r[e >> 1] = __fadd_rn(
+            l_r[e >> 1], __fadd_rn(__uint_as_float(hi), __uint_as_float(lo)));
+        const int a = 2 * (e & 1) + (e >> 1);
+        ph[n][a] = hi;
+        pl[n][a] = lo;
+      }
+
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[x][n][e] = __fmul_rn(o[x][n][e], corr[e >> 1]);
+    // O += P [v, vc^2]: channel tile n, key step kk; b0 and b1 are the
+    // values of keys 8 kk + 2 t and 8 kk + 2 t + 1 at channel 8 n + g.
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float vbn = vbs[8 * n + g];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* vr = vs + (8 * kk + 2 * t) * LDW + 8 * n + g;
+        const float x0 = vr[0], x1 = vr[LDW];
+        const float c0 = __fsub_rn(x0, vbn), c1 = __fsub_rn(x1, vbn);
+        uint32_t w0[3], w1[3];
+        float d[4];
+        tf32_pieces3(x0, w0);
+        tf32_pieces3(x1, w1);
+        pv_step(d, ph[kk], pl[kk], w0, w1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[0][n][e] = __fadd_rn(o[0][n][e], d[e]);
+        tf32_pieces3(__fmul_rn(c0, c0), w0);
+        tf32_pieces3(__fmul_rn(c1, c1), w1);
+        pv_step(d, ph[kk], pl[kk], w0, w1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[1][n][e] = __fadd_rn(o[1][n][e], d[e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] = __fadd_rn(l_r[r], __shfl_xor_sync(0xffffffffu, l_r[r], 1));
+    l_r[r] = __fadd_rn(l_r[r], __shfl_xor_sync(0xffffffffu, l_r[r], 2));
+  }
+  const int rows = gridDim.y * nc;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row >= nc) continue;
+    const size_t r = (size_t)b * nc + row;
+    if (gridDim.z == 1) {
+      const float inv_l = 1.f / l_r[h];
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int c = 8 * n + 2 * t;
+        float2 mo, so;
+        finish(o[0][n][2 * h], o[1][n][2 * h], inv_l, vbs[c], mo.x, so.x);
+        finish(o[0][n][2 * h + 1], o[1][n][2 * h + 1], inv_l, vbs[c + 1],
+               mo.y, so.y);
+        *reinterpret_cast<float2*>(&mean_out[r * C + c]) = mo;
+        *reinterpret_cast<float2*>(&std_out[r * C + c]) = so;
+      }
+      if (t == 0) {
+        m_out[r] = m_r[h];
+        l_out[r] = l_r[h];
+      }
+    } else {
+      // This chunk's sums ([split][row][2C]) and (m, l) ([split][row][2])
+      // for adaattn_fwd_serve_combine.
+      float* pr = part + ((size_t)blockIdx.z * rows + r) * 2 * C;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int c = 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(&pr[c]) =
+            make_float2(o[0][n][2 * h], o[0][n][2 * h + 1]);
+        *reinterpret_cast<float2*>(&pr[C + c]) =
+            make_float2(o[1][n][2 * h], o[1][n][2 * h + 1]);
+      }
+      if (t == 0) {
+        float* ml = part + (size_t)gridDim.z * rows * 2 * C;
+        *reinterpret_cast<float2*>(&ml[((size_t)blockIdx.z * rows + r) * 2]) =
+            make_float2(m_r[h], l_r[h]);
+      }
+    }
+  }
+}
+
+// Merges the chunks of the style axis: m = max m_s, and l and the sums
+// as fma chains over the chunks in order, each scaled by exp(m_s - m); then
+// finishes the rows as the kernel does.  One warp per row, lane j on
+// channels 4 j .. 4 j + 3.
+__global__ void __launch_bounds__(256)
+    adaattn_fwd_serve_combine(const float* __restrict__ part,
+                              const float* __restrict__ vbar,
+                              float* __restrict__ mean_out,
+                              float* __restrict__ std_out,
+                              float* __restrict__ m_out,
+                              float* __restrict__ l_out, int rows, int nc,
+                              int splits) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const int c = 4 * (threadIdx.x & 31);
+  const float* ml = part + (size_t)splits * rows * 2 * C;
+  float mx = NEG;
+  for (int s = 0; s < splits; ++s)
+    mx = fmaxf(mx, ml[((size_t)s * rows + r) * 2]);
+  float l = 0.f, om[4] = {0.f, 0.f, 0.f, 0.f}, os[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < splits; ++s) {
+    const float2 mls = *reinterpret_cast<const float2*>(
+        &ml[((size_t)s * rows + r) * 2]);
+    const float w = expf(mls.x - mx);
+    l = fmaf(w, mls.y, l);
+    const float* pr = part + ((size_t)s * rows + r) * 2 * C;
+    const float4 a = *reinterpret_cast<const float4*>(&pr[c]);
+    const float4 a2 = *reinterpret_cast<const float4*>(&pr[C + c]);
+    om[0] = fmaf(w, a.x, om[0]);
+    om[1] = fmaf(w, a.y, om[1]);
+    om[2] = fmaf(w, a.z, om[2]);
+    om[3] = fmaf(w, a.w, om[3]);
+    os[0] = fmaf(w, a2.x, os[0]);
+    os[1] = fmaf(w, a2.y, os[1]);
+    os[2] = fmaf(w, a2.z, os[2]);
+    os[3] = fmaf(w, a2.w, os[3]);
+  }
+  const float inv_l = 1.f / l;
+  const float* vb = vbar + (size_t)(r / nc) * C + c;
+  float4 mo, so;
+  finish(om[0], os[0], inv_l, vb[0], mo.x, so.x);
+  finish(om[1], os[1], inv_l, vb[1], mo.y, so.y);
+  finish(om[2], os[2], inv_l, vb[2], mo.z, so.z);
+  finish(om[3], os[3], inv_l, vb[3], mo.w, so.w);
+  *reinterpret_cast<float4*>(&mean_out[(size_t)r * C + c]) = mo;
+  *reinterpret_cast<float4*>(&std_out[(size_t)r * C + c]) = so;
+  if (c == 0) {
+    m_out[r] = mx;
+    l_out[r] = l;
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* vbar, void* mean, void* stdv, void* m, void* l,
+                   void* part, int b, int nc, int ns, int splits,
+                   int per_split, cudaStream_t stream) {
+  if (per_split <= 0 || per_split % BK != 0 || splits < 1 ||
+      (long long)splits * per_split < ns ||
+      (long long)(splits - 1) * per_split >= ns ||
+      (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  if (!aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      adaattn_fwd_serve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((nc + BQ - 1) / BQ, b, splits);
+  adaattn_fwd_serve_kernel<<<grid, NTH, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(vbar),
+      static_cast<float*>(mean), static_cast<float*>(stdv),
+      static_cast<float*>(m), static_cast<float*>(l),
+      static_cast<float*>(part), nc, ns, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int rows = b * nc;
+  adaattn_fwd_serve_combine<<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const float*>(vbar),
+      static_cast<float*>(mean), static_cast<float*>(stdv),
+      static_cast<float*>(m), static_cast<float*>(l), rows, nc, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace sv
 
 
 // ---------------------------------------------------------------------------
@@ -734,8 +987,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* mean,
 
 // q (b, nc, c), k and v (b, ns, c); mean, std (b, nc, c) in the input dtype;
 // m, l (b, nc) f32.  c must be 128 and ns > 0.  bf16 takes the tensor-core
-// kernel, f32 the float64 CUDA-core one.  Returns the cudaError_t of the
-// launch (0 on success).
+// kernel, f32 the float64 one (the training step's).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int adaattn_fwd_launch(const void* q, const void* k, const void* v,
                                   void* mean, void* stdv, void* m, void* l,
                                   int b, int nc, int ns, int c, int is_bf16,
@@ -749,18 +1002,20 @@ extern "C" int adaattn_fwd_launch(const void* q, const void* k, const void* v,
   return (int)f64k::launch(q, k, v, mean, stdv, m, l, b, nc, ns, s);
 }
 
-// The same function through a CUDA-core kernel at either dtype: at bf16 the
-// kernel before the tensor-core one, for A/B timing only; at f32 the f64
-// kernel that adaattn_fwd_launch runs.
-extern "C" int adaattn_fwd_simt_launch(const void* q, const void* k,
-                                       const void* v, void* mean, void* stdv,
-                                       void* m, void* l, int b, int nc, int ns,
-                                       int c, int is_bf16, void* stream) {
+// The f32 serving form: q (b, nc, c), k and v (b, ns, c), vbar (b, c) the
+// values' mean over the keys, all f32; mean, std (b, nc, c), m, l (b, nc)
+// f32.  The style axis in `splits` chunks of `per_split` keys (a multiple
+// of 32; the last chunk holds the rest); with more than one chunk, part is
+// f32 scratch of splits * b * nc * (2c + 2) values.
+extern "C" int adaattn_fwd_serve_launch(const void* q, const void* k,
+                                        const void* v, const void* vbar,
+                                        void* mean, void* stdv, void* m,
+                                        void* l, void* part, int b, int nc,
+                                        int ns, int c, int splits,
+                                        int per_split, void* stream) {
   using namespace ast_kernels;
   if (c != C || ns <= 0) return (int)cudaErrorInvalidValue;
   if (b == 0 || nc == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch<__nv_bfloat16>(q, k, v, mean, stdv, m, l, b, nc, ns, s);
-  return (int)f64k::launch(q, k, v, mean, stdv, m, l, b, nc, ns, s);
+  return (int)sv::launch(q, k, v, vbar, mean, stdv, m, l, part, b, nc, ns,
+                         splits, per_split, static_cast<cudaStream_t>(stream));
 }

@@ -32,10 +32,11 @@ _SIGNATURES = {
     # x, w_expand, w_dw, b_expand, b_dw, hidden, sums,
     # n, h, w, c_in, e, k, pre_act, is_bf16, stream
     "expand_dw_launch": [_P] * 7 + [_I] * 8 + [_P],
-    # q, k, v, mean, std, m, l, b, nc, ns, c, is_bf16, stream (the simt
-    # entry: the CUDA-core kernel at either dtype, for A/B timing)
+    # q, k, v, mean, std, m, l, b, nc, ns, c, is_bf16, stream
     "adaattn_fwd_launch": [_P] * 7 + [_I] * 5 + [_P],
-    "adaattn_fwd_simt_launch": [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, vbar, mean, std, m, l, part (scratch), b, nc, ns, c, splits,
+    # keys per split, stream: the f32 serving form
+    "adaattn_fwd_serve_launch": [_P] * 9 + [_I] * 6 + [_P],
     # x, w_expand, w_dw, b_expand, b_dw, d0t, d0b, d1k, d1b, wpt, pb,
     # hidden, sums, gate (scratch), y, n, h, w, c_in, e, s, c_out, k,
     # pre_act, identity, is_bf16, stream

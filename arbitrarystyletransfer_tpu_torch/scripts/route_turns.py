@@ -11,9 +11,10 @@ P the parent), then this tree's ``sweep_times.py`` against that tree's
 package (the bf16 rows' device ms per request by kernel and sweep; with
 ``--f32`` the f32 rows' too, ``sweep_times.py --f32``), one process at a
 time, and keeps their logs in ``--out``.  The routes phase
-times each route's bf16 requests (the first a warm-up), two more in its
-``adaattn_fwd`` A/B ("on the tensor-core kernel": the route as served),
-and four f32 requests (the first a warm-up).  One JSON line per route,
+times each route's bf16 requests (the first a warm-up) and four f32
+requests (the first a warm-up), and two more of each in its
+``adaattn_fwd`` A/B as served: bf16 ("on the tensor-core kernel") in a
+tree from before the f32 serving form, f32 ("on the serving form") since.  One JSON line per route,
 dtype and side follows: the phase's own median of each run, and the
 median and range of every timed request of every run pooled, so that one
 run's host stall moves the pooled median by one request, not a run; then
@@ -35,6 +36,8 @@ from pathlib import Path
 _NUM = r"[0-9.]+"
 _REQUEST = re.compile(rf"^(\S+) request (\d+): alpha {_NUM}, ({_NUM}) ms,")
 _AB = re.compile(r"^route (\S+) A/B, .*on the tensor-core kernel \[([^]]*)\]")
+_AB32 = re.compile(r"^route (\S+) A/B at f32, .*on the serving form "
+                   r"\[([^]]*)\]")
 _F32 = re.compile(r"^(\S+) f32 requests: \[([^]]*)\] ms")
 SWEEP_TIMES = Path(__file__).resolve().with_name("sweep_times.py")
 _RUN = re.compile(r"^routes at \d+px batch \d+( f32)?, median ms per "
@@ -55,6 +58,8 @@ def parse(log: str) -> dict:
                 entry(m[1], "bf16")["timed"].append(float(m[3]))
         elif m := _AB.match(line):
             entry(m[1], "bf16")["timed"] += [float(v) for v in m[2].split(",")]
+        elif m := _AB32.match(line):
+            entry(m[1], "f32")["timed"] += [float(v) for v in m[2].split(",")]
         elif m := _F32.match(line):
             entry(m[1], "f32")["timed"] += [float(v)
                                             for v in m[2].split(",")[1:]]

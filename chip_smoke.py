@@ -17,15 +17,21 @@
    path again at f32, the stylize CLI's dtype, summed per f32 request, the
    block kernels' sweep 2 of every path row on the designed kernel of its
    dtype, ``*_last_sweep2``, and their sweep 1 on the design the mirror
-   names, 3xTF32 at f32, ``*_last_sweep1``), with the max
+   names, 3xTF32 at f32, ``*_last_sweep1``; each f32 path row of
+   ``expand_dw``, ``flat_block``, ``flat_s2_block`` and ``mega_block``
+   also logs its and its twin's distance to the block in float64,
+   ``tf32_vs_f64``), with the max
    error against a stated tolerance and the
    device times (CUDA events) of the kernel, the twin and, where one
    PyTorch call computes the same function, that call (the SDPA yardstick
    of the AdaAttN kernels; never on the port's path).  The bf16
    ``adaattn_fwd`` (tensor cores) is held elementwise to
    ``adaattn_fwd_error_bound``, and at both dtypes to the exact answer of a
-   one-hot softmax (std exactly 0: the check that sees v^2 fed in exactly),
-   and timed against the CUDA-core kernel it replaced.  Two A/B times per
+   one-hot softmax (std exactly 0: the check that sees v^2 fed in exactly);
+   its f32 serving form (3xTF32, what every f32 inference path runs) is
+   held to the twin and to the float64 form (``SERVE_CASES``: at most twice
+   the twin's distance to float64), and timed against the float64 form
+   and the f32 SDPA forward.  Two A/B times per
    shape: ``mega_block`` against ``flat_block`` on the same block
    (the (N, H, C, W) layout against NHWC), and the two-pass block
    (``fused_sums`` + ``fused_project``) against the fused route's block
@@ -91,8 +97,9 @@
    forced through the plain twins (bf16, and f32 through both); the f32
    requests (ROUTE_F32_REQUESTS, "flat" too) are timed, their launches
    held to the route's.  Prints ms
-   per request, img/s, the A/B of ``adaattn_fwd`` against the CUDA-core
-   kernel it replaced (in turns, on one request) and a profiler breakdown
+   per request, img/s, the A/B at f32 of ``adaattn_fwd``'s serving form
+   against its float64 form (in turns, on one f32 request; every f32
+   request must run the serving form) and a profiler breakdown
    of one request per route, with its layout copies and pads; then every
    route's ms per request and img/s of this run side by side.
    Sizes: the same model at 1024px and 720px, batch 8 bf16, on
@@ -721,7 +728,7 @@ SMEM_OPT_IN = 232448  # bytes of shared memory a CTA may have on an H100
 # name, B, Nc, Ns, dtype, scale of q and k (logits of std 128^0.5 scale^2:
 # ~1 at 0.3, ~3.4 at 0.55, a peaked softmax), the main path's call.  The
 # bf16 cases take the tensor-core kernel, held to adaattn_fwd_error_bound;
-# ragged-nc has partial query and key tiles; ragged-f32 takes the CUDA-core
+# ragged-nc has partial query and key tiles; ragged-f32 takes the float64
 # kernel of the training step.  The cases added with the tensor-core
 # kernel (``ADAATTN_OWN_GEN``) draw from a generator of their own, so that
 # the other cases and every later phase get the inputs they got before.
@@ -736,6 +743,34 @@ ADAATTN_CASES = (
     ("ragged-nc", 2, 1000, 777, "bfloat16", 0.3, False),
     ("ragged-f32", 2, 1000, 777, "float32", 0.3, False),
 )
+# The f32 serving form (``adaattn_fwd(..., serve=True)``, 3xTF32): name, B,
+# Nc, Ns, q and k scale, value offset.  "taps-f32" is the fused engine's
+# call per 512px f32 request (both taps stacked), "graph" the graph
+# engine's per tap at 512px batch 8 and "cli-320" at the CLI's default
+# 320px batch 1 (1 x 40 x 40 positions: the style axis in 6 chunks,
+# ``serve_splits``), "ragged-f32" partial tiles in 3 chunks; "offset"
+# values at 3 + N(0, 1) and "peaked" logits of std ~3.4.  Each output is
+# held to the twin at F32_TOL (l at L_TOL) and, for mean and std, to the
+# float64 form (the float64 statistics rounded once) at most
+# SERVE_TWIN_FACTOR times the twin's own distance to it; where the twin's
+# mean or std itself lies farther than F32_TOL of its largest value from
+# float64 (std = sqrt(ev2 - mean^2) cancels in f32 in the nearly one-hot
+# rows of "peaked" and the offset rows), that output is held by the
+# float64 rule alone, and the log says so.  The one-hot rows
+# (``ONE_HOT_CASES``) go through it too, held to the same gates: the twin
+# is exact there, so the rule asks the serving form to be exact.  They
+# draw from a generator of their own (seed + 22).
+SERVE_CASES = (
+    ("taps-f32", 16, 4096, 4096, 0.3, 0.0),
+    ("graph", 8, 4096, 4096, 0.3, 0.0),
+    ("cli-320", 1, 1600, 1600, 0.3, 0.0),
+    ("ragged-f32", 2, 1000, 777, 0.3, 0.0),
+    ("offset", 2, 1000, 777, 0.3, 3.0),
+    ("peaked", 16, 4096, 4096, 0.55, 0.0),
+)
+SERVE_TWIN_FACTOR = 2.0
+# The main path's calls, where the serving form must beat the float64 form.
+SERVE_FASTER = ("taps-f32", "graph", "cli-320")
 # One bf16 ulp of the largest value: each hidden/mean/std/output element is
 # rounded once from an f32 value that the kernel and its twin sum in
 # different orders, so a rounding may flip by one ulp.
@@ -780,6 +815,33 @@ def max_err(out, ref):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+# The f32 launches of ``adaattn_fwd`` by form ("serve": the 3xTF32 serving
+# kernel, "f64": the float64 one) over the paths whose form is checked
+# (``check_forms``): the routes' f32 requests, the lifecycle's
+# graph-engine requests, the train phase's timed steps.
+F32_FORM_LAUNCHES = {"serve": 0, "f64": 0}
+
+
+def f32_forms():
+    """``adaattn_fwd``'s f32 launches by form so far (a snapshot)."""
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.adaattn_fwd import (
+        F32_FORMS,
+    )
+
+    return dict(F32_FORMS)
+
+
+def check_forms(before, form, n, what):
+    """The f32 ``adaattn_fwd`` launches since ``before`` (``f32_forms()``)
+    are ``n``, every one of ``form``; counted in F32_FORM_LAUNCHES."""
+    now = f32_forms()
+    got = {k: now[k] - before[k] for k in now}
+    check(got[form] == n and sum(got.values()) == n,
+          f"{what}: f32 adaattn_fwd launches by form {got}, expected {n} "
+          f"{form}")
+    F32_FORM_LAUNCHES[form] += n
 
 
 class Bound:
@@ -912,6 +974,71 @@ def sweep1_check(kernel, label, dtype, c_in, k, expand=True,
     return design, boxes
 
 
+# Queue 3's check of the 3xTF32 expand: at each f32 path row of rows 1, 4,
+# 5 and 8, the kernel's output and the f32 twin's against the same block
+# in float64 (``block_f64``); rows 4, 5 and 8's y also carries sweep 2's
+# 3xTF32 projection, row 1's hidden is sweep 1 alone.  Logged, not gated:
+# a row where the kernel lies farther than the twin is a finding.
+TF32_VS_F64 = []
+
+
+def block_f64(x, we, wd, k, pre_act=True, be=None, bd=None, se=None,
+              wp=None, pb=None, identity=False, stride=1):
+    """The block of NHWC ``x`` in float64 from the same f32 operands, with
+    no rounding between its stages: expand_dw's (hidden, sums) where
+    ``se`` is None, else the whole block's (y, sums)."""
+    import torch
+    import torch.nn.functional as F
+    from arbitrarystyletransfer_tpu_torch.ops.basic import (
+        hardswish,
+        reflect_pad,
+        se_gate,
+    )
+
+    h = x.double()
+    if we is not None:
+        h = h @ we.double()
+    if be is not None:
+        h = h + be.double()
+    if pre_act:
+        h = hardswish(h)
+    hp = reflect_pad(h, (k - 1) // 2).permute(0, 3, 1, 2)
+    out = F.conv2d(hp, wd.double().permute(2, 0, 1)[:, None], stride=stride,
+                   groups=wd.shape[-1]).permute(0, 2, 3, 1)
+    if bd is not None:
+        out = out + bd.double()
+    hidden = hardswish(out)
+    sums = hidden.sum(dim=(1, 2))
+    if se is None:
+        return hidden, sums
+    se64 = {name: {key: t.double() for key, t in layer.items()}
+            for name, layer in se.items()}
+    gate = se_gate(sums, hidden.shape[1] * hidden.shape[2], se64)
+    y = (hidden * gate[:, None, None, :]) @ wp.double()
+    if pb is not None:
+        y = y + pb.double()
+    if identity:
+        y = y + x.double()
+    return y, sums
+
+
+def tf32_vs_f64(kernel, label, out, twin, exact):
+    """Records and logs the kernel's and the twin's max and mean abs
+    distance to ``exact`` (float64) at one f32 path row."""
+    d_k = (out.double() - exact).abs()
+    d_t = (twin.double() - exact).abs()
+    rec = {"kernel": kernel, "row": label,
+           "kernel_max": float(d_k.max()), "twin_max": float(d_t.max()),
+           "kernel_mean": float(d_k.mean()), "twin_mean": float(d_t.mean()),
+           "scale": float(exact.abs().max())}
+    rec["farther"] = rec["kernel_max"] > rec["twin_max"]
+    TF32_VS_F64.append(rec)
+    log(f"{kernel} {label} vs float64: kernel max {rec['kernel_max']:.4g} "
+        f"mean {rec['kernel_mean']:.4g}, f32 twin max {rec['twin_max']:.4g} "
+        f"mean {rec['twin_mean']:.4g} (largest value {rec['scale']:.4g})"
+        + (" -- the kernel farther" if rec["farther"] else ""))
+
+
 def expand_dw_phase(gen, cases=None):
     """expand_dw against its twin at each case, with the sweep-1 design and
     boxes each must take (``sweep1_check``); returns the worst hidden error
@@ -956,6 +1083,9 @@ def expand_dw_phase(gen, cases=None):
                                      expand)
         r_hidden, r_sums = expand_dw_reference(*args)
         err_h, err_s = max_err(hidden, r_hidden), max_err(sums, r_sums)
+        if f32_row(name) and per_req:
+            tf32_vs_f64("expand_dw", name, hidden, r_hidden,
+                        block_f64(x, we, wd, k, expand, be, bd)[0])
         rel = F32_TOL if dt == torch.float32 else BF16_TOL
         tol_h = rel * float(r_hidden.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
@@ -1365,31 +1495,6 @@ def sweep2_phase(gen):
     return records
 
 
-def adaattn_simt(is_bf16):
-    """``adaattn_fwd`` through ``adaattn_fwd_simt_launch``, the CUDA-core
-    kernel (at bf16 the kernel the tensor-core one replaced), for A/B
-    timing only: it counts no launch."""
-    import torch
-    from arbitrarystyletransfer_tpu_torch.ops.kernels._build import (
-        check,
-        load_library,
-    )
-
-    def run(q, k, v):
-        b, nc, _ = q.shape
-        mean, std = torch.empty_like(q), torch.empty_like(q)
-        m = torch.empty(b, nc, device=q.device)
-        l = torch.empty(b, nc, device=q.device)
-        check(load_library().adaattn_fwd_simt_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mean.data_ptr(),
-            std.data_ptr(), m.data_ptr(), l.data_ptr(), b, nc, k.shape[1],
-            128, int(is_bf16), torch.cuda.current_stream().cuda_stream),
-            "adaattn_fwd_simt_launch")
-        return mean, std, m, l
-
-    return run
-
-
 def one_hot_attention(gen, b, nc, ns, dtype):
     """(q, k, v, t) whose softmax is one-hot: key j is the unit vector e_j
     (Ns <= 128), and query i has the logit 0 at its key t[i] and -256 at
@@ -1447,7 +1552,6 @@ def adaattn_phase(gen, gen_own):
     worst = 0.0
     ms = plain_ms = library_ms = None
     bound = Bound()
-    simt = adaattn_simt(True)
     for name, b, nc, ns, dtype, scale, main in ADAATTN_CASES:
         dt = getattr(torch, dtype)
         dev = dict(device=DEVICE,
@@ -1497,14 +1601,9 @@ def adaattn_phase(gen, gen_own):
             bound.add(size * b * (3 * nc + 2 * ns) * 128 + 8 * b * nc,
                       6 * b * nc * ns * 128, PEAK_BF16)
             library_ms, what = sdpa_yardstick(q, k, v)
-            # A/B in turns on the same inputs: the CUDA-core kernel that
-            # this one replaced.
-            t_s = timed_ms(lambda: simt(q, k, v), iters=3, warmup=1)
-            t_k2 = timed_ms(lambda: adaattn_fwd(q, k, v), iters=5)
-            extra = (f", again {t_k2:.4f} ms; library (sdpa {what}, forward)"
+            extra = (f"; library (sdpa {what}, forward)"
                      f" {library_ms:.4f} ms (kernel/sdpa "
-                     f"{t_k / library_ms:.3f}); A/B: the CUDA-core kernel it "
-                     f"replaced {t_s:.4f} ms ({t_s / t_k:.2f}x); bound "
+                     f"{t_k / library_ms:.3f}); bound "
                      f"{bound.ms():.4f} ms "
                      f"({bound.by()}), {6 * b * nc * ns * 128 / t_k / 1e9:.1f}"
                      f" TFLOP/s of the function's work")
@@ -1514,7 +1613,104 @@ def adaattn_phase(gen, gen_own):
         del q, k, v, ref, bounds
         torch.cuda.empty_cache()
     one_hot_check(torch.Generator(device=DEVICE).manual_seed(SEED + 7))
-    return worst, ms, plain_ms, bound, library_ms
+    f32 = serve_phase(torch.Generator(device=DEVICE).manual_seed(SEED + 22))
+    return worst, ms, plain_ms, bound, library_ms, f32
+
+
+def serve_phase(gen):
+    """``adaattn_fwd``'s f32 serving form at ``SERVE_CASES`` and the
+    one-hot rows: its outputs against the twin and the float64 form (the
+    gates of ``SERVE_CASES``), each form's and the twin's distance to
+    float64 logged, and at every case but the one-hot rows the ms of the
+    serving form, the float64 form and the twin (one JSON line).  Returns
+    the "taps-f32" call's figures, those of one 512px f32 request (ms,
+    twin ms, Bound, worst mean or std error against the twin, SDPA f32
+    forward ms, float64 form ms)."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.adaattn_fwd import (
+        adaattn_fwd,
+        adaattn_fwd_reference,
+        serve_splits,
+    )
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(name, b, nc, ns, (scale, off)) for name, b, nc, ns, scale, off
+             in SERVE_CASES]
+    cases += [(f"one-hot-{ns}", b, nc, ns, None)
+              for b, nc, ns in ONE_HOT_CASES]
+    out, times = None, {}
+    for name, b, nc, ns, draw in cases:
+        if draw is None:
+            q, k, v, _ = one_hot_attention(gen, b, nc, ns, torch.float32)
+        else:
+            scale, off = draw
+            dev = dict(device=DEVICE, generator=gen)
+            q = scale * torch.randn(b, nc, 128, **dev)
+            k = scale * torch.randn(b, ns, 128, **dev)
+            v = off + torch.randn(b, ns, 128, **dev)
+        got = adaattn_fwd(q, k, v, serve=True)
+        torch.cuda.synchronize()
+        ref = adaattn_fwd_reference(q, k, v)
+        exact = adaattn_fwd(q, k, v)[:2]
+        errs, worst = [], 0.0
+        for i, what in enumerate(("mean", "std", "m", "l")):
+            err = max_err(got[i], ref[i])
+            tol = ((L_TOL if what == "l" else F32_TOL)
+                   * float(ref[i].abs().max()) + 1e-6)
+            check(got[i].dtype == torch.float32
+                  and got[i].shape == ref[i].shape,
+                  f"adaattn_fwd serving {name} {what}: {got[i].dtype}")
+            line, gated = f"{what} err {err:.4g} (tol {tol:.4g})", True
+            if i < 2:
+                worst = max(worst, err)
+                own = max_err(ref[i], exact[i])
+                mine = max_err(got[i], exact[i])
+                line += (f", vs float64 {mine:.4g} (the twin's {own:.4g}, "
+                         f"ratio {mine / own if own else float(mine > 0):.3f})")
+                check(mine <= SERVE_TWIN_FACTOR * own,
+                      f"adaattn_fwd serving {name} {what}: {mine:.4g} from "
+                      f"float64, over {SERVE_TWIN_FACTOR}x the twin's "
+                      f"{own:.4g}")
+                if own > tol:
+                    gated = False
+                    line += " (the twin outside the gate: held to float64)"
+            errs.append(line)
+            if gated:
+                check(err <= tol, f"adaattn_fwd serving {name} {what} "
+                      "differs from the twin")
+        del got, ref, exact
+        extra = ""
+        if draw is not None:
+            t_s = timed_ms(lambda: adaattn_fwd(q, k, v, serve=True), iters=5)
+            t_f = timed_ms(lambda: adaattn_fwd(q, k, v), iters=3)
+            t_p = timed_ms(lambda: adaattn_fwd_reference(q, k, v), iters=3,
+                           warmup=1)
+            times[name] = {"serve": t_s, "f64": t_f, "plain": t_p}
+            splits = serve_splits(b, nc, ns, sms)[0]
+            extra = (f"; serving {t_s:.4f} ms, float64 form {t_f:.4f} ms "
+                     f"({t_f / t_s:.2f}x), plain {t_p:.4f} ms; style axis "
+                     f"in {splits} chunk(s)")
+            if name in SERVE_FASTER:
+                check(t_s < t_f, f"adaattn_fwd serving {name}: not faster "
+                      "than the float64 form")
+            if name == "taps-f32":
+                bound = Bound()
+                bound.add(4 * b * (3 * nc + 2 * ns) * 128 + 8 * b * nc,
+                          6 * b * nc * ns * 128, PEAK_TF32 / 3)
+                lib, what = sdpa_yardstick(q, k, v)
+                out = (t_s, t_p, bound, worst, lib, t_f)
+                extra += (f"; bound {bound.ms():.4f} ms ({bound.by()}, a "
+                          f"third of the TF32 peak), {bound.ms() / t_s:.3f} "
+                          f"of it; library (sdpa {what}, forward) "
+                          f"{lib:.4f} ms (serving/sdpa {t_s / lib:.3f})")
+        log(f"adaattn_fwd serving {name:10s} ({b}, {nc}, {ns}) "
+            + ("one-hot" if draw is None else
+               f"scale {draw[0]} offset {draw[1]}") + ": "
+            + ", ".join(errs) + extra)
+        del q, k, v
+        torch.cuda.empty_cache()
+    log(json.dumps({"adaattn_serve_ms": times}))
+    return out
 
 
 def random_block(gen, c_in, e, c_out, k, bn, expand=True):
@@ -1614,6 +1810,10 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
             check(staging == "async", f"{name} {label}: x staged {staging}")
         r_y, r_sums = ref_fn(*args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
+        if f32_row(label) and (per_all or per_auto):
+            tf32_vs_f64(name, label, y, r_y, block_f64(
+                x, we, wd, k, kw.get("pre_act", True), be, bd, se, wp, pb,
+                residual, stride)[0])
         rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         tol_y = rel * float(r_y.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
@@ -1722,6 +1922,10 @@ def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
               f"mega_block {label}: x staged {staging}, not {want}")
         r_y, r_sums = mega_block_reference(xt, *args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
+        if f32_row(label) and per_req:
+            tf32_vs_f64("mega_block", label, y, r_y, block_f64(
+                xt.permute(0, 1, 3, 2), we, wd, k, expand, be, bd, se, wp,
+                pb, residual)[0].permute(0, 1, 3, 2))
         rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         tol_y = rel * float(r_y.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
@@ -2629,7 +2833,7 @@ def f32_requests(pipe32, requests, expected, impl):
     first, times = None, []
     for i in range(ROUTE_F32_REQUESTS):
         content, style, alpha = requests[i % len(requests)]
-        before = dict(LAUNCHES)
+        before, forms = dict(LAUNCHES), f32_forms()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2640,6 +2844,8 @@ def f32_requests(pipe32, requests, expected, impl):
         n = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         check(n == expected, f"{impl} f32 request {i + 1} launched {n}, "
               f"expected {expected}")
+        check_forms(forms, "serve", expected["adaattn_fwd"],
+                    f"{impl} f32 request {i + 1}")
         check(bool(torch.isfinite(out).all()), f"{impl} f32: non-finite")
         if first is None:
             first = out
@@ -2722,10 +2928,10 @@ def drive_route(pipe, impl, requests, expected):
     ms = statistics.median(times[1:])
     ms32 = statistics.median(times32[1:])
     plain_ms = statistics.median(plain_times[1:])
-    ab = adaattn_route_ab(pipe, requests[-1])
-    log(f"route {impl} A/B, ms per request in turns (earlier, now, earlier, "
-        f"now): adaattn_fwd on the CUDA-core kernel it replaced "
-        f"{ab['earlier']}, on the tensor-core kernel {ab['now']}")
+    ab = adaattn_route_ab(pipe32, requests[-1])
+    log(f"route {impl} A/B at f32, ms per request in turns (f64, serve, f64, "
+        f"serve): adaattn_fwd on its float64 form {ab['f64']}, on the "
+        f"serving form {ab['serve']}")
     log(f"route {impl}: median {ms:.3f} ms/request over requests "
         f"2-{len(requests)} ({BATCH * 1000 / ms:.2f} img/s at {SIZE}px "
         f"batch {BATCH}); plain twins {plain_ms:.3f} ms/request "
@@ -2872,19 +3078,21 @@ def sizes_phase(gen):
 
 
 def adaattn_route_ab(pipe, request):
-    """ms of ``pipe.stylize(*request)`` with ``adaattn_fwd`` through the
-    CUDA-core kernel that the tensor-core one replaced at bf16 ("earlier")
-    and through the kernel ("now"), in turns."""
+    """ms of ``pipe.stylize(*request)`` (an f32 pipeline) with the AdaAttN
+    statistics through ``adaattn_fwd``'s float64 form ("f64", what every
+    f32 path ran before the serving form) and as served ("serve"), in
+    turns."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.kernels import (
         adaattn_fwd as adaattn_mod,
     )
 
-    kernel = adaattn_mod.adaattn_fwd
-    earlier = adaattn_simt(pipe.dtype == torch.bfloat16)
-    times = {"earlier": [], "now": []}
-    for label in ("earlier", "now", "earlier", "now"):
-        adaattn_mod.adaattn_fwd = earlier if label == "earlier" else kernel
+    served = adaattn_mod.adaattn_statistics
+    times = {"f64": [], "serve": []}
+    for label in ("f64", "serve", "f64", "serve"):
+        if label == "f64":
+            adaattn_mod.adaattn_statistics = (
+                lambda q, k, v: adaattn_mod.adaattn_fwd(q, k, v)[:2])
         try:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2893,7 +3101,7 @@ def adaattn_route_ab(pipe, request):
             end.record()
             torch.cuda.synchronize()
         finally:
-            adaattn_mod.adaattn_fwd = kernel
+            adaattn_mod.adaattn_statistics = served
         times[label].append(round(start.elapsed_time(end), 3))
     return times
 
@@ -3362,6 +3570,7 @@ def train_phase(gen):
         torch.cuda.reset_peak_memory_stats()
         times, per_step, losses = [], [], []
         reset_launches()
+        forms = f32_forms()
         for _ in range(TRAIN_STEPS):
             content, style = next(batches[TRAIN_SIZES[-1]])
             before = dict(LAUNCHES)
@@ -3380,6 +3589,9 @@ def train_phase(gen):
         for i, (n, t) in enumerate(zip(per_step, times)):
             check(n == TRAIN_LAUNCHES, f"train step {i + 1} launched {n}, "
                   f"expected {TRAIN_LAUNCHES}")
+        # Autograd records the step's AdaAttN calls: the float64 form.
+        check_forms(forms, "f64", TRAIN_STEPS * TRAIN_LAUNCHES["adaattn_fwd"],
+                    "train steps")
         check(all(math.isfinite(x) for x in losses), f"losses {losses}")
         check(int(trainer.step) == len(TRAIN_SIZES) + TRAIN_STEPS,
               f"step counter {int(trainer.step)}")
@@ -3602,12 +3814,28 @@ def make_trainer(tmp, batches, use_dis=False):
 def normalize_train_head(trainer, batch):
     """Scale the decoder head of ``trainer.ast`` (a trainer's, or a graph
     engine pipeline's) so that the stylized image of ``batch`` has a
-    per-channel mean 0.5 and spatial std 0.05 (as ``routes_phase`` does)."""
+    per-channel mean 0.5 and spatial std 0.05 (as ``routes_phase`` does).
+    The AdaAttN statistics of that forward take ``adaattn_fwd``'s float64
+    form, as the train steps do, and not the serving form that ``no_grad``
+    would pick: the head, and every loss and gradient the train, GAN, dp
+    and train-gate steps compute from it, is then what it was before the
+    serving form existed (those steps' losses are chaotic at ~1e-6 under
+    such changes of the state)."""
     import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import (
+        adaattn_fwd as fwd_mod,
+    )
 
     ast = trainer.ast
+    served = fwd_mod.adaattn_statistics
+    fwd_mod.adaattn_statistics = (
+        lambda q, k, v: fwd_mod.adaattn_fwd(q, k, v)[:2])
+    try:
+        with torch.no_grad():
+            pre = ast.dec(ast.encode(*batch, detach=True)).double()
+    finally:
+        fwd_mod.adaattn_statistics = served
     with torch.no_grad():
-        pre = ast.dec(ast.encode(*batch, detach=True)).double()
         head = ast.dec.img_out
         std = pre.std(dim=(1, 2)).mean(dim=0)
         check(bool((std > 1e-3).all()), f"train pre-clamp image: {std}")
@@ -4273,13 +4501,17 @@ def life_graph(ast_path, requests):
     check(pipe.engine == "flax" and not pipe.cfg.encoder_eval_stats,
           f"engine {pipe.engine}, {pipe.cfg}")
     normalize_train_head(pipe, requests[0][:2])
+    forms = f32_forms()
     outs, times, launches = run_requests(pipe, requests, GRAPH_LAUNCHES,
                                          "lifecycle flax")
-    # At f32 the kernel computes the statistics in float64 and rounds once
-    # (ops/kernels/adaattn_fwd.py), so its plain version is the dense
-    # statistics in float64, rounded (adaattn_statistics_f64).  The dense
-    # float32 twin's distance to it is logged: this checkpoint's decoder
-    # amplifies the twin's own rounding.
+    check_forms(forms, "serve", len(requests) * GRAPH_LAUNCHES["adaattn_fwd"],
+                "lifecycle flax")
+    # Served at f32 the statistics take the serving form (3xTF32, no more
+    # than twice the f32 twin's distance to float64: the adaattn_fwd
+    # phase), held here to the same pipeline with the AdaAttN stage in
+    # float64, rounded (adaattn_statistics_f64), at the f32 image gate.
+    # The dense float32 twin's distance to it is logged: this checkpoint's
+    # decoder amplifies the twin's own rounding.
     saved = fwd_mod.adaattn_statistics
     fwd_mod.adaattn_statistics = adaattn_statistics_f64
     try:
@@ -5520,7 +5752,7 @@ def main(argv=None) -> int:
         e_worst, e_ms, e_plain, e_bound, e_f32 = phase(
             "expand_dw", expand_dw_phase, gen)
         gen6 = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
-        a_worst, a_ms, a_plain, a_bound, a_lib = phase(
+        a_worst, a_ms, a_plain, a_bound, a_lib, a_f32 = phase(
             "adaattn_fwd", adaattn_phase, gen, gen6)
         f_worst, f_ms, f_bound, f_f32 = phase(
             "flat_block", flat_kernel_phase, gen, "flat_block", flat_block,
@@ -5546,6 +5778,11 @@ def main(argv=None) -> int:
         phase("split", split_phase, torch.Generator(
             device=DEVICE).manual_seed(SEED + SPLIT_SEED))
         phase("sweeps", sweeps_phase, gen7)
+    log(json.dumps({"tf32_vs_f64": TF32_VS_F64}))
+    log("tf32_vs_f64: f32 path rows where the kernel lies farther from "
+        "float64 than the f32 twin (max abs): "
+        + str([f"{r['kernel']} {r['row']}" for r in TF32_VS_F64
+               if r["farther"]]))
     bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
     phase("policy", policy_phase)
     launches = phase("routes", routes_phase, gen)
@@ -5573,8 +5810,8 @@ def main(argv=None) -> int:
     def row(name, source, replaces, worst, ms, plain_ms, bound, library_ms,
             f32=None):
         """``replaces`` is the TPU kernel's file:line from the repo root;
-        ``f32``: (kernel ms, twin ms, Bound, worst error) per 512px f32
-        request of the same route."""
+        ``f32``: (kernel ms, twin ms, Bound, worst error[, library ms,
+        another form's ms]) per 512px f32 request of the same route."""
         by_route = {impl: counts[name] for impl, counts in launches.items()}
         out = {"name": name, "route": "cuda",
                "source": f"arbitrarystyletransfer_tpu_torch/csrc/{source}",
@@ -5587,6 +5824,10 @@ def main(argv=None) -> int:
             out["f32_request"] = {
                 "ms": f32[0], "plain_ms": f32[1], "bound_ms": f32[2].ms(),
                 "bound_by": f32[2].by(), "max_abs_err": f32[3]}
+            if len(f32) > 4:
+                out["f32_request"].update(
+                    library_ms=f32[4], f64_form_ms=f32[5],
+                    launches=F32_FORM_LAUNCHES["serve"])
         return out
 
     kernels = [
@@ -5594,7 +5835,7 @@ def main(argv=None) -> int:
             e_worst, e_ms, e_plain, e_bound, None,
             (e_f32["ms"], e_f32["plain_ms"], e_f32["bound"], e_f32["worst"])),
         row("adaattn_fwd", "adaattn_fwd.cu", pallas + "adaattn_kernel.py:57",
-            a_worst, a_ms, a_plain, a_bound, a_lib),
+            a_worst, a_ms, a_plain, a_bound, a_lib, a_f32),
         row("flat_block", "flat_block.cu", pallas + "flatblock.py:92",
             f_worst, *f_ms[MAIN_ROUTE], f_bound[MAIN_ROUTE], None,
             f_f32[MAIN_ROUTE]),
@@ -5626,7 +5867,10 @@ def main(argv=None) -> int:
         "max_abs_err is the worst output error over their 512px bf16 cases "
         "(f32_request, on expand_dw, flat_block, flat_s2_block and "
         "mega_block: the same per 512px batch-8 f32 request, the f32 path "
-        "rows) "
+        "rows; on adaattn_fwd: its f32 serving form at the taps-f32 call, "
+        "with library_ms the sdpa f32 forward, f64_form_ms the float64 "
+        "form's ms on the same inputs and launches the serving form's f32 "
+        "launches over the run's counted paths) "
         "(hidden for expand_dw, mean/std of the AdaAttN taps case) and ms, "
         "plain_ms, bound_ms are device ms per 512px batch-8 request (fused "
         "route for expand_dw, the AdaAttN taps call for adaattn_fwd, the "
