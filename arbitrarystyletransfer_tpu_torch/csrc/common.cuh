@@ -65,11 +65,24 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 
 // split_tf32 with hi = x truncated to TF32 (one operation fewer): lo = x -
 // hi is exact and at most 2^-10 |x|, so the lo * lo term a 3xTF32 product
-// leaves out stays below 2^-20 of the product.
+// leaves out stays below 2^-20 of the product.  Exact, lo read whole by the
+// tensor cores, for a value of tf32_pair_exact's.
 __device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi,
                                                  uint32_t& lo) {
   hi = __float_as_uint(x) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// x rounded to nearest once to the 22 bits that split_tf32_trunc's two
+// parts carry whole: hi = x truncated to TF32, lo = x - hi rounded to TF32,
+// ties to even (lo has at most 13 bits, so a quarter of them are ties:
+// away from zero, every weight's error would lean with its sign); their
+// sum is exact in f32, and split_tf32_trunc of it gives back hi and lo.
+__device__ __forceinline__ float tf32_pair_exact(float x) {
+  const float hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  const uint32_t lo = __float_as_uint(x - hi);
+  return hi + __uint_as_float((lo + 0xfffu + ((lo >> 13) & 1u)) &
+                              0xffffe000u);
 }
 
 // D(16x8) += A(16x8) B(8x8), TF32 in, f32 accumulate: a0 = A(g, t), a1 =

@@ -14,21 +14,23 @@
 
 #include "expand_dw.cuh"
 
-// hidden (n, h, w, e) and sums (n, e) must be allocated by the caller, sums
-// zeroed.  Returns the cudaError_t of the launch (0 on success).
+// hidden (n, h, w, e), sums (n, e) and part (n, part_tiles, e; f32, the
+// sums by tile: expand_dw.cuh SumsOut) must be allocated by the caller,
+// none zeroed.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int expand_dw_launch(const void* x, const void* we, const void* wd,
                                 const void* be, const void* bd, void* hidden,
-                                void* sums, int n, int h, int w, int cin,
-                                int e, int k, int pre_act, int is_bf16,
-                                void* stream) {
+                                void* sums, void* part, int n, int h, int w,
+                                int cin, int e, int k, int pre_act,
+                                int is_bf16, int part_tiles, void* stream) {
   using namespace ast_kernels;
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const edw::SumsOut so{part, part_tiles, sums};
   if (is_bf16)
     return (int)edw::dispatch<__nv_bfloat16, edw::kFused>(
-        x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, k, pre_act, s);
+        x, we, wd, be, bd, hidden, so, n, h, w, cin, e, k, pre_act, s);
   return (int)edw::dispatch<float, edw::kFused>(
-      x, we, wd, be, bd, hidden, sums, n, h, w, cin, e, k, pre_act, s);
+      x, we, wd, be, bd, hidden, so, n, h, w, cin, e, k, pre_act, s);
 }
 
 // Registers, dynamic shared memory (bytes) and resident CTAs per SM of the

@@ -43,10 +43,19 @@
 //     keeps one 32-channel chunk of E and walks (image, 16x16 output tile)
 //     items, so the chunk's expand and depthwise weights and biases are
 //     staged once per CTA (coalesced), the depthwise weights of the lane's
-//     channel held in registers.  The SE sums are kept per thread across the
-//     CTA's tiles of one image and added with one atomic per (CTA, image,
-//     channel) into a zeroed (N, E) buffer; the order of those adds varies
-//     from run to run (a few f32 ulps of the sum).
+//     channel held in registers.
+//   * The SE sums, with no atomics, in one order whatever the grid, the
+//     order in which the CTAs run or the batch: each tile's sum per
+//     channel (each thread's 8 x 4 outputs row by row, then the 8 warps'
+//     sums as a balanced tree in shared memory, red) goes to its own
+//     row of a partials buffer (N, tiles, E) f32; then tile_sums_kernel
+//     adds each image's rows, in 32 contiguous runs, each pairwise
+//     (pairwise_add), the runs' sums as a balanced tree, into the (N, E)
+//     sums.
+//     Every launch of the same image gives the same bits, and the sum is
+//     pairwise past each thread's 32 outputs: with the atomics' order and
+//     each thread's running sums over its tiles, the f32 sums lay 1.0-6.6x
+//     the twin's distance from float64 (max abs), 1.3-3.2x (mean).
 //   * The x halo ((16+2p)^2 pixels x all of C_in, reflect-indexed: the
 //     reflection is an index map, valid because expand and hswish are per
 //     pixel; channels past C_in zero, so K is padded to 16 in shared memory,
@@ -175,7 +184,7 @@ constexpr int kXSplit = 32;  // with kXBox: the box in two channel halves
 constexpr int kCSplit = 64;  // NHWC: the box in chunks of CCH channels
 constexpr int CCH = 64;      // kCSplit's channels per box
 constexpr int kTf32 = 128;   // NHWC f32 x: the 3xTF32 expand (see the top)
-constexpr int TF_PAIR = 2;   // kTf32: k8 steps per partial sum
+constexpr int TF_PAIR = 1;   // kTf32: k8 steps per partial sum
 constexpr int kMaxBox = 256;  // elements along one dim of a TMA box
 constexpr int kFused = 0;                      // _fused_kernel "hidden"
 constexpr int kFlat = kRoundEx | kSumRounded;  // _flat_kernel
@@ -209,7 +218,7 @@ __host__ __device__ constexpr int swz(int p) { return (p & 3) << 3; }
 //        expand's f32 x staging and the tile's hidden before its stores;
 //   xs   bf16 [MT * 16][ldx] (MMA only): the x halo, C_in padded to cin16;
 //   ws   the chunk's expand weights: bf16 [32][ldx] (MMA), f32 [cin4][32];
-//   red  f32 [NWARPS][32]: the SE sums' reduction;
+//   red  f32 [NWARPS][32]: the tile's SE sums by warp;
 //   bes  f32 [32]: the chunk's expand bias (0 past E);
 //   bar  the mbarrier of xs's TMA box;
 // from a 128-byte aligned base (smem_base), which `total` leaves room for.
@@ -823,8 +832,12 @@ __device__ __forceinline__ void expand_mtile(const __nv_bfloat16* xs,
 // before the next, so that no product waits on the one before it.  The
 // tensor cores add in f32 rounding toward zero, so the products go into
 // partials of TF_PAIR k8 steps from zero, each added to the accumulator in
-// f32 to nearest (as gate_project_tf32 does in sweep 2;
-// tests/test_torch_tf32_expand.py emulates this arithmetic).  A and B
+// f32 to nearest (tests/test_torch_tf32_expand.py emulates this
+// arithmetic).  One k8 step a partial: with two, the second step's three
+// products each rounded toward zero at the partial's size, and that bias
+// of the expanded values, a tiny share of each, added up in the SE sums to
+// 1.5-1.6x the f32 twin's distance from float64 (mean abs) at C_in 80-96.
+// A and B
 // fragments by ldmatrix, an 8 x 8 b16 matrix being 8 rows of 4 f32: lane l
 // gives halo row l % 16 at k offset 4 * (l / 16) (A: a0-a3 as mma_tf32
 // takes them), and channel row 8 * (l / 16) + l % 8 at k offset
@@ -1210,21 +1223,133 @@ __device__ __forceinline__ void depthwise_tile(const float* buf,
     for (int j = 0; j < DW_COLS; ++j) o[r][j] = hswish(o[r][j] + bdv);
 }
 
-// The SE sums of this CTA's tiles of image n: the 8 warps' partials per
-// channel reduced in shared memory, one atomic each.
-__device__ __forceinline__ void flush_sums(float csum, float* red,
-                                           float* __restrict__ sums, int n,
-                                           int E, int c) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // the previous flush's reads are done
-  red[warp * 32 + lane] = csum;
+// Where sweep 1 puts the SE sums: part (n, tiles, e) f32, one row per
+// (image, tile) item, room for `tiles` tiles per image (the launchers
+// refuse a grid of more); sums (n, e) f32, written by tile_sums_kernel.
+// Neither needs zeroing.
+struct SumsOut {
+  void* part;
+  int tiles;
+  void* sums;
+};
+
+// The sum of v[0], v[stride], ..., v[(N - 1) * stride] (N a power of two)
+// as a balanced tree.
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* v, int stride = 1) {
+  if constexpr (N == 1)
+    return v[0];
+  else
+    return tree_sum<N / 2>(v, stride) +
+           tree_sum<N / 2>(v + N / 2 * stride, stride);
+}
+
+// Warp 0 writes the tile's sums (the warps' in red, [NWARPS][32],
+// published by the caller's barrier, added as a balanced tree) to row
+// `item` of part.
+__device__ __forceinline__ void store_tile_sums(const float* red,
+                                                float* __restrict__ part,
+                                                long long item, int E,
+                                                int c) {
+  if (threadIdx.x < 32 && c < E)
+    part[(size_t)item * E + c] =
+        tree_sum<NWARPS>(red + threadIdx.x, 32);
+}
+
+// The SE sums of one tile, where the caller has no barrier to share: each
+// thread's sum into red, then warp 0's store.
+__device__ __forceinline__ void flush_sums(float tsum, float* red,
+                                           float* __restrict__ part,
+                                           long long item, int E, int c) {
+  __syncthreads();  // the previous tile's reads of red are done
+  red[threadIdx.x] = tsum;
   __syncthreads();
-  if (warp == 0 && c < E) {
-    float s = 0.f;
+  store_tile_sums(red, part, item, E, c);
+}
+
+// tile_sums_kernel's runs per image (one warp each) and the tiles each
+// thread loads at once.
+constexpr int SUM_WARPS = 32;
+constexpr int SUM_BLOCK = 8;
+
+// The sum of p[0], p[stride], ..., p[(count - 1) * stride] pairwise:
+// blocks of SUM_BLOCK values (loaded together, the last padded with
+// zeros) each added as a balanced tree, the blocks' sums entering a binary
+// counter whose level l holds the sum of the last whole group of 2^l
+// blocks (the sum of two groups is their left one plus their right one),
+// and the groups left at the end added from the smallest (the last
+// blocks) up.  The levels are registers: the loops over them unroll.
+__device__ __forceinline__ float pairwise_add(const float* __restrict__ p,
+                                              int count, int stride) {
+  constexpr int LEVELS = 16;  // up to 2^16 blocks
+  float level[LEVELS];
 #pragma unroll
-    for (int w8 = 0; w8 < NWARPS; ++w8) s += red[w8 * 32 + lane];
-    atomicAdd(&sums[(size_t)n * E + c], s);
+  for (int l = 0; l < LEVELS; ++l) level[l] = 0.f;
+  const int blocks = (count + SUM_BLOCK - 1) / SUM_BLOCK;
+  for (int b = 0; b < blocks; ++b) {
+    float v[SUM_BLOCK];
+#pragma unroll
+    for (int j = 0; j < SUM_BLOCK; ++j) {
+      const int i = b * SUM_BLOCK + j;
+      v[j] = i < count ? p[(size_t)i * stride] : 0.f;
+    }
+    float s = tree_sum<SUM_BLOCK>(v);
+    bool carry = true;
+#pragma unroll
+    for (int l = 0; l < LEVELS; ++l) {
+      if (carry) {
+        if ((b >> l) & 1) {
+          s = level[l] + s;
+        } else {
+          level[l] = s;
+          carry = false;
+        }
+      }
+    }
   }
+  float s = 0.f;
+  bool first = true;
+#pragma unroll
+  for (int l = 0; l < LEVELS; ++l) {
+    if ((blocks >> l) & 1) {
+      s = first ? level[l] : level[l] + s;
+      first = false;
+    }
+  }
+  return s;
+}
+
+// sums[n][c] = the sum of part[n][0..T)[c] (grid (N, ceil(E / 32)), one
+// lane per channel): warp w of SUM_WARPS adds the contiguous run of rows
+// [w T / SUM_WARPS, (w + 1) T / SUM_WARPS) pairwise (pairwise_add, its
+// loads SUM_BLOCK at a time: the partials were just written, so they come
+// from L2, and a run of one load at a time waited on each), and the runs'
+// sums are added as a balanced tree.  The order depends on T alone.
+__global__ void __launch_bounds__(SUM_WARPS * 32)
+    tile_sums_kernel(const float* __restrict__ part, float* __restrict__ sums,
+                     int T, int E) {
+  __shared__ float red[SUM_WARPS * 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x, c = blockIdx.y * CE + lane;
+  const int t0 = (int)((long long)warp * T / SUM_WARPS);
+  const int t1 = (int)((long long)(warp + 1) * T / SUM_WARPS);
+  red[threadIdx.x] =
+      c < E ? pairwise_add(part + ((size_t)n * T + t0) * E + c, t1 - t0, E)
+            : 0.f;
+  __syncthreads();
+  if (warp == 0 && c < E)
+    sums[(size_t)n * E + c] = tree_sum<SUM_WARPS>(red + lane, 32);
+}
+
+// The launch that follows a sweep 1 of n images, `tiles` tiles each.
+inline cudaError_t launch_tile_sums(const SumsOut& so, int n, int tiles,
+                                    int e, cudaStream_t stream) {
+  if (n == 0 || e == 0) return cudaSuccess;
+  tile_sums_kernel<<<dim3(n, (e + CE - 1) / CE), SUM_WARPS * 32, 0,
+                     stream>>>(
+      static_cast<const float*>(so.part), static_cast<float*>(so.sums),
+      tiles, e);
+  return cudaGetLastError();
 }
 
 // xmap: x as make_x_map's map (NHWC x with the tensor-core expand) or
@@ -1237,7 +1362,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
                      const float* __restrict__ wd,
                      const float* __restrict__ be,
                      const float* __restrict__ bd, T* __restrict__ hidden,
-                     float* __restrict__ sums, int N, int H, int W, int cin,
+                     float* __restrict__ part, int N, int H, int W, int cin,
                      int E, int pre_act, int tiles_x, int tiles_per_image,
                      int tbch) {
   // The x halo as a TMA box, prefetched for the next tile.
@@ -1310,19 +1435,12 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
   const bool vec_out = E % VEC == 0 &&
                        (reinterpret_cast<uintptr_t>(hidden) & 15) == 0;
   const int oy0 = dw_row0(), ox0 = dw_col0();
-  int n_cur = image_of(item);
-  float csum = 0.f;
+  float* red = reinterpret_cast<float*>(smem + L.red);
 
   for (; item < end; item += step) {
     const int n = image_of(item);
     int ty0, tx0;
     tile_origin(item, ty0, tx0);
-    if (n != n_cur) {
-      flush_sums(csum, reinterpret_cast<float*>(smem + L.red), sums, n_cur,
-                 E, c);
-      csum = 0.f;
-      n_cur = n;
-    }
     const T* xn = x + (size_t)n * H * W * cin;
     if constexpr (!EXPAND) {
       expand_halo_identity<T, K, MODE>(
@@ -1415,12 +1533,15 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
       load_dw<K>(wd, bd, E, c, wk, bdv);
     float o[DW_ROWS][DW_COLS];
     depthwise_tile<K>(buf, wk, bdv, o);
-    // The SE sums (only a tile at the image's lower or right edge masks)
-    // and the tile's hidden, staged in buf once every read of it is done.
+    // The tile's SE sums (only a tile at the image's lower or right edge
+    // masks) and its hidden, staged in buf once every read of it is done.
     constexpr bool STORE = (MODE & kNoHidden) == 0;
     constexpr bool SHIFT = XSHIFT<K, MODE> != 0;  // tiles start left of 0
     const bool full = ty0 + TH <= H && (!SHIFT || tx0 >= 0) && tx0 + TW <= W;
     if constexpr (STORE) __syncthreads();
+    // Each thread's outputs added row by row (a tree of them, with the
+    // masked ones as zeros, cost 12% of the sweep at bf16 e1 on an H100).
+    float tsum = 0.f;
 #pragma unroll
     for (int r = 0; r < DW_ROWS; ++r)
 #pragma unroll
@@ -1429,11 +1550,15 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
         if (c_ok && (full || (ty0 + oy0 + r < H &&
                               (!SHIFT || tx0 + ox0 + j >= 0) &&
                               tx0 + ox0 + j < W)))
-          csum += (MODE & kSumRounded) ? to_f32(hv) : o[r][j];
+          tsum += (MODE & kSumRounded) ? to_f32(hv) : o[r][j];
         if constexpr (STORE) hs[((oy0 + r) * TW + ox0 + j) * CE + lane] = hv;
       }
+    if constexpr (!STORE) flush_sums(tsum, red, part, item, E, c);
     if constexpr (STORE) {
+      // red is free: warp 0 read the last tile's before the barrier above.
+      red[threadIdx.x] = tsum;
       __syncthreads();
+      store_tile_sums(red, part, item, E, c);
       // 16-byte stores: a pixel's 32 channels are CE / VEC vectors.
       constexpr int VPP = CE / VEC;
       for (int idx = threadIdx.x; idx < TH * TW * VPP; idx += NTHREADS) {
@@ -1453,8 +1578,6 @@ __global__ void __launch_bounds__(NTHREADS, MMA ? 2 : 1)
       }
     }
   }
-  flush_sums(csum, reinterpret_cast<float*>(smem + L.red), sums, n_cur, E,
-             c);
 }
 
 // The dynamic shared memory a CTA may have on this device (an H100:
@@ -1501,9 +1624,9 @@ inline int& last_design() {
 // tbch: kTf32's channels per box (tf32_chunk); unused otherwise.
 template <typename T, int K, bool EXPAND, bool MMA, int MODE>
 cudaError_t launch(const void* x, const void* we, const void* wd,
-                   const void* be, const void* bd, void* hidden, void* sums,
-                   int n, int h, int w, int cin, int e, int pre_act,
-                   cudaStream_t stream, int tbch = 0) {
+                   const void* be, const void* bd, void* hidden,
+                   const SumsOut& sums, int n, int h, int w, int cin, int e,
+                   int pre_act, cudaStream_t stream, int tbch = 0) {
   constexpr bool ASYNC = MMA && ((MODE & kXT) == 0 || (MODE & kXBox) != 0);
   constexpr bool TF = (MODE & kTf32) != 0;
   const SmemM<K, EXPAND, MMA, MODE> L(cin, tbch);
@@ -1529,6 +1652,7 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles_x = (w - XSHIFT<K, MODE> + TW - 1) / TW;
   const int tiles_per_image = tiles_x * ((h + TH - 1) / TH);
+  if (tiles_per_image > sums.tiles) return cudaErrorInvalidValue;
   const int chunks = (e + CE - 1) / CE;
   const long long items = (long long)n * tiles_per_image;
   // Never more CTAs than fit at once: one CTA past that would run alone
@@ -1540,7 +1664,7 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
       xmap, static_cast<const T*>(x), static_cast<const T*>(we),
       static_cast<const float*>(wd), static_cast<const float*>(be),
       static_cast<const float*>(bd), static_cast<T*>(hidden),
-      static_cast<float*>(sums), n, h, w, cin, e, pre_act, tiles_x,
+      static_cast<float*>(sums.part), n, h, w, cin, e, pre_act, tiles_x,
       tiles_per_image, tbch);
   last_async() = ASYNC ? 1 : 0;
   last_boxes() = (MODE & kXSplit) != 0   ? 2
@@ -1548,7 +1672,9 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
                  : TF                    ? (L.cin16 + L.bch - 1) / L.bch
                                          : 1;
   last_design() = TF ? 2 : MMA ? 1 : 0;
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_tile_sums(sums, n, tiles_per_image, e, stream);
 }
 
 // Registers, dynamic shared memory (bytes) and resident CTAs per SM of a
@@ -1716,8 +1842,8 @@ inline bool xt_box(const void* x, int w) {
 template <typename T, int K, int MODE>
 cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
                        const void* be, const void* bd, void* hidden,
-                       void* sums, int n, int h, int w, int cin, int e,
-                       int pre_act, cudaStream_t s) {
+                       const SumsOut& sums, int n, int h, int w, int cin,
+                       int e, int pre_act, cudaStream_t s) {
   constexpr bool BF16 = sizeof(T) == 2;
   if (we == nullptr)
     return launch<T, K, false, false, MODE>(x, we, wd, be, bd, hidden, sums,
@@ -1754,14 +1880,14 @@ cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
                                         h, w, cin, e, pre_act, s);
 }
 
-// hidden (n, h, w, e) (unused with kNoHidden) and sums (n, e) must be
-// allocated by the caller, sums zeroed; we == nullptr is the expand==1 form
-// (e == cin).
+// hidden (n, h, w, e) (unused with kNoHidden) and the sums' buffers
+// (SumsOut) must be allocated by the caller; we == nullptr is the
+// expand==1 form (e == cin).
 template <typename T, int MODE>
 cudaError_t dispatch(const void* x, const void* we, const void* wd,
-                     const void* be, const void* bd, void* hidden, void* sums,
-                     int n, int h, int w, int cin, int e, int k, int pre_act,
-                     cudaStream_t s) {
+                     const void* be, const void* bd, void* hidden,
+                     const SumsOut& sums, int n, int h, int w, int cin, int e,
+                     int k, int pre_act, cudaStream_t s) {
   if (we == nullptr && e != cin) return cudaErrorInvalidValue;
   if (k == 3)
     return dispatch_k<T, 3, MODE>(x, we, wd, be, bd, hidden, sums, n, h, w,

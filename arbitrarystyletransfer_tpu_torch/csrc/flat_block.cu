@@ -17,8 +17,9 @@
 // stay on chip (d10: 8 x 240 x 512^2 x 2 B = 1.0 GB per call against 227 KB
 // of shared memory per CTA), and the gate is a barrier across every CTA of an
 // image, so the TPU's non-resident mode becomes two launches:
-//   * sweep 1, expand_dw.cuh with kFlat: the bf16 hidden is written once and
-//     the exact per-image sums are added with atomics;
+//   * sweep 1, expand_dw.cuh with kFlat: the bf16 hidden is written once,
+//     each tile's sums to a row of partials that a small kernel adds per
+//     image in a fixed order (no atomics: the same bits on every run);
 //   * sweep 2, gate_project.cuh: each image's gate from its sums (a small
 //     kernel), then persistent CTAs stream runs of the hidden through a TMA
 //     ring, gate and project them on the tensor cores, add the bias and the
@@ -28,8 +29,9 @@
 #include "expand_dw.cuh"
 #include "gate_project.cuh"
 
-// hidden (n, h, w, e), sums (n, e), gate (n, e; f32 scratch) and
-// y (n, h, w, cout) must be allocated by the caller, sums zeroed.
+// hidden (n, h, w, e), sums (n, e), part (n, part_tiles, e; f32 scratch,
+// expand_dw.cuh SumsOut), gate (n, e; f32 scratch) and y (n, h, w, cout)
+// must be allocated by the caller, none zeroed.
 // we == nullptr is the expand==1 form (e == cin); identity adds x
 // (cin == cout).  d0t is the SE's first dense kernel
 // transposed, (s, e); d1k (s, e); wpt the projection transposed, (cout, e).
@@ -40,25 +42,26 @@ extern "C" int flat_block_launch(const void* x, const void* we,
                                  const void* d0b, const void* d1k,
                                  const void* d1b, const void* wpt,
                                  const void* pb, void* hidden, void* sums,
-                                 void* gate, void* y, int n, int h, int w,
-                                 int cin, int e, int s, int cout, int k,
-                                 int pre_act,
-                                 int identity, int is_bf16, void* stream) {
+                                 void* part, void* gate, void* y, int n,
+                                 int h, int w, int cin, int e, int s,
+                                 int cout, int k, int pre_act, int identity,
+                                 int is_bf16, int part_tiles, void* stream) {
   using namespace ast_kernels;
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
+  const edw::SumsOut so{part, part_tiles, sums};
   if (identity && cin != cout) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* res = identity ? x : nullptr;
   cudaError_t err;
   if (is_bf16) {
     using B = __nv_bfloat16;
-    err = edw::dispatch<B, edw::kFlat>(x, we, wd, be, bd, hidden, sums, n, h,
+    err = edw::dispatch<B, edw::kFlat>(x, we, wd, be, bd, hidden, so, n, h,
                                        w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<B>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res, gate,
                         y, n, h * w, e, s, cout, st);
   } else {
-    err = edw::dispatch<float, edw::kFlat>(x, we, wd, be, bd, hidden, sums, n,
+    err = edw::dispatch<float, edw::kFlat>(x, we, wd, be, bd, hidden, so, n,
                                            h, w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<float>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res,

@@ -26,8 +26,10 @@
 //   * Persistent CTAs of 256 threads, grid (as many as fit at once, E / 32):
 //     a CTA keeps one 32-channel chunk of E (its expand weights staged once,
 //     its depthwise weights in registers) and walks (image, 8 x 16 output
-//     tile; f32: 4 x 16) items.  The SE sums are kept per thread across
-//     the CTA's tiles of one image, one atomic per (CTA, image, channel).
+//     tile; f32: 4 x 16) items.  The SE sums go by tile to a row of
+//     partials (each thread's outputs row by row, the 8 warps' as a tree)
+//     that edw::tile_sums_kernel adds per image in a fixed order: no
+//     atomics, the same bits on every run (expand_dw.cuh has the order).
 //   * The tile's input halo, (2*8 - 1 + 2p) x (2*16 - 1 + 2p) pixels (17 x
 //     33 at k3, 19 x 35 at k5), is one TMA box of NHWC x ([pixel][C_in16 +
 //     8]: conflict-free ldmatrix rows), issued by one thread for the next
@@ -408,7 +410,7 @@ __global__ void __launch_bounds__(NTHREADS, MMA || TF ? 2 : 1)
                         const float* __restrict__ wd,
                         const float* __restrict__ be,
                         const float* __restrict__ bd, T* __restrict__ hidden,
-                        float* __restrict__ sums, int N, int H, int W,
+                        float* __restrict__ part, int N, int H, int W,
                         int cin, int E, int tiles_x, int tiles_per_image,
                         int tbch) {
   using G = Geo<K, TF>;
@@ -487,17 +489,10 @@ __global__ void __launch_bounds__(NTHREADS, MMA || TF ? 2 : 1)
                        (reinterpret_cast<uintptr_t>(hidden) & 15) == 0;
   const int by0 = G::BR * (warp / (OW / BC));
   const int bx0 = BC * (warp % (OW / BC));
-  int n_cur = item / tiles_per_image;
-  float csum = 0.f;
 
   for (; item < total; item += gridDim.x) {
     int n, oy0, ox0;
     origin(item, n, oy0, ox0);
-    if (n != n_cur) {
-      edw::flush_sums(csum, red, sums, n_cur, E, c);
-      csum = 0.f;
-      n_cur = n;
-    }
     const int iy0 = 2 * oy0 - P, ix0 = 2 * ox0 - P;
     const T* xn = x + (size_t)n * H * W * cin;
     if constexpr (BOX) {
@@ -540,16 +535,20 @@ __global__ void __launch_bounds__(NTHREADS, MMA || TF ? 2 : 1)
     float o[G::BR][BC];
     depthwise_s2<T, K, TF>(exs, wk, bdv, o);
     __syncthreads();  // every read of the expanded halo is done
+    float tsum = 0.f;  // this thread's outputs, row by row
 #pragma unroll
     for (int r = 0; r < G::BR; ++r)
 #pragma unroll
       for (int j = 0; j < BC; ++j) {
         const T hv = from_f32<T>(o[r][j]);
         if (c_ok && oy0 + by0 + r < Ho && ox0 + bx0 + j < Wo)
-          csum += to_f32(hv);
+          tsum += to_f32(hv);
         hs[((by0 + r) * OW + bx0 + j) * CE + lane] = hv;
       }
+    // red is free: warp 0 read the last tile's before the barrier above.
+    red[threadIdx.x] = tsum;
     __syncthreads();
+    edw::store_tile_sums(red, part, item, E, c);
     // 16-byte stores: a pixel's 32 channels are CE / VEC vectors.
     constexpr int VPP = CE / VEC;
     for (int idx = threadIdx.x; idx < OH * OW * VPP; idx += NTHREADS) {
@@ -565,15 +564,14 @@ __global__ void __launch_bounds__(NTHREADS, MMA || TF ? 2 : 1)
       }
     }
   }
-  edw::flush_sums(csum, red, sums, n_cur, E, c);
 }
 
 // tbch: TF's channels per box (s2_tf32_chunk); unused otherwise.
 template <typename T, int K, bool MMA, bool SPLIT = false, bool TF = false>
 cudaError_t launch(const void* x, const void* we, const void* wd,
-                   const void* be, const void* bd, void* hidden, void* sums,
-                   int n, int h, int w, int cin, int e, cudaStream_t stream,
-                   int tbch = 0) {
+                   const void* be, const void* bd, void* hidden,
+                   const edw::SumsOut& sums, int n, int h, int w, int cin,
+                   int e, cudaStream_t stream, int tbch = 0) {
   using G = Geo<K, TF>;
   const Smem<T, K, MMA, SPLIT, TF> L(cin, tbch);
   auto kernel = s2_expand_dw_kernel<T, K, MMA, SPLIT, TF>;
@@ -595,6 +593,7 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles_x = (w / 2 + OW - 1) / OW;
   const int tiles_per_image = tiles_x * ((h / 2 + G::OH - 1) / G::OH);
+  if (tiles_per_image > sums.tiles) return cudaErrorInvalidValue;
   const int chunks = (e + CE - 1) / CE;
   const long long items = (long long)n * tiles_per_image;
   // Never more CTAs than fit at once (edw::launch says why).
@@ -604,12 +603,14 @@ cudaError_t launch(const void* x, const void* we, const void* wd,
       xmap, static_cast<const T*>(x), static_cast<const T*>(we),
       static_cast<const float*>(wd), static_cast<const float*>(be),
       static_cast<const float*>(bd), static_cast<T*>(hidden),
-      static_cast<float*>(sums), n, h, w, cin, e, tiles_x, tiles_per_image,
-      tbch);
+      static_cast<float*>(sums.part), n, h, w, cin, e, tiles_x,
+      tiles_per_image, tbch);
   edw::last_async() = MMA || TF ? 1 : 0;
   edw::last_boxes() = (L.cin16 + L.bch - 1) / L.bch;
   edw::last_design() = TF ? 2 : MMA ? 1 : 0;
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return edw::launch_tile_sums(sums, n, tiles_per_image, e, stream);
 }
 
 // Whether the bf16 sweep stages x's box in chunks of CCH2 channels: where
@@ -638,8 +639,8 @@ int s2_tf32_chunk(int cin) {
 template <typename T, int K>
 cudaError_t dispatch_k(const void* x, const void* we, const void* wd,
                        const void* be, const void* bd, void* hidden,
-                       void* sums, int n, int h, int w, int cin, int e,
-                       cudaStream_t s) {
+                       const edw::SumsOut& sums, int n, int h, int w, int cin,
+                       int e, cudaStream_t s) {
   // f32: the 3xTF32 expand from f32 boxes (C_in % 8 == 0, an aligned x,
   // a chunk that fits).
   if constexpr (sizeof(T) == 4) {
@@ -707,9 +708,9 @@ template <typename T>
 cudaError_t run(const void* x, const void* we, const void* wd, const void* be,
                 const void* bd, const void* d0t, const void* d0b,
                 const void* d1k, const void* d1b, const void* wpt,
-                const void* pb, void* hidden, void* sums, void* gate, void* y,
-                int n, int h, int w, int cin, int e, int s, int cout, int k,
-                cudaStream_t st) {
+                const void* pb, void* hidden, const edw::SumsOut& sums,
+                void* gate, void* y, int n, int h, int w, int cin, int e,
+                int s, int cout, int k, cudaStream_t st) {
   cudaError_t err;
   if (k == 3)
     err = dispatch_k<T, 3>(x, we, wd, be, bd, hidden, sums, n, h, w, cin, e,
@@ -720,8 +721,9 @@ cudaError_t run(const void* x, const void* we, const void* wd, const void* be,
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  return gp::launch<T>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, nullptr,
-                       gate, y, n, (h / 2) * (w / 2), e, s, cout, st);
+  return gp::launch<T>(hidden, sums.sums, d0t, d0b, d1k, d1b, wpt, pb,
+                       nullptr, gate, y, n, (h / 2) * (w / 2), e, s, cout,
+                       st);
 }
 
 }  // namespace
@@ -729,8 +731,9 @@ cudaError_t run(const void* x, const void* we, const void* wd, const void* be,
 }  // namespace ast_kernels
 
 // x (n, h, w, cin) with h, w even; hidden (n, h/2, w/2, e), sums (n, e),
-// gate (n, e; f32 scratch) and y (n, h/2, w/2, cout) must be allocated by
-// the caller, sums zeroed.  The
+// part (n, part_tiles, e; f32 scratch, expand_dw.cuh SumsOut), gate (n, e;
+// f32 scratch) and y (n, h/2, w/2, cout) must be allocated by the caller,
+// none zeroed.  The
 // SE and projection operands are as in flat_block_launch.  Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int flat_s2_launch(const void* x, const void* we, const void* wd,
@@ -738,20 +741,21 @@ extern "C" int flat_s2_launch(const void* x, const void* we, const void* wd,
                               const void* d0b, const void* d1k,
                               const void* d1b, const void* wpt,
                               const void* pb, void* hidden, void* sums,
-                              void* gate, void* y, int n, int h, int w,
-                              int cin, int e, int s, int cout, int k,
-                              int is_bf16, void* stream) {
+                              void* part, void* gate, void* y, int n, int h,
+                              int w, int cin, int e, int s, int cout, int k,
+                              int is_bf16, int part_tiles, void* stream) {
   using namespace ast_kernels;
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
   if (h % 2 != 0 || w % 2 != 0 || we == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const edw::SumsOut so{part, part_tiles, sums};
   if (is_bf16)
     return (int)s2::run<__nv_bfloat16>(x, we, wd, be, bd, d0t, d0b, d1k, d1b,
-                                       wpt, pb, hidden, sums, gate, y, n, h,
+                                       wpt, pb, hidden, so, gate, y, n, h,
                                        w, cin, e, s, cout, k, st);
   return (int)s2::run<float>(x, we, wd, be, bd, d0t, d0b, d1k, d1b, wpt, pb,
-                             hidden, sums, gate, y, n, h, w, cin, e, s, cout,
+                             hidden, so, gate, y, n, h, w, cin, e, s, cout,
                              k, st);
 }
 

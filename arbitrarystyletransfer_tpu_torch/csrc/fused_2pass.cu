@@ -25,7 +25,8 @@
 // projection, C_out bf16 MACs per hidden value on the tensor cores.
 //
 // "sums": expand_dw.cuh's persistent sweep 1 with kSums, the sums of the
-// unrounded hidden by atomics, no hidden stored.
+// unrounded hidden by tile, added per image in a fixed order (no atomics),
+// no hidden stored.
 //
 // "project", the path's design (bf16 x with the tensor-core expand, C_out a
 // multiple of 8 up to 96; `fused_project_ws`).  The first design (the tile design
@@ -947,21 +948,24 @@ int last_design = -1;
 }  // namespace f2p
 }  // namespace ast_kernels
 
-// Pass 1: sums (n, e) of the unrounded hidden; sums must be zeroed by the
-// caller.  we == nullptr is the expand==1 form (e == cin).  Returns the
-// cudaError_t of the launch (0 on success).
+// Pass 1: sums (n, e) of the unrounded hidden; sums and part (n,
+// part_tiles, e; f32 scratch, expand_dw.cuh SumsOut) must be allocated by
+// the caller, neither zeroed.  we == nullptr is the expand==1 form (e ==
+// cin).  Returns the cudaError_t of the launches (0 on success).
 extern "C" int fused_sums_launch(const void* x, const void* we, const void* wd,
                                  const void* be, const void* bd, void* sums,
-                                 int n, int h, int w, int cin, int e, int k,
-                                 int pre_act, int is_bf16, void* stream) {
+                                 void* part, int n, int h, int w, int cin,
+                                 int e, int k, int pre_act, int is_bf16,
+                                 int part_tiles, void* stream) {
   using namespace ast_kernels;
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const edw::SumsOut so{part, part_tiles, sums};
   if (is_bf16)
     return (int)edw::dispatch<__nv_bfloat16, edw::kSums>(
-        x, we, wd, be, bd, nullptr, sums, n, h, w, cin, e, k, pre_act, s);
+        x, we, wd, be, bd, nullptr, so, n, h, w, cin, e, k, pre_act, s);
   return (int)edw::dispatch<float, edw::kSums>(
-      x, we, wd, be, bd, nullptr, sums, n, h, w, cin, e, k, pre_act, s);
+      x, we, wd, be, bd, nullptr, so, n, h, w, cin, e, k, pre_act, s);
 }
 
 // Pass 2: y (n, h, w, cout), allocated by the caller, from x (n, h, w, cin),

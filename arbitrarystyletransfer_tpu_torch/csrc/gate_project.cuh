@@ -67,8 +67,15 @@
 //     and the gate in f32.  Each gated value is rounded to f32 once
 //     (h * g), split into TF32 hi + lo, and multiplied by the split weights
 //     on the tensor cores as 3xTF32 (lo hi + hi lo + hi hi, mma.sync
-//     m16n8k8: ~f32 accuracy; hi truncated, so lo * lo, the term left out,
-//     stays below 2^-20 of a product), four output tiles at a time in three
+//     m16n8k8: ~f32 accuracy; the gated value's hi rounded to nearest,
+//     split_tf32, so its lo, which the tensor cores truncate, errs either
+//     way; the matrix rounded to nearest once as it is staged,
+//     tf32_pair_exact, so that its truncated split, split_tf32_trunc, one
+//     operation fewer, is exact: with both splits truncated, each product
+//     erred toward zero by up to 2^-20 of itself, the errors of a sum of E
+//     of them added up, and the blocks' f32 y lay up to 2.2x the twin's
+//     distance from float64, mean and max), four output tiles at a time in
+//     three
 //     passes (a tile's three products share an accumulator), every two k8
 //     steps' products into partials from zero that an f32 add to nearest
 //     takes into the accumulators (accumulating every product in the
@@ -729,8 +736,11 @@ __global__ void __launch_bounds__(TF_THREADS, NT >= MID_NT ? 1 : 2)
     for (int idx = threadIdx.x; idx < nt_count * 8 * nv; idx += CW * 32) {
       const int c = idx / nv, q = idx % nv;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c < cout && q * 4 < E)
+      if (c < cout && q * 4 < E) {
         v = *reinterpret_cast<const float4*>(wpt + (size_t)c * E + q * 4);
+        v = make_float4(tf32_pair_exact(v.x), tf32_pair_exact(v.y),
+                        tf32_pair_exact(v.z), tf32_pair_exact(v.w));
+      }
       *reinterpret_cast<float4*>(wT + c * L.ep + ((q ^ (c & 7)) << 2)) = v;
     }
     for (int e = E + threadIdx.x; e < L.ep; e += CW * 32) gate_s[e] = 0.f;
@@ -819,8 +829,8 @@ __global__ void __launch_bounds__(TF_THREADS, NT >= MID_NT ? 1 : 2)
           ldmatrix_x4(v, box + r * 128 + ((q ^ (r & 7)) << 4));
 #pragma unroll
           for (int m = 0; m < 4; ++m)
-            split_tf32_trunc(__uint_as_float(v[m]) * (m < 2 ? g0 : g4),
-                             a.hi[m], a.lo[m]);
+            split_tf32(__uint_as_float(v[m]) * (m < 2 ? g0 : g4),
+                       a.hi[m], a.lo[m]);
         }
         // Two output tiles' B fragments per ldmatrix: lanes 0-7 give tile
         // nt's rows at k 0-3 (b0 = (t, g)), 8-15 at k 4-7 (b1), 16-31 the
@@ -843,7 +853,8 @@ __global__ void __launch_bounds__(TF_THREADS, NT >= MID_NT ? 1 : 2)
                 ldmatrix_x4(b, wT + c * L.ep + ((q0 ^ (c & 7)) << 2));
 #pragma unroll
                 for (int m = 0; m < 4; ++m)
-                  split_tf32_trunc(__uint_as_float(b[m]), bh[u + m / 2][m % 2],
+                  split_tf32_trunc(__uint_as_float(b[m]),
+                                   bh[u + m / 2][m % 2],
                                    bl[u + m / 2][m % 2]);
               }
             }

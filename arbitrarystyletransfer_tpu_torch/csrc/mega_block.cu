@@ -42,8 +42,9 @@
 //     shared memory at each shape).  Other W (off the model's path): the
 //     halo is staged synchronously (plain loads, reflected by index; f32 on
 //     the CUDA cores).  The hidden is written once (NHWC, the layout sweep
-//     2 streams), and the exact per-image sums of the rounded hidden are
-//     added with atomics;
+//     2 streams), and the sums of the rounded hidden go by tile to a row of
+//     partials that a small kernel adds per image in a fixed order (no
+//     atomics);
 //   * sweep 2, gate_project.cuh with YT: each image's gate from its sums,
 //     then the hidden streamed, gated and projected on the tensor cores,
 //     the bias added; where a 128-pixel tile lies in one image row
@@ -58,8 +59,9 @@
 #include "expand_dw.cuh"
 #include "gate_project.cuh"
 
-// x (n, h, cin, w); hidden (n, h, w, e), sums (n, e), gate (n, e; f32
-// scratch) and y (n, h, cout, w) must be allocated by the caller, sums
+// x (n, h, cin, w); hidden (n, h, w, e), sums (n, e), part (n,
+// part_tiles, e; f32 scratch, expand_dw.cuh SumsOut), gate (n, e; f32
+// scratch) and y (n, h, cout, w) must be allocated by the caller, none
 // zeroed.  we == nullptr is the
 // expand==1 form (e == cin); identity adds x (cin == cout).  d0t is the SE's
 // first dense kernel transposed, (s, e); d1k (s, e); wpt the projection
@@ -71,25 +73,26 @@ extern "C" int mega_block_launch(const void* x, const void* we,
                                  const void* d0b, const void* d1k,
                                  const void* d1b, const void* wpt,
                                  const void* pb, void* hidden, void* sums,
-                                 void* gate, void* y, int n, int h, int w,
-                                 int cin, int e, int s, int cout, int k,
-                                 int pre_act,
-                                 int identity, int is_bf16, void* stream) {
+                                 void* part, void* gate, void* y, int n,
+                                 int h, int w, int cin, int e, int s,
+                                 int cout, int k, int pre_act, int identity,
+                                 int is_bf16, int part_tiles, void* stream) {
   using namespace ast_kernels;
   if (n == 0 || h == 0 || w == 0 || e == 0) return 0;
+  const edw::SumsOut so{part, part_tiles, sums};
   if (identity && cin != cout) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* res = identity ? x : nullptr;
   cudaError_t err;
   if (is_bf16) {
     using B = __nv_bfloat16;
-    err = edw::dispatch<B, edw::kMega>(x, we, wd, be, bd, hidden, sums, n, h,
+    err = edw::dispatch<B, edw::kMega>(x, we, wd, be, bd, hidden, so, n, h,
                                        w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<B, true>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res,
                               gate, y, n, h * w, e, s, cout, st, w);
   } else {
-    err = edw::dispatch<float, edw::kMega>(x, we, wd, be, bd, hidden, sums, n,
+    err = edw::dispatch<float, edw::kMega>(x, we, wd, be, bd, hidden, so, n,
                                            h, w, cin, e, k, pre_act, st);
     if (err != cudaSuccess) return (int)err;
     err = gp::launch<float, true>(hidden, sums, d0t, d0b, d1k, d1b, wpt, pb,

@@ -29,22 +29,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every one returns a cudaError_t as int).
 _SIGNATURES = {
-    # x, w_expand, w_dw, b_expand, b_dw, hidden, sums,
-    # n, h, w, c_in, e, k, pre_act, is_bf16, stream
-    "expand_dw_launch": [_P] * 7 + [_I] * 8 + [_P],
+    # x, w_expand, w_dw, b_expand, b_dw, hidden, sums, part (the sums by
+    # tile, scratch), n, h, w, c_in, e, k, pre_act, is_bf16, part_tiles,
+    # stream
+    "expand_dw_launch": [_P] * 8 + [_I] * 9 + [_P],
     # q, k, v, mean, std, m, l, b, nc, ns, c, is_bf16, stream
     "adaattn_fwd_launch": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, vbar, mean, std, m, l, part (scratch), b, nc, ns, c, splits,
     # keys per split, stream: the f32 serving form
     "adaattn_fwd_serve_launch": [_P] * 9 + [_I] * 6 + [_P],
     # x, w_expand, w_dw, b_expand, b_dw, d0t, d0b, d1k, d1b, wpt, pb,
-    # hidden, sums, gate (scratch), y, n, h, w, c_in, e, s, c_out, k,
-    # pre_act, identity, is_bf16, stream
-    "flat_block_launch": [_P] * 15 + [_I] * 11 + [_P],
+    # hidden, sums, part (scratch), gate (scratch), y, n, h, w, c_in, e, s,
+    # c_out, k, pre_act, identity, is_bf16, part_tiles, stream
+    "flat_block_launch": [_P] * 16 + [_I] * 12 + [_P],
     # the same without pre_act and identity
-    "flat_s2_launch": [_P] * 15 + [_I] * 9 + [_P],
+    "flat_s2_launch": [_P] * 16 + [_I] * 10 + [_P],
     # flat_block_launch's arguments, with x and y in (N, H, C, W)
-    "mega_block_launch": [_P] * 15 + [_I] * 11 + [_P],
+    "mega_block_launch": [_P] * 16 + [_I] * 12 + [_P],
     # design (0 gate_project_generic, 1 the dtype's designed kernel),
     # hidden, sums, d0t, d0b, d1k, d1b, wpt, pb, res, gate (scratch), y, n,
     # hw, e, s, c_out, w, yt, is_bf16, stream: sweep 2 alone (A/B timing)
@@ -58,9 +59,9 @@ _SIGNATURES = {
     "flat_block_last_sweep2": [],
     "mega_block_last_sweep2": [],
     "flat_s2_block_last_sweep2": [],
-    # x, w_expand, w_dw, b_expand, b_dw, sums, n, h, w, c_in, e, k, pre_act,
-    # is_bf16, stream
-    "fused_sums_launch": [_P] * 6 + [_I] * 8 + [_P],
+    # x, w_expand, w_dw, b_expand, b_dw, sums, part (scratch), n, h, w,
+    # c_in, e, k, pre_act, is_bf16, part_tiles, stream
+    "fused_sums_launch": [_P] * 7 + [_I] * 9 + [_P],
     # x, w_expand, w_dw, b_expand, b_dw, gate, w_proj (e, c_out), y, n, h,
     # w, c_in, e, c_out, k, pre_act, identity, is_bf16, stream
     "fused_project_launch": [_P] * 8 + [_I] * 10 + [_P],

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
-from .limits import check_sweep1_design
+from .limits import check_sweep1_design, sum_tiles
 from ..basic import hardswish, reflect_pad
 
 
@@ -53,6 +53,86 @@ def expand_dw_reference(x, w_expand, w_dw, kernel_size: int,
     out = depthwise_reference(expand_reference(x, w_expand, b_expand, pre_act),
                               w_dw, b_dw, kernel_size)
     return out.to(x.dtype), out.sum(dim=(1, 2))
+
+
+def sums_buffers(n, e, h, w, device, stride=1):
+    """(sums, part, part_tiles): the SE sums (N, E) f32 a sweep 1 writes and
+    its partials by tile (N, part_tiles, E), neither zeroed
+    (``limits.sum_tiles``)."""
+    tiles = sum_tiles(h, w, stride)
+    sums = torch.empty((n, e), dtype=torch.float32, device=device)
+    part = torch.empty((n, tiles, e), dtype=torch.float32, device=device)
+    return sums, part, tiles
+
+
+def _pairwise(values):
+    """``pairwise_add`` of ``csrc/expand_dw.cuh`` over a list of f32
+    tensors, in order: blocks of 8 (the last padded with zeros) each added
+    as a balanced tree, the blocks' sums entering a binary counter whose
+    level l holds the sum of the last whole group of 2^l blocks, the groups
+    left at the end added from the smallest up; None for no values."""
+    if not values:
+        return None
+    zero = torch.zeros_like(values[0])
+    blocks = [_tree((values[b:b + 8] + [zero] * 8)[:8])
+              for b in range(0, len(values), 8)]
+    level = {}
+    for i, v in enumerate(blocks):
+        lv = 0
+        while (i >> lv) & 1:
+            v = level[lv] + v
+            lv += 1
+        level[lv] = v
+    total = None
+    for lv in range(len(blocks).bit_length()):
+        if (len(blocks) >> lv) & 1:
+            total = level[lv] if total is None else level[lv] + total
+    return total
+
+
+def _tree(v):
+    """``tree_sum``: a power-of-two list of f32 tensors added as a balanced
+    tree."""
+    if len(v) == 1:
+        return v[0]
+    half = len(v) // 2
+    return _tree(v[:half]) + _tree(v[half:])
+
+
+def sum_order_emulation(values, tile=(16, 16), rows=8, col_shift=0):
+    """The SE sums (N, E) of ``values`` (N, H, W, E), the f32 values a sweep
+    1 sums, added in the kernels' order on the CPU: each output tile's
+    (``tile`` rows x 16 columns; the tile grid starting ``col_shift`` <= 0
+    columns left of the image, ``XSHIFT``) by 8 warps of ``rows`` x 4
+    outputs, each warp's lane adding its outputs row by row, the warps'
+    sums as a balanced tree; then the image's tiles in row-major order,
+    in 32 contiguous runs each added pairwise (``_pairwise``), the runs'
+    sums as a balanced tree (``tile_sums_kernel``).  ``expand_dw.cuh``:
+    tile (16, 16), rows 8; ``flat_s2.cu``: (8, 16) with rows 4, f32 (4, 16)
+    with rows 2."""
+    th, tw = tile
+    cols = 4
+    n, h, w, e = values.shape
+    tiles_y, tiles_x = -(-h // th), -(-(w - col_shift) // tw)
+    grid = values.new_zeros(n, tiles_y * th, tiles_x * tw, e)
+    grid[:, :h, -col_shift:w - col_shift] = values.float()
+    # (n, tile row, warp row, row, tile column, warp column, column, e)
+    t = grid.reshape(n, tiles_y, th // rows, rows, tiles_x, tw // cols, cols,
+                     e)
+    lane = t.new_zeros(t[:, :, :, 0, :, :, 0].shape)
+    for r in range(rows):
+        for c in range(cols):
+            lane = lane + t[:, :, :, r, :, :, c]
+    warps = [lane[:, :, wr, :, wc] for wr in range(th // rows)
+             for wc in range(tw // cols)]
+    tiles = _tree(warps).reshape(n, tiles_y * tiles_x, e)
+    count = tiles.shape[1]
+    runs = []
+    for wp in range(32):
+        t0, t1 = wp * count // 32, (wp + 1) * count // 32
+        run = _pairwise([tiles[:, i] for i in range(t0, t1)])
+        runs.append(tiles.new_zeros(n, e) if run is None else run)
+    return _tree(runs)
 
 
 def _vec(t, e, device, name):
@@ -115,7 +195,7 @@ def expand_dw(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
                         w_expand is not None, x.data_ptr() % 16 == 0)
 
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
-    sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    sums, part, tiles = sums_buffers(n, e, h, w, x.device)
     lib = load_library()
     rc = lib.expand_dw_launch(
         x.data_ptr(),
@@ -123,9 +203,9 @@ def expand_dw(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
         w_dw.data_ptr(),
         None if b_expand is None else b_expand.data_ptr(),
         None if b_dw is None else b_dw.data_ptr(),
-        hidden.data_ptr(), sums.data_ptr(),
+        hidden.data_ptr(), sums.data_ptr(), part.data_ptr(),
         n, h, w, c_in, e, k, int(pre_act), int(x.dtype == torch.bfloat16),
-        launch_stream(x),
+        tiles, launch_stream(x),
     )
     check(rc, "expand_dw")
     LAUNCHES["expand_dw"] += 1

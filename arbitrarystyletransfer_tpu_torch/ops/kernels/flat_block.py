@@ -25,7 +25,7 @@ import torch
 
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
-from .expand_dw import depthwise_reference, expand_reference
+from .expand_dw import depthwise_reference, expand_reference, sums_buffers
 from .limits import check_sweep1_design
 from ..basic import se_gate
 
@@ -174,14 +174,14 @@ def flat_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
                         x.dtype == torch.bfloat16, w_expand is not None,
                         x.data_ptr() % 16 == 0)
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
-    sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    sums, part, tiles = sums_buffers(n, e, h, w, x.device)
     gate = torch.empty((n, e), dtype=torch.float32, device=x.device)
     y = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
     rc = load_library().flat_block_launch(
         x.data_ptr(), *map(ptr, ops), hidden.data_ptr(), sums.data_ptr(),
-        gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out,
-        kernel_size, int(pre_act), int(identity),
-        int(x.dtype == torch.bfloat16),
+        part.data_ptr(), gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s,
+        c_out, kernel_size, int(pre_act), int(identity),
+        int(x.dtype == torch.bfloat16), tiles,
         launch_stream(x),
     )
     check(rc, "flat_block")

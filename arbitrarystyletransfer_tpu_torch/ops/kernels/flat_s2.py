@@ -23,7 +23,7 @@ import torch
 
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
-from .expand_dw import depthwise_reference, expand_reference
+from .expand_dw import depthwise_reference, expand_reference, sums_buffers
 from .limits import check_flat_s2, s2_sweep1_design
 from .flat_block import (
     check_input,
@@ -76,13 +76,13 @@ def flat_s2_block(x, w_expand, w_dw, se_params, w_proj, kernel_size: int,
         check_flat_s2(kernel_size, c_in, f32=design == "tf32")
     ho, wo = h // 2, w // 2
     hidden = torch.empty((n, ho, wo, e), dtype=x.dtype, device=x.device)
-    sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    sums, part, tiles = sums_buffers(n, e, h, w, x.device, stride=2)
     gate = torch.empty((n, e), dtype=torch.float32, device=x.device)
     y = torch.empty((n, ho, wo, c_out), dtype=x.dtype, device=x.device)
     rc = load_library().flat_s2_launch(
         x.data_ptr(), *map(ptr, ops), hidden.data_ptr(), sums.data_ptr(),
-        gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out, kernel_size,
-        int(x.dtype == torch.bfloat16),
+        part.data_ptr(), gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s,
+        c_out, kernel_size, int(x.dtype == torch.bfloat16), tiles,
         launch_stream(x),
     )
     check(rc, "flat_s2_block")

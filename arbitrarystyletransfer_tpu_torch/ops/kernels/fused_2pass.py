@@ -23,7 +23,8 @@ import torch
 
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
-from .expand_dw import _vec, depthwise_reference, expand_reference
+from .expand_dw import (_vec, depthwise_reference, expand_reference,
+                        sums_buffers)
 from .flat_block import check_input, ptr, round_to
 from .limits import (check_fused_project, check_sweep1_design,
                      tensor_core_expand)
@@ -93,11 +94,11 @@ def fused_sums(x, w_expand, w_dw, kernel_size: int, pre_act: bool = True,
     check_sweep1_design("fused_sums", kernel_size, c_in,
                         x.dtype == torch.bfloat16, w_expand is not None,
                         x.data_ptr() % 16 == 0)
-    sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    sums, part, tiles = sums_buffers(n, e, h, w, x.device)
     rc = load_library().fused_sums_launch(
-        x.data_ptr(), *map(ptr, ops), sums.data_ptr(), n, h, w, c_in, e,
-        kernel_size, int(pre_act), int(x.dtype == torch.bfloat16),
-        launch_stream(x),
+        x.data_ptr(), *map(ptr, ops), sums.data_ptr(), part.data_ptr(), n, h,
+        w, c_in, e, kernel_size, int(pre_act),
+        int(x.dtype == torch.bfloat16), tiles, launch_stream(x),
     )
     check(rc, "fused_sums")
     LAUNCHES["fused_sums"] += 1

@@ -26,6 +26,9 @@ at W % 8 != 0 (f32), an unaligned x and the expand==1 form take the
 CUDA-core expand (``core``: ``mma=False``), which stages x in steps of 32
 channels without a box and keeps the expand weights in f32.
 ``s2_sweep1_design`` does the same for ``flat_s2_block``.
+``sum_tiles`` sizes the sweeps' SE partials (one row of E f32 values per
+output tile, which a small kernel adds per image in a fixed order): at
+least the tiles per image of every sweep-1 design of a shape.
 ``chip_smoke.py``'s split phase holds these numbers to what the kernels'
 ``*_occupancy`` entry points report on the card.
 """
@@ -59,6 +62,18 @@ SWEEP1_DESIGNS = {0: "core", 1: "mma", 2: "tf32"}
 
 def _up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
+
+
+def sum_tiles(h: int, w: int, stride: int = 1) -> int:
+    """Rows of SE partials per image a sweep 1 of output H x W maps may
+    write (``expand_dw.cuh`` ``SumsOut``; the launchers refuse more): one per
+    output tile.  Stride 1: 16 x 16 tiles, whose grid the (N, H, C, W) box
+    starts up to 8 columns left of the image (``XSHIFT``), so a row may hold
+    one more.  Stride 2 (``flat_s2.cu``, on the H/2 x W/2 output): 8 x 16
+    tiles, 4 x 16 in the f32 design; the smaller counts."""
+    if stride == 1:
+        return -(-h // TH) * (-(-w // TW) + 1)
+    return -(-(h // 2) // S2_TF_OH) * -(-(w // 2) // S2_OW)
 
 
 def _halo(k: int):

@@ -28,7 +28,7 @@ import torch
 
 from . import LAUNCHES
 from ._build import check, launch_stream, load_library
-from .expand_dw import depthwise_reference, expand_reference
+from .expand_dw import depthwise_reference, expand_reference, sums_buffers
 from .limits import check_sweep1, sweep1_design
 from .flat_block import (
     check_input,
@@ -95,14 +95,14 @@ def mega_block(xt, w_expand, w_dw, se_params, w_proj, kernel_size: int,
                  mma=design != "core", expand=w_expand is not None,
                  tf32=design == "tf32")
     hidden = torch.empty((n, h, w, e), dtype=x.dtype, device=x.device)
-    sums = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+    sums, part, tiles = sums_buffers(n, e, h, w, x.device)
     gate = torch.empty((n, e), dtype=torch.float32, device=x.device)
     y = torch.empty((n, h, c_out, w), dtype=x.dtype, device=x.device)
     rc = load_library().mega_block_launch(
         x.data_ptr(), *map(ptr, ops), hidden.data_ptr(), sums.data_ptr(),
-        gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s, c_out,
-        kernel_size, int(pre_act), int(identity),
-        int(x.dtype == torch.bfloat16),
+        part.data_ptr(), gate.data_ptr(), y.data_ptr(), n, h, w, c_in, e, s,
+        c_out, kernel_size, int(pre_act), int(identity),
+        int(x.dtype == torch.bfloat16), tiles,
         launch_stream(x),
     )
     check(rc, "mega_block")

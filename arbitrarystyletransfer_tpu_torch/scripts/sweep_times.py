@@ -7,8 +7,9 @@ Run from the repository root (it reads the path shapes from
 the kernel library with the compiler's register report, then for every
 shape of the 512px batch-8 path: ``expand_dw`` (sweep 1 in the fused mode)
 and ``flat_block`` (sweep 1 in the flat mode, then sweep 2), each sweep's
-device ms from a ``torch.profiler`` trace (kernels ``expand_dw_kernel``;
-``se_gate_kernel`` or ``se_gate_staged`` and ``gate_project``), its own
+device ms from a ``torch.profiler`` trace (kernels ``expand_dw_kernel``
+and ``tile_sums_kernel``; ``se_gate_kernel`` or ``se_gate_staged`` and
+``gate_project``), its own
 bound, its share of that bound, its achieved rates and (where the library
 answers the query) the
 registers, shared memory and resident CTAs per SM of its kernel at that
@@ -42,9 +43,10 @@ PEAK_TF32 = 495e12
 SWEEP2_NAMES = {0: "generic", 1: "mma", 2: "tf32"}
 SWEEP2_PEAK = {"generic": (PEAK_F32, 1), "mma": (PEAK_BF16, 1),
                "tf32": (PEAK_TF32, 3)}
-# The kernels of each sweep, by name: sweep 2 is the gate kernel and the
+# The kernels of each sweep, by name: sweep 1 is the expand + depthwise and
+# the per-image sum of its tiles' SE sums, sweep 2 the gate kernel and the
 # projection.
-SWEEPS = {"sweep1": ("expand_dw_kernel",),
+SWEEPS = {"sweep1": ("expand_dw_kernel", "tile_sums_kernel"),
           "sweep2": ("se_gate", "gate_project")}
 
 

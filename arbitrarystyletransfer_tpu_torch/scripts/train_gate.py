@@ -28,7 +28,9 @@ stands when the train phase starts with ``FLAT_OWN_GEN = ()``, which
 means running the phases that draw from it first; then ``--seeds``
 uniform batches, each from a generator of its own (seed 100 + i), at each
 style contrast of ``--contrasts`` (style = 0.5 + c (u - 0.5)).  One JSON
-object per batch goes to ``--out``.  ``--dump-seeds`` saves the backward
+object per batch goes to ``--out``, with each projection gradient's gate
+figures exact ("gates": the step repeats bit for bit, so two runs write
+the same).  ``--dump-seeds`` saves the backward
 inputs of those seeds' batches; ``--analyze`` reads such files on the CPU
 and prints how far the backward lands from float64 with T - D in float32
 and in float64 (``analyze_dump``).  Runs need CUDA and fail without it.
@@ -365,8 +367,10 @@ def main(argv=None) -> int:
             batch = next(head) if src is None else seeded(*src)
             smoke.log(f"== {label}")
             rec = {"batch": label}
+            smoke.GATE_FIGURES.clear()
             rec["step"] = smoke.kernel_vs_twin_step(
                 trainer, batch, variants=VARIANTS, gate=False)
+            rec["gates"] = list(smoke.GATE_FIGURES)
             rec["stages"] = [stage_distances(*qkv)
                              for qkv in capture_inputs(trainer, batch)]
             for i, st in enumerate(rec["stages"]):

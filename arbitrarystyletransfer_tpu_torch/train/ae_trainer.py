@@ -46,7 +46,7 @@ from ..parallel.mesh import (
 )
 from . import checkpoint as ckpt
 from .ast_trainer import _no_log, load_vgg
-from .state import Adam, keep_if
+from .state import Adam, deterministic_algorithms, keep_if
 
 HISTORY_KEYS = ("train_loss", "val_loss", "perp_loss")
 
@@ -132,9 +132,11 @@ class AutoencoderTrainer:
 
     # -- the step ------------------------------------------------------------
 
+    @deterministic_algorithms()
     def train_step(self, batch):
         """One optimizer step; returns the aux dict (device tensors), with
-        "grad_norm" and "finite" added."""
+        "grad_norm" and "finite" added.  The same state and batch give the
+        same bits on every run (``deterministic_algorithms``)."""
         before = torch.cat([b.reshape(-1) for b in self.buffers])
         _, aux, grads = self.loss_and_grads(batch)
         norm, ok = self.opt.apply_if_finite(grads)
@@ -144,6 +146,7 @@ class AutoencoderTrainer:
         aux["grad_norm"], aux["finite"] = norm, ok
         return aux
 
+    @deterministic_algorithms()
     def loss_and_grads(self, batch):
         """(total, aux, grads) of one batch, grads one per parameter.
         Moves the BatchNorm running buffers; updates nothing else.  With a

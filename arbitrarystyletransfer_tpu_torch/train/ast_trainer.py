@@ -73,7 +73,7 @@ from ..parallel.mesh import (
 )
 from . import checkpoint as ckpt
 from . import gan
-from .state import Adam, keep_if
+from .state import Adam, deterministic_algorithms, keep_if
 
 TRAIN_DICT_KEYS = ("content_loss", "style_loss", "lf_loss", "tv_loss",
                    "org_img_loss")
@@ -325,6 +325,7 @@ class ASTTrainer:
         pass, the real pass, the fake pass), from the host step mirror."""
         return gan.step_generators(self.seed, self.host_step, self.device)
 
+    @deterministic_algorithms()
     def loss_and_grads(self, content, style, mark=_no_mark,
                        dis_generator=None):
         """(total, aux, grads) of one batch, grads one per parameter of the
@@ -351,10 +352,12 @@ class ASTTrainer:
         mark("backward")
         return total, aux, grads
 
+    @deterministic_algorithms()
     def train_step(self, content, style, mark=_no_mark):
         """One optimizer step (and one of the discriminator, with one);
         returns the aux dict (device tensors), with "grad_norm" and
-        "finite" added."""
+        "finite" added.  The same state and batch give the same bits on
+        every run (``deterministic_algorithms``)."""
         content, style = self._batch(content), self._batch(style)
         gens = self.step_generators() if self.disc is not None else [None]
         before = torch.cat([b.reshape(-1) for b in self.buffers])

@@ -37,7 +37,7 @@ from ..parallel.mesh import (
     batch_share,
     shared,
 )
-from .state import Adam, keep_if
+from .state import Adam, deterministic_algorithms, keep_if
 
 R1_EVERY = 8
 REAL_LABEL = 1.0 - 0.2
@@ -104,6 +104,7 @@ def discriminator_loss_terms(disc: Discriminator, cfg: ASTTrainConfig,
                                            for k, v in aux.items()})
 
 
+@deterministic_algorithms()
 def discriminator_step(disc: Discriminator, opt: Adam, cfg: ASTTrainConfig,
                        real, fake, gen_t, gen_f, step: int,
                        mark: Callable[[str], None] = _no_mark,

@@ -11,9 +11,15 @@ so a step is a handful of kernels whatever the number of parameters.
 gradient norm leaves the parameters, the moments and the count unchanged,
 decided on the device (no host sync); the trainers gate the step counter and
 the BatchNorm running buffers on the same flag (``keep_if``).
+
+``deterministic_algorithms`` holds cuDNN to its deterministic algorithms
+for the duration of a train step, so that a step from the same state gives
+the same bits on every run.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -81,6 +87,22 @@ class Adam:
             setattr(self, key, flat.to(self.mu.device, torch.float32))
         self.count = torch.as_tensor(state["count"], dtype=torch.int32,
                                      device=self.mu.device)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms, chosen without benchmarking, for
+    the duration of the block (or of the decorated call), the caller's
+    settings restored after it.  Some of cuDNN's weight-gradient algorithms
+    add their partial sums in an order that changes from run to run."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
 
 
 @torch.no_grad()

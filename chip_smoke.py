@@ -18,9 +18,12 @@
    block kernels' sweep 2 of every path row on the designed kernel of its
    dtype, ``*_last_sweep2``, and their sweep 1 on the design the mirror
    names, 3xTF32 at f32, ``*_last_sweep1``; each f32 path row of
-   ``expand_dw``, ``flat_block``, ``flat_s2_block`` and ``mega_block``
-   also logs its and its twin's distance to the block in float64,
-   ``tf32_vs_f64``), with the max
+   ``expand_dw``, ``flat_block``, ``flat_s2_block``, ``mega_block`` and
+   ``fused_sums`` also holds its and its twin's distance to the block in
+   float64, its output and its SE sums, and sweep 2 alone on the float64
+   block's hidden, within TF32_F64_FACTOR, ``tf32_vs_f64``; every case of
+   the block kernels launched again, and on image 0 alone, gives the same
+   bits, ``repeat_check``), with the max
    error against a stated tolerance and the
    device times (CUDA events) of the kernel, the twin and, where one
    PyTorch call computes the same function, that call (the SDPA yardstick
@@ -96,7 +99,8 @@
    finite and unsaturated; request 1 is held against the same pipeline
    forced through the plain twins (bf16, and f32 through both); the f32
    requests (ROUTE_F32_REQUESTS, "flat" too) are timed, their launches
-   held to the route's.  Prints ms
+   held to the route's; request 1 served again, bf16 and f32, gives the
+   same bytes (``served_again``).  Prints ms
    per request, img/s, the A/B at f32 of ``adaattn_fwd``'s serving form
    against its float64 form (in turns, on one f32 request; every f32
    request must run the serving form) and a profiler breakdown
@@ -125,8 +129,10 @@
    then timed steps at 160px, each of which must launch exactly 2
    ``adaattn_fwd``, 2 ``adaattn_dq`` and 2 ``adaattn_dkv`` and nothing else,
    with a finite loss, a step counter that advances and BatchNorm buffers
-   that move; a checkpoint save/restore round trip; a profile of one step
-   by phase and by kernel.  Then the GAN step: the same trainer with
+   that move; the 160px warm-up step taken twice from one state, the
+   gradients and the state equal bit for bit (``repeat_step``); the
+   standing batches' gate figures as exact JSON; a checkpoint
+   save/restore round trip; a profile of one step by phase and by kernel.  Then the GAN step: the same trainer with
    ``use_dis`` (the full MobileNetV2 discriminator, dropout 0.2), its
    kernel step held against the twins' and the float64 AdaAttN stage's
    with the GAN terms (gen_adv_loss, dis_loss and the discriminator's
@@ -135,8 +141,10 @@
    160px up to the first R1 step, then GAN_STEPS steps at 160px, each
    launching exactly the train step's kernels, with finite losses, both
    counters advancing, the discriminator's BatchNorm buffers moving and R1
-   nonzero exactly on its steps; a save and a resume that takes the next
-   step bit for bit as the run does (dropout masks included); the median
+   nonzero exactly on its steps; dis steps 2 and 7 (R1) taken twice from
+   one state, equal bit for bit; a save and a resume that takes the next
+   step bit for bit as the run does (dropout masks included, under the
+   cuDNN settings the trainers choose themselves); the median
    ms without R1, the R1 steps' ms, each timed step's device time by phase
    (CUDA events at the trainer's marks, R1 included), and a profile of one
    GAN step by kernel.
@@ -144,13 +152,15 @@
    temporary folder and read by the port's loaders, TF32 off:
    ``AutoencoderTrainer`` (batch 16, 256px, f32, the parity weights) takes
    4 steps and writes ``ae.pt`` (finite losses; the first step's loss
-   against the same step in float64 at 1e-4; median ms per step); the
+   against the same step in float64 at 1e-4; median ms per step; the
+   first batch's step taken twice from the state the run ended in, equal
+   bit for bit); the
    ``ASTTrainer`` warm-started from it (its enc, ada_out and dec equal to
    the AE's bit for bit) takes 2 steps at 160px batch 8 through the AdaAttN
    kernels and writes ``ast.pt``; ``StylePipeline.from_checkpoint`` serves
    that checkpoint through the graph engine (f32, 3 requests at 512px
    batch 8, 2 ``adaattn_fwd`` each; request 1 against the dense twin at the
-   f32 image gate) and, recalibrated from 16 batches of 8 at 320px, through
+   f32 image gate, and served again with the same bytes) and, recalibrated from 16 batches of 8 at 320px, through
    the fused engine's "auto" route (bf16; request 1 against the graph
    engine at f32 over the same state at the bf16 image gate), printing the
    drift (and the reference initialization's), whether the call warned or
@@ -646,6 +656,11 @@ TWO_PASS_CASES = (
 )
 TWO_PASS_OWN_GEN, TWO_PASS_SEED = ("c128", "odd-cin256-k3", "odd-cin256-k5",
                                    "c128-f32-k5"), 22
+# The fused route's 12 block shapes again in float32 (the two-pass block's
+# f32 time and bound per 512px f32 request, row 3's f32 figures; their
+# sums held to float64 by ``tf32_vs_f64``), from a generator of their own
+# (seed + TWO_PASS_F32_SEED), after the bf16 cases.
+TWO_PASS_F32_SEED = 27
 # Ragged shapes off the path (0 launches per request), in each table's
 # layout, one per k: H and W not multiples of the sweeps' 16x16 and
 # 128-pixel tiles, E not a multiple of sweep 1's 32-channel chunk or sweep
@@ -974,12 +989,16 @@ def sweep1_check(kernel, label, dtype, c_in, k, expand=True,
     return design, boxes
 
 
-# Queue 3's check of the 3xTF32 expand: at each f32 path row of rows 1, 4,
-# 5 and 8, the kernel's output and the f32 twin's against the same block
-# in float64 (``block_f64``); rows 4, 5 and 8's y also carries sweep 2's
-# 3xTF32 projection, row 1's hidden is sweep 1 alone.  Logged, not gated:
-# a row where the kernel lies farther than the twin is a finding.
+# The f32 kernels against float64: at each f32 path row of rows 1, 3
+# ("sums"), 4, 5 and 8, the kernel's output and the f32 twin's against the
+# same block in float64 (``block_f64``): row 1's hidden (sweep 1 alone),
+# rows 4, 5 and 8's y (sweep 2's 3xTF32 projection too), and every row's SE
+# sums (label + " sums"); and sweep 2 alone on the float64 block's hidden
+# and exact sums (kernel "sweep2", ``sweep2_vs_f64``).  Held
+# (``tf32_gate``): each kernel's max and mean abs distance at most
+# TF32_F64_FACTOR times the twin's.
 TF32_VS_F64 = []
+TF32_F64_FACTOR = 1.5
 
 
 def block_f64(x, we, wd, k, pre_act=True, be=None, bd=None, se=None,
@@ -1032,11 +1051,105 @@ def tf32_vs_f64(kernel, label, out, twin, exact):
            "kernel_mean": float(d_k.mean()), "twin_mean": float(d_t.mean()),
            "scale": float(exact.abs().max())}
     rec["farther"] = rec["kernel_max"] > rec["twin_max"]
+    for key in ("max", "mean"):
+        rec[f"factor_{key}"] = (rec[f"kernel_{key}"] / rec[f"twin_{key}"]
+                                if rec[f"twin_{key}"] else
+                                0.0 if not rec[f"kernel_{key}"] else math.inf)
     TF32_VS_F64.append(rec)
     log(f"{kernel} {label} vs float64: kernel max {rec['kernel_max']:.4g} "
         f"mean {rec['kernel_mean']:.4g}, f32 twin max {rec['twin_max']:.4g} "
         f"mean {rec['twin_mean']:.4g} (largest value {rec['scale']:.4g})"
         + (" -- the kernel farther" if rec["farther"] else ""))
+
+
+def tf32_gate():
+    """Logs ``TF32_VS_F64`` and fails where a kernel lies more than
+    TF32_F64_FACTOR times as far from float64 as its f32 twin (max abs or
+    mean abs)."""
+    log(json.dumps({"tf32_vs_f64": TF32_VS_F64}))
+    far = [f"{r['kernel']} {r['row']} (max {r['factor_max']:.3f}x, mean "
+           f"{r['factor_mean']:.3f}x)" for r in TF32_VS_F64
+           if max(r["factor_max"], r["factor_mean"]) > TF32_F64_FACTOR]
+    worst = max((max(r["factor_max"], r["factor_mean"])
+                 for r in TF32_VS_F64), default=0.0)
+    log(f"tf32_vs_f64: {len(TF32_VS_F64)} rows, the largest factor of the "
+        f"twin's distance to float64 {worst:.3f} (limit "
+        f"{TF32_F64_FACTOR})")
+    check(not far, f"f32 kernels past {TF32_F64_FACTOR}x their twin's "
+          f"distance to float64: {far}")
+
+
+def repeat_check(kernel, label, fn, x, outs):
+    """``fn(x)`` launched again returns ``outs`` bit for bit, and
+    ``fn(x[:1])`` (image 0 alone, the same pointer) returns image 0 of
+    ``outs`` bit for bit: no output depends on the order in which the
+    CTAs ran, on the grid or on the batch."""
+    import torch
+
+    again = fn(x)
+    check(all(torch.equal(a, b) for a, b in zip(outs, again)),
+          f"{kernel} {label}: a second launch differs")
+    del again
+    if x.shape[0] > 1:
+        one = fn(x[:1])
+        check(all(torch.equal(a[:1], b) for a, b in zip(outs, one)),
+              f"{kernel} {label}: image 0 alone differs from image 0 of "
+              f"the batch of {x.shape[0]}")
+
+
+def launch_sweep2(hidden, sums, se, wp, pb, res):
+    """Sweep 2 alone (``gate_project_launch``, the designed kernel of the
+    dtype) on NHWC ``hidden`` and its ``sums``: y NHWC."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import _build
+
+    n, h, w, e = hidden.shape
+    dt = hidden.dtype
+    c_out = wp.shape[1]
+    d0t = se["Dense_0"]["kernel"].t().contiguous()
+    d1k = se["Dense_1"]["kernel"].contiguous()
+    wpt = wp.to(dt).t().contiguous()
+    gate = torch.empty(n, e, device=hidden.device)
+    y = torch.empty(n, h, w, c_out, dtype=dt, device=hidden.device)
+    rc = _build.load_library().gate_project_launch(
+        1, hidden.data_ptr(), sums.data_ptr(), d0t.data_ptr(),
+        se["Dense_0"]["bias"].data_ptr(), d1k.data_ptr(),
+        se["Dense_1"]["bias"].data_ptr(), wpt.data_ptr(),
+        None if pb is None else pb.data_ptr(),
+        None if res is None else res.data_ptr(), gate.data_ptr(),
+        y.data_ptr(), n, h * w, e, d0t.shape[0], c_out, w, 0,
+        int(dt == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "gate_project")
+    return y
+
+
+def sweep2_vs_f64(label, x, we, wd, k, pre_act, be, bd, se, wp, pb,
+                  residual):
+    """Sweep 2 alone against float64 at one f32 row of flat_block: the
+    float64 block's hidden rounded once to f32 and its exact sums rounded
+    once, through the kernel's sweep 2 (``launch_sweep2``) and the twin's
+    (``gate_project_reference``), each against sweep 2 in float64 on that
+    hidden and the exact sums (``tf32_vs_f64`` kernel "sweep2")."""
+    from arbitrarystyletransfer_tpu_torch.ops.basic import se_gate
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.flat_block import (
+        gate_project_reference,
+    )
+
+    hidden64, sums64 = block_f64(x, we, wd, k, pre_act, be, bd)
+    hidden, sums = hidden64.float().contiguous(), sums64.float()
+    del hidden64
+    res = x if residual else None
+    y = launch_sweep2(hidden, sums, se, wp, pb, res)
+    twin = gate_project_reference(hidden, sums, se, wp, pb, res)
+    se64 = {name: {key: t.double() for key, t in layer.items()}
+            for name, layer in se.items()}
+    gate = se_gate(sums64, hidden.shape[1] * hidden.shape[2], se64)
+    exact = (hidden.double() * gate[:, None, None, :]) @ wp.double()
+    if pb is not None:
+        exact = exact + pb.double()
+    if residual:
+        exact = exact + x.double()
+    tf32_vs_f64("sweep2", label, y, twin, exact)
 
 
 def expand_dw_phase(gen, cases=None):
@@ -1081,11 +1194,15 @@ def expand_dw_phase(gen, cases=None):
         torch.cuda.synchronize()
         design, boxes = sweep1_check("expand_dw", name, str(dt)[6:], c_in, k,
                                      expand)
+        repeat_check("expand_dw", name, lambda xx: expand_dw(xx, *args[1:]),
+                     x, (hidden, sums))
         r_hidden, r_sums = expand_dw_reference(*args)
         err_h, err_s = max_err(hidden, r_hidden), max_err(sums, r_sums)
         if f32_row(name) and per_req:
-            tf32_vs_f64("expand_dw", name, hidden, r_hidden,
-                        block_f64(x, we, wd, k, expand, be, bd)[0])
+            exact_h, exact_s = block_f64(x, we, wd, k, expand, be, bd)
+            tf32_vs_f64("expand_dw", name, hidden, r_hidden, exact_h)
+            tf32_vs_f64("expand_dw", name + " sums", sums, r_sums, exact_s)
+            del exact_h, exact_s
         rel = F32_TOL if dt == torch.float32 else BF16_TOL
         tol_h = rel * float(r_hidden.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
@@ -1808,12 +1925,20 @@ def flat_kernel_phase(gen, name, fn, ref_fn, cases, stride):
                             or f32_row(label)):
             # the path's shapes stage x as TMA boxes, at bf16 and f32
             check(staging == "async", f"{name} {label}: x staged {staging}")
+        repeat_check(name, label, lambda xx: fn(xx, *args[1:], **kw), x,
+                     (y, sums))
         r_y, r_sums = ref_fn(*args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
         if f32_row(label) and (per_all or per_auto):
-            tf32_vs_f64(name, label, y, r_y, block_f64(
-                x, we, wd, k, kw.get("pre_act", True), be, bd, se, wp, pb,
-                residual, stride)[0])
+            pre_act = kw.get("pre_act", True)
+            exact_y, exact_s = block_f64(x, we, wd, k, pre_act, be, bd, se,
+                                         wp, pb, residual, stride)
+            tf32_vs_f64(name, label, y, r_y, exact_y)
+            tf32_vs_f64(name, label + " sums", sums, r_sums, exact_s)
+            del exact_y, exact_s
+            if stride == 1:
+                sweep2_vs_f64(label, x, we, wd, k, pre_act, be, bd, se, wp,
+                              pb, residual)
         rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         tol_y = rel * float(r_y.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
@@ -1920,12 +2045,19 @@ def mega_phase(gen, cases=MEGA_CASES + MEGA_F32):
                 else "sync" if w % 8 else None)
         check(want is None or staging == want,
               f"mega_block {label}: x staged {staging}, not {want}")
+        repeat_check("mega_block", label,
+                     lambda xx: mega_block(xx, *args, **kw), xt, (y, sums))
         r_y, r_sums = mega_block_reference(xt, *args, **kw)
         err_y, err_s = max_err(y, r_y), max_err(sums, r_sums)
         if f32_row(label) and per_req:
-            tf32_vs_f64("mega_block", label, y, r_y, block_f64(
+            exact_y, exact_s = block_f64(
                 xt.permute(0, 1, 3, 2), we, wd, k, expand, be, bd, se, wp,
-                pb, residual)[0].permute(0, 1, 3, 2))
+                pb, residual)
+            tf32_vs_f64("mega_block", label, y, r_y,
+                        exact_y.permute(0, 1, 3, 2))
+            tf32_vs_f64("mega_block", label + " sums", sums, r_sums,
+                        exact_s)
+            del exact_y, exact_s
         rel = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         tol_y = rel * float(r_y.float().abs().max())
         tol_s = SUMS_TOL * float(r_sums.abs().max())
@@ -2030,12 +2162,15 @@ def project_sweep(label, x, we, wd, k, gate, wp, common, identity, bound):
         log(json.dumps(rec))
 
 
-def two_pass_phase(gen, cases=TWO_PASS_CASES):
-    """fused_sums and fused_project against their twins at every case, and
-    the two-pass block timed against the fused route's block (expand_dw +
-    the PyTorch epilogue), and ``fused_project`` by part at the path's
-    shapes (``project_sweep``); returns {kernel: [worst error, ms, plain
-    ms, Bound]} summed over the 15 fused-route blocks of a request."""
+def two_pass_phase(gen, cases=None):
+    """fused_sums and fused_project against their twins at every case
+    (``TWO_PASS_CASES``, then their f32 path rows), and the two-pass block
+    timed against the fused route's block (expand_dw + the PyTorch
+    epilogue), and ``fused_project`` by part at the path's bf16 shapes
+    (``project_sweep``); each launched again (``repeat_check``); returns
+    {kernel: [worst error, ms, plain ms, Bound]} summed over the 15
+    fused-route blocks of a request, and the same per f32 request under
+    kernel + F32_TAG."""
     import torch
     from arbitrarystyletransfer_tpu_torch.ops.basic import se_gate
     from arbitrarystyletransfer_tpu_torch.ops.blocks import matmul_f32
@@ -2054,15 +2189,22 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
 
     from arbitrarystyletransfer_tpu_torch.ops.kernels import limits
 
-    out = {name: [0.0, 0.0, 0.0, Bound()]
-           for name in ("fused_sums", "fused_project")}
+    if cases is None:
+        cases = TWO_PASS_CASES + f32_rows(TWO_PASS_CASES)
+    out = {name + tag: [0.0, 0.0, 0.0, Bound()]
+           for name in ("fused_sums", "fused_project") for tag in ("",
+                                                                   F32_TAG)}
     ab = [0.0, 0.0]  # per request: two-pass block, fused route's block
     gen_own = torch.Generator(device=DEVICE).manual_seed(SEED + TWO_PASS_SEED)
+    gen32 = torch.Generator(device=DEVICE).manual_seed(
+        SEED + TWO_PASS_F32_SEED)
     for (label, n, hw, c_in, e, c_out, k, bn, residual, dtype,
          per_req) in cases:
         dt = getattr(torch, dtype)
         expand = label != "expand1"
-        g = gen_own if label in TWO_PASS_OWN_GEN else gen
+        tag = F32_TAG if f32_row(label) else ""
+        g = (gen32 if tag else gen_own if label in TWO_PASS_OWN_GEN
+             else gen)
         x = torch.randn(n, hw, hw, c_in, generator=g, device=DEVICE).to(dt)
         (we, wd, se, wp), (be, bd, pb) = random_block(g, c_in, e, c_out, k,
                                                       bn, expand)
@@ -2085,8 +2227,14 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
             k, c_in, c_out, bf16, limits.tensor_core_expand(bf16, c_in,
                                                             expand),
             expand)["design"]
-        check(design == want and (not per_req or design == "persistent"),
+        check(design == want and (not per_req or tag
+                                  or design == "persistent"),
               f"fused_project {label}: the {design} design ran, not {want}")
+        repeat_check("fused_sums", label, lambda xx: (
+            fused_sums(xx, we, wd, k, **common),), x, (sums,))
+        repeat_check("fused_project", label, lambda xx: (fused_project(
+            xx, we, wd, k, gate[:len(xx)].contiguous(), wp,
+            identity=in_kernel, **common),), x, (y,))
         r_y = fused_project_reference(x, we, wd, k, gate, wp,
                                       identity=in_kernel, **common)
         err_s, err_y = max_err(sums, r_sums), max_err(y, r_y)
@@ -2095,9 +2243,14 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
         tol_s = SUMS_TOL * float(r_sums.abs().max())
         check(tuple(y.shape) == (n, hw, hw, c_out) and y.dtype == dt,
               f"fused_project {label}: output {tuple(y.shape)} {y.dtype}")
+        if tag and per_req:
+            tf32_vs_f64("fused_sums", label, sums, r_sums,
+                        block_f64(x, we, wd, k, expand, be, bd)[1])
         if per_req:
-            out["fused_sums"][0] = max(out["fused_sums"][0], err_s)
-            out["fused_project"][0] = max(out["fused_project"][0], err_y)
+            out["fused_sums" + tag][0] = max(out["fused_sums" + tag][0],
+                                             err_s)
+            out["fused_project" + tag][0] = max(
+                out["fused_project" + tag][0], err_y)
         del sums, r_sums, y, r_y
 
         def two_pass():
@@ -2130,8 +2283,9 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
                     iters=3, warmup=1)),
         }
         t_2p, t_fr = timed_ms(two_pass), timed_ms(fused_route)
-        ab[0] += per_req * t_2p
-        ab[1] += per_req * t_fr
+        if not tag:
+            ab[0] += per_req * t_2p
+            ab[1] += per_req * t_fr
         size, pix = x.element_size(), n * hw * hw
         costs = {
             "fused_sums": (size * pix * c_in + 4 * n * e,
@@ -2141,9 +2295,9 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
         }
         report = []
         for name, (t_k, t_p) in times.items():
-            out[name][1] += per_req * t_k
-            out[name][2] += per_req * t_p
-            out[name][3].add_block(*costs[name], size, per_req)
+            out[name + tag][1] += per_req * t_k
+            out[name + tag][2] += per_req * t_p
+            out[name + tag][3].add_block(*costs[name], size, per_req)
             one = Bound()
             one.add_block(*costs[name], size)
             report.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound "
@@ -2156,7 +2310,7 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
             f"{t_fr:.4f} ms")
         check(err_s <= tol_s and err_y <= tol_y, f"fused_2pass {label} "
               "differs")
-        if per_req:
+        if per_req and not tag:
             one = Bound()
             one.add_block(*costs["fused_project"], size)
             project_sweep(label, x, we, wd, k, gate, wp, common, in_kernel,
@@ -2165,8 +2319,10 @@ def two_pass_phase(gen, cases=TWO_PASS_CASES):
         torch.cuda.empty_cache()
     if any(case[-1] for case in cases):
         for name, (_, t_k, t_p, b) in out.items():
-            log(f"{name} over the 15 fused-route blocks: kernel {t_k:.4f} "
-                f"ms, plain {t_p:.4f} ms, bound {b.ms():.4f} ms ({b.by()})")
+            if t_k:
+                log(f"{name} over the 15 fused-route blocks: kernel "
+                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b.ms():.4f} "
+                    f"ms ({b.by()})")
         log(f"A/B per request (15 fused-route blocks): two-pass block "
             f"{ab[0]:.4f} ms, expand_dw + epilogue {ab[1]:.4f} ms")
     return out
@@ -2807,6 +2963,28 @@ def routes_phase(gen):
     return launches
 
 
+def served_again(label, pipe, request, first):
+    """``request`` served again by ``pipe`` gives ``first``'s bytes.  The
+    launch counters and ``adaattn_fwd``'s f32 forms are put back as they
+    were: a check's launches count on no path."""
+    import torch
+    from arbitrarystyletransfer_tpu_torch.ops.kernels import LAUNCHES
+    from arbitrarystyletransfer_tpu_torch.ops.kernels.adaattn_fwd import (
+        F32_FORMS,
+    )
+
+    counted, forms = dict(LAUNCHES), dict(F32_FORMS)
+    again = pipe.stylize(*request)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    LAUNCHES.update(counted)
+    F32_FORMS.clear()
+    F32_FORMS.update(forms)
+    check(torch.equal(again, first), f"{label}: request 1 served again "
+          f"differs (max abs {max_err(again, first):.4g})")
+    log(f"{label}: request 1 served again, the same bytes")
+
+
 def f32_image_gate(impl, out32, plain32):
     """Request 1's f32 image through the kernels against the plain twins',
     within ``IMAGE_F32_TOL`` (max abs, mean abs)."""
@@ -2851,6 +3029,7 @@ def f32_requests(pipe32, requests, expected, impl):
             first = out
     log(f"{impl} f32 requests: {[round(t, 3) for t in times]} ms (the "
         "first a warm-up)")
+    served_again(f"{impl} f32", pipe32, requests[0], first)
     return first, times, dict(LAUNCHES)
 
 
@@ -2894,6 +3073,7 @@ def drive_route(pipe, impl, requests, expected):
               f"expected {expected}")
     check(launches == {k: v * len(requests) for k, v in expected.items()},
           f"{impl}: launches {launches}")
+    served_again(f"{impl} bf16", pipe, requests[0], outs[0])
 
     # Request 1 again through the plain twins (bf16 and f32), and through
     # the kernels at f32.
@@ -3548,7 +3728,9 @@ def train_phase(gen):
             kernel_vs_twin_step(trainer, next(batches[TRAIN_SIZES[-1]]))
         for seed in TRAIN_OWN_SEEDS:
             log(f"train gate, standing batch (seed {seed}):")
+            GATE_FIGURES.clear()
             dist = kernel_vs_twin_step(trainer, seeded_batch(seed))
+            log(json.dumps({"standing_batch": seed, "gates": GATE_FIGURES}))
             check(dist["ratio"] >= TRAIN_OWN_RATIO,
                   f"standing batch {seed}: (mean / std)^2 only "
                   f"{dist['ratio']:.4g}")
@@ -3562,7 +3744,11 @@ def train_phase(gen):
         buffers0 = [b.clone() for b in trainer.buffers]
         for size in TRAIN_SIZES:
             t0 = time.perf_counter()
-            aux = trainer.train_step(*next(batches[size]))
+            # The last bucket's warm-up step taken twice from one state
+            # (the trainer goes on from the second): the same bits.
+            aux = (repeat_step("train", trainer, *next(batches[size]))
+                   if size == TRAIN_SIZES[-1] else
+                   trainer.train_step(*next(batches[size])))
             torch.cuda.synchronize()
             log(f"train warm-up {size}px: {time.perf_counter() - t0:.3f} s, "
                 f"loss {float(aux['loss']):.6g}")
@@ -3652,7 +3838,14 @@ def gan_phase(gen, train_ms):
         for size in sizes:
             dis_step = trainer.host_dis_step
             t0 = time.perf_counter()
-            aux = trainer.train_step(*next(batches[size]))
+            batch = next(batches[size])
+            # The last bucket's first warm-up step and the R1 step each
+            # taken twice from one state (the trainer goes on from the
+            # second): the same bits, with R1's double backward too.
+            twice = size == TRAIN_SIZES[-1] and (
+                dis_step == len(TRAIN_SIZES) - 1 or gan.r1_due(dis_step))
+            aux = (repeat_step(f"gan at dis step {dis_step}", trainer, *batch)
+                   if twice else trainer.train_step(*batch))
             torch.cuda.synchronize()
             log(f"gan warm-up {size}px at dis step {dis_step}: "
                 f"{time.perf_counter() - t0:.3f} s, loss "
@@ -3733,27 +3926,20 @@ def gan_phase(gen, train_ms):
                     for name, t in split.items()))
 
         # Save, resume in a second trainer, and take the same step in both:
-        # equal bit for bit, dropout masks included (cuDNN deterministic).
-        det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
-        try:
-            trainer.save()
-            resumed = make_resumed(tmp, trainer)
-            batch = next(batches[TRAIN_SIZES[-1]])
-            aux_a, aux_b = (t.train_step(*batch) for t in (trainer, resumed))
-            diff = {k: float((aux_a[k] - aux_b[k]).abs()) for k in (
-                "loss", "gen_adv_loss", "dis_loss", "grad_norm",
-                "dis_grad_norm")}
-            flat_a = weights.flatten(weights.module_state(trainer.disc))
-            flat_b = weights.flatten(weights.module_state(resumed.disc))
-            flat_a.update(weights.flatten(weights.module_state(trainer.ast)))
-            flat_b.update(weights.flatten(weights.module_state(resumed.ast)))
-            unequal = [k for k in flat_a
-                       if not torch.equal(flat_a[k], flat_b[k])]
-        finally:
-            (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark) = det
+        # equal bit for bit, dropout masks included, under the cuDNN
+        # settings the run has (the trainers choose their own).
+        trainer.save()
+        resumed = make_resumed(tmp, trainer)
+        batch = next(batches[TRAIN_SIZES[-1]])
+        aux_a, aux_b = (t.train_step(*batch) for t in (trainer, resumed))
+        diff = {k: float((aux_a[k] - aux_b[k]).abs()) for k in (
+            "loss", "gen_adv_loss", "dis_loss", "grad_norm",
+            "dis_grad_norm")}
+        flat_a = weights.flatten(weights.module_state(trainer.disc))
+        flat_b = weights.flatten(weights.module_state(resumed.disc))
+        flat_a.update(weights.flatten(weights.module_state(trainer.ast)))
+        flat_b.update(weights.flatten(weights.module_state(resumed.ast)))
+        unequal = [k for k in flat_a if not torch.equal(flat_a[k], flat_b[k])]
         log(f"gan resume: ast_dis.pt step {int(resumed.dis_step) - 1}, "
             f"the resumed step against the run's: |diff| {diff}, "
             f"{len(unequal)} of {len(flat_a)} tensors unequal")
@@ -3842,6 +4028,116 @@ def normalize_train_head(trainer, batch):
         scale = 0.05 / std
         head.kernel.mul_(scale.float())
         head.bias.copy_(0.5 - scale * (pre.mean(dim=(0, 1, 2)) - head.bias))
+
+
+def step_state(trainer):
+    """Every tensor a train step of ``trainer`` (``ASTTrainer``, with or
+    without its discriminator, or ``AutoencoderTrainer``) changes, by name:
+    the parameters, the running buffers, the optimizers' moments and counts
+    and the step counters."""
+    out = {}
+    model = trainer.ast if hasattr(trainer, "ast") else trainer.model
+    nets = [("", model, trainer.opt, "step")]
+    if getattr(trainer, "disc", None) is not None:
+        nets.append(("dis/", trainer.disc, trainer.dis_opt, "dis_step"))
+    for prefix, net, opt, counter in nets:
+        for name, t in (*net.named_parameters(), *net.named_buffers()):
+            out[prefix + name] = t
+        for key in ("mu", "nu", "count"):
+            out[f"{prefix}opt/{key}"] = getattr(opt, key)
+        out[prefix + counter] = getattr(trainer, counter)
+    return out
+
+
+def step_snapshot(trainer):
+    """A copy of ``step_state`` and the host step mirrors."""
+    mirrors = {k: getattr(trainer, k) for k in ("host_step", "host_dis_step")
+               if hasattr(trainer, k)}
+    return ({k: t.detach().clone() for k, t in step_state(trainer).items()},
+            mirrors)
+
+
+def step_restore(trainer, snap):
+    """Put ``trainer`` back to ``step_snapshot``'s state: the parameters,
+    buffers and counters in place, the optimizers' moments (which a step
+    replaces) as new tensors."""
+    import torch
+
+    tensors, mirrors = snap
+    opts = {"": trainer.opt}
+    if getattr(trainer, "disc", None) is not None:
+        opts["dis/"] = trainer.dis_opt
+    with torch.no_grad():
+        for name, t in step_state(trainer).items():
+            prefix = "dis/" if name.startswith("dis/") else ""
+            key = name.removeprefix(prefix)
+            if key.startswith("opt/"):
+                setattr(opts[prefix], key[4:], tensors[name].clone())
+            else:
+                t.copy_(tensors[name])
+    for k, v in mirrors.items():
+        setattr(trainer, k, v)
+
+
+def repeat_step(label, trainer, *batch):
+    """One train step of ``trainer`` on ``batch`` taken twice from the same
+    state: its gradients (every optimizer's, as it receives them), its
+    aux values and the updated state must be equal bit for bit.  Leaves the
+    trainer where the second step left it; returns the aux."""
+    import torch
+
+    grads = []
+    opts = [trainer.opt]
+    if getattr(trainer, "disc", None) is not None:
+        opts.append(trainer.dis_opt)
+    applies = [opt.apply_if_finite for opt in opts]
+
+    def recording(opt, apply):
+        def apply_if_finite(g):
+            grads[-1].append((opt, [None if t is None else t.clone()
+                                    for t in g]))
+            return apply(g)
+        return apply_if_finite
+
+    for opt, apply in zip(opts, applies):
+        opt.apply_if_finite = recording(opt, apply)
+    snap = step_snapshot(trainer)
+    runs = []
+    try:
+        for i in range(2):
+            if i:
+                step_restore(trainer, snap)
+            grads.append([])
+            aux = trainer.train_step(*batch)
+            runs.append(({k: t.clone() for k, t in aux.items()
+                          if isinstance(t, torch.Tensor)},
+                         {k: t.clone() for k, t in
+                          step_state(trainer).items()}))
+    finally:
+        for opt in opts:
+            del opt.apply_if_finite
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return (a is None and b is None) or (
+            a is not None and b is not None and torch.equal(a, b))
+
+    unequal = []
+    for (opt, ga), (_, gb) in zip(*grads):
+        # backward order: the last parameter's gradient is formed first
+        for name, a, b in reversed(list(zip(opt.names, ga, gb))):
+            if not same(a, b):
+                unequal.append(f"grad {name}")
+    (aux_a, state_a), (aux_b, state_b) = runs
+    unequal += [f"aux {k}" for k in aux_a if not same(aux_a[k], aux_b[k])]
+    unequal += [k for k in state_a if not same(state_a[k], state_b[k])]
+    n = sum(len(g) for _, g in grads[0]) + len(aux_a) + len(state_a)
+    log(f"{label}: one step twice from the same state, {len(unequal)} of "
+        f"{n} gradients, aux values and state tensors unequal"
+        + (f" (first in backward order: {unequal[:4]})" if unequal else ""))
+    check(not unequal, f"{label}: the step is not bit-reproducible: "
+          f"{unequal[:8]}")
+    return aux
 
 
 def _flat(tree, prefix=""):
@@ -4074,6 +4370,12 @@ def bf16_step_case(trainer, batch):
     check(not failed, "; ".join(failed))
 
 
+# The figures of the last ``projection_gates`` calls, for the standing
+# batches' JSON lines (exact values: a step repeats bit for bit, so two
+# runs of the script print the same).
+GATE_FIGURES = []
+
+
 def projection_gates(label, grads, names):
     """``kernel_vs_twin_step``'s gates on the AdaAttN projection gradients
     ``grads`` (four lists over ``names``: A kernels, B twins, C kernel
@@ -4087,6 +4389,8 @@ def projection_gates(label, grads, names):
         tol = STEP_GRAD_TOL * float(gc.abs().max())
         tol_d = max(STEP_GRAD_TOL * float(gd.abs().max()),
                     STEP_OWN_FACTOR * own)
+        GATE_FIGURES.append({"grad": f"{label} {name}", "a_vs_c": err,
+                             "tol": tol, "a_vs_d": err_d, "tol_d": tol_d})
         log(f"  {label} {name}: kernels vs twin backward max abs err "
             f"{err:.4g} (tol {tol:.4g}); vs the float64 step {err_d:.4g} "
             f"(tol {tol_d:.4g}; the twins' step {own:.4g} from it, the "
@@ -4360,6 +4664,15 @@ def life_ae(tmp, dirs):
     check(int(trainer.step) == LIFE_AE_STEPS and all(
         n == counts() for n in record["launches"]),
         f"AE step {int(trainer.step)}, launches {record['launches']}")
+    # The first batch's step taken twice from the state the run ended in:
+    # the same bits; then that state back (``ae.pt`` is written).  The
+    # first step of a process at a shape may take other cuDNN algorithms
+    # than the later ones (PERF.md §7), so the pair follows the run.
+    del trainer.train_step  # timed_steps' wrapper
+    snap = step_snapshot(trainer)
+    repeat_step("lifecycle AE", trainer, first)
+    step_restore(trainer, snap)
+    del snap
     ms = statistics.median(record["ms"][1:])
     log(f"lifecycle AE {LIFE_AE_SIZE}px batch {LIFE_AE_BATCH} f32: step ms "
         f"{[round(t, 3) for t in record['ms']]}, median of steps 2-"
@@ -4506,6 +4819,7 @@ def life_graph(ast_path, requests):
                                          "lifecycle flax")
     check_forms(forms, "serve", len(requests) * GRAPH_LAUNCHES["adaattn_fwd"],
                 "lifecycle flax")
+    served_again("lifecycle flax", pipe, requests[0], outs[0])
     # Served at f32 the statistics take the serving form (3xTF32, no more
     # than twice the f32 twin's distance to float64: the adaattn_fwd
     # phase), held here to the same pipeline with the AdaAttN stage in
@@ -5732,6 +6046,8 @@ def main(argv=None) -> int:
     if args.phase:
         t = time.perf_counter()
         run_alone(args.phase, card)
+        if TF32_VS_F64:
+            tf32_gate()
         log(f"phase {args.phase} alone: "
             f"{time.perf_counter() - t:.1f} s")
         log(card)
@@ -5778,11 +6094,7 @@ def main(argv=None) -> int:
         phase("split", split_phase, torch.Generator(
             device=DEVICE).manual_seed(SEED + SPLIT_SEED))
         phase("sweeps", sweeps_phase, gen7)
-    log(json.dumps({"tf32_vs_f64": TF32_VS_F64}))
-    log("tf32_vs_f64: f32 path rows where the kernel lies farther from "
-        "float64 than the f32 twin (max abs): "
-        + str([f"{r['kernel']} {r['row']}" for r in TF32_VS_F64
-               if r["farther"]]))
+    tf32_gate()
     bwd = phase("adaattn_bwd", adaattn_bwd_phase, gen)
     phase("policy", policy_phase)
     launches = phase("routes", routes_phase, gen)
@@ -5849,9 +6161,13 @@ def main(argv=None) -> int:
         row("mega_block", "mega_block.cu", pallas + "megablock.py:117",
             m_worst, m_ms, m_plain, m_bound, None, m_f32),
         row("fused_sums", "fused_2pass.cu", pallas + "fused_block.py:68",
-            *two_pass["fused_sums"], None),
+            *two_pass["fused_sums"], None,
+            two_pass["fused_sums" + F32_TAG][1:] + [
+                two_pass["fused_sums" + F32_TAG][0]]),
         row("fused_project", "fused_2pass.cu", pallas + "fused_block.py:68",
-            *two_pass["fused_project"], None),
+            *two_pass["fused_project"], None,
+            two_pass["fused_project" + F32_TAG][1:] + [
+                two_pass["fused_project" + F32_TAG][0]]),
     ] + [row(name, source, "scripts/" + replaces, *probe_rows[name])
          for name, source, replaces in PROBE_ROWS]
     log("kernels: launches = sum over the routes' requests, the sizes "

@@ -21,6 +21,7 @@ and the one-tap AdaAttN of the engine.
 """
 
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -569,3 +570,39 @@ def test_odd_maps_take_the_plain_stride_2_route(monkeypatch, size):
     assert calls == pflat.planned_launches(cfg, size, "flat-all",
                                            "flat-all", lane=lane,
                                            min_fused_size=min_fused)
+
+
+def test_sum_tiles_hold_every_sweep_1_grid():
+    """``limits.sum_tiles`` (the rows of SE partials a wrapper allocates per
+    image) holds the tiles per image of every sweep-1 grid, read from the
+    sources: ``expand_dw.cuh``'s 16 x 16 tiles, from column 0 or, with the
+    (N, H, C, W) box, from ``XSHIFT`` = P - 8 (k3 and k5); ``flat_s2.cu``'s
+    8 x 16 and (f32) 4 x 16 tiles on the H/2 x W/2 output.  At a 512px
+    batch-8 decoder tail (d10, E 240) the partials take under 1% of the
+    bf16 hidden they sum."""
+    csrc = Path(limits.__file__).resolve().parents[2] / "csrc"
+    edw = (csrc / "expand_dw.cuh").read_text()
+    s2 = (csrc / "flat_s2.cu").read_text()
+    assert "constexpr int TH = 16;" in edw and "constexpr int TW = 16;" in edw
+    assert ("constexpr int XSHIFT = (MODE & kXBox) != 0 ? Halo<K>::P - 8 : 0;"
+            in edw)
+    assert "constexpr int OW = 16;" in s2 and "constexpr int OH_TF = 4;" in s2
+    assert "static constexpr int OH = TF ? OH_TF : 8;" in s2
+    assert (limits.TH, limits.TW, limits.S2_OH, limits.S2_OW,
+            limits.S2_TF_OH) == (16, 16, 8, 16, 4)
+
+    def cdiv(a, b):
+        return -(-a // b)
+
+    sides = list(range(2, 70)) + [127, 128, 129, 180, 256, 320, 360, 512,
+                                  720, 1024, 2048]
+    for h in sides:
+        for w in sides:
+            tiles = max(cdiv(h, 16) * cdiv(w - shift, 16)
+                        for shift in (0, 1 - 8, 2 - 8))
+            assert limits.sum_tiles(h, w) >= tiles, (h, w)
+            if h % 2 == 0 and w % 2 == 0:
+                s2 = max(cdiv(h // 2, oh) * cdiv(w // 2, 16) for oh in (8, 4))
+                assert limits.sum_tiles(h, w, stride=2) >= s2, (h, w)
+    part = 8 * limits.sum_tiles(512, 512) * 240 * 4
+    assert part < 0.01 * 8 * 512 * 512 * 240 * 2
